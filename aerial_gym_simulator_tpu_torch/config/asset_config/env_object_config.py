@@ -1,0 +1,117 @@
+"""Environment-object asset types used by ``env_with_obstacles``.
+
+Copied from the JAX package's ``config/asset_config/env_object_config.py``
+and cut to the panel, object and wall types. Each type's geometry is a set
+of procedural URDF variants; one is picked per (env, slot) at build time.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List
+
+import numpy as np
+
+from ...assets import procedural
+
+FRONT_WALL_SEMANTIC_ID = 9
+BACK_WALL_SEMANTIC_ID = 10
+LEFT_WALL_SEMANTIC_ID = 11
+RIGHT_WALL_SEMANTIC_ID = 12
+BOTTOM_WALL_SEMANTIC_ID = 13
+TOP_WALL_SEMANTIC_ID = 14
+
+_pi = np.pi
+
+
+@dataclass
+class AssetTypeConfig:
+    name: str
+    num_assets: int
+    urdf_variants: List[str]             # candidate URDF strings
+    min_state_ratio: List[float]
+    max_state_ratio: List[float]
+    keep_in_env: bool = False
+    semantic_id: int = -1                # -1 => per-variant incremental id
+    per_link_semantic: bool = False
+    collision_mask: int = 1
+
+
+def _ratio(x, y, z, roll=0.0, pitch=0.0, yaw=0.0):
+    return [x, y, z, roll, pitch, yaw, 1.0, 0, 0, 0, 0, 0, 0]
+
+
+def panel_asset_params(num_assets: int = 3) -> AssetTypeConfig:
+    return AssetTypeConfig(
+        name="panels",
+        num_assets=num_assets,
+        urdf_variants=[procedural.box_urdf("panel", (0.1, 1.2, 3.0))],
+        min_state_ratio=_ratio(0.3, 0.05, 0.05, 0.0, 0.0, -_pi / 3.0),
+        max_state_ratio=_ratio(0.85, 0.95, 0.95, 0.0, 0.0, _pi / 3.0),
+        keep_in_env=True,
+        semantic_id=-1,
+    )
+
+
+def object_asset_params(num_assets: int = 35) -> AssetTypeConfig:
+    rng = np.random.RandomState(7)
+    variants = []
+    for i in range(12):
+        kind = i % 3
+        if kind == 0:
+            s = rng.uniform(0.2, 0.7, size=3)
+            variants.append(procedural.box_urdf(f"obj_cube_{i}", tuple(s)))
+        elif kind == 1:
+            variants.append(
+                procedural.box_urdf(f"obj_rod_{i}",
+                                    (rng.uniform(0.05, 0.12), rng.uniform(0.05, 0.12),
+                                     rng.uniform(0.8, 2.0))))
+        else:
+            variants.append(
+                procedural.cylinder_urdf(f"obj_cyl_{i}", rng.uniform(0.08, 0.3),
+                                         rng.uniform(0.3, 1.5)))
+    return AssetTypeConfig(
+        name="objects",
+        num_assets=num_assets,
+        urdf_variants=variants,
+        min_state_ratio=_ratio(0.30, 0.05, 0.05, -_pi, -_pi, -_pi),
+        max_state_ratio=_ratio(0.85, 0.90, 0.90, _pi, _pi, _pi),
+        keep_in_env=False,
+        semantic_id=-1,
+    )
+
+
+def _wall(name: str, size, ratio, semantic_id: int) -> AssetTypeConfig:
+    return AssetTypeConfig(
+        name=name,
+        num_assets=1,
+        urdf_variants=[procedural.box_urdf(name, size)],
+        min_state_ratio=_ratio(*ratio),
+        max_state_ratio=_ratio(*ratio),
+        keep_in_env=True,
+        semantic_id=semantic_id,
+    )
+
+
+def left_wall():
+    return _wall("left_wall", (20.0, 0.2, 20.0), (0.5, 1.0, 0.5), LEFT_WALL_SEMANTIC_ID)
+
+
+def right_wall():
+    return _wall("right_wall", (20.0, 0.2, 20.0), (0.5, 0.0, 0.5), RIGHT_WALL_SEMANTIC_ID)
+
+
+def front_wall():
+    return _wall("front_wall", (0.2, 20.0, 20.0), (1.0, 0.5, 0.5), FRONT_WALL_SEMANTIC_ID)
+
+
+def back_wall():
+    return _wall("back_wall", (0.2, 20.0, 20.0), (0.0, 0.5, 0.5), BACK_WALL_SEMANTIC_ID)
+
+
+def bottom_wall():
+    return _wall("bottom_wall", (20.0, 20.0, 0.2), (0.5, 0.5, 0.0), BOTTOM_WALL_SEMANTIC_ID)
+
+
+def top_wall():
+    return _wall("top_wall", (20.0, 20.0, 0.2), (0.5, 0.5, 1.0), TOP_WALL_SEMANTIC_ID)

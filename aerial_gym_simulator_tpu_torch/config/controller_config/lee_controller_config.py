@@ -1,0 +1,32 @@
+"""Lee controller gains, copied from the JAX package's
+``config/controller_config/lee_controller_config.py``."""
+
+from dataclasses import dataclass, field
+from typing import List
+
+import numpy as np
+
+
+@dataclass
+class ControllerConfig:
+    name: str = "lee_controller"
+    # dispatch key into the controller family; empty means `name`
+    base_controller: str = ""
+    num_actions: int = 4
+    max_inclination_angle_rad: float = np.pi / 3.0
+    max_yaw_rate: float = np.pi / 3.0
+
+    K_pos_tensor_max: List[float] = field(default_factory=lambda: [3.0, 3.0, 2.0])
+    K_pos_tensor_min: List[float] = field(default_factory=lambda: [2.0, 2.0, 1.0])
+    K_vel_tensor_max: List[float] = field(default_factory=lambda: [3.0, 3.0, 3.0])
+    K_vel_tensor_min: List[float] = field(default_factory=lambda: [2.0, 2.0, 2.0])
+    K_rot_tensor_max: List[float] = field(default_factory=lambda: [1.2, 1.2, 0.6])
+    K_rot_tensor_min: List[float] = field(default_factory=lambda: [0.8, 0.8, 0.4])
+    K_angvel_tensor_max: List[float] = field(default_factory=lambda: [0.2, 0.2, 0.2])
+    K_angvel_tensor_min: List[float] = field(default_factory=lambda: [0.1, 0.1, 0.1])
+
+    randomize_params: bool = False
+
+
+def lee_controller_config(name: str, num_actions: int = 4) -> ControllerConfig:
+    return ControllerConfig(name=name, num_actions=num_actions)

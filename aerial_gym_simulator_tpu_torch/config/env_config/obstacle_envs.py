@@ -1,0 +1,43 @@
+"""Obstacle environment config, copied from the JAX package's
+``config/env_config/obstacle_envs.py`` and cut to ``env_with_obstacles``."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import List, Tuple
+
+from ..asset_config import env_object_config as eoc
+from .base_env_config import EnvConfig
+
+
+def _obstacle_assets():
+    return [
+        eoc.panel_asset_params(3),
+        eoc.object_asset_params(35),
+        eoc.left_wall(),
+        eoc.right_wall(),
+        eoc.back_wall(),
+        eoc.front_wall(),
+        eoc.top_wall(),
+        eoc.bottom_wall(),
+    ]
+
+
+@dataclass
+class EnvWithObstaclesConfig(EnvConfig):
+    name: str = "env_with_obstacles"
+    num_envs: int = 64
+    num_env_actions: int = 4
+    env_spacing: float = 5.0
+    num_physics_steps_per_env_step_mean: int = 10
+    num_physics_steps_per_env_step_std: float = 0.0
+    collision_force_threshold: float = 0.05
+    reset_on_collision: bool = True
+    lower_bound_min: Tuple[float, float, float] = (-2.0, -4.0, -3.0)
+    lower_bound_max: Tuple[float, float, float] = (-1.0, -2.5, -2.0)
+    upper_bound_min: Tuple[float, float, float] = (9.0, 2.5, 2.0)
+    upper_bound_max: Tuple[float, float, float] = (10.0, 4.0, 3.0)
+    asset_types: List[eoc.AssetTypeConfig] = field(default_factory=_obstacle_assets)
+
+    def __post_init__(self):
+        self.asset_counts = {t.name: t.num_assets for t in self.asset_types}

@@ -1,0 +1,215 @@
+"""Simulation core for rigid multirotors: substep physics, env step, masked
+reset.
+
+Counterpart of ``aerial_gym_simulator_tpu/sim/dynamics.py`` (quad path).
+Functions take a state and return a new one (``replace`` shallow-copies
+the record); nothing reads a device value back to the host.
+
+Frames: root state is world-frame (pos, xyzw quat, linvel, angvel);
+applied forces/torques are body-frame; per-motor thrusts map to a body
+wrench through the allocation matrix.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..control.controllers import Gains, compute_robot_obs, controller_update
+from ..ops.motor_model import motor_step
+from ..utils.math import (
+    cross,
+    interpolate_ratio,
+    quat_from_euler_xyz_tensor,
+    quat_integrate,
+    quat_rotate,
+    quat_rotate_inverse,
+    safe_norm,
+)
+from .structs import SimParams, SimState, replace
+
+
+def compute_robot_wrench(params: SimParams, state: SimState, action: torch.Tensor):
+    """One control substep -> (force_body, torque_body, new_motor_thrust):
+    controller, allocation with first-order motor lag, aerodynamic drag."""
+    rp, mp, cp = params.robot, params.motor, params.controller
+    if rp.enable_disturbance:
+        raise NotImplementedError("random wrench disturbance is not ported yet")
+    obs = compute_robot_obs(state.pos, state.quat, state.linvel, state.angvel)
+    action = torch.clamp(action, -10.0, 10.0)
+
+    gains = Gains(state.K_pos, state.K_vel, state.K_rot, state.K_angvel)
+    wrench_cmd = controller_update(cp.name, cp, rp, params.gravity, obs, gains, action)
+    ref_thrust = wrench_cmd @ mp.allocation_pinv.T                       # (N, M)
+
+    new_thrust = motor_step(mp, params.dt, ref_thrust, state.motor_thrust,
+                            state.motor_tau_inc, state.motor_tau_dec,
+                            state.motor_thrust_constant)
+
+    # net wrench of the per-motor forces == allocation @ thrusts
+    wrench = new_thrust @ mp.allocation_matrix.T                          # (N, 6)
+    force_b = wrench[..., 0:3]
+    torque_b = wrench[..., 3:6]
+
+    v_b, w_b = obs.body_linvel, obs.body_angvel
+    drag_f = (-rp.drag_lin_linear * v_b
+              - rp.drag_lin_quadratic * safe_norm(v_b, dim=-1, keepdim=True) * v_b)
+    drag_t = -rp.drag_ang_linear * w_b - rp.drag_ang_quadratic * torch.abs(w_b) * w_b
+    return force_b + drag_f, torque_b + drag_t, new_thrust
+
+
+def integrate_rigid_body(params: SimParams, state: SimState,
+                         force_b: torch.Tensor, torque_b: torch.Tensor) -> SimState:
+    """Semi-implicit Euler step of the free rigid body with per-body
+    engine damping v *= max(0, 1 - c dt) and velocity caps."""
+    rp = params.robot
+    dt = params.dt
+    if rp.fix_base_link:
+        return replace(state, linvel=torch.zeros_like(state.linvel),
+                       angvel=torch.zeros_like(state.angvel))
+
+    accel = quat_rotate(state.quat, force_b) / rp.mass
+    if not rp.disable_gravity:
+        accel = accel + params.gravity
+    linvel = state.linvel + dt * accel
+    linvel = linvel * max(0.0, 1.0 - rp.linear_damping * dt)
+    speed = safe_norm(linvel, dim=-1, keepdim=True)
+    linvel = torch.where(speed > rp.max_linear_velocity,
+                         linvel * (rp.max_linear_velocity / torch.clamp(speed, min=1e-9)),
+                         linvel)
+    pos = state.pos + dt * linvel
+
+    w_b = quat_rotate_inverse(state.quat, state.angvel)
+    Iw = w_b @ rp.inertia.T
+    w_dot = (torque_b - cross(w_b, Iw)) @ rp.inv_inertia.T
+    w_b = w_b + dt * w_dot
+    w_b = w_b * max(0.0, 1.0 - rp.angular_damping * dt)
+    w_mag = safe_norm(w_b, dim=-1, keepdim=True)
+    w_b = torch.where(w_mag > rp.max_angular_velocity,
+                      w_b * (rp.max_angular_velocity / torch.clamp(w_mag, min=1e-9)),
+                      w_b)
+    angvel = quat_rotate(state.quat, w_b)
+    quat = quat_integrate(state.quat, angvel, dt)
+    return replace(state, pos=pos, quat=quat, linvel=linvel, angvel=angvel)
+
+
+def contact_force_magnitude(params: SimParams, state: SimState) -> torch.Tensor:
+    """Penetration-depth force proxy against ground plane and obstacles."""
+    total = torch.zeros_like(state.collisions)
+    r = params.robot.collision_radius
+    if params.env.create_ground_plane:
+        total = total + 1000.0 * torch.clamp(r - state.pos[..., 2], min=0.0)
+    if params.scene is not None and params.scene.num_assets > 0:
+        from ..envs.collision import obstacle_contact_forces
+        total = total + obstacle_contact_forces(params, state)
+    return total
+
+
+def _substep(params: SimParams, state: SimState, action: torch.Tensor) -> SimState:
+    force_b, torque_b, new_thrust = compute_robot_wrench(params, state, action)
+    state = replace(state, motor_thrust=new_thrust,
+                    applied_force_b=force_b, applied_torque_b=torque_b)
+    state = integrate_rigid_body(params, state, force_b, torque_b)
+    if params.scene is not None and params.scene.num_assets > 0:
+        from ..envs.scene import integrate_obstacles
+        state = integrate_obstacles(params, state)
+    contact = contact_force_magnitude(params, state)
+    collided = (contact > params.env.collision_force_threshold).to(torch.float32)
+    return replace(state, collisions=state.collisions + collided)
+
+
+def env_step(params: SimParams, state: SimState, action: torch.Tensor,
+             n_substeps: Optional[int] = None) -> SimState:
+    """One environment step = n physics substeps (control-rate decimation).
+    ``n_substeps`` is a host int (sampled by the caller); None means the
+    config's mean."""
+    state = replace(state,
+                    collisions=torch.zeros_like(state.collisions),
+                    crashes=torch.zeros_like(state.crashes),
+                    truncations=torch.zeros_like(state.truncations))
+    n = params.env.substep_mean if n_substeps is None else n_substeps
+    for _ in range(n):
+        state = _substep(params, state, action)
+    return replace(state,
+                   sim_steps=state.sim_steps + 1,
+                   crashes=torch.maximum(state.crashes,
+                                         (state.collisions > 0).to(torch.float32)))
+
+
+def sample_reset_states(params: SimParams, state: SimState) -> dict:
+    """Draw a full fresh per-env state (bounds, pose, vel, gains, motors)
+    from the state's generator."""
+    rp, mp, cp = params.robot, params.motor, params.controller
+    ep = params.env
+    N, M = state.pos.shape[0], mp.num_motors
+    g, dev = state.rng, state.device
+
+    def uniform(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand((N,) + shape, generator=g, device=dev)
+
+    bounds_lo = uniform(ep.lower_bound_min, ep.lower_bound_max, 3)
+    bounds_hi = uniform(ep.upper_bound_min, ep.upper_bound_max, 3)
+    rand13 = uniform(rp.min_init_state, rp.max_init_state, 13)
+    fresh = dict(
+        pos=interpolate_ratio(bounds_lo, bounds_hi, rand13[..., 0:3]),
+        quat=quat_from_euler_xyz_tensor(rand13[..., 3:6]),
+        linvel=rand13[..., 7:10].contiguous(),
+        angvel=rand13[..., 10:13].contiguous(),
+        bounds_lo=bounds_lo, bounds_hi=bounds_hi,
+    )
+    if cp.randomize_params:
+        fresh.update(K_pos=uniform(cp.K_pos_min, cp.K_pos_max, 3),
+                     K_vel=uniform(cp.K_vel_min, cp.K_vel_max, 3),
+                     K_rot=uniform(cp.K_rot_min, cp.K_rot_max, 3),
+                     K_angvel=uniform(cp.K_angvel_min, cp.K_angvel_max, 3))
+    else:
+        mid = lambda lo, hi: ((lo + hi) / 2.0).expand(N, 3)
+        fresh.update(K_pos=mid(cp.K_pos_min, cp.K_pos_max),
+                     K_vel=mid(cp.K_vel_min, cp.K_vel_max),
+                     K_rot=mid(cp.K_rot_min, cp.K_rot_max),
+                     K_angvel=mid(cp.K_angvel_min, cp.K_angvel_max))
+    fresh.update(
+        motor_tau_inc=uniform(mp.tau_inc_min, mp.tau_inc_max, M),
+        motor_tau_dec=uniform(mp.tau_dec_min, mp.tau_dec_max, M),
+        motor_thrust=uniform(mp.min_thrust, mp.max_thrust, M),
+        motor_thrust_constant=uniform(mp.thrust_constant_min, mp.thrust_constant_max, M),
+    )
+    return fresh
+
+
+def reset_envs(params: SimParams, state: SimState, mask: torch.Tensor) -> SimState:
+    """Masked auto-reset: where mask, replace the state with a fresh draw."""
+    fresh = sample_reset_states(params, state)
+    mb = mask.to(torch.bool)
+
+    def sel(new, old):
+        return torch.where(mb.reshape((-1,) + (1,) * (old.dim() - 1)), new, old)
+
+    updates = {name: sel(val, getattr(state, name)) for name, val in fresh.items()}
+    state = replace(state,
+                    sim_steps=torch.where(mb, torch.zeros_like(state.sim_steps),
+                                          state.sim_steps),
+                    collisions=torch.where(mb, torch.zeros_like(state.collisions),
+                                           state.collisions),
+                    **updates)
+    if params.scene is not None and params.scene.num_assets > 0:
+        from ..envs.scene import reset_obstacles
+        state = reset_obstacles(params, state, mask)
+    if params.camera is not None:
+        from ..sensors.raycast_sensor import sample_mount_pose
+        mpos, mquat = sample_mount_pose(params.camera, state.rng, state.num_envs)
+        state = replace(state,
+                        cam_mount_pos=torch.where(mb[:, None], mpos, state.cam_mount_pos),
+                        cam_mount_quat=torch.where(mb[:, None], mquat,
+                                                   state.cam_mount_quat))
+    return state
+
+
+def post_reward_step(params: SimParams, state: SimState) -> SimState:
+    """Auto-reset terminated/truncated envs."""
+    if params.env.reset_on_collision:
+        done = torch.maximum(state.crashes, state.truncations)
+    else:
+        done = state.truncations
+    return reset_envs(params, state, done)

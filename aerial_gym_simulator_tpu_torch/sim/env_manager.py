@@ -1,0 +1,138 @@
+"""Stateful facade over the simulation functions.
+
+Counterpart of ``aerial_gym_simulator_tpu/sim/env_manager.py``:
+``step(actions)``, ``reset()``, ``reset_idx(env_ids)``, ``get_obs()``,
+``post_reward_calculation_step()`` and ``render()``. The steps run eagerly
+on the params' device; nothing in ``step`` or ``render`` reads a device
+value back to the host.
+"""
+
+from __future__ import annotations
+
+import math
+import random as pyrandom
+from typing import Dict
+
+import torch
+
+from ..control.controllers import compute_robot_obs
+from . import dynamics
+from .params import initial_state
+from .structs import SimParams, SimState, replace
+
+
+class EnvManager:
+    """Owns (params, state) and steps them."""
+
+    def __init__(self, params: SimParams, seed: int = 0, sim_config=None,
+                 env_config=None, robot_config=None, controller_config=None):
+        self.params = params
+        self.device = params.device
+        self.sim_config = sim_config
+        self.env_config = env_config
+        self.robot_config = robot_config
+        self.controller_config = controller_config
+        self.num_envs = params.env.num_envs
+        self.num_robot_actions = params.controller.num_actions
+        self.num_env_actions = params.env.num_env_actions
+        self.state: SimState = initial_state(params, seed=seed)
+        self.step_counter = 0
+        self._py_rng = pyrandom.Random(seed)
+        # latest sensor capture (filled by render())
+        self._sensor_frames = None
+        self._sensor_seg = None
+        self.reset()
+
+    # -- core loop ---------------------------------------------------------
+
+    def _sample_substeps(self) -> int:
+        env = self.params.env
+        if env.substep_std == 0.0:
+            return env.substep_mean
+        return max(int(math.floor(self._py_rng.gauss(env.substep_mean,
+                                                     env.substep_std))), 0)
+
+    def _as_actions(self, actions) -> torch.Tensor:
+        return torch.as_tensor(actions, dtype=torch.float32, device=self.device)
+
+    def step(self, actions, env_actions=None):
+        if env_actions is not None:
+            raise NotImplementedError("env actions (dynamic obstacles) are not ported yet")
+        self.state = dynamics.env_step(self.params, self.state, self._as_actions(actions),
+                                       self._sample_substeps())
+        self.step_counter += 1
+        return self.state
+
+    def reset(self):
+        mask = torch.ones((self.num_envs,), dtype=torch.float32, device=self.device)
+        self.state = dynamics.reset_envs(self.params, self.state, mask)
+        return self.get_obs()
+
+    def reset_idx(self, env_ids):
+        mask = torch.zeros((self.num_envs,), dtype=torch.float32, device=self.device)
+        mask[torch.as_tensor(env_ids, device=self.device, dtype=torch.long)] = 1.0
+        self.state = dynamics.reset_envs(self.params, self.state, mask)
+
+    def post_reward_calculation_step(self, crashes=None, truncations=None):
+        """Auto-reset done envs; a task may pass its own crash/truncation
+        verdicts."""
+        if crashes is not None or truncations is not None:
+            self.state = replace(
+                self.state,
+                crashes=self.state.crashes if crashes is None else crashes,
+                truncations=self.state.truncations if truncations is None else truncations)
+        self.state = dynamics.post_reward_step(self.params, self.state)
+
+    # -- observation access ------------------------------------------------
+
+    def get_obs(self) -> Dict[str, torch.Tensor]:
+        s = self.state
+        obs = compute_robot_obs(s.pos, s.quat, s.linvel, s.angvel)
+        out = {
+            "robot_position": obs.pos,
+            "robot_orientation": obs.quat,
+            "robot_linvel": obs.linvel,
+            "robot_angvel": obs.angvel,
+            "robot_euler_angles": obs.euler,
+            "robot_vehicle_orientation": obs.vehicle_quat,
+            "robot_vehicle_linvel": obs.vehicle_linvel,
+            "robot_body_linvel": obs.body_linvel,
+            "robot_body_angvel": obs.body_angvel,
+            "robot_actions": None,
+            "crashes": s.crashes,
+            "truncations": s.truncations,
+            "motor_thrusts": s.motor_thrust,
+            "imu_measurement": torch.cat([s.applied_force_b, s.applied_torque_b], dim=-1),
+            "obstacle_position": s.obstacle_pos,
+            "obstacle_orientation": s.obstacle_quat,
+            "num_envs": self.num_envs,
+            "gravity": self.params.gravity,
+            "robot_mass": self.params.robot.mass,
+            "robot_inertia": self.params.robot.inertia,
+            "env_bounds_min": s.bounds_lo,
+            "env_bounds_max": s.bounds_hi,
+            "num_obstacles_in_env": s.num_obstacles,
+        }
+        if self._sensor_frames is not None:
+            out["depth_range_pixels"] = self._sensor_frames
+        if self._sensor_seg is not None:
+            out["segmentation_pixels"] = self._sensor_seg
+        return out
+
+    @property
+    def sim_steps(self):
+        return self.state.sim_steps
+
+    def render(self, render_components: str = "sensors"):
+        """Capture the camera into get_obs()["depth_range_pixels"] (and
+        "segmentation_pixels" for a segmentation camera). Configured noise
+        is drawn from the state's generator. No-op without a camera."""
+        if self.params.camera is None:
+            return None
+        from ..sensors.raycast_sensor import render_camera
+        self._sensor_frames, self._sensor_seg = render_camera(self.params, self.state,
+                                                              gen=self.state.rng)
+        return self._sensor_frames
+
+    def delete_env(self):
+        self.state = None

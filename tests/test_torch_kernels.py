@@ -1,0 +1,184 @@
+"""The ray-cast kernel (csrc/raycast.cu) against its plain PyTorch version,
+and the wrapper's contract. This file imports only the port, so it also
+runs where JAX is not installed:
+
+    python -m pytest tests/test_torch_kernels.py -q -m cuda    # on the card
+
+Tests marked ``cuda`` launch the kernel; without a GPU they skip. On the
+CPU the remaining tests check the wrapper, the plain version and the broad
+phase on a seeded synthetic scene.
+
+Tolerances (kernel vs plain version): depth max-abs-err 2e-3 and seg
+agreement >= 0.999 on hit pixels; both evaluate the same expressions in
+the same order, so the difference is expected to be 0. Broad phase on and
+off must give bit-identical images.
+"""
+
+import pytest
+import torch
+
+import aerial_gym_simulator_tpu_torch as port
+from aerial_gym_simulator_tpu_torch.ops import raycast_cuda as rc
+from aerial_gym_simulator_tpu_torch.sensors.raycast_sensor import camera_ray_dirs
+from aerial_gym_simulator_tpu_torch.utils.math import quat_to_rotation_matrix
+
+DEPTH_ATOL = 2e-3
+SEG_AGREE = 0.999
+MAX_RANGE = 12.0
+COUNTS = (12, 8, 4, 300)      # box, cylinder, sphere, triangle: 324 > one chunk
+
+
+def synthetic_scene(device, n_envs=3, seed=7, H=24, W=40):
+    """Seeded world-frame soup of all four kinds; ~10% of the primitives
+    parked at -1000 with zero size, as culled obstacles and padding are."""
+    g = torch.Generator().manual_seed(seed)
+    P = sum(COUNTS)
+    size = torch.rand((n_envs, P, 3), generator=g) * 1.2 + 0.05
+    s0 = COUNTS[0] + COUNTS[1]
+    size[:, s0:s0 + COUNTS[2], 1:] = 0.0
+    pos = (torch.rand((n_envs, P, 3), generator=g) - 0.5) * 16.0
+    q = torch.randn((n_envs, P, 4), generator=g)
+    rot = quat_to_rotation_matrix(q / q.norm(dim=-1, keepdim=True))
+    sem = torch.randint(0, 50, (n_envs, P), generator=g).float()
+    parked = torch.rand((n_envs, P), generator=g) < 0.1
+    size[parked] = 0.0
+    pos[parked] = -1000.0
+    prims = torch.cat([size, pos, rot.reshape(n_envs, P, 9), sem[..., None]], dim=-1)
+    qs = torch.randn((n_envs, 4), generator=g)
+    pose = rc.pack_pose((torch.rand((n_envs, 3), generator=g) - 0.5) * 4.0,
+                        qs / qs.norm(dim=-1, keepdim=True))
+    dirs, mult = camera_ray_dirs(H, W, 87.0)
+    as_t = lambda x: torch.as_tensor(x).reshape(-1, *x.shape[2:]).contiguous().to(device)
+    return (pose.to(device), prims.contiguous().to(device), as_t(dirs), as_t(mult))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc; chip_smoke.py runs this check on the H100")
+    return torch.device("cuda")
+
+
+def _run(fn, args, **kw):
+    return fn(*args, *COUNTS[:3], MAX_RANGE, n_tri=COUNTS[3], **kw)
+
+
+# ---------------------------------------------------------------------------
+# CPU: wrapper, plain version, broad phase
+# ---------------------------------------------------------------------------
+
+
+def test_cpu_tensors_run_the_plain_version():
+    args = synthetic_scene("cpu")
+    before = dict(rc.LAUNCHES)
+    d, s = _run(rc.raycast, args)
+    d_r, s_r = _run(rc.raycast_reference, args)
+    assert torch.equal(d, d_r) and torch.equal(s, s_r)
+    assert rc.LAUNCHES == before
+    hit = s != -2
+    assert 0.05 < hit.float().mean() < 0.95          # hits and misses both
+    assert torch.equal(d[~hit], 1000.0 * args[3].expand_as(d)[~hit])
+
+
+def test_depth_only_mode_matches_seg_mode_depth():
+    args = synthetic_scene("cpu")
+    d0, s0 = _run(rc.raycast, args, want_seg=False)
+    d1, _ = _run(rc.raycast, args, want_seg=True)
+    assert s0 is None and torch.equal(d0, d1)
+
+
+def test_env_chunking_does_not_change_the_plain_version(monkeypatch):
+    args = synthetic_scene("cpu")
+    a = _run(rc.raycast_reference, args)
+    monkeypatch.setattr(rc, "REFERENCE_CHUNK_RAYS", 1)          # one env per pass
+    b = _run(rc.raycast_reference, args)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_parked_primitives_never_hit():
+    pose, prims, dirs, mult = synthetic_scene("cpu")
+    parked = prims.clone()
+    parked[..., 0:3] = 0.0
+    parked[..., 3:6] = -1000.0
+    d, s = _run(rc.raycast, (pose, parked, dirs, mult))
+    assert (s == -2).all() and torch.equal(d, 1000.0 * mult.expand_as(d))
+
+
+def test_broad_phase_is_conservative_on_synthetic_scene():
+    pose, prims, dirs, mult = synthetic_scene("cpu", n_envs=2)
+    vis = rc.tile_visibility(pose, prims, dirs, *COUNTS[:3], MAX_RANGE)  # (N, T, P)
+    N, R, P = pose.shape[0], dirs.shape[0], prims.shape[1]
+    tile = torch.arange(R) // rc.THREADS
+    for p in range(P):
+        # this primitive alone, as a one-column table of its kind
+        counts = [0, 0, 0, 0]
+        counts[rc._kind_of(p, *COUNTS[:3])] = 1
+        d, _ = rc.raycast_reference(pose, prims[:, p:p + 1].contiguous(), dirs, mult,
+                                    *counts[:3], MAX_RANGE, want_seg=False, n_tri=counts[3])
+        hit = d < 999.0 * mult
+        assert vis[:, :, p][torch.arange(N)[:, None], tile[None, :]][hit].all(), p
+    assert (~vis).any()
+
+
+def test_wrapper_rejects_bad_inputs():
+    pose, prims, dirs, mult = synthetic_scene("cpu")
+    with pytest.raises(ValueError):
+        rc.raycast(pose, prims, dirs, mult, 1, 1, 0, MAX_RANGE)        # counts != P
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("want_seg", [False, True])
+def test_kernel_matches_plain_version_synthetic(cuda_device, want_seg):
+    args = synthetic_scene(cuda_device)
+    name = "raycast_seg" if want_seg else "raycast_depth"
+    before = rc.LAUNCHES[name]
+    d_k, s_k = _run(rc.raycast, args, want_seg=want_seg)
+    d_n, s_n = _run(rc.raycast, args, want_seg=want_seg, cull=False)
+    d_r, s_r = _run(rc.raycast_reference, args, want_seg=want_seg)
+    torch.cuda.synchronize()
+    assert rc.LAUNCHES[name] == before + 2
+    assert torch.equal(d_k, d_n)
+    assert (d_k - d_r).abs().max().item() <= DEPTH_ATOL
+    if want_seg:
+        assert torch.equal(s_k, s_n)
+        hit = s_r != -2
+        assert (s_k[hit] == s_r[hit]).float().mean().item() >= SEG_AGREE
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_version_obstacle_env(cuda_device):
+    from aerial_gym_simulator_tpu_torch.sensors.raycast_sensor import sensor_world_pose
+    env = port.SimBuilder().build_env("base_sim", "env_with_obstacles",
+                                      "base_quadrotor_with_camera", "lee_velocity_control",
+                                      num_envs=4, seed=1)
+    for _ in range(5):
+        env.step(torch.zeros((4, 4), device=cuda_device))
+    sp, sc, st = env.params.camera, env.params.scene, env.state
+    pos_w, quat_w = sensor_world_pose(sp, st, st.cam_mount_pos, st.cam_mount_quat)
+    R = sp.height * sp.width
+    args = (rc.pack_pose(pos_w, quat_w),
+            rc.pack_prims_world(sc, st.obstacle_pos, st.obstacle_quat),
+            sp.dirs.reshape(R, 3), sp.depth_multiplier.reshape(R))
+    counts = (sc.n_box, sc.n_cyl, sc.n_sph, sp.max_range)
+    d_k, s_k = rc.raycast(*args, *counts, n_tri=sc.n_tri)
+    d_r, s_r = rc.raycast_reference(*args, *counts, n_tri=sc.n_tri)
+    torch.cuda.synchronize()
+    assert (d_k - d_r).abs().max().item() <= DEPTH_ATOL
+    hit = s_r != -2
+    assert (s_k[hit] == s_r[hit]).float().mean().item() >= SEG_AGREE
+
+
+@pytest.mark.cuda
+def test_kernel_wrapper_checks_on_card(cuda_device):
+    pose, prims, dirs, mult = synthetic_scene(cuda_device)
+    with pytest.raises(ValueError):
+        _run(rc.raycast, (pose, prims, dirs.double(), mult))
+    with pytest.raises(ValueError):
+        _run(rc.raycast, (pose, prims[:, ::2].contiguous(), dirs, mult))
+    with pytest.raises(ValueError):
+        _run(rc.raycast, (pose, prims, dirs.cpu(), mult))

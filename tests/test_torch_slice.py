@@ -1,0 +1,149 @@
+"""Port parity for the whole slice: SimBuilder -> EnvManager.step ->
+EnvManager.render (depth + segmentation) on the obstacle env with the
+camera quad, against the JAX package from a state carried across; and the
+port's independence from JAX.
+
+Tolerances: robot state atol 1e-4 after 3 env steps (30 substeps, see
+test_torch_dynamics.py); depth pixels atol 2e-3 (normalized by max_range,
+so 2 cm) and seg agreement > 0.999 on hit pixels (test_torch_raycast.py).
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import aerial_gym_simulator_tpu  # noqa: F401  (registers the JAX configs)
+from aerial_gym_simulator_tpu.config.sensor_config.sensor_configs import (
+    BaseDepthCameraConfig as JCameraConfig)
+from aerial_gym_simulator_tpu.sensors.raycast_sensor import (
+    build_ray_sensor_params as j_build_camera)
+from aerial_gym_simulator_tpu.sim.sim_builder import SimBuilder as JSimBuilder
+
+import aerial_gym_simulator_tpu_torch as port
+from aerial_gym_simulator_tpu_torch.config.sensor_config.sensor_configs import (
+    BaseDepthCameraConfig as TCameraConfig)
+from aerial_gym_simulator_tpu_torch.sensors.raycast_sensor import (
+    build_ray_sensor_params as t_build_camera)
+from aerial_gym_simulator_tpu_torch.sim.convert import record_to_numpy, state_from_numpy
+from aerial_gym_simulator_tpu_torch.sim.structs import replace
+
+REPO = Path(__file__).resolve().parent.parent
+PKG = REPO / "aerial_gym_simulator_tpu_torch"
+N = 4
+NAMES = ("base_sim", "env_with_obstacles", "base_quadrotor_with_camera",
+         "lee_velocity_control")
+CAM = dict(height=24, width=32)
+
+
+def _leaves_match(port_rec, ref_rec, path=""):
+    if isinstance(ref_rec, dict):
+        for k, v in ref_rec.items():
+            _leaves_match(port_rec[k], v, f"{path}.{k}")
+    elif ref_rec is None or isinstance(ref_rec, (bool, str)):
+        assert port_rec == ref_rec, path
+    else:
+        np.testing.assert_allclose(np.asarray(port_rec, np.float64),
+                                   np.asarray(ref_rec, np.float64), atol=1e-6, err_msg=path)
+
+
+@pytest.fixture(scope="module")
+def envs():
+    jenv = JSimBuilder().build_env(*NAMES, num_envs=N, seed=2)
+    jenv.params = jenv.params.replace(camera=j_build_camera(JCameraConfig(**CAM)))
+    tenv = port.SimBuilder().build_env(*NAMES, device="cpu", num_envs=N, seed=2)
+    tenv.params = replace(tenv.params, camera=t_build_camera(TCameraConfig(**CAM), "cpu"))
+    tenv.state = state_from_numpy(record_to_numpy(jenv.state), "cpu", seed=2)
+    return jenv, tenv
+
+
+def test_builders_agree(envs):
+    jenv, tenv = envs
+    _leaves_match(record_to_numpy(tenv.params), record_to_numpy(jenv.params))
+
+
+def test_step_and_render_match_jax(envs):
+    jenv, tenv = envs
+    rs = np.random.RandomState(1)
+    for _ in range(3):
+        a = rs.uniform(-0.5, 0.5, (N, 4)).astype(np.float32)
+        jenv.step(a)
+        tenv.step(torch.from_numpy(a))
+    for f in ("pos", "quat", "linvel"):
+        np.testing.assert_allclose(getattr(tenv.state, f).numpy(),
+                                   np.asarray(getattr(jenv.state, f)), atol=1e-4, err_msg=f)
+    jenv.render()
+    tenv.render()
+    j_obs, t_obs = jenv.get_obs(), tenv.get_obs()
+    depth_j = np.asarray(j_obs["depth_range_pixels"])
+    depth_t = t_obs["depth_range_pixels"].numpy()
+    assert depth_t.shape == (N, CAM["height"], CAM["width"])
+    np.testing.assert_allclose(depth_t, depth_j, atol=2e-3, rtol=0)
+    seg_j = np.asarray(j_obs["segmentation_pixels"])
+    seg_t = t_obs["segmentation_pixels"].numpy()
+    hit = seg_j != -2
+    assert hit.any()
+    assert (seg_t[hit] == seg_j[hit]).mean() > 0.999
+    for k in ("robot_euler_angles", "robot_body_linvel", "robot_body_angvel"):
+        np.testing.assert_allclose(t_obs[k].numpy(), np.asarray(j_obs[k]), atol=1e-3,
+                                   err_msg=k)
+    assert set(j_obs) <= set(t_obs) | {"lidar_range_pixels", "rgb_pixels"}
+
+
+def test_post_reward_resets_only_done_envs(envs):
+    _, tenv = envs
+    before = tenv.state.pos.clone()
+    crashes = torch.tensor([1.0, 0.0, 0.0, 0.0])
+    tenv.post_reward_calculation_step(crashes=crashes, truncations=torch.zeros(N))
+    assert torch.equal(tenv.state.pos[1:], before[1:])
+    assert int(tenv.state.sim_steps[0]) == 0
+
+
+def test_build_env_without_gpu_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        port.SimBuilder().build_env(*NAMES, num_envs=2)
+
+
+def _sources():
+    return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "flax", "optax", "aerial_gym_simulator_tpu")
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))
+def test_source_imports_no_jax(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        assert not any(_forbidden(n) for n in names), (path, names)
+
+
+def test_importing_every_module_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import aerial_gym_simulator_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'aerial_gym_simulator_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=str(REPO), env=env, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
