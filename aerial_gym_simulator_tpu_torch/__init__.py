@@ -4,7 +4,7 @@ CUDA (NVIDIA Hopper).
 A port of the JAX package ``aerial_gym_simulator_tpu``, which stays the
 reference it is tested against. This package imports torch, numpy and the
 standard library only. Importing it registers the named sim, env, robot
-and controller configs it carries.
+and controller configs and the tasks it carries.
 """
 
 __version__ = "0.1.0"
@@ -14,9 +14,13 @@ from .registry.registries import (  # noqa: F401
     env_config_registry,
     robot_registry,
     sim_config_registry,
+    task_registry,
 )
 from .config import register_all as _register_configs
 
 _register_configs()
 
 from .sim.sim_builder import SimBuilder  # noqa: F401, E402
+from .tasks import register_all as _register_tasks  # noqa: E402
+
+_register_tasks()

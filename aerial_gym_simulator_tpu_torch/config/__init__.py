@@ -10,7 +10,10 @@ def register_all():
         robot_registry,
         sim_config_registry,
     )
-    from .controller_config.lee_controller_config import lee_controller_config
+    from .controller_config.lee_controller_config import (
+        lee_controller_config,
+        lmf2_controller_config,
+    )
     from .env_config.obstacle_envs import EnvWithObstaclesConfig
     from .robot_config import catalog as robot_catalog
     from .sim_config.base_sim_config import BaseSimConfig
@@ -22,3 +25,10 @@ def register_all():
                  "lee_attitude_control"):
         controller_registry.register(
             name, (lambda n: (lambda: lee_controller_config(n)))(name))
+
+    def lmf2_velocity_control():
+        cfg = lmf2_controller_config("lmf2_velocity_control")
+        cfg.base_controller = "lee_velocity_control"
+        return cfg
+
+    controller_registry.register("lmf2_velocity_control", lmf2_velocity_control)

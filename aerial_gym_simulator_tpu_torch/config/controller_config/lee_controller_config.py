@@ -30,3 +30,17 @@ class ControllerConfig:
 
 def lee_controller_config(name: str, num_actions: int = 4) -> ControllerConfig:
     return ControllerConfig(name=name, num_actions=num_actions)
+
+
+def lmf2_controller_config(name: str, num_actions: int = 4) -> ControllerConfig:
+    """Gain ranges of the lmf2 platform, sampled per env at every reset.
+    K_vel z has min 1.7 above max 1.3: that is the source's own data, and
+    ``lo + (hi - lo) * u`` samples the reversed interval all the same."""
+    return ControllerConfig(
+        name=name, num_actions=num_actions,
+        K_pos_tensor_min=[2.0, 2.0, 1.0], K_pos_tensor_max=[2.0, 2.0, 1.0],
+        K_vel_tensor_min=[2.7, 2.7, 1.7], K_vel_tensor_max=[3.3, 3.3, 1.3],
+        K_rot_tensor_min=[1.6, 1.6, 0.25], K_rot_tensor_max=[1.85, 1.85, 0.4],
+        K_angvel_tensor_min=[0.4, 0.4, 0.075], K_angvel_tensor_max=[0.5, 0.5, 0.09],
+        randomize_params=True,
+    )

@@ -1,0 +1,129 @@
+"""ViT depth encoder: patch embedding, transformer blocks, token mean,
+(mean, logvar) latent head.
+
+Counterpart of ``aerial_gym_simulator_tpu/models/vit.py``, encode side
+only (the decoder and training come with the training slice). Layer
+conventions are the JAX package's, so its checkpoints carry across
+(``sim/convert.vit_encoder_from_flax``): LayerNorm epsilon 1e-6, tanh
+GELU, images in (B, H, W, 1), tokens in row-major order over the patch
+grid.
+
+``attn_impl`` keeps the JAX package's names: ``"fused"`` is the
+hand-written kernel (``ops/attention_cuda.fused_attention``; a CUDA
+tensor launches it or raises, a CPU tensor runs the plain version),
+``"xla"`` is the plain version with the softmax written out
+(``ops/attention.attention_reference``). The projections, the MLP and the
+patch embedding are ordinary ``linear`` / ``conv2d`` calls.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.attention import attention_reference
+from ..ops.attention_cuda import fused_attention
+from ..utils.device import resolve_device
+from .vae import FrozenImageEncoder, seeded
+
+ATTN_IMPLS = ("fused", "xla")
+LAYER_NORM_EPS = 1e-6
+
+
+class FusedAttention(nn.Module):
+    """Self-attention with separate query/key/value/out projections; the
+    attention itself runs on the packed (B, S, D) layout."""
+
+    def __init__(self, dim: int, num_heads: int, impl: str = "fused"):
+        super().__init__()
+        if impl not in ATTN_IMPLS:
+            raise ValueError(f"unknown attention impl {impl!r}; known: {ATTN_IMPLS}")
+        if dim % num_heads:
+            raise ValueError(f"model dim {dim} not divisible by heads {num_heads}")
+        self.dim, self.num_heads, self.impl = dim, num_heads, impl
+        self.query = nn.Linear(dim, dim)
+        self.key = nn.Linear(dim, dim)
+        self.value = nn.Linear(dim, dim)
+        self.out = nn.Linear(dim, dim)
+
+    def forward(self, x):
+        q, k, v = self.query(x), self.key(x), self.value(x)
+        scale = 1.0 / math.sqrt(self.dim // self.num_heads)
+        attend = fused_attention if self.impl == "fused" else attention_reference
+        return self.out(attend(q, k, v, self.num_heads, scale))
+
+
+class TransformerBlock(nn.Module):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: int = 4,
+                 attn_impl: str = "xla"):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
+        self.attn = FusedAttention(dim, num_heads, impl=attn_impl)
+        self.norm2 = nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
+        self.mlp_in = nn.Linear(dim, mlp_ratio * dim)
+        self.mlp_out = nn.Linear(mlp_ratio * dim, dim)
+
+    def forward(self, x):
+        x = x + self.attn(self.norm1(x))
+        y = self.mlp_out(F.gelu(self.mlp_in(self.norm2(x)), approximate="tanh"))
+        return x + y
+
+
+class ViTEncoder(nn.Module):
+    """Patchify -> transformer -> mean-pool -> (mean, logvar), logvar
+    clipped to +-10. ``num_tokens`` is the size of the patch grid the
+    position embedding is made for."""
+
+    def __init__(self, latent_dim: int = 64, patch: Tuple[int, int] = (9, 16),
+                 dim: int = 128, depth: int = 4, num_heads: int = 4,
+                 attn_impl: str = "xla", num_tokens: int = 225):
+        super().__init__()
+        self.latent_dim = latent_dim
+        self.patch = tuple(patch)
+        self.patch_embed = nn.Conv2d(1, dim, self.patch, stride=self.patch)
+        self.pos_embed = nn.Parameter(0.02 * torch.randn(1, num_tokens, dim))
+        self.blocks = nn.ModuleList(
+            TransformerBlock(dim, num_heads, attn_impl=attn_impl) for _ in range(depth))
+        self.norm = nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
+        self.latent_head = nn.Linear(dim, 2 * latent_dim)
+
+    def forward(self, x):
+        # x: (B, H, W, 1) in [0, 1]; H, W multiples of the patch
+        x = self.patch_embed(x.permute(0, 3, 1, 2))              # (B, dim, h, w)
+        x = x.flatten(2).transpose(1, 2) + self.pos_embed        # (B, h*w, dim)
+        for block in self.blocks:
+            x = block(x)
+        x = self.norm(x).mean(dim=1)
+        mean, logvar = self.latent_head(x).chunk(2, dim=-1)
+        return mean, torch.clamp(logvar, -10.0, 10.0)
+
+
+def vit_input_hw(image_res: Tuple[int, int], patch: Tuple[int, int]) -> Tuple[int, int]:
+    """Nearest patch-multiple resolution the encoder consumes."""
+    return (max(round(image_res[0] / patch[0]), 1) * patch[0],
+            max(round(image_res[1] / patch[1]), 1) * patch[1])
+
+
+class ViTImageEncoder(FrozenImageEncoder):
+    """The ViT encoder, frozen. ``encoder`` is a ViTEncoder carrying
+    trained weights (``sim/convert.load_encoder_pickle``); None builds one
+    with random weights from ``seed``. Images are resized to the nearest
+    patch multiple of ``image_res``; bf16 compute by default."""
+
+    def __init__(self, latent_dim: int = 64, image_res: Tuple[int, int] = (270, 480),
+                 encoder: Optional[ViTEncoder] = None, return_sampled_latent: bool = True,
+                 seed: int = 0, compute_dtype=torch.bfloat16,
+                 patch: Tuple[int, int] = (9, 16), dim: int = 128, depth: int = 4,
+                 num_heads: int = 4, attn_impl: str = "xla", device=None):
+        self.image_res = tuple(image_res)
+        input_hw = vit_input_hw(image_res, patch)
+        if encoder is None:
+            tokens = (input_hw[0] // patch[0]) * (input_hw[1] // patch[1])
+            encoder = seeded(seed, lambda: ViTEncoder(latent_dim, patch, dim, depth,
+                                                      num_heads, attn_impl, tokens))
+        super().__init__(encoder, latent_dim, input_hw, return_sampled_latent,
+                         compute_dtype, resolve_device(device))

@@ -1,0 +1,36 @@
+"""Multi-head attention on the packed (B, S, D) layout, plain PyTorch.
+
+Counterpart of ``attention_oracle`` in the JAX package's
+``ops/attention_pallas.py`` and the plain version of the fused kernel in
+``ops/attention_cuda.py``: the same function with the (S, S) softmax
+written out. The tests use it, CPU tensors run it, and the kernel is held
+against it on the card. It is differentiable on its own.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+
+def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
+                        sm_scale: Optional[float] = None) -> torch.Tensor:
+    """q, k, v (B, S, D = num_heads * head_dim) -> (B, S, D) in q's dtype.
+
+    Per head ``softmax(q k^T * sm_scale) v``; products accumulate in f32,
+    the softmax is f32, and the probabilities are rounded to v's dtype
+    before the second product."""
+    b, s, d = q.shape
+    if d % num_heads:
+        raise ValueError(f"model dim {d} not divisible by heads {num_heads}")
+    hd = d // num_heads
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(hd)
+    split = lambda x: x.reshape(b, s, num_heads, hd).transpose(1, 2)    # (B, H, S, hd)
+    qh, kh, vh = split(q), split(k), split(v)
+    logits = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * sm_scale
+    p = torch.softmax(logits, dim=-1)
+    o = torch.matmul(p.to(v.dtype).float(), vh.float())
+    return o.transpose(1, 2).reshape(b, s, d).to(q.dtype)

@@ -23,26 +23,17 @@ Table layouts (shared by both versions):
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
 
 from . import raycast as oracle
+from ._build import KernelLibrary
 from ..utils.math import quat_to_rotation_matrix
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "raycast.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC",
-              # every multiply and add rounds on its own, as in the plain
-              # version, so the two agree bit for bit (fma contraction off)
-              "-fmad=false", "-Xptxas", "-v"]
+# every multiply and add rounds on its own, as in the plain version, so the
+# two agree bit for bit (fma contraction off)
+LIBRARY = KernelLibrary("raycast", ["-fmad=false"])
 THREADS = 256          # rays per block (one thread per ray), see raycast.cu
 # the plain version casts this many rays per pass, bounding its temporaries
 # (~40 live (rays,) f32 tensors) to a few GB at the main path's width
@@ -54,35 +45,10 @@ LAUNCHES = {"raycast_depth": 0, "raycast_seg": 0}
 _lib = None
 
 
-def library_path() -> Path:
-    digest = hashlib.sha1(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libraycast_{digest.hexdigest()[:12]}.so"
-
-
-def build() -> str:
-    """Compile csrc/raycast.cu into _build/ unless this source and these
-    flags were built already. Returns nvcc's log (empty when cached)."""
-    out = library_path()
-    if out.exists():
-        return ""
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the ray-cast kernel cannot be built")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
-    return proc.stdout + proc.stderr
-
-
 def _load():
     global _lib
     if _lib is None:
-        build()
-        lib = ctypes.CDLL(str(library_path()))
+        lib = LIBRARY.load()
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.raycast_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,
                                        ctypes.c_float, i, i, p]

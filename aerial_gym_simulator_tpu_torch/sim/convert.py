@@ -1,14 +1,18 @@
-"""Carry parameters and state across from nested numpy dicts.
+"""Carry parameters, state and trained weights across from nested numpy
+dicts.
 
 The dicts are keyed by the record field names (the JAX package's
 dataclass field names, which the port keeps), with numpy arrays or Python
 scalars as leaves and nested dicts for nested records. This is how a state
-reached by another implementation is continued here.
+reached by another implementation is continued here, and how the encoder
+checkpoints the JAX package trained (pickled flax parameter trees, plain
+numpy inside) become the port's modules.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import pickle
 
 import numpy as np
 import torch
@@ -100,3 +104,116 @@ def state_from_numpy(d: dict, device, seed: int = 0) -> SimState:
         dtype = torch.int32 if arr.dtype.kind in "iu" else torch.float32
         kw[f.name] = torch.as_tensor(arr, device=device).to(dtype).contiguous()
     return SimState(**kw)
+
+
+def nav_state_from_numpy(d: dict, device, seed: int = 0):
+    """Nested dict of numpy leaves -> the navigation task's NavState on
+    ``device``. The JAX ``key`` leaf is dropped: the task draws from the
+    sim state's generator."""
+    from ..tasks.navigation_task import NavState
+    t = lambda name: torch.as_tensor(np.array(d[name], np.float32), device=device)
+    return NavState(
+        sim=state_from_numpy(d["sim"], device, seed=seed),
+        target_position=t("target_position"), pos_error_prev=t("pos_error_prev"),
+        prev_action=t("prev_action"), latents=t("latents"),
+        curriculum_level=t("curriculum_level"), success_agg=t("success_agg"),
+        crash_agg=t("crash_agg"), timeout_agg=t("timeout_agg"))
+
+
+# ---------------------------------------------------------------------------
+# encoder checkpoints (flax parameter trees)
+# ---------------------------------------------------------------------------
+
+
+def _encoder_subtree(params: dict) -> dict:
+    """The encoder's parameters out of a flax variables dict
+    ({"params": {"encoder": ..., "decoder": ...}}) or any subtree of it."""
+    for key in ("params", "encoder"):
+        if key in params:
+            params = params[key]
+    return params
+
+
+def _set(param: torch.nn.Parameter, array):
+    value = torch.as_tensor(np.array(array, np.float32))
+    if value.shape != param.shape:
+        raise ValueError(f"checkpoint leaf has shape {tuple(value.shape)}, "
+                         f"the module expects {tuple(param.shape)}")
+    with torch.no_grad():
+        param.copy_(value)
+
+
+def _set_dense(linear, leaf: dict):
+    """flax Dense/DenseGeneral (kernel (in..., out...), bias (out...)) ->
+    nn.Linear: flatten the in and out axes, transpose."""
+    kernel, bias = np.asarray(leaf["kernel"]), np.asarray(leaf["bias"])
+    _set(linear.weight, kernel.reshape(linear.in_features, linear.out_features).T)
+    _set(linear.bias, bias.reshape(-1))
+
+
+def _set_conv(conv, leaf: dict):
+    """flax Conv kernel (kh, kw, in, out) -> nn.Conv2d weight (out, in, kh, kw)."""
+    _set(conv.weight, np.transpose(np.asarray(leaf["kernel"]), (3, 2, 0, 1)))
+    _set(conv.bias, leaf["bias"])
+
+
+def _set_norm(norm, leaf: dict):
+    _set(norm.weight, leaf["scale"])
+    _set(norm.bias, leaf["bias"])
+
+
+def vit_encoder_from_flax(params: dict, attn_impl: str = "fused"):
+    """flax DepthViT / ViTEncoder parameters -> models.vit.ViTEncoder (f32,
+    on the CPU). Sizes are read off the leaves' shapes."""
+    from ..models.vit import ViTEncoder
+    p = _encoder_subtree(params)
+    ph, pw, _, dim = np.shape(p["patch_embed"]["kernel"])
+    depth = sum(1 for k in p if k.startswith("block_"))
+    num_heads = np.shape(p["block_0"]["attn"]["query"]["kernel"])[1]
+    enc = ViTEncoder(latent_dim=np.shape(p["latent_head"]["bias"])[0] // 2, patch=(ph, pw),
+                     dim=dim, depth=depth, num_heads=num_heads, attn_impl=attn_impl,
+                     num_tokens=np.shape(p["pos_embed"])[1])
+    _set_conv(enc.patch_embed, p["patch_embed"])
+    _set(enc.pos_embed, p["pos_embed"])
+    for i, block in enumerate(enc.blocks):
+        b = p[f"block_{i}"]
+        _set_norm(block.norm1, b["LayerNorm_0"])
+        _set_norm(block.norm2, b["LayerNorm_1"])
+        for name in ("query", "key", "value", "out"):
+            _set_dense(getattr(block.attn, name), b["attn"][name])
+        _set_dense(block.mlp_in, b["mlp_in"])
+        _set_dense(block.mlp_out, b["mlp_out"])
+    _set_norm(enc.norm, p["LayerNorm_0"])
+    _set_dense(enc.latent_head, p["latent_head"])
+    return enc
+
+
+def vae_encoder_from_flax(params: dict, input_hw=(135, 240)):
+    """flax DepthVAE / Encoder parameters -> models.vae.Encoder (f32, on
+    the CPU) for images of ``input_hw``."""
+    from ..models.vae import Encoder
+    p = _encoder_subtree(params)
+    enc = Encoder(latent_dim=np.shape(p["Dense_1"]["bias"])[0] // 2, input_hw=input_hw)
+    for i, conv in enumerate(enc.convs):
+        _set_conv(conv, p[f"Conv_{i}"])
+    _set_dense(enc.dense0, p["Dense_0"])
+    _set_dense(enc.dense1, p["Dense_1"])
+    return enc
+
+
+def load_encoder_pickle(path: str, input_hw=(135, 240)):
+    """Read an encoder checkpoint -> (arch, encoder module). A dict tagged
+    {"arch": "vit", "params": ..., "patch", "dim", "depth", "num_heads",
+    "attn_impl"} is a ViT encoder; anything else is the conv VAE's raw
+    parameter tree."""
+    with open(path, "rb") as f:
+        loaded = pickle.load(f)
+    if isinstance(loaded, dict) and loaded.get("arch") == "vit":
+        enc = vit_encoder_from_flax(loaded["params"],
+                                    attn_impl=loaded.get("attn_impl", "xla"))
+        for key, have in (("patch", enc.patch), ("depth", len(enc.blocks)),
+                          ("num_heads", enc.blocks[0].attn.num_heads)):
+            if key in loaded and tuple(np.atleast_1d(loaded[key])) != tuple(np.atleast_1d(have)):
+                raise ValueError(f"{path}: tag says {key}={loaded[key]}, weights say {have}")
+        return "vit", enc
+    return "conv", vae_encoder_from_flax(loaded, input_hw)

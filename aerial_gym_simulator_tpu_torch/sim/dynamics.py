@@ -30,12 +30,32 @@ from ..utils.math import (
 from .structs import SimParams, SimState, replace
 
 
-def compute_robot_wrench(params: SimParams, state: SimState, action: torch.Tensor):
+def sample_disturbance(params: SimParams, state: SimState):
+    """Random body wrench of one substep -> (force (N, 3), torque (N, 3)):
+    with probability ``disturbance_prob`` an env gets a force and a torque
+    uniform in +-max_force_disturbance / +-max_torque_disturbance, else
+    zeros. Drawn from the state's generator."""
+    rp = params.robot
+    N, g, dev = state.num_envs, state.rng, state.device
+    u = torch.rand((N, 7), generator=g, device=dev)
+    occur = (u[:, 0:1] < rp.disturbance_prob).to(torch.float32)
+    force = (2.0 * u[:, 1:4] - 1.0) * rp.max_force_disturbance
+    torque = (2.0 * u[:, 4:7] - 1.0) * rp.max_torque_disturbance
+    return force * occur, torque * occur
+
+
+def compute_robot_wrench(params: SimParams, state: SimState, action: torch.Tensor,
+                         disturbance=None):
     """One control substep -> (force_body, torque_body, new_motor_thrust):
-    controller, allocation with first-order motor lag, aerodynamic drag."""
+    controller, allocation with first-order motor lag, aerodynamic drag and,
+    for robots that enable it, the random wrench disturbance (drawn here
+    unless the caller passes its own (force, torque) pair).
+
+    The motors' net wrench is ``allocation @ thrusts`` for both
+    ``force_application_level`` settings: forces applied at the motor links
+    and the wrench re-assembled at the root link are the same rigid-body
+    wrench."""
     rp, mp, cp = params.robot, params.motor, params.controller
-    if rp.enable_disturbance:
-        raise NotImplementedError("random wrench disturbance is not ported yet")
     obs = compute_robot_obs(state.pos, state.quat, state.linvel, state.angvel)
     action = torch.clamp(action, -10.0, 10.0)
 
@@ -56,7 +76,12 @@ def compute_robot_wrench(params: SimParams, state: SimState, action: torch.Tenso
     drag_f = (-rp.drag_lin_linear * v_b
               - rp.drag_lin_quadratic * safe_norm(v_b, dim=-1, keepdim=True) * v_b)
     drag_t = -rp.drag_ang_linear * w_b - rp.drag_ang_quadratic * torch.abs(w_b) * w_b
-    return force_b + drag_f, torque_b + drag_t, new_thrust
+    force_b, torque_b = force_b + drag_f, torque_b + drag_t
+    if rp.enable_disturbance:
+        f_dist, t_dist = (sample_disturbance(params, state) if disturbance is None
+                          else disturbance)
+        force_b, torque_b = force_b + f_dist, torque_b + t_dist
+    return force_b, torque_b, new_thrust
 
 
 def integrate_rigid_body(params: SimParams, state: SimState,

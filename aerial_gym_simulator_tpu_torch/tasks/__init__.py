@@ -1,0 +1,10 @@
+"""Task registration by name."""
+
+from __future__ import annotations
+
+
+def register_all():
+    from ..registry.registries import task_registry
+    from .navigation_task import NavigationTask, NavigationTaskConfig
+
+    task_registry.register_task("navigation_task", NavigationTask, NavigationTaskConfig)

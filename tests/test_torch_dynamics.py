@@ -81,6 +81,21 @@ def test_sim_params_builder_matches_jax():
     assert_records_match(record_to_numpy(tp), record_to_numpy(jp))
 
 
+def test_lmf2_sim_params_builder_matches_jax():
+    """The navigation task's platform: lmf2 (root-link wrench, random
+    wrench disturbance, depth camera) with its own velocity-controller
+    gains, dispatched to lee_velocity_control."""
+    names = ("base_sim", "env_with_obstacles", "lmf2", "lmf2_velocity_control")
+    jp = j_build_sim_params(*(r.make(n) for r, n in zip((j_sim, j_env, j_robot, j_ctrl), names)),
+                            num_envs=N)
+    tp = t_build_sim_params(*(r.make(n) for r, n in zip((t_sim, t_env, t_robot, t_ctrl), names)),
+                            "cpu", num_envs=N)
+    assert_records_match(record_to_numpy(tp), record_to_numpy(jp))
+    assert tp.controller.name == "lee_velocity_control" and tp.controller.randomize_params
+    assert tp.robot.enable_disturbance and tp.robot.force_application_level == "root_link"
+    assert float(tp.controller.K_vel_min[2]) > float(tp.controller.K_vel_max[2])
+
+
 def test_params_round_trip_through_numpy():
     jp = j_build_sim_params(*(r.make(n) for r, n in zip((j_sim, j_env, j_robot, j_ctrl), NAMES)),
                             num_envs=N)

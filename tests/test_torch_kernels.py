@@ -1,6 +1,7 @@
-"""The ray-cast kernel (csrc/raycast.cu) against its plain PyTorch version,
-and the wrapper's contract. This file imports only the port, so it also
-runs where JAX is not installed:
+"""The ray-cast kernel (csrc/raycast.cu) and the fused-attention forward
+kernel (csrc/attention.cu) against their plain PyTorch versions, and the
+wrappers' contracts. This file imports only the port, so it also runs where
+JAX is not installed:
 
     python -m pytest tests/test_torch_kernels.py -q -m cuda    # on the card
 
@@ -11,14 +12,20 @@ phase on a seeded synthetic scene.
 Tolerances (kernel vs plain version): depth max-abs-err 2e-3 and seg
 agreement >= 0.999 on hit pixels; both evaluate the same expressions in
 the same order, so the difference is expected to be 0. Broad phase on and
-off must give bit-identical images.
+off must give bit-identical images. Attention: f32 atol/rtol 1e-4 (the
+kernel sums in another order than the matrix products of the plain
+version), bf16 atol/rtol 0.05 (the probabilities are rounded to bf16 at
+another place).
 """
 
+import numpy as np
 import pytest
 import torch
 
 import aerial_gym_simulator_tpu_torch as port
+from aerial_gym_simulator_tpu_torch.ops import attention_cuda as ac
 from aerial_gym_simulator_tpu_torch.ops import raycast_cuda as rc
+from aerial_gym_simulator_tpu_torch.ops.attention import attention_reference
 from aerial_gym_simulator_tpu_torch.sensors.raycast_sensor import camera_ray_dirs
 from aerial_gym_simulator_tpu_torch.utils.math import quat_to_rotation_matrix
 
@@ -182,3 +189,88 @@ def test_kernel_wrapper_checks_on_card(cuda_device):
         _run(rc.raycast, (pose, prims[:, ::2].contiguous(), dirs, mult))
     with pytest.raises(ValueError):
         _run(rc.raycast, (pose, prims, dirs.cpu(), mult))
+
+
+# ---------------------------------------------------------------------------
+# fused attention forward
+# ---------------------------------------------------------------------------
+
+
+def qkv(shape, dtype, device, seed=0):
+    """Seeded (B, S, D) q, k, v; ``shape`` is (B, S, D, num_heads)."""
+    rs = np.random.RandomState(seed)
+    return [torch.from_numpy(rs.standard_normal(shape[:3]).astype(np.float32))
+            .to(dtype).to(device) for _ in range(3)]
+
+
+def test_attention_cpu_tensors_run_the_plain_version():
+    q, k, v = qkv((2, 17, 128, 4), torch.float32, "cpu")
+    before = dict(ac.LAUNCHES)
+    out = ac.fused_attention(q, k, v, 4)
+    assert torch.equal(out, attention_reference(q, k, v, 4))
+    assert ac.LAUNCHES == before
+    with pytest.raises(ValueError):
+        ac.fused_attention(q, k, v, 3)                     # 128 % 3 != 0
+
+
+ATTENTION_CASES = [
+    ((2, 17, 128, 4), torch.float32, 1e-4),
+    ((1, 225, 128, 4), torch.float32, 1e-4),
+    ((3, 128, 256, 8), torch.float32, 1e-4),
+    ((2, 300, 256, 8), torch.float32, 1e-4),
+    ((64, 225, 256, 8), torch.bfloat16, 0.05),            # tensor-core kernel, hd 32
+    ((2, 100, 256, 4), torch.bfloat16, 0.05),             # tensor-core kernel, hd 64
+    ((2, 65, 96, 4), torch.bfloat16, 0.05),               # hd 24: f32-accurate kernel
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,tol", ATTENTION_CASES,
+                         ids=lambda x: str(x).replace("torch.", ""))
+def test_attention_kernel_matches_plain_version(cuda_device, shape, dtype, tol):
+    q, k, v = qkv(shape, dtype, cuda_device)
+    before = ac.LAUNCHES["attention_fwd"]
+    out = ac.fused_attention(q, k, v, shape[3])
+    ref = attention_reference(q, k, v, shape[3])
+    torch.cuda.synchronize()
+    assert ac.LAUNCHES["attention_fwd"] == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_attention_two_kernels_agree_on_bf16(cuda_device):
+    q, k, v = qkv((4, 225, 256, 8), torch.bfloat16, cuda_device, seed=3)
+    a = ac.attention_forward(q, k, v, 8, use_mma=True)
+    b = ac.attention_forward(q, k, v, 8, use_mma=False)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(a.float(), b.float(), atol=0.05, rtol=0.05)
+
+
+@pytest.mark.cuda
+def test_attention_non_positive_scale_takes_the_f32_accurate_kernel(cuda_device):
+    """The tensor-core kernel takes the row maximum before scaling, which
+    needs a positive scale; any other scale runs the other kernel."""
+    q, k, v = qkv((2, 65, 256, 8), torch.bfloat16, cuda_device, seed=4)
+    out = ac.fused_attention(q, k, v, 8, sm_scale=-0.2)
+    ref = attention_reference(q, k, v, 8, sm_scale=-0.2)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=0.05, rtol=0.05)
+    with pytest.raises(ValueError, match="positive scale"):
+        ac.attention_forward(q, k, v, 8, sm_scale=-0.2, use_mma=True)
+
+
+@pytest.mark.cuda
+def test_attention_wrapper_checks_on_card(cuda_device):
+    q, k, v = qkv((2, 32, 128, 4), torch.float32, cuda_device)
+    with pytest.raises(ValueError):
+        ac.fused_attention(q.transpose(0, 1), k, v, 4)     # not contiguous
+    with pytest.raises(ValueError):
+        ac.fused_attention(q.half(), k.half(), v.half(), 4)
+    with pytest.raises(ValueError):
+        ac.fused_attention(q, k.cpu(), v, 4)
+    with pytest.raises(ValueError):
+        ac.fused_attention(q, k[:, :16].contiguous(), v, 4)
+    with pytest.raises(NotImplementedError, match="K6"):
+        q.requires_grad_(True)
+        ac.fused_attention(q, k, v, 4).sum().backward()
