@@ -14,11 +14,13 @@ def register_all():
         lee_controller_config,
         lmf2_controller_config,
     )
+    from .env_config.base_env_config import EmptyEnvConfig
     from .env_config.obstacle_envs import EnvWithObstaclesConfig
     from .robot_config import catalog as robot_catalog
     from .sim_config.base_sim_config import BaseSimConfig
 
     sim_config_registry.register("base_sim", BaseSimConfig)
+    env_config_registry.register("empty_env", EmptyEnvConfig)
     env_config_registry.register("env_with_obstacles", EnvWithObstaclesConfig)
     robot_catalog.register_robots(robot_registry)
     for name in ("lee_position_control", "lee_velocity_control",

@@ -25,3 +25,15 @@ class EnvConfig:
     upper_bound_max: Tuple[float, float, float] = (1.0, 1.0, 1.0)
     # obstacle asset catalog: {asset_type_name: num_assets}; empty = no obstacles
     asset_counts: Dict[str, int] = field(default_factory=dict)
+
+
+@dataclass
+class EmptyEnvConfig(EnvConfig):
+    """No obstacles, one physics step per env step: the position task's
+    environment (num_envs is always overridden by the task or by SimBuilder)."""
+    name: str = "empty_env"
+    num_envs: int = 3
+    num_physics_steps_per_env_step_mean: int = 1
+    num_physics_steps_per_env_step_std: float = 0.0
+    collision_force_threshold: float = 0.010
+    reset_on_collision: bool = True

@@ -1,23 +1,34 @@
-// Fused multi-head attention forward for NVIDIA Hopper (sm_90a):
+// Fused multi-head attention for NVIDIA Hopper (sm_90a), forward and backward:
 //   o[b, :, h*hd:(h+1)*hd] = softmax(q_h k_h^T * scale) v_h      per (b, h)
 // on the packed (B, S, D = H*hd) layout, whole sequence per head, softmax
-// in f32, output in the input type. The (S, S) logits never reach device
-// memory.
+// in f32, results in the input type. The (S, S) logits never reach device
+// memory in either direction: the backward keeps q, k, v only and
+// recomputes the probabilities.
 //
-// Replaces the forward of the TPU kernel
-// aerial_gym_simulator_tpu/ops/attention_pallas.py, fused_attention ->
-// _fwd_call / _fwd_kernel (pallas_call at attention_pallas.py:153).
-// Plain version: aerial_gym_simulator_tpu_torch/ops/attention.py,
-// attention_reference.
+// Replaces the TPU kernels of
+// aerial_gym_simulator_tpu/ops/attention_pallas.py: the forward
+// fused_attention -> _fwd_call / _fwd_kernel (pallas_call at
+// attention_pallas.py:153) and the backward _bwd_call / _bwd_kernel
+// (pallas_call at attention_pallas.py:169).
+// Plain versions: aerial_gym_simulator_tpu_torch/ops/attention.py,
+// attention_reference and attention_backward_reference.
 //
-// Bound on this card. At the ViT encoder's shapes (B=1024, S=225, D=256,
-// H=8, bf16) a call must move q, k, v in and o out once, 0.47 GB, which
-// takes 0.14 ms at 3.35 TB/s; its 53 GFLOP of products take 0.05 ms at
-// the 989 TFLOP/s bf16 tensor-core peak. The kernel is bound by bytes: the
-// design's job is to touch device memory once and keep the tensor cores
+// Bound on this card, forward. At the ViT encoder's shapes (B=1024, S=225,
+// D=256, H=8, bf16) a call must move q, k, v in and o out once, 0.47 GB,
+// which takes 0.14 ms at 3.35 TB/s; its 53 GFLOP of products take 0.05 ms
+// at the 989 TFLOP/s bf16 tensor-core peak. The kernel is bound by bytes:
+// the design's job is to touch device memory once and keep the tensor cores
 // and the exp unit from becoming the limit instead.
 //
-// Two kernels, one launcher:
+// Bound on this card, backward. The training path is f32 at B=64, S=225,
+// D=256, H=8: q, k, v, do in and dq, dk, dv out once are 103 MB (0.03 ms at
+// 3.35 TB/s); the five products dV = P^T dO, dP = dO V^T, dQ = dS K,
+// dK = dS^T Q and the recomputed Q K^T are 8.3 GFLOP, 0.12 ms at the
+// 67 TFLOP/s f32 rate: bound by operations. f32 inputs are held to 2e-4,
+// which tensor-core products of bf16 or TF32 operands do not give, so the
+// backward is a multiply-add kernel like the f32 forward.
+//
+// Forward, two kernels behind one launcher:
 //  * attention_mma_kernel (bf16, head_dim 32 or 64, positive scale): one
 //    block per (batch row, head). The head's K and V are staged once in
 //    shared memory with 16-byte loads and read back as mma fragments by
@@ -42,12 +53,38 @@
 //    logits (plain f32 multiply-adds), the row's max, exp and sum are warp
 //    reductions, then lanes take output columns for P V. It keeps full f32
 //    accuracy, which bf16 tensor-core products cannot give f32 inputs.
-// What the TPU kernel did for its own hardware and is not carried over:
+// Backward, attention_bwd_kernel (f32 and bf16, any head size): one block
+// per (batch row, head) stages that head's q, k, v and do in shared memory
+// in the input type (rows padded to an odd count of 32-bit words, so lanes
+// on neighbouring rows hit distinct banks) and makes two passes with f32
+// arithmetic. Where the four do not fit one block together (f32 at head_dim
+// 64 beyond S = 177) it stages two at a time, the pair that each pass walks
+// in full: k and v for the row pass, then q and do in their place for the
+// column pass, and each warp fetches the two rows it holds fixed from device
+// memory into a small buffer of its own. The arithmetic and its order are
+// the same, so both stagings give the same bits. Row pass, one warp per pair of query rows: logits and dP =
+// do . v with lanes over keys, row max, exp and sum, delta = sum_j P dP,
+// dS = P (dP - delta) scale, then dQ = dS K with lanes over head columns; the
+// row's max, 1/sum and delta stay in shared memory. Column pass, one warp
+// per pair of keys: P and dS of those columns recomputed from the stored row
+// statistics with lanes over queries, then dV = P^T dO and dK = dS^T Q with
+// lanes over head columns. What limits a multiply-add kernel here is
+// shared-memory bandwidth, one 128-byte access per clock against four warp
+// multiply-adds per clock: the dot products therefore keep a 2 x 256 tile
+// of (pair row, running row) sums in registers, 20 accesses for 32
+// multiply-adds per head column (one row at a time would take 4 accesses
+// for 2), and the pair's P and dS sit interleaved so that one
+// 8-byte broadcast feeds both rows' sums. dK and dV sum over queries and dQ
+// over keys inside one block, so there is no float atomic and two launches
+// on the same inputs give the same bits. The loops are bounded by S: no
+// padded key exists, so no masked logit and no 0 * inf can arise at any
+// magnitude of q and k.
+// What the TPU kernels did for their own hardware and is not carried over:
 // padding S to a multiple of 128 in device memory with -1e30 on padded
 // keys, casting bf16 operands to f32 before the products, one sequential
 // grid step per batch row looping over heads.
-// Making it faster (wgmma, TMA loads, fusing the QKV projection) is later
-// work.
+// Making it faster (wgmma, TMA loads, fusing the QKV projection, tensor-core
+// products for the bf16 backward) is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -349,6 +386,264 @@ attention_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   }
 }
 
+// ---------------------------------------------------------------------------
+// backward: recompute P, dq / dk / dv with plain multiply-adds
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdWarps = 16;
+constexpr int kBwdTiles = 8;   // 32-wide tiles of the running axis held in registers
+
+// elements of padding per staged row: the row then spans an odd number of
+// 32-bit words (head_dim even for bf16), so lanes on neighbouring rows and
+// the same column fall on distinct banks
+template <typename T>
+__host__ __device__ constexpr int bwd_row_pad() { return 4 / (int)sizeof(T); }
+
+// Two fixed rows a0, a1 of A and dA against the 32 * kBwdTiles rows of B and
+// dB that start at j0 (this lane takes rows j0 + 32 t + lane):
+//   s[r][t] = A[a_r] . B[j],  dp[r][t] = dA[a_r] . dB[j],
+// summed over the head in ascending order. The row pass calls it with
+// queries fixed and keys running, the column pass the other way round; the
+// products commute, so both passes see the same bits. Rows past S repeat
+// row S - 1 and are dropped by the caller. Per head column this costs 4
+// broadcast loads and 2 loads per tile for 4 multiply-adds per tile.
+template <typename T>
+__device__ __forceinline__ void pair_dots(const T* __restrict__ A, const T* __restrict__ dA,
+                                          const T* __restrict__ B, const T* __restrict__ dB,
+                                          int a0, int a1, int j0, int lane, int S, int hd,
+                                          int ld, float (&s)[2][kBwdTiles],
+                                          float (&dp)[2][kBwdTiles]) {
+  int off[kBwdTiles];
+#pragma unroll
+  for (int t = 0; t < kBwdTiles; ++t) {
+    off[t] = min(j0 + t * 32 + lane, S - 1) * ld;
+    s[0][t] = s[1][t] = dp[0][t] = dp[1][t] = 0.0f;
+  }
+  const T* x0 = A + a0 * ld;
+  const T* x1 = A + a1 * ld;
+  const T* y0 = dA + a0 * ld;
+  const T* y1 = dA + a1 * ld;
+  for (int d = 0; d < hd; ++d) {
+    const float xa = to_float(x0[d]), xb = to_float(x1[d]);
+    const float ya = to_float(y0[d]), yb = to_float(y1[d]);
+#pragma unroll
+    for (int t = 0; t < kBwdTiles; ++t) {
+      const float b = to_float(B[off[t] + d]);
+      const float db = to_float(dB[off[t] + d]);
+      s[0][t] = fmaf(xa, b, s[0][t]);
+      s[1][t] = fmaf(xb, b, s[1][t]);
+      dp[0][t] = fmaf(ya, db, dp[0][t]);
+      dp[1][t] = fmaf(yb, db, dp[1][t]);
+    }
+  }
+}
+
+// one head of two packed (S, D) tensors into shared rows of ld elements, by
+// the whole block. The loads of one pass are independent, so a block that has
+// nothing else to run hides their latency behind each other: staging tensor
+// by tensor in loops of their own made the whole kernel 10-20% slower.
+template <typename T>
+__device__ __forceinline__ void stage_two(T* dst0, const T* __restrict__ src0, T* dst1,
+                                          const T* __restrict__ src1, size_t base, int S,
+                                          int hd, int ld, int D) {
+  for (int i = threadIdx.x; i < S * hd; i += blockDim.x) {
+    const int row = i / hd, d = i - row * hd;
+    const size_t src = base + (size_t)row * D + d;
+    dst0[row * ld + d] = src0[src];
+    dst1[row * ld + d] = src1[src];
+  }
+}
+
+// rows r0, r1 of a and of da into a warp's own buffer: a[r0], a[r1], da[r0],
+// da[r1], each ld elements long
+template <typename T>
+__device__ __forceinline__ void stage_pair(T* dst, const T* __restrict__ a,
+                                           const T* __restrict__ da, size_t base, int r0,
+                                           int r1, int hd, int ld, int D, int lane) {
+  for (int d = lane; d < hd; d += 32) {
+    dst[d] = a[base + (size_t)r0 * D + d];
+    dst[ld + d] = a[base + (size_t)r1 * D + d];
+    dst[2 * ld + d] = da[base + (size_t)r0 * D + d];
+    dst[3 * ld + d] = da[base + (size_t)r1 * D + d];
+  }
+  __syncwarp();
+}
+
+// shared memory: float2 scratch[warps][2][S] (P and dP / dS of a pair of rows
+// or columns per warp, the pair interleaved), float stats[3][S] (row max,
+// 1 / row sum, delta), then in T with rows of hd + pad: Qs, Ks, Vs, dOs [S]
+// each when kAll; else two [S] buffers (Ks and Vs, later Qs and dOs) and
+// pairs[warps][4]
+template <typename T, bool kAll>
+__global__ void __launch_bounds__(kBwdWarps * 32)
+attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const T* __restrict__ dout, T* __restrict__ dq, T* __restrict__ dk,
+                     T* __restrict__ dv, int S, int H, int hd, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ld = hd + bwd_row_pad<T>();
+  float2* scratch = reinterpret_cast<float2*>(smem_raw);
+  float* row_max = reinterpret_cast<float*>(scratch + (size_t)kBwdWarps * 2 * S);
+  float* row_inv = row_max + S;
+  float* row_delta = row_inv + S;
+  T* buf = reinterpret_cast<T*>(row_delta + S);
+  const size_t head = (size_t)S * ld;
+  // kAll: q, k, v, do side by side. Else k and v first, q and do over them
+  // after the row pass, and a buffer of four rows per warp behind them.
+  T* Qs = buf;
+  T* dOs = kAll ? buf + 3 * head : buf + head;
+  T* Ks = kAll ? buf + head : buf;
+  T* Vs = kAll ? buf + 2 * head : buf + head;
+
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int D = H * hd;
+  const size_t base = (size_t)b * S * D + (size_t)h * hd;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  T* rows = buf + 2 * head + (size_t)warp * 4 * ld;   // !kAll only
+
+  if (kAll) {
+    for (int i = threadIdx.x; i < S * hd; i += blockDim.x) {
+      const int row = i / hd, d = i - row * hd;
+      const size_t src = base + (size_t)row * D + d;
+      Qs[row * ld + d] = q[src];
+      Ks[row * ld + d] = k[src];
+      Vs[row * ld + d] = v[src];
+      dOs[row * ld + d] = dout[src];
+    }
+  } else {
+    stage_two(Ks, k, Vs, v, base, S, hd, ld, D);
+  }
+  __syncthreads();
+
+  float2* pw = scratch + (size_t)warp * 2 * S;   // P of this warp's pair
+  float2* dw = pw + S;                           // dP, then dS
+  float s[2][kBwdTiles], dp[2][kBwdTiles];
+
+  // row pass, two query rows per warp at a time: statistics and dQ
+  for (int i0 = warp * 2; i0 < S; i0 += kBwdWarps * 2) {
+    const bool pair = i0 + 1 < S;
+    const int i1 = pair ? i0 + 1 : i0;
+    float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;
+    if (!kAll) stage_pair(rows, q, dout, base, i0, i1, hd, ld, D, lane);
+    for (int j0 = 0; j0 < S; j0 += 32 * kBwdTiles) {
+      if (kAll)
+        pair_dots<T>(Qs, dOs, Ks, Vs, i0, i1, j0, lane, S, hd, ld, s, dp);
+      else
+        pair_dots<T>(rows, rows + 2 * ld, Ks, Vs, 0, 1, j0, lane, S, hd, ld, s, dp);
+#pragma unroll
+      for (int t = 0; t < kBwdTiles; ++t) {
+        const int j = j0 + t * 32 + lane;
+        if (j < S) {
+          const float s0 = __fmul_rn(s[0][t], scale), s1 = __fmul_rn(s[1][t], scale);
+          pw[j] = make_float2(s0, s1);
+          dw[j] = make_float2(dp[0][t], dp[1][t]);
+          m0 = fmaxf(m0, s0);
+          m1 = fmaxf(m1, s1);
+        }
+      }
+    }
+    m0 = warp_max(m0);
+    m1 = warp_max(m1);
+    float sum0 = 0.0f, sum1 = 0.0f;
+    for (int j = lane; j < S; j += 32) {
+      float2 e = pw[j];
+      e.x = expf(e.x - m0);
+      e.y = expf(e.y - m1);
+      pw[j] = e;
+      sum0 += e.x;
+      sum1 += e.y;
+    }
+    const float inv0 = 1.0f / warp_sum(sum0), inv1 = 1.0f / warp_sum(sum1);
+    float del0 = 0.0f, del1 = 0.0f;
+    for (int j = lane; j < S; j += 32) {
+      float2 p = pw[j];
+      const float2 g = dw[j];
+      p.x *= inv0;
+      p.y *= inv1;
+      pw[j] = p;
+      del0 = fmaf(p.x, g.x, del0);
+      del1 = fmaf(p.y, g.y, del1);
+    }
+    del0 = warp_sum(del0);
+    del1 = warp_sum(del1);
+    for (int j = lane; j < S; j += 32) {
+      const float2 p = pw[j], g = dw[j];
+      dw[j] = make_float2(p.x * (g.x - del0) * scale, p.y * (g.y - del1) * scale);
+    }
+    if (lane == 0) {
+      row_max[i0] = m0;
+      row_inv[i0] = inv0;
+      row_delta[i0] = del0;
+      if (pair) {
+        row_max[i1] = m1;
+        row_inv[i1] = inv1;
+        row_delta[i1] = del1;
+      }
+    }
+    __syncwarp();
+    for (int d = lane; d < hd; d += 32) {
+      float acc0 = 0.0f, acc1 = 0.0f;
+      for (int j = 0; j < S; ++j) {
+        const float2 g = dw[j];
+        const float kk = to_float(Ks[j * ld + d]);
+        acc0 = fmaf(g.x, kk, acc0);
+        acc1 = fmaf(g.y, kk, acc1);
+      }
+      from_float(dq + base + (size_t)i0 * D + d, acc0);
+      if (pair) from_float(dq + base + (size_t)i1 * D + d, acc1);
+    }
+    __syncwarp();
+  }
+  __syncthreads();
+  if (!kAll) {   // q and do take the place of k and v
+    stage_two(Qs, q, dOs, dout, base, S, hd, ld, D);
+    __syncthreads();
+  }
+
+  // column pass, two keys per warp at a time: dK and dV from the stored row
+  // statistics
+  for (int k0 = warp * 2; k0 < S; k0 += kBwdWarps * 2) {
+    const bool pair = k0 + 1 < S;
+    const int k1 = pair ? k0 + 1 : k0;
+    if (!kAll) stage_pair(rows, k, v, base, k0, k1, hd, ld, D, lane);
+    for (int i0 = 0; i0 < S; i0 += 32 * kBwdTiles) {
+      if (kAll)
+        pair_dots<T>(Ks, Vs, Qs, dOs, k0, k1, i0, lane, S, hd, ld, s, dp);
+      else
+        pair_dots<T>(rows, rows + 2 * ld, Qs, dOs, 0, 1, i0, lane, S, hd, ld, s, dp);
+#pragma unroll
+      for (int t = 0; t < kBwdTiles; ++t) {
+        const int i = i0 + t * 32 + lane;
+        if (i < S) {
+          const float m = row_max[i], inv = row_inv[i], del = row_delta[i];
+          const float p0 = expf(__fmul_rn(s[0][t], scale) - m) * inv;
+          const float p1 = expf(__fmul_rn(s[1][t], scale) - m) * inv;
+          pw[i] = make_float2(p0, p1);
+          dw[i] = make_float2(p0 * (dp[0][t] - del) * scale, p1 * (dp[1][t] - del) * scale);
+        }
+      }
+    }
+    __syncwarp();
+    for (int d = lane; d < hd; d += 32) {
+      float av0 = 0.0f, av1 = 0.0f, ak0 = 0.0f, ak1 = 0.0f;
+      for (int i = 0; i < S; ++i) {
+        const float2 p = pw[i], g = dw[i];
+        const float od = to_float(dOs[i * ld + d]), qd = to_float(Qs[i * ld + d]);
+        av0 = fmaf(p.x, od, av0);
+        av1 = fmaf(p.y, od, av1);
+        ak0 = fmaf(g.x, qd, ak0);
+        ak1 = fmaf(g.y, qd, ak1);
+      }
+      from_float(dv + base + (size_t)k0 * D + d, av0);
+      from_float(dk + base + (size_t)k0 * D + d, ak0);
+      if (pair) {
+        from_float(dv + base + (size_t)k1 * D + d, av1);
+        from_float(dk + base + (size_t)k1 * D + d, ak1);
+      }
+    }
+    __syncwarp();
+  }
+}
+
 template <typename Kernel>
 cudaError_t allow_shared(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -391,6 +686,42 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int
   return cudaGetLastError();
 }
 
+constexpr size_t kMaxSharedBytes = 232448;   // what one block may use on sm_90
+
+template <typename T>
+size_t bwd_shared_bytes(int S, int hd, bool all) {
+  const size_t staged_rows = all ? 4 * (size_t)S : 2 * (size_t)S + 4 * (size_t)kBwdWarps;
+  return sizeof(float) * (3 + 4 * (size_t)kBwdWarps) * S
+         + sizeof(T) * staged_rows * (hd + bwd_row_pad<T>());
+}
+
+// all four tensors of a head staged at once where they fit, else two at a time
+template <typename T>
+bool bwd_stages_all(int S, int hd) { return bwd_shared_bytes<T>(S, hd, true) <= kMaxSharedBytes; }
+
+template <typename T, bool kAll>
+cudaError_t launch_bwd_staged(const void* q, const void* k, const void* v, const void* dout,
+                              void* dq, void* dk, void* dv, int B, int S, int H, int hd,
+                              float scale, cudaStream_t s) {
+  const size_t bytes = bwd_shared_bytes<T>(S, hd, kAll);
+  cudaError_t err = allow_shared(attention_bwd_kernel<T, kAll>, bytes);
+  if (err != cudaSuccess) return err;
+  attention_bwd_kernel<T, kAll><<<B * H, kBwdWarps * 32, bytes, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), static_cast<T*>(dq), static_cast<T*>(dk),
+      static_cast<T*>(dv), S, H, hd, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* dout, void* dq,
+                       void* dk, void* dv, int B, int S, int H, int hd, float scale,
+                       cudaStream_t s) {
+  if (bwd_stages_all<T>(S, hd))
+    return launch_bwd_staged<T, true>(q, k, v, dout, dq, dk, dv, B, S, H, hd, scale, s);
+  return launch_bwd_staged<T, false>(q, k, v, dout, dq, dk, dv, B, S, H, hd, scale, s);
+}
+
 }  // namespace
 
 // Shared memory one block needs for these sizes; the wrapper refuses a
@@ -419,6 +750,31 @@ extern "C" int attention_fwd_launch(const void* q, const void* k, const void* v,
     err = launch_fma<__nv_bfloat16>(q, k, v, o, B, S, H, hd, scale, s);
   } else {
     err = launch_fma<float>(q, k, v, o, B, S, H, hd, scale, s);
+  }
+  return static_cast<int>(err);
+}
+
+// Shared memory one block of the backward needs with the staging the
+// launcher picks for these sizes; the wrapper refuses sizes that do not fit.
+extern "C" long long attention_bwd_shared_bytes(int S, int hd, int is_bf16) {
+  return static_cast<long long>(
+      is_bf16 ? bwd_shared_bytes<__nv_bfloat16>(S, hd, bwd_stages_all<__nv_bfloat16>(S, hd))
+              : bwd_shared_bytes<float>(S, hd, bwd_stages_all<float>(S, hd)));
+}
+
+// q, k, v, dout (the gradient of the output) in; dq, dk, dv out: contiguous
+// (B, S, H*hd), f32 (is_bf16 = 0) or bf16 (hd even). P is recomputed.
+extern "C" int attention_bwd_launch(const void* q, const void* k, const void* v,
+                                    const void* dout, void* dq, void* dk, void* dv, int B,
+                                    int S, int H, int hd, float scale, int is_bf16,
+                                    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (is_bf16) {
+    if (hd % 2) return static_cast<int>(cudaErrorInvalidValue);
+    err = launch_bwd<__nv_bfloat16>(q, k, v, dout, dq, dk, dv, B, S, H, hd, scale, s);
+  } else {
+    err = launch_bwd<float>(q, k, v, dout, dq, dk, dv, B, S, H, hd, scale, s);
   }
   return static_cast<int>(err);
 }

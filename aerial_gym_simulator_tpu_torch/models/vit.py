@@ -1,19 +1,22 @@
-"""ViT depth encoder: patch embedding, transformer blocks, token mean,
-(mean, logvar) latent head.
+"""ViT depth encoder (patch embedding, transformer blocks, token mean,
+(mean, logvar) latent head) and the autoencoder trained from it.
 
-Counterpart of ``aerial_gym_simulator_tpu/models/vit.py``, encode side
-only (the decoder and training come with the training slice). Layer
-conventions are the JAX package's, so its checkpoints carry across
-(``sim/convert.vit_encoder_from_flax``): LayerNorm epsilon 1e-6, tanh
-GELU, images in (B, H, W, 1), tokens in row-major order over the patch
-grid.
+Counterpart of ``aerial_gym_simulator_tpu/models/vit.py`` without its
+tensor-parallel sharding map. Layer conventions are the JAX package's, so
+its checkpoints carry across (``sim/convert.py``): LayerNorm epsilon 1e-6,
+tanh GELU, images in (B, H, W, 1), tokens in row-major order over the patch
+grid. ``DepthViT`` pairs the encoder with the conv decoder of
+``models/vae.py`` and trains through ``vae_loss``.
 
 ``attn_impl`` keeps the JAX package's names: ``"fused"`` is the
-hand-written kernel (``ops/attention_cuda.fused_attention``; a CUDA
-tensor launches it or raises, a CPU tensor runs the plain version),
-``"xla"`` is the plain version with the softmax written out
-(``ops/attention.attention_reference``). The projections, the MLP and the
-patch embedding are ordinary ``linear`` / ``conv2d`` calls.
+hand-written kernel pair (``ops/attention_cuda.fused_attention``; CUDA
+tensors launch the forward and, under autograd, the backward kernel or
+raise, CPU tensors run the plain versions), ``"xla"`` is the plain version
+with the softmax written out (``ops/attention.attention_reference``,
+differentiated by autograd). The projections, the MLP and the patch
+embedding are ordinary ``linear`` / ``conv2d`` calls. ``remat``
+recomputes each transformer block in the backward
+(``torch.utils.checkpoint``) instead of keeping its activations.
 """
 
 from __future__ import annotations
@@ -24,11 +27,12 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention_reference
 from ..ops.attention_cuda import fused_attention
 from ..utils.device import resolve_device
-from .vae import FrozenImageEncoder, seeded
+from .vae import Autoencoder, Decoder, FrozenImageEncoder, seeded
 
 ATTN_IMPLS = ("fused", "xla")
 LAYER_NORM_EPS = 1e-6
@@ -76,14 +80,16 @@ class TransformerBlock(nn.Module):
 class ViTEncoder(nn.Module):
     """Patchify -> transformer -> mean-pool -> (mean, logvar), logvar
     clipped to +-10. ``num_tokens`` is the size of the patch grid the
-    position embedding is made for."""
+    position embedding is made for. ``remat`` recomputes each block in the
+    backward: the same gradients for one more forward of each block."""
 
     def __init__(self, latent_dim: int = 64, patch: Tuple[int, int] = (9, 16),
                  dim: int = 128, depth: int = 4, num_heads: int = 4,
-                 attn_impl: str = "xla", num_tokens: int = 225):
+                 attn_impl: str = "xla", num_tokens: int = 225, remat: bool = False):
         super().__init__()
         self.latent_dim = latent_dim
         self.patch = tuple(patch)
+        self.remat = remat
         self.patch_embed = nn.Conv2d(1, dim, self.patch, stride=self.patch)
         self.pos_embed = nn.Parameter(0.02 * torch.randn(1, num_tokens, dim))
         self.blocks = nn.ModuleList(
@@ -96,7 +102,10 @@ class ViTEncoder(nn.Module):
         x = self.patch_embed(x.permute(0, 3, 1, 2))              # (B, dim, h, w)
         x = x.flatten(2).transpose(1, 2) + self.pos_embed        # (B, h*w, dim)
         for block in self.blocks:
-            x = block(x)
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(block, x, use_reentrant=False)
+            else:
+                x = block(x)
         x = self.norm(x).mean(dim=1)
         mean, logvar = self.latent_head(x).chunk(2, dim=-1)
         return mean, torch.clamp(logvar, -10.0, 10.0)
@@ -108,22 +117,44 @@ def vit_input_hw(image_res: Tuple[int, int], patch: Tuple[int, int]) -> Tuple[in
             max(round(image_res[1] / patch[1]), 1) * patch[1])
 
 
+class DepthViT(Autoencoder):
+    """ViT encoder + the conv decoder: the same training and inference
+    contract as ``DepthVAE``. Inputs are ``out_hw`` images whose sides are
+    multiples of the patch. ``encoder`` and ``decoder`` take modules that
+    carry weights already (the size arguments are then not read)."""
+
+    def __init__(self, latent_dim: int = 64, out_hw: Tuple[int, int] = (270, 480),
+                 patch: Tuple[int, int] = (9, 16), dim: int = 128, depth: int = 4,
+                 num_heads: int = 4, attn_impl: str = "xla", remat: bool = False,
+                 encoder: Optional[ViTEncoder] = None, decoder: Optional[Decoder] = None):
+        if encoder is None:
+            tokens = (out_hw[0] // patch[0]) * (out_hw[1] // patch[1])
+            encoder = ViTEncoder(latent_dim, patch, dim, depth, num_heads, attn_impl, tokens,
+                                 remat)
+        super().__init__(encoder, Decoder(latent_dim, out_hw) if decoder is None else decoder)
+
+
 class ViTImageEncoder(FrozenImageEncoder):
-    """The ViT encoder, frozen. ``encoder`` is a ViTEncoder carrying
-    trained weights (``sim/convert.load_encoder_pickle``); None builds one
-    with random weights from ``seed``. Images are resized to the nearest
-    patch multiple of ``image_res``; bf16 compute by default."""
+    """The ViT autoencoder, frozen. ``encoder`` (and ``decoder``) are
+    modules carrying trained weights (``sim/convert.py``); ``encoder=None``
+    builds the whole model with random weights from ``seed``. Images are
+    resized to the nearest patch multiple of ``image_res``; bf16 compute by
+    default for the encoder, f32 for the decoder."""
 
     def __init__(self, latent_dim: int = 64, image_res: Tuple[int, int] = (270, 480),
                  encoder: Optional[ViTEncoder] = None, return_sampled_latent: bool = True,
                  seed: int = 0, compute_dtype=torch.bfloat16,
                  patch: Tuple[int, int] = (9, 16), dim: int = 128, depth: int = 4,
-                 num_heads: int = 4, attn_impl: str = "xla", device=None):
+                 num_heads: int = 4, attn_impl: str = "xla", device=None,
+                 decoder: Optional[Decoder] = None):
         self.image_res = tuple(image_res)
         input_hw = vit_input_hw(image_res, patch)
         if encoder is None:
-            tokens = (input_hw[0] // patch[0]) * (input_hw[1] // patch[1])
-            encoder = seeded(seed, lambda: ViTEncoder(latent_dim, patch, dim, depth,
-                                                      num_heads, attn_impl, tokens))
+            # the decoder reconstructs at image_res, as the JAX package's does
+            def build():
+                enc = ViTEncoder(latent_dim, patch, dim, depth, num_heads, attn_impl,
+                                 (input_hw[0] // patch[0]) * (input_hw[1] // patch[1]))
+                return enc, Decoder(latent_dim, self.image_res)
+            encoder, decoder = seeded(seed, build)
         super().__init__(encoder, latent_dim, input_hw, return_sampled_latent,
-                         compute_dtype, resolve_device(device))
+                         compute_dtype, resolve_device(device), decoder=decoder)

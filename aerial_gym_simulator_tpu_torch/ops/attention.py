@@ -5,6 +5,9 @@ Counterpart of ``attention_oracle`` in the JAX package's
 ``ops/attention_cuda.py``: the same function with the (S, S) softmax
 written out. The tests use it, CPU tensors run it, and the kernel is held
 against it on the card. It is differentiable on its own.
+``attention_backward_reference`` is the plain version of the backward
+kernel: the gradient formulas of the JAX package's ``_bwd_kernel`` written
+out, with the probabilities recomputed from q and k.
 """
 
 from __future__ import annotations
@@ -34,3 +37,30 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_h
     p = torch.softmax(logits, dim=-1)
     o = torch.matmul(p.to(v.dtype).float(), vh.float())
     return o.transpose(1, 2).reshape(b, s, d).to(q.dtype)
+
+
+def attention_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 do: torch.Tensor, num_heads: int,
+                                 sm_scale: Optional[float] = None):
+    """Gradients of ``attention_reference`` for the output gradient ``do``
+    -> (dq, dk, dv), each (B, S, D) in q's dtype.
+
+    Per head, in f32: P = softmax(q k^T * sm_scale) recomputed,
+    dV = P^T dO, dP = dO V^T, dS = P * (dP - rowsum(P * dP)) * sm_scale,
+    dQ = dS K, dK = dS^T Q."""
+    b, s, d = q.shape
+    if d % num_heads:
+        raise ValueError(f"model dim {d} not divisible by heads {num_heads}")
+    hd = d // num_heads
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(hd)
+    split = lambda x: x.reshape(b, s, num_heads, hd).transpose(1, 2).float()
+    qh, kh, vh, doh = split(q), split(k), split(v), split(do)
+    p = torch.softmax(torch.matmul(qh, kh.transpose(-1, -2)) * sm_scale, dim=-1)
+    dv = torch.matmul(p.transpose(-1, -2), doh)
+    dp = torch.matmul(doh, vh.transpose(-1, -2))
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True)) * sm_scale
+    dq = torch.matmul(ds, kh)
+    dk = torch.matmul(ds.transpose(-1, -2), qh)
+    merge = lambda x: x.transpose(1, 2).reshape(b, s, d).to(q.dtype)
+    return merge(dq), merge(dk), merge(dv)

@@ -1,0 +1,418 @@
+"""PPO learner: rollout and update on the task's device.
+
+Counterpart of ``aerial_gym_simulator_tpu/rl/ppo.py``, feed-forward path:
+clipped PPO, GAE(lambda), advantage normalization per minibatch, entropy
+bonus, bounds loss, value bootstrap at truncations, optional value
+normalization, and the adaptive learning rate that follows the policy's KL
+divergence per minibatch. Defaults follow the reference's
+ppo_aerial_quad.yaml (8192 envs, horizon 32, minibatch 8192, gamma 0.99).
+
+The rollout and the update run eagerly. Nothing in an iteration reads a
+device value back to the host: the learning rate lives in a 0-d tensor that
+``_adapt_lr`` moves with ``torch.where``, ``torch.optim.Adam`` takes it as a
+tensor (the fused implementation on a GPU), the clip by the global norm
+scales by a device value, and metrics stay on the device until a log point.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import pickle
+import time
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .networks import ActorCritic, gaussian_entropy, gaussian_logp, sample_action
+
+logger = logging.getLogger("ppo")
+
+
+@dataclass
+class PPOConfig:
+    """Defaults follow rl_training/rl_games/ppo_aerial_quad.yaml.
+
+    ``rnn`` other than None raises ``NotImplementedError`` (the GRU policy
+    comes with the LiDAR/radar tasks). ``matmul_precision`` is kept so that
+    configs carry across, and is without effect: the networks' products run
+    in full f32 here whatever it says."""
+    num_envs: int = 8192
+    horizon: int = 32
+    minibatch_size: int = 8192
+    epochs: int = 4
+    gamma: float = 0.99
+    gae_lambda: float = 0.95
+    clip_eps: float = 0.2
+    value_coef: float = 2.0
+    entropy_coef: float = 0.0
+    lr: float = 3e-4
+    # "adaptive" raises / lowers the lr by 1.5x per minibatch when the
+    # approximate policy KL leaves [kl_threshold / 2, 2 kl_threshold];
+    # "fixed" keeps lr
+    lr_schedule: str = "adaptive"
+    kl_threshold: float = 0.016
+    min_lr: float = 1e-6
+    max_lr: float = 1e-2
+    max_grad_norm: float = 1.0
+    total_env_steps: int = 50_000_000
+    hidden: Tuple[int, ...] = (256, 128, 64)
+    activation: str = "elu"
+    normalize_advantage: bool = True
+    normalize_obs: bool = True
+    # value_bootstrap adds gamma * V(s_t) to the reward at truncated steps,
+    # so a timeout is not treated as a terminal; bounds_loss penalizes policy
+    # means outside [-1.1, 1.1]; normalize_value trains the critic in
+    # running-normalized return space
+    value_bootstrap: bool = True
+    bounds_loss_coef: float = 0.0001
+    normalize_value: bool = False
+    reward_scale: float = 0.1
+    seed: int = 42
+    rnn: Optional[str] = None
+    rnn_hidden: int = 256
+    matmul_precision: str = "bfloat16"
+
+
+class RunningMeanStd:
+    """Running observation normalizer; the state is a dict of tensors."""
+
+    @staticmethod
+    def init(dim: int, device=None) -> Dict[str, torch.Tensor]:
+        return {"mean": torch.zeros(dim, device=device),
+                "var": torch.ones(dim, device=device),
+                "count": torch.tensor(1e-4, device=device)}
+
+    @staticmethod
+    def update(s, batch2d):
+        b_mean = batch2d.mean(dim=0)
+        b_var = batch2d.var(dim=0, unbiased=False)
+        b_count = float(batch2d.shape[0])
+        delta = b_mean - s["mean"]
+        tot = s["count"] + b_count
+        m2 = s["var"] * s["count"] + b_var * b_count + delta * delta * s["count"] * b_count / tot
+        out = dict(s)                 # keeps the value-return stats beside them
+        out.update(mean=s["mean"] + delta * b_count / tot, var=m2 / tot, count=tot)
+        return out
+
+    @staticmethod
+    def normalize(s, x):
+        return torch.clamp((x - s["mean"]) / torch.sqrt(s["var"] + 1e-8), -5.0, 5.0)
+
+
+def _vstats_update(norm, x):
+    """Update the scalar value-return running stats kept beside the obs
+    stats (keys v_mean, v_var, v_count)."""
+    b_mean, b_var, b_count = x.mean(), x.var(unbiased=False), float(x.numel())
+    delta = b_mean - norm["v_mean"]
+    tot = norm["v_count"] + b_count
+    m2 = (norm["v_var"] * norm["v_count"] + b_var * b_count
+          + delta * delta * norm["v_count"] * b_count / tot)
+    out = dict(norm)
+    out.update(v_mean=norm["v_mean"] + delta * b_count / tot, v_var=m2 / tot, v_count=tot)
+    return out
+
+
+def _v_normalize(norm, v):
+    return (v - norm["v_mean"]) / torch.sqrt(norm["v_var"] + 1e-8)
+
+
+def _v_unnormalize(norm, v):
+    return v * torch.sqrt(norm["v_var"] + 1e-8) + norm["v_mean"]
+
+
+def _bounds_loss(mean):
+    """Quadratic penalty on policy means outside the 1.1 soft bound."""
+    high = torch.clamp(mean - 1.1, min=0.0) ** 2
+    low = torch.clamp(mean + 1.1, max=0.0) ** 2
+    return torch.mean(torch.sum(high + low, dim=-1))
+
+
+def _gae(gamma: float, lam: float, values, rewards, dones, last_value):
+    """GAE(lambda) over a time-major (T, N) rollout -> (advantages,
+    returns)."""
+    v_next = torch.cat([values[1:], last_value[None]], dim=0)
+    deltas = rewards + gamma * v_next * (1.0 - dones) - values
+    decay = gamma * lam * (1.0 - dones)
+    adv = torch.empty_like(values)
+    gae = torch.zeros_like(last_value)
+    for t in range(values.shape[0] - 1, -1, -1):
+        gae = deltas[t] + decay[t] * gae
+        adv[t] = gae
+    return adv, adv + values
+
+
+def _adapt_lr(cfg: PPOConfig, lr: torch.Tensor, kl: torch.Tensor) -> torch.Tensor:
+    """Per minibatch: shrink the lr 1.5x when the policy moved too far
+    (kl > 2 threshold), grow it 1.5x when it barely moved (kl < threshold /
+    2), clamped to [min_lr, max_lr]. ``lr`` and ``kl`` are 0-d tensors."""
+    if cfg.lr_schedule != "adaptive":
+        return lr
+    return torch.where(kl > 2.0 * cfg.kl_threshold, torch.clamp(lr / 1.5, min=cfg.min_lr),
+                       torch.where(kl < 0.5 * cfg.kl_threshold,
+                                   torch.clamp(lr * 1.5, max=cfg.max_lr), lr))
+
+
+def ppo_loss(cfg: PPOConfig, network, minibatch):
+    """Clipped PPO loss on one minibatch (obs, action, old_logp, old_value,
+    advantage, return) -> (total, (pg_loss, v_loss, entropy, kl))."""
+    obs, action, old_logp, old_value, adv, ret = minibatch
+    mean, log_std, value = network(obs)
+    logp = gaussian_logp(mean, log_std, action)
+    d = logp - old_logp
+    ratio = torch.exp(d)
+    pg1 = -adv * ratio
+    pg2 = -adv * torch.clamp(ratio, 1.0 - cfg.clip_eps, 1.0 + cfg.clip_eps)
+    pg_loss = torch.mean(torch.maximum(pg1, pg2))
+    v_clipped = old_value + torch.clamp(value - old_value, -cfg.clip_eps, cfg.clip_eps)
+    v_loss = 0.5 * torch.mean(torch.maximum((value - ret) ** 2, (v_clipped - ret) ** 2))
+    ent = torch.mean(gaussian_entropy(log_std))
+    # non-negative approximate KL(old || new), for the lr schedule only
+    kl = torch.mean(ratio - 1.0 - d).detach()
+    total = pg_loss + cfg.value_coef * v_loss - cfg.entropy_coef * ent
+    if cfg.bounds_loss_coef:
+        total = total + cfg.bounds_loss_coef * _bounds_loss(mean)
+    return total, (pg_loss.detach(), v_loss.detach(), ent.detach(), kl)
+
+
+def make_optimizer(network, lr: float) -> torch.optim.Adam:
+    """Adam with eps 1e-5 and the learning rate as a 0-d tensor on the
+    network's device, so that the schedule can move it without a read-back:
+    the fused implementation on a GPU, the per-tensor loop on the CPU (the
+    only two that take a tensor lr without graph capture)."""
+    device = next(network.parameters()).device
+    how = {"fused": True} if device.type == "cuda" else {"foreach": False}
+    return torch.optim.Adam(network.parameters(), lr=torch.tensor(float(lr), device=device),
+                            eps=1e-5, **how)
+
+
+def clip_and_step(optimizer: torch.optim.Adam, max_grad_norm: float):
+    """Clip the gradients in ``.grad`` by their global norm, then Adam."""
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    torch.nn.utils.clip_grad_norm_(params, max_grad_norm)
+    optimizer.step()
+
+
+def _map_leaves(tree, kind, fn):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(v, kind, fn) for k, v in tree.items()}
+    return fn(tree) if isinstance(tree, kind) else tree
+
+
+@dataclass
+class Rollout:
+    """One horizon of experience, time-major (T, N, ...)."""
+    norm_obs: torch.Tensor
+    actions: torch.Tensor
+    logps: torch.Tensor
+    values: torch.Tensor
+    rewards: torch.Tensor           # scaled, with the truncation bootstrap
+    dones: torch.Tensor
+    terms: torch.Tensor
+
+
+class PPOTrainer:
+    """The training loop around a task's ``make_step_fn`` protocol. Runs on
+    the task's device."""
+
+    def __init__(self, task, cfg: PPOConfig):
+        if cfg.rnn is not None:
+            raise NotImplementedError(
+                f"rnn={cfg.rnn!r}: recurrent policies are not ported yet (see ROADMAP.md)")
+        if cfg.lr_schedule not in ("adaptive", "fixed"):
+            raise ValueError(f"unknown lr_schedule {cfg.lr_schedule!r} ('adaptive' or 'fixed')")
+        self.task, self.cfg = task, cfg
+        self.device = task.device
+        self.obs_dim = int(task.task_config.observation_space_dim)
+        self.action_dim = int(task.task_config.action_space_dim)
+
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(cfg.seed)
+            network = ActorCritic(self.obs_dim, self.action_dim, cfg.hidden, cfg.activation)
+        self.network = network.to(self.device)
+        self.optimizer = make_optimizer(self.network, cfg.lr)
+        self.norm = RunningMeanStd.init(self.obs_dim, self.device)
+        # scalar running stats of the value targets, carried even when
+        # normalize_value is off so that a checkpoint's layout does not
+        # depend on the config
+        self.norm.update(v_mean=torch.zeros((), device=self.device),
+                         v_var=torch.ones((), device=self.device),
+                         v_count=torch.tensor(1e-4, device=self.device))
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(cfg.seed)
+        self._iter = 0
+
+        self.step_fn, self.env_carry, self.obs = task.make_step_fn()
+        batch = cfg.num_envs * cfg.horizon
+        self.mb_size = min(cfg.minibatch_size, batch)
+        self.n_minibatches = batch // self.mb_size
+        if self.mb_size != cfg.minibatch_size:
+            logger.info("minibatch_size %d > rollout batch %d: clamped to one minibatch",
+                        cfg.minibatch_size, batch)
+        if batch % self.mb_size:
+            logger.warning("batch %d is not a multiple of minibatch_size %d: %d samples are "
+                           "dropped from every epoch (a random subset per shuffle)",
+                           batch, self.mb_size, batch - self.n_minibatches * self.mb_size)
+
+    @property
+    def lr(self) -> torch.Tensor:
+        return self.optimizer.param_groups[0]["lr"]
+
+    @lr.setter
+    def lr(self, value: torch.Tensor):
+        self.optimizer.param_groups[0]["lr"] = value
+
+    # -- one iteration ------------------------------------------------------
+
+    def _normalize(self, obs):
+        return RunningMeanStd.normalize(self.norm, obs) if self.cfg.normalize_obs else obs
+
+    @torch.no_grad()
+    def collect_rollout(self) -> Rollout:
+        """Step the task ``horizon`` times with sampled actions."""
+        cfg = self.cfg
+        carry, obs, traj = self.env_carry, self.obs, []
+        for _ in range(cfg.horizon):
+            norm_obs = self._normalize(obs)
+            mean, log_std, value = self.network(norm_obs)
+            if cfg.normalize_value:
+                value = _v_unnormalize(self.norm, value)
+            action, logp = sample_action(mean, log_std, self.generator)
+            carry, obs, reward, term, trunc = self.step_fn(carry, action)
+            shaped = reward * cfg.reward_scale
+            if cfg.value_bootstrap:
+                shaped = shaped + cfg.gamma * value * trunc     # a timeout is no terminal
+            traj.append((norm_obs, action, logp, value, shaped, torch.maximum(term, trunc),
+                         term))
+        self.env_carry, self.obs = carry, obs
+        return Rollout(*(torch.stack(x) for x in zip(*traj)))
+
+    def update(self, ro: Rollout) -> Dict[str, torch.Tensor]:
+        """GAE, then ``epochs`` passes over shuffled minibatches; returns the
+        iteration's metrics as 0-d tensors on the device."""
+        cfg = self.cfg
+        T, N = ro.values.shape
+        batch = T * N
+        with torch.no_grad():
+            if cfg.normalize_obs:
+                self.norm = RunningMeanStd.update(self.norm, ro.norm_obs.reshape(batch, -1))
+            _, _, last_value = self.network(self._normalize(self.obs))
+            if cfg.normalize_value:
+                last_value = _v_unnormalize(self.norm, last_value)
+            adv, ret = _gae(cfg.gamma, cfg.gae_lambda, ro.values, ro.rewards, ro.dones,
+                            last_value)
+            values_st, ret_st = ro.values, ret
+            if cfg.normalize_value:
+                # stats on the values, normalize; then on the returns, normalize
+                self.norm = _vstats_update(self.norm, ro.values)
+                values_st = _v_normalize(self.norm, ro.values)
+                self.norm = _vstats_update(self.norm, ret)
+                ret_st = _v_normalize(self.norm, ret)
+            col = lambda x: x.reshape(batch, 1)
+            data = torch.cat([ro.norm_obs.reshape(batch, -1), ro.actions.reshape(batch, -1),
+                              col(ro.logps), col(values_st), col(adv), col(ret_st)], dim=1)
+        o, a = self.obs_dim, self.obs_dim + self.action_dim
+        aux = []
+        for _ in range(cfg.epochs):
+            perm = torch.randperm(batch, generator=self.generator, device=self.device)
+            shuffled = data[perm]
+            for i in range(self.n_minibatches):
+                mb = shuffled[i * self.mb_size:(i + 1) * self.mb_size]
+                adv_mb = mb[:, a + 2]
+                if cfg.normalize_advantage:
+                    adv_mb = (adv_mb - adv_mb.mean()) / (adv_mb.std(unbiased=False) + 1e-8)
+                total, stats = ppo_loss(cfg, self.network, (
+                    mb[:, :o], mb[:, o:a], mb[:, a], mb[:, a + 1], adv_mb, mb[:, a + 3]))
+                self.optimizer.zero_grad(set_to_none=True)
+                total.backward()
+                clip_and_step(self.optimizer, cfg.max_grad_norm)
+                self.lr = _adapt_lr(cfg, self.lr, stats[3])
+                aux.append(torch.stack(stats))
+        pg_loss, v_loss, ent, kl = torch.stack(aux).mean(dim=0)
+        return {"reward_mean": ro.rewards.mean() / cfg.reward_scale,
+                "done_rate": ro.dones.mean(), "crash_rate": ro.terms.mean(),
+                "pg_loss": pg_loss, "v_loss": v_loss, "entropy": ent, "approx_kl": kl,
+                "lr": self.lr, "value_mean": ro.values.mean()}
+
+    def train_iteration(self) -> Dict[str, torch.Tensor]:
+        metrics = self.update(self.collect_rollout())
+        self._iter += 1
+        return metrics
+
+    # -- the loop -------------------------------------------------------------
+
+    def train(self, total_env_steps: Optional[int] = None, log_every: int = 10):
+        """Run ``total_env_steps // (num_envs * horizon)`` iterations (at
+        least one) -> history, one dict of floats per log point. Metrics are
+        read back from the device at the log points only."""
+        cfg = self.cfg
+        steps_per_iter = cfg.num_envs * cfg.horizon
+        iters = max((total_env_steps or cfg.total_env_steps) // steps_per_iter, 1)
+        history, t_start = [], time.perf_counter()
+        t_last, it_last = t_start, 0
+        for it in range(iters):
+            metrics = self.train_iteration()
+            if it % log_every == 0 or it == iters - 1:
+                names = sorted(metrics)
+                values = torch.stack([metrics[k].float() for k in names]).tolist()  # one sync
+                now = time.perf_counter()
+                m = dict(zip(names, values))
+                m.update(iter=it, env_steps=(it + 1) * steps_per_iter, wall_s=now - t_start,
+                         env_steps_per_s=(it + 1 - it_last) * steps_per_iter
+                         / max(now - t_last, 1e-9))
+                t_last, it_last = now, it + 1
+                history.append(m)
+                logger.info("it %4d steps %.2e reward %7.3f crash %.3f sps %.0f wall %.1fs",
+                            it, m["env_steps"], m["reward_mean"], m["crash_rate"],
+                            m["env_steps_per_s"], m["wall_s"])
+        if hasattr(self.task, "set_carry"):
+            self.task.set_carry(self.env_carry)
+        return history
+
+    # -- inference and checkpoints -------------------------------------------
+
+    @torch.no_grad()
+    def act(self, obs, deterministic: bool = True):
+        """Policy inference: the action mean, or a sample."""
+        obs = torch.as_tensor(obs, dtype=torch.float32, device=self.device)
+        mean, log_std, _ = self.network(self._normalize(obs))
+        if deterministic:
+            return mean
+        return sample_action(mean, log_std, self.generator)[0]
+
+    def save_checkpoint(self, path: str):
+        """Pickle the network's parameters, the normalizer state, Adam's
+        moments and step counts with the current learning rate, and the
+        config (numpy inside); ``sim2real.policy.export_policy_npz`` reads
+        it."""
+        with open(path, "wb") as f:
+            pickle.dump({
+                "params": {k: v.detach().cpu().numpy() for k, v in
+                           self.network.state_dict().items()},
+                "norm": {k: v.detach().cpu().numpy() for k, v in self.norm.items()},
+                "optimizer": _map_leaves(self.optimizer.state_dict()["state"], torch.Tensor,
+                                         lambda t: t.detach().cpu().numpy()),
+                "lr": float(self.lr),
+                "iter": self._iter,
+                "cfg": dataclasses.asdict(self.cfg),
+                "obs_dim": self.obs_dim, "action_dim": self.action_dim,
+            }, f)
+        logger.info("checkpoint saved to %s", path)
+
+    def load_checkpoint(self, path: str):
+        with open(path, "rb") as f:
+            blob = pickle.load(f)
+        with torch.no_grad():
+            for name, p in self.network.named_parameters():
+                p.copy_(torch.as_tensor(np.asarray(blob["params"][name]), device=self.device))
+        self.norm = {k: torch.as_tensor(np.asarray(v), dtype=torch.float32, device=self.device)
+                     for k, v in blob["norm"].items()}
+        # Adam's state from the file, its settings from this trainer
+        state = self.optimizer.state_dict()
+        state["state"] = _map_leaves(blob["optimizer"], np.ndarray, torch.from_numpy)
+        self.optimizer.load_state_dict(state)
+        self.lr = torch.tensor(blob["lr"], device=self.device)
+        self._iter = blob["iter"]
+        logger.info("checkpoint loaded from %s", path)

@@ -4,9 +4,11 @@ dicts.
 The dicts are keyed by the record field names (the JAX package's
 dataclass field names, which the port keeps), with numpy arrays or Python
 scalars as leaves and nested dicts for nested records. This is how a state
-reached by another implementation is continued here, and how the encoder
-checkpoints the JAX package trained (pickled flax parameter trees, plain
-numpy inside) become the port's modules.
+reached by another implementation is continued here, and how the
+perception checkpoints the JAX package trained (pickled flax parameter
+trees, plain numpy inside) become the port's modules. The way back
+(``depth_vit_to_flax``, ``depth_vae_to_flax``, ``save_model_pickle``) writes
+the same trees, so a model trained here loads in either package.
 """
 
 from __future__ import annotations
@@ -201,19 +203,175 @@ def vae_encoder_from_flax(params: dict, input_hw=(135, 240)):
     return enc
 
 
+def _set_deconv(deconv, leaf: dict):
+    """flax ConvTranspose kernel (kh, kw, in, out), applied unflipped ->
+    nn.ConvTranspose2d weight (in, out, kh, kw), which torch flips."""
+    kernel = np.asarray(leaf["kernel"])[::-1, ::-1]
+    _set(deconv.weight, np.transpose(kernel, (2, 3, 0, 1)))
+    _set(deconv.bias, leaf["bias"])
+
+
+def _decoder_subtree(params: dict) -> dict:
+    for key in ("params", "decoder"):
+        if key in params:
+            params = params[key]
+    return params
+
+
+def vae_decoder_from_flax(params: dict, out_hw=(135, 240)):
+    """flax DepthVAE / DepthViT / Decoder parameters -> models.vae.Decoder
+    (f32, on the CPU) that reconstructs at ``out_hw``."""
+    from ..models.vae import Decoder
+    p = _decoder_subtree(params)
+    dec = Decoder(latent_dim=np.shape(p["Dense_0"]["kernel"])[0], out_hw=out_hw)
+    _set_dense(dec.dense0, p["Dense_0"])
+    _set_dense(dec.dense1, p["Dense_1"])
+    for i, deconv in enumerate(dec.deconvs):
+        _set_deconv(deconv, p[f"ConvTranspose_{i}"])
+    return dec
+
+
+def depth_vae_from_flax(params: dict, out_hw=(135, 240)):
+    """flax DepthVAE variables -> models.vae.DepthVAE (f32, on the CPU)."""
+    from ..models.vae import DepthVAE
+    return DepthVAE(encoder=vae_encoder_from_flax(params, out_hw),
+                    decoder=vae_decoder_from_flax(params, out_hw))
+
+
+def depth_vit_from_flax(params: dict, out_hw=(135, 240), attn_impl: str = "fused",
+                        remat: bool = False):
+    """flax DepthViT variables -> models.vit.DepthViT (f32, on the CPU)."""
+    from ..models.vit import DepthViT
+    enc = vit_encoder_from_flax(params, attn_impl=attn_impl)
+    enc.remat = remat
+    return DepthViT(encoder=enc, decoder=vae_decoder_from_flax(params, out_hw))
+
+
+# the way back: the port's modules -> flax parameter trees (numpy leaves)
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy().copy()
+
+
+def _dense_to_flax(linear, kernel_shape=None, bias_shape=None) -> dict:
+    kernel, bias = _np(linear.weight).T, _np(linear.bias)
+    return {"kernel": np.ascontiguousarray(kernel.reshape(kernel_shape or kernel.shape)),
+            "bias": bias.reshape(bias_shape or bias.shape)}
+
+
+def _conv_to_flax(conv) -> dict:
+    return {"kernel": np.ascontiguousarray(np.transpose(_np(conv.weight), (2, 3, 1, 0))),
+            "bias": _np(conv.bias)}
+
+
+def _deconv_to_flax(deconv) -> dict:
+    kernel = np.transpose(_np(deconv.weight), (2, 3, 0, 1))[::-1, ::-1]
+    return {"kernel": np.ascontiguousarray(kernel), "bias": _np(deconv.bias)}
+
+
+def _norm_to_flax(norm) -> dict:
+    return {"scale": _np(norm.weight), "bias": _np(norm.bias)}
+
+
+def vae_decoder_to_flax(dec) -> dict:
+    out = {"Dense_0": _dense_to_flax(dec.dense0), "Dense_1": _dense_to_flax(dec.dense1)}
+    for i, deconv in enumerate(dec.deconvs):
+        out[f"ConvTranspose_{i}"] = _deconv_to_flax(deconv)
+    return out
+
+
+def vae_encoder_to_flax(enc) -> dict:
+    out = {f"Conv_{i}": _conv_to_flax(conv) for i, conv in enumerate(enc.convs)}
+    out.update(Dense_0=_dense_to_flax(enc.dense0), Dense_1=_dense_to_flax(enc.dense1))
+    return out
+
+
+def vit_encoder_to_flax(enc) -> dict:
+    dim = enc.latent_head.in_features
+    out = {"patch_embed": _conv_to_flax(enc.patch_embed), "pos_embed": _np(enc.pos_embed)}
+    for i, block in enumerate(enc.blocks):
+        h = block.attn.num_heads
+        hd = dim // h
+        attn = {name: _dense_to_flax(getattr(block.attn, name), (dim, h, hd), (h, hd))
+                for name in ("query", "key", "value")}
+        attn["out"] = _dense_to_flax(block.attn.out, (h, hd, dim))
+        out[f"block_{i}"] = {
+            "LayerNorm_0": _norm_to_flax(block.norm1), "LayerNorm_1": _norm_to_flax(block.norm2),
+            "attn": attn, "mlp_in": _dense_to_flax(block.mlp_in),
+            "mlp_out": _dense_to_flax(block.mlp_out)}
+    out.update(LayerNorm_0=_norm_to_flax(enc.norm), latent_head=_dense_to_flax(enc.latent_head))
+    return out
+
+
+def depth_vae_to_flax(model) -> dict:
+    """models.vae.DepthVAE -> the flax variables dict the JAX package's
+    DepthVAE takes ({"params": {"encoder", "decoder"}}, numpy leaves)."""
+    return {"params": {"encoder": vae_encoder_to_flax(model.encoder),
+                       "decoder": vae_decoder_to_flax(model.decoder)}}
+
+
+def depth_vit_to_flax(model) -> dict:
+    """models.vit.DepthViT -> the flax variables dict of the JAX package's
+    DepthViT."""
+    return {"params": {"encoder": vit_encoder_to_flax(model.encoder),
+                       "decoder": vae_decoder_to_flax(model.decoder)}}
+
+
+def save_model_pickle(model, path: str):
+    """Write a trained autoencoder as the JAX package's ``train_vae`` does:
+    the arch-tagged dict for a DepthViT, the bare parameter tree for a
+    DepthVAE. ``load_encoder_pickle`` / ``load_model_pickle`` and the JAX
+    package's navigation task read either."""
+    from ..models.vit import DepthViT
+    if isinstance(model, DepthViT):
+        enc = model.encoder
+        blob = {"arch": "vit", "params": depth_vit_to_flax(model), "patch": tuple(enc.patch),
+                "dim": enc.latent_head.in_features, "depth": len(enc.blocks),
+                "num_heads": enc.blocks[0].attn.num_heads,
+                "attn_impl": enc.blocks[0].attn.impl}
+    else:
+        blob = depth_vae_to_flax(model)
+    with open(path, "wb") as f:
+        pickle.dump(blob, f)
+
+
+def _read_pickle(path: str):
+    with open(path, "rb") as f:
+        loaded = pickle.load(f)
+    is_vit = isinstance(loaded, dict) and loaded.get("arch") == "vit"
+    return loaded, is_vit
+
+
+def _check_vit_tags(path: str, loaded: dict, enc):
+    for key, have in (("patch", enc.patch), ("depth", len(enc.blocks)),
+                      ("num_heads", enc.blocks[0].attn.num_heads)):
+        if key in loaded and tuple(np.atleast_1d(loaded[key])) != tuple(np.atleast_1d(have)):
+            raise ValueError(f"{path}: tag says {key}={loaded[key]}, weights say {have}")
+
+
 def load_encoder_pickle(path: str, input_hw=(135, 240)):
     """Read an encoder checkpoint -> (arch, encoder module). A dict tagged
     {"arch": "vit", "params": ..., "patch", "dim", "depth", "num_heads",
     "attn_impl"} is a ViT encoder; anything else is the conv VAE's raw
     parameter tree."""
-    with open(path, "rb") as f:
-        loaded = pickle.load(f)
-    if isinstance(loaded, dict) and loaded.get("arch") == "vit":
+    loaded, is_vit = _read_pickle(path)
+    if is_vit:
         enc = vit_encoder_from_flax(loaded["params"],
                                     attn_impl=loaded.get("attn_impl", "xla"))
-        for key, have in (("patch", enc.patch), ("depth", len(enc.blocks)),
-                          ("num_heads", enc.blocks[0].attn.num_heads)):
-            if key in loaded and tuple(np.atleast_1d(loaded[key])) != tuple(np.atleast_1d(have)):
-                raise ValueError(f"{path}: tag says {key}={loaded[key]}, weights say {have}")
+        _check_vit_tags(path, loaded, enc)
         return "vit", enc
     return "conv", vae_encoder_from_flax(loaded, input_hw)
+
+
+def load_model_pickle(path: str, out_hw=(135, 240)):
+    """Read a checkpoint -> (arch, whole autoencoder): a DepthViT for the
+    tagged dict, else a DepthVAE; ``out_hw`` is the image size it was
+    trained at."""
+    loaded, is_vit = _read_pickle(path)
+    if is_vit:
+        model = depth_vit_from_flax(loaded["params"], out_hw,
+                                    attn_impl=loaded.get("attn_impl", "xla"))
+        _check_vit_tags(path, loaded, model.encoder)
+        return "vit", model
+    return "conv", depth_vae_from_flax(loaded, out_hw)

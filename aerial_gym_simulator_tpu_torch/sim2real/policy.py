@@ -5,10 +5,14 @@ Counterpart of ``NumpyPolicy`` / ``load_policy_npz`` in the JAX package's
 device, so a closed loop has no host round trip. Archive layout:
 ``activation``, ``normalize_obs``, ``norm_mean``, ``norm_var``,
 ``norm_eps`` (optional, 1e-8), ``W0..Wn`` (in, out), ``b0..bn``,
-``log_std``.
+``log_std``. ``export_policy_npz`` writes that layout from a ``PPOTrainer``
+or its checkpoint, so a policy trained here flies through this loader and
+the JAX package's alike.
 """
 
 from __future__ import annotations
+
+import pickle
 
 import numpy as np
 import torch
@@ -71,3 +75,34 @@ def load_policy_npz(npz_path: str, device=None) -> MLPPolicy:
                 "policies are ported so far (GRU policies come with the LiDAR/radar tasks)")
         archive = {k: z[k] for k in z.files}
     return MLPPolicy(archive).to(resolve_device(device)).eval()
+
+
+def export_policy_npz(source, npz_path: str) -> str:
+    """Write the actor of a ``rl.ppo.PPOTrainer``, or of a checkpoint file it
+    saved, as a flat numpy archive (the critic is dropped)."""
+    if isinstance(source, (str, bytes)) or hasattr(source, "__fspath__"):
+        with open(source, "rb") as f:
+            blob = pickle.load(f)
+    else:
+        blob = {"params": {k: v.detach().cpu().numpy()
+                           for k, v in source.network.state_dict().items()},
+                "norm": {k: v.detach().cpu().numpy() for k, v in source.norm.items()},
+                "cfg": {"activation": source.cfg.activation,
+                        "normalize_obs": source.cfg.normalize_obs, "rnn": source.cfg.rnn},
+                "obs_dim": source.obs_dim}
+    cfg, params, norm = blob["cfg"], blob["params"], blob["norm"]
+    if cfg.get("rnn") is not None:
+        raise NotImplementedError("recurrent checkpoints are not ported yet")
+    flat = {"activation": np.array(cfg.get("activation", "elu")),
+            "obs_dim": np.array(int(blob["obs_dim"])),
+            "norm_mean": np.asarray(norm["mean"]), "norm_var": np.asarray(norm["var"]),
+            "norm_eps": np.array(1e-8, np.float32),       # RunningMeanStd's epsilon
+            "normalize_obs": np.array(bool(cfg.get("normalize_obs", True)))}
+    n_hidden = sum(1 for k in params if k.startswith("actor.") and k.endswith(".weight"))
+    layers = [f"actor.{i}" for i in range(n_hidden)] + ["mean_head"]
+    for i, name in enumerate(layers):
+        flat[f"W{i}"] = np.asarray(params[f"{name}.weight"]).T      # (in, out)
+        flat[f"b{i}"] = np.asarray(params[f"{name}.bias"])
+    flat["log_std"] = np.asarray(params["log_std"])
+    np.savez(npz_path, **flat)
+    return npz_path

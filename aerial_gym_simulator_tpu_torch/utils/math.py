@@ -120,6 +120,18 @@ def quat_rotate_inverse(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return a - b + c
 
 
+def quat_axis(q: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """Column ``axis`` of the rotation matrix of q (a rotated basis vector)."""
+    e = torch.zeros(q.shape[:-1] + (3,), dtype=q.dtype, device=q.device)
+    e[..., axis] = 1.0
+    return quat_rotate(q, e)
+
+
+def exp_func(x, gain: float, exp: float):
+    """gain * exp(-exp * x^2): reward shaping of the setpoint tasks."""
+    return gain * torch.exp(-exp * x * x)
+
+
 def quat_to_rotation_matrix(q: torch.Tensor) -> torch.Tensor:
     """(...,4) xyzw -> (...,3,3) rotation matrix."""
     x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]

@@ -5,7 +5,8 @@
 
 Phases, each printed on its own line:
   1. build   - compile the ray-cast kernel (csrc/raycast.cu) and the fused
-               attention kernel (csrc/attention.cu) with nvcc, side by side;
+               attention kernels, forward and backward (csrc/attention.cu),
+               with nvcc, side by side;
   2. device  - the card's name and power limit (nvidia-smi);
   3. kernel  - the ray cast in depth (K1) and depth+seg (K2) mode against
                its plain PyTorch version on the card, on the obstacle env at
@@ -14,8 +15,14 @@ Phases, each printed on its own line:
                primitive kinds; depth max-abs-err <= 2e-3, seg agreement
                >= 0.999 on hit pixels, broad phase on == off bit for bit.
                The attention forward (K5) against its plain version on
-               numpy-seeded q, k, v: f32 at four shapes within atol/rtol
-               1e-4, bf16 within 0.05; a non-contiguous input must raise;
+               numpy-seeded q, k, v: f32 at five shapes, the ViT training
+               shape (64, 225, 256) among them, within atol/rtol 1e-4, bf16
+               within 0.05; a non-contiguous input must raise.
+               The attention backward (K6) against its plain version at the
+               ViT training shape f32 and at head_dim 64 f32 (ragged, and
+               S = 225 staged two tensors at a time) within 2e-4, at (1024,
+               225, 256) bf16 and at head_dim 64 bf16 within 0.02, and a
+               second launch on the same inputs bit for bit;
   4. slice   - the obstacle env + depth camera at 16384 envs through the
                user entry points: env_step + render_camera(want_seg=False)
                with zero actions (the bench loop), then EnvManager.step +
@@ -29,8 +36,23 @@ Phases, each printed on its own line:
                split and peak memory; then 50 steps with the shipped conv
                VAE and its policy (no K5 launch);
   6. timing  - each kernel at its main path's shapes against its plain
-               version, its least possible time on this card and, for K5,
-               torch's scaled_dot_product_attention on the same tensors.
+               version, its least possible time on this card and, for K5 and
+               K6, torch's scaled_dot_product_attention (forward, backward)
+               on the same tensors: K5 and K6 each at the serving shape in
+               bf16 and at the training shape in f32;
+  7. train   - models/train_vae at full width (ViT dim 256, depth 4, 8
+               heads, fused attention, batch 64, 135x240, f32) for 60 steps:
+               finite falling loss, K1 once and K5 and K6 four times per
+               step, the checkpoint read back through load_encoder_pickle,
+               the step's split and peak memory; then 5 steps of the conv
+               VAE;
+  8. ppo     - position PPO at PPOConfig's defaults (8192 envs x 32 steps,
+               minibatch 8192, 4 epochs) for 3 iterations: finite metrics,
+               parameters moved, lr inside its bounds, env-steps/s and the
+               rollout / update split; the state-step rate of the position
+               task at 16384 envs with zero actions through make_step_fn;
+               and the shipped position policy flown for 250 steps (no
+               crash, mean distance under 0.5 m over the last 100).
 
 Before the last line it prints one JSON object with a record per kernel;
 the last line is {"ok": true, "device": {...}}. Any failure raises and the
@@ -39,8 +61,11 @@ script exits non-zero without that line. Without CUDA it exits 1 at once.
 
 import dataclasses
 import json
+import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -51,6 +76,7 @@ RAYCAST_SOURCE = "aerial_gym_simulator_tpu_torch/csrc/raycast.cu"
 RAYCAST_REPLACES = "aerial_gym_simulator_tpu/ops/raycast_pallas.py:90"
 ATTENTION_SOURCE = "aerial_gym_simulator_tpu_torch/csrc/attention.cu"
 ATTENTION_REPLACES = "aerial_gym_simulator_tpu/ops/attention_pallas.py:153"
+ATTENTION_BWD_REPLACES = "aerial_gym_simulator_tpu/ops/attention_pallas.py:169"
 
 NAV_ENVS = 1024
 NAV_STEPS = 300
@@ -63,10 +89,33 @@ ATTENTION_CASES = [
     ((1, 225, 128, 4), "float32", 1e-4),
     ((3, 128, 256, 8), "float32", 1e-4),
     ((2, 300, 256, 8), "float32", 1e-4),
+    ((64, 225, 256, 8), "float32", 1e-4),       # the training path's shape and type
     ((64, 225, 256, 8), "bfloat16", 0.05),
     ((2, 100, 256, 4), "bfloat16", 0.05),       # head_dim 64
 ]
 ATTENTION_MAIN_SHAPE = (NAV_ENVS, 225, 256, 8)   # the shipped ViT encoder's
+
+# the training phases
+TRAIN_BATCH = 64
+TRAIN_STEPS = 60
+TRAIN_CONV_STEPS = 5
+TRAIN_ARGS = ["--arch", "vit", "--vit_attn", "fused", "--vit_dim", "256", "--vit_depth", "4",
+              "--vit_heads", "8", "--batch", str(TRAIN_BATCH), "--image_h", "135",
+              "--image_w", "240", "--log_every", "1"]
+ATTENTION_TRAIN_SHAPE = (TRAIN_BATCH, 225, 256, 8)      # f32: K6's main path
+# (B, S, D, heads), dtype name, atol = rtol
+ATTENTION_BWD_CASES = [
+    (ATTENTION_TRAIN_SHAPE, "float32", 2e-4),
+    (ATTENTION_MAIN_SHAPE, "bfloat16", 0.02),   # five times the error seen there
+    ((2, 100, 256, 4), "float32", 2e-4),        # ragged, head_dim 64
+    ((2, 225, 256, 4), "float32", 2e-4),        # head_dim 64 staged two tensors at a time
+    ((2, 225, 256, 4), "bfloat16", 0.02),       # head_dim 64 staged as bf16
+]
+PPO_ITERATIONS = 3
+STATE_STEP_ENVS = 16384
+STATE_STEPS = 100
+POSITION_POLICY = (Path(__file__).resolve().parent
+                   / "aerial_gym_simulator_tpu/sim2real/weights/position_policy.npz")
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_F32_FLOPS = 67e12
@@ -190,20 +239,22 @@ def attention_bound_ms(shape, itemsize):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), t_bytes, t_ops
 
 
-def numpy_qkv(torch, shape, dtype, device, seed=0):
+def numpy_tensors(torch, shape, dtype, device, n=3, seed=0):
+    """n seeded (B, S, D) tensors; ``shape`` is (B, S, D, heads)."""
     import numpy as np
     rs = np.random.RandomState(seed)
     return [torch.from_numpy(rs.standard_normal(shape[:3]).astype(np.float32))
-            .to(device).to(dtype) for _ in range(3)]
+            .to(device).to(dtype) for _ in range(n)]
 
 
 def compare_attention(torch, ac, attention_reference, device):
     """K5 against its plain version on the card; returns the largest error
-    seen on the bf16 cases (the main path's type)."""
-    worst = 0.0
+    seen on the bf16 cases (the serving path's type) and the error at the
+    training path's shape in f32."""
+    worst, train_err = 0.0, None
     for shape, dtype_name, tol in ATTENTION_CASES:
         dtype = getattr(torch, dtype_name)
-        q, k, v = numpy_qkv(torch, shape, dtype, device)
+        q, k, v = numpy_tensors(torch, shape, dtype, device)
         out = ac.fused_attention(q, k, v, shape[3])
         ref = attention_reference(q, k, v, shape[3])
         torch.cuda.synchronize()
@@ -217,14 +268,16 @@ def compare_attention(torch, ac, attention_reference, device):
             raise AssertionError(f"attention {shape} {dtype_name}: max_abs_err {err}")
         if dtype_name == "bfloat16":
             worst = max(worst, err)
-    q, k, v = numpy_qkv(torch, (2, 32, 128, 4), torch.float32, device)
+        elif shape == ATTENTION_TRAIN_SHAPE:
+            train_err = err
+    q, k, v = numpy_tensors(torch, (2, 32, 128, 4), torch.float32, device)
     try:
         ac.fused_attention(q.transpose(0, 1), k, v, 4)
     except ValueError:
         log("kernel attention_fwd: non-contiguous input refused")
     else:
         raise AssertionError("attention: a non-contiguous input was accepted")
-    return worst
+    return worst, train_err
 
 
 def zero_counts(*counters):
@@ -304,7 +357,8 @@ def nav_phase(torch, port, rc, ac, card):
     log(f"nav: launches {launches}, successes {succ:.0f} crashes {crash:.0f} "
         f"timeouts {timo:.0f} (success share {succ / max(ended, 1.0):.3f}), curriculum level "
         f"{float(task.nav_state.curriculum_level):.0f}, peak memory {peak_gb:.2f} GB")
-    want = {"raycast_depth": NAV_STEPS, "raycast_seg": 0, "attention_fwd": 4 * NAV_STEPS}
+    want = {"raycast_depth": NAV_STEPS, "raycast_seg": 0, "attention_fwd": 4 * NAV_STEPS,
+            "attention_bwd": 0}
     if launches != want:
         raise AssertionError(f"nav launches {launches}, expected {want}")
     if not (succ > 0 and succ / max(ended, 1.0) > NAV_SUCCESS_SHARE):
@@ -358,51 +412,344 @@ def nav_phase(torch, port, rc, ac, card):
     log(f"nav: conv VAE loop {NAV_CONV_STEPS * NAV_ENVS / dt:.1f} env-steps/s "
         f"({dt / NAV_CONV_STEPS * 1e3:.2f} ms/step), launches {conv_launches}, "
         f"successes {succ:.0f} crashes {crash:.0f} timeouts {timo:.0f} | {card}")
-    want = {"raycast_depth": NAV_CONV_STEPS, "raycast_seg": 0, "attention_fwd": 0}
+    want = {"raycast_depth": NAV_CONV_STEPS, "raycast_seg": 0, "attention_fwd": 0,
+            "attention_bwd": 0}
     if conv_launches != want:
         raise AssertionError(f"conv nav launches {conv_launches}, expected {want}")
     conv_task.close()
     return launches, k1_err
 
 
-def time_attention(torch, ac, attention_reference, card):
-    """K5 at the main path's shape: kernel, plain version, the library's
-    fused attention on the same tensors, and the bound."""
+def time_attention(torch, ac, attention_reference, card, shape, dtype_name, tol):
+    """K5 at one path's shape and type: kernel, plain version, the library's
+    fused attention on the same tensors, and the bound. bf16 at head_dim 32
+    runs the tensor-core kernel, f32 the multiply-add kernel."""
     import torch.nn.functional as F
-    shape = ATTENTION_MAIN_SHAPE
     B, S, D, H = shape
+    dtype = getattr(torch, dtype_name)
     g = torch.Generator(device="cuda").manual_seed(5)
-    q, k, v = (torch.randn((B, S, D), generator=g, device="cuda").to(torch.bfloat16)
+    q, k, v = (torch.randn((B, S, D), generator=g, device="cuda").to(dtype)
                for _ in range(3))
     heads = lambda x: x.view(B, S, H, D // H).transpose(1, 2)
     run = lambda: ac.fused_attention(q, k, v, H)
+    lib_run = lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v))
     # kernel, library, library, kernel: both see the same card state
     ms_a = event_ms(torch, run, 20)
-    lib_a = event_ms(torch, lambda: F.scaled_dot_product_attention(heads(q), heads(k),
-                                                                   heads(v)), 20)
-    lib_b = event_ms(torch, lambda: F.scaled_dot_product_attention(heads(q), heads(k),
-                                                                   heads(v)), 20)
+    lib_a = event_ms(torch, lib_run, 20)
+    lib_b = event_ms(torch, lib_run, 20)
     ms_b = event_ms(torch, run, 20)
     plain_ms = event_ms(torch, lambda: attention_reference(q, k, v, H), 3)
-    # the source's other kernel (f32-accurate multiply-adds) on the same tensors
-    fma_ms = event_ms(torch, lambda: ac.attention_forward(q, k, v, H, use_mma=False), 3)
+    other = ""
+    if dtype_name == "bfloat16":
+        # the source's other kernel (f32-accurate multiply-adds) on the same tensors
+        fma_ms = event_ms(torch, lambda: ac.attention_forward(q, k, v, H, use_mma=False), 3)
+        other = f"multiply-add kernel {fma_ms:.2f} ms, "
     out, ref = run(), attention_reference(q, k, v, H)
-    lib = F.scaled_dot_product_attention(heads(q), heads(k), heads(v)).transpose(1, 2)
+    lib = lib_run().transpose(1, 2)
     torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs().max().item()
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
     lib_err = (lib.reshape(B, S, D).float() - ref.float()).abs().max().item()
-    if err > 0.05:
-        raise AssertionError(f"attention at {shape}: max_abs_err {err}")
-    b_ms, b_by, t_bytes, t_ops = attention_bound_ms(shape, 2)
+    if not bool((diff <= tol + tol * ref.float().abs()).all()):
+        raise AssertionError(f"attention at {shape} {dtype_name}: max_abs_err {err}")
+    b_ms, b_by, t_bytes, t_ops = attention_bound_ms(shape, q.element_size())
     ms, lib_ms = min(ms_a, ms_b), min(lib_a, lib_b)
-    log(f"timing attention_fwd {shape} bf16: kernel {ms:.3f} ms ({ms_a:.3f}, {ms_b:.3f}), "
-        f"plain {plain_ms:.2f} ms, multiply-add kernel {fma_ms:.2f} ms, "
+    log(f"timing attention_fwd {shape} {dtype_name}: kernel {ms:.3f} ms ({ms_a:.3f}, "
+        f"{ms_b:.3f}), plain {plain_ms:.2f} ms, {other}"
         f"scaled_dot_product_attention {lib_ms:.3f} ms "
         f"({lib_a:.3f}, {lib_b:.3f}; its max_abs_err {lib_err:.3g}), max_abs_err {err:.3g} | "
         f"bound {b_ms:.3f} ms by {b_by} (bytes {t_bytes:.3f} ms, operations {t_ops:.3f} ms) "
         f"| {card}")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
             "bound_by": b_by, "max_abs_err": err}
+
+
+def attention_bwd_bound_ms(shape, itemsize):
+    """Least time for one attention backward: q, k, v, do in and dq, dk, dv
+    out once over 3.35 TB/s, against five products' operations (5 x 2 x B x
+    H x S x S x head_dim) over the tensor-core peak for bf16, the f32 peak
+    else."""
+    B, S, D, H = shape
+    n_bytes = 7 * B * S * D * itemsize
+    ops = 10.0 * B * H * S * S * (D // H)
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_ops = ops / (PEAK_BF16_FLOPS if itemsize == 2 else PEAK_F32_FLOPS) * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), t_bytes, t_ops
+
+
+def compare_attention_bwd(torch, ac, attention_backward_reference, device):
+    """K6 against its plain version on the card, and against itself: two
+    launches on the same inputs must give the same bits. Returns the largest
+    error at the training shape (f32, the main path's type)."""
+    main_err = 0.0
+    for shape, dtype_name, tol in ATTENTION_BWD_CASES:
+        dtype = getattr(torch, dtype_name)
+        q, k, v, do = numpy_tensors(torch, shape, dtype, device, n=4, seed=1)
+        got = ac.attention_backward(q, k, v, do, shape[3])
+        again = ac.attention_backward(q, k, v, do, shape[3])
+        want = attention_backward_reference(q, k, v, do, shape[3])
+        torch.cuda.synchronize()
+        worst = 0.0
+        for name, a, a2, b in zip(("dq", "dk", "dv"), got, again, want):
+            if a.dtype != dtype or a.shape != q.shape or not torch.isfinite(a).all():
+                raise AssertionError(f"attention_bwd {shape} {dtype_name}: bad {name}")
+            if not torch.equal(a, a2):
+                raise AssertionError(f"attention_bwd {shape} {dtype_name}: two launches "
+                                     f"differ in {name}")
+            diff = (a.float() - b.float()).abs()
+            worst = max(worst, diff.max().item())
+            if not bool((diff <= tol + tol * b.float().abs()).all()):
+                raise AssertionError(f"attention_bwd {shape} {dtype_name}: {name} "
+                                     f"max_abs_err {diff.max().item()}")
+        log(f"kernel attention_bwd {shape} {dtype_name}: max_abs_err={worst:.3g} "
+            f"(atol=rtol={tol}), second launch bit-equal")
+        if shape == ATTENTION_TRAIN_SHAPE:
+            main_err = worst
+        del q, k, v, do, got, again, want
+    torch.cuda.empty_cache()
+    # the adversarial case: q and k scaled by 30, gradients must stay finite
+    q, k, v, do = numpy_tensors(torch, (1, 96, 64, 2), torch.float32, device, n=4, seed=4)
+    for g in ac.attention_backward(q * 30.0, k * 30.0, v, do, 2):
+        if not torch.isfinite(g).all():
+            raise AssertionError("attention_bwd: non-finite gradient at large logits")
+    log("kernel attention_bwd: finite at logits of order 1e3")
+    return main_err
+
+
+def time_attention_bwd(torch, ac, attention_backward_reference, card, shape, dtype_name):
+    """K6 at one shape: kernel, plain backward, the backward of the library's
+    fused attention on the same tensors, and the bound."""
+    import torch.nn.functional as F
+    B, S, D, H = shape
+    dtype = getattr(torch, dtype_name)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    q, k, v, do = (torch.randn((B, S, D), generator=g, device="cuda").to(dtype)
+                   for _ in range(4))
+    heads = lambda x: x.view(B, S, H, D // H).transpose(1, 2)
+    lq, lk, lv = (heads(x).detach().requires_grad_(True) for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(lq, lk, lv)
+    lib_do = heads(do)
+    run = lambda: ac.attention_backward(q, k, v, do, H)
+    lib = lambda: torch.autograd.grad(lib_out, (lq, lk, lv), lib_do, retain_graph=True)
+    iters = 20 if B <= 64 else 5
+    # kernel, library, library, kernel: both see the same card state
+    ms_a = event_ms(torch, run, iters)
+    lib_a = event_ms(torch, lib, iters)
+    lib_b = event_ms(torch, lib, iters)
+    ms_b = event_ms(torch, run, iters)
+    plain_ms = event_ms(torch, lambda: attention_backward_reference(q, k, v, do, H), 3)
+    got, want, lib_g = run(), attention_backward_reference(q, k, v, do, H), lib()
+    torch.cuda.synchronize()
+    err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+    lib_err = max((a.transpose(1, 2).reshape(B, S, D).float() - b.float()).abs().max().item()
+                  for a, b in zip(lib_g, want))
+    itemsize = 2 if dtype_name == "bfloat16" else 4
+    b_ms, b_by, t_bytes, t_ops = attention_bwd_bound_ms(shape, itemsize)
+    ms, lib_ms = min(ms_a, ms_b), min(lib_a, lib_b)
+    log(f"timing attention_bwd {shape} {dtype_name}: kernel {ms:.3f} ms ({ms_a:.3f}, "
+        f"{ms_b:.3f}), plain {plain_ms:.2f} ms, scaled_dot_product_attention backward "
+        f"{lib_ms:.3f} ms ({lib_a:.3f}, {lib_b:.3f}; its max_abs_err {lib_err:.3g}), "
+        f"max_abs_err {err:.3g} | bound {b_ms:.3f} ms by {b_by} (bytes {t_bytes:.3f} ms, "
+        f"operations {t_ops:.3f} ms) | {card}")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "max_abs_err": err}
+
+
+def timed(torch, fn):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def train_phase(torch, rc, ac, card):
+    """models/train_vae at full width through the functions its main calls;
+    returns the kernels' launch counts from the ViT run."""
+    from aerial_gym_simulator_tpu_torch.models import train_vae
+    from aerial_gym_simulator_tpu_torch.models.vae import vae_loss
+    from aerial_gym_simulator_tpu_torch.models.vit import DepthViT, ViTImageEncoder
+    from aerial_gym_simulator_tpu_torch.sim.convert import load_encoder_pickle, save_model_pickle
+
+    args = train_vae.build_parser().parse_args(TRAIN_ARGS + ["--steps", str(TRAIN_STEPS)])
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(rc.LAUNCHES, ac.LAUNCHES)
+    t0 = time.perf_counter()
+    model, history = train_vae.train(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**rc.LAUNCHES, **ac.LAUNCHES}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [h["loss"] for h in history]
+    if not isinstance(model, DepthViT) or len(losses) != TRAIN_STEPS:
+        raise AssertionError(f"train_vae returned {type(model).__name__}, {len(losses)} logs")
+    if not all(math.isfinite(h[k]) for h in history for k in ("loss", "bce", "kld")):
+        raise AssertionError(f"train_vae: non-finite loss in {losses}")
+    last = sum(losses[-5:]) / 5.0
+    n_params = sum(p.numel() for p in model.parameters())
+    steady = (history[-1]["wall_s"] - history[4]["wall_s"]) / (TRAIN_STEPS - 5) * 1e3
+    log(f"train: train_vae --arch vit --vit_attn fused dim 256 depth 4 heads 8, batch "
+        f"{TRAIN_BATCH}, 135x240, f32, {n_params / 1e6:.2f}M parameters: {TRAIN_STEPS} steps in "
+        f"{wall:.2f} s incl. set-up, {steady:.2f} ms/step after the first 5 | {card}")
+    log(f"train: loss {losses[0]:.5f} -> {last:.5f} (mean of the last 5; bce "
+        f"{history[-1]['bce']:.5f}, kld {history[-1]['kld']:.4f}), launches {launches}, "
+        f"peak memory {peak_gb:.2f} GB")
+    if not last < losses[0]:
+        raise AssertionError(f"train_vae: loss did not fall: {losses[0]} -> {last}")
+    want = {"raycast_depth": TRAIN_STEPS, "raycast_seg": 0, "attention_fwd": 4 * TRAIN_STEPS,
+            "attention_bwd": 4 * TRAIN_STEPS}
+    if launches != want:
+        raise AssertionError(f"train launches {launches}, expected {want}")
+
+    # the checkpoint, written and read back through the loader the nav task uses
+    env_args = ("base_sim", "env_with_obstacles", "base_quadrotor_with_camera",
+                "lee_velocity_control")
+    import aerial_gym_simulator_tpu_torch as port
+    env = port.SimBuilder().build_env(*env_args, num_envs=TRAIN_BATCH, seed=123)
+    state, batch, _ = train_vae.sample_batch(env.params, env.state, (135, 240))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "depth_vit.pkl")
+        save_model_pickle(model, path)
+        size_mb = os.path.getsize(path) / 1e6
+        arch, encoder = load_encoder_pickle(path)
+    served = ViTImageEncoder(latent_dim=64, image_res=(135, 240), encoder=encoder,
+                             compute_dtype=torch.float32, patch=encoder.patch)
+    with torch.no_grad():
+        mean_model, _ = model.encode(batch)
+    err = (served.encode(batch[..., 0]) - mean_model).abs().max().item()
+    log(f"train: checkpoint {size_mb:.1f} MB read back as {arch!r}, attn_impl "
+        f"{encoder.blocks[0].attn.impl!r}; its latents equal the trained model's means to "
+        f"{err:.3g}")
+    if arch != "vit" or encoder.blocks[0].attn.impl != "fused" or not err <= 1e-5:
+        raise AssertionError(f"train_vae checkpoint round trip: {arch}, err {err}")
+
+    # where a step's time goes: its four pieces, synchronised apart
+    optimizer = torch.optim.Adam(model.parameters(), lr=args.lr, eps=1e-8)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    split = {"sample+render": 0.0, "forward": 0.0, "backward": 0.0, "optimizer": 0.0}
+    reps = 5
+    for rep in range(reps + 1):
+        with torch.no_grad():
+            (state, batch, targets), t_s = timed(
+                torch, lambda: train_vae.sample_batch(env.params, state, (135, 240)))
+        optimizer.zero_grad(set_to_none=True)
+        (loss, _), t_f = timed(torch, lambda: vae_loss(model, batch, generator=gen,
+                                                        targets=targets))
+        _, t_b = timed(torch, loss.backward)
+        _, t_o = timed(torch, optimizer.step)
+        if rep:                                            # the first pass warms up
+            for name, t in zip(split, (t_s, t_f, t_b, t_o)):
+                split[name] += t / reps
+    log("train: split " + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items())
+        + f" = {sum(split.values()):.2f} ms/step | {card}")
+    del model, optimizer, env, served, encoder
+    torch.cuda.empty_cache()
+
+    # a few steps of the conv VAE: no attention kernel
+    conv_args = train_vae.build_parser().parse_args(
+        ["--arch", "conv", "--batch", str(TRAIN_BATCH), "--steps", str(TRAIN_CONV_STEPS),
+         "--log_every", "1"])
+    zero_counts(rc.LAUNCHES, ac.LAUNCHES)
+    conv_model, conv_hist = train_vae.train(conv_args)
+    torch.cuda.synchronize()
+    conv_launches = {**rc.LAUNCHES, **ac.LAUNCHES}
+    conv_ms = (conv_hist[-1]["wall_s"] - conv_hist[1]["wall_s"]) / (TRAIN_CONV_STEPS - 2) * 1e3
+    log(f"train: --arch conv {TRAIN_CONV_STEPS} steps, loss {conv_hist[0]['loss']:.5f} -> "
+        f"{conv_hist[-1]['loss']:.5f}, {conv_ms:.2f} ms/step, launches {conv_launches} | {card}")
+    want = {"raycast_depth": TRAIN_CONV_STEPS, "raycast_seg": 0, "attention_fwd": 0,
+            "attention_bwd": 0}
+    if conv_launches != want or not all(math.isfinite(h["loss"]) for h in conv_hist):
+        raise AssertionError(f"conv train: launches {conv_launches}, history {conv_hist}")
+    del conv_model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def ppo_phase(torch, port, card):
+    """Position PPO at the shipped width, the state-step rate, and the
+    shipped position policy."""
+    from aerial_gym_simulator_tpu_torch.rl.ppo import PPOConfig, PPOTrainer
+    from aerial_gym_simulator_tpu_torch.sim2real.policy import load_policy_npz
+
+    cfg = PPOConfig()
+    task = port.task_registry.make_task("position_setpoint_task", num_envs=cfg.num_envs, seed=0)
+    trainer = PPOTrainer(task, cfg)
+    flat = lambda: torch.cat([p.detach().reshape(-1) for p in trainer.network.parameters()])
+    before = flat()
+    steps_per_iter = cfg.num_envs * cfg.horizon
+    torch.cuda.reset_peak_memory_stats()
+    history = trainer.train(total_env_steps=PPO_ITERATIONS * steps_per_iter, log_every=1)
+    torch.cuda.synchronize()
+    if len(history) != PPO_ITERATIONS:
+        raise AssertionError(f"PPO ran {len(history)} iterations")
+    for m in history:
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"PPO: non-finite metric in {m}")
+        if not cfg.min_lr <= m["lr"] <= cfg.max_lr:
+            raise AssertionError(f"PPO: lr {m['lr']} outside [{cfg.min_lr}, {cfg.max_lr}]")
+    moved = (flat() - before).abs().max().item()
+    if not moved > 0.0:
+        raise AssertionError("PPO: the parameters did not change")
+    rates = [m["env_steps_per_s"] for m in history]
+    log(f"ppo: position PPO {cfg.num_envs} envs x {cfg.horizon} steps, minibatch "
+        f"{cfg.minibatch_size}, {cfg.epochs} epochs: {PPO_ITERATIONS} iterations, env-steps/s "
+        + ", ".join(f"{r:.1f}" for r in rates)
+        + f" ({history[-1]['wall_s'] / PPO_ITERATIONS:.3f} s/iteration) | {card}")
+    log("ppo: reward_mean " + ", ".join(f"{m['reward_mean']:.3f}" for m in history)
+        + ", lr " + ", ".join(f"{m['lr']:.3g}" for m in history)
+        + f", approx_kl {history[-1]['approx_kl']:.4f}, crash_rate {history[-1]['crash_rate']:.4f}, "
+        f"largest parameter change {moved:.3g}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    rollout, t_roll = timed(torch, trainer.collect_rollout)
+    _, t_upd = timed(torch, lambda: trainer.update(rollout))
+    n_mb = cfg.epochs * trainer.n_minibatches
+    log(f"ppo: split of a fourth iteration: rollout {t_roll:.1f} ms ({t_roll / cfg.horizon:.2f} "
+        f"ms per env step), update {t_upd:.1f} ms ({n_mb} minibatch steps, "
+        f"{t_upd / n_mb:.2f} ms each) | {card}")
+    task.close()
+    del trainer, rollout, task
+    torch.cuda.empty_cache()
+
+    # the state-step line: zero actions through make_step_fn
+    task = port.task_registry.make_task("position_setpoint_task", num_envs=STATE_STEP_ENVS,
+                                        seed=0)
+    step_fn, carry, _ = task.make_step_fn()
+    actions = torch.zeros((STATE_STEP_ENVS, 4), device=task.device)
+    total = torch.zeros((), device=task.device)
+    for _ in range(5):
+        carry, obs, reward, term, trunc = step_fn(carry, actions)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(STATE_STEPS):
+        carry, obs, reward, term, trunc = step_fn(carry, actions)
+        total += reward.sum()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if not (torch.isfinite(total) and torch.isfinite(obs).all()):
+        raise AssertionError("state step: non-finite reward or observation")
+    log(f"ppo: state step, position_setpoint_task {STATE_STEP_ENVS} envs, "
+        f"lee_attitude_control, zero actions: {STATE_STEPS * STATE_STEP_ENVS / dt:.1f} "
+        f"env-steps/s ({dt / STATE_STEPS * 1e3:.2f} ms/step) | {card}")
+    task.close()
+
+    # the shipped position policy, closed loop
+    n = 16
+    task = port.task_registry.make_task("position_setpoint_task", num_envs=n, seed=321)
+    policy = load_policy_npz(str(POSITION_POLICY))
+    obs, *_ = task.reset()
+    crashes = torch.zeros((), device=task.device)
+    dist = torch.zeros((), device=task.device)
+    for i in range(250):
+        obs, reward, term, trunc, _ = task.step(policy(obs["observations"]))
+        crashes += term.sum()
+        if i >= 150:
+            dist += task.state.pos.norm(dim=-1).mean() / 100.0
+    crashes, dist = float(crashes), float(dist)
+    log(f"ppo: shipped position policy, {n} envs, 250 steps: crashes {crashes:.0f}, mean "
+        f"distance over the last 100 steps {dist:.4f} m")
+    if crashes != 0 or not dist < 0.5:
+        raise AssertionError(f"position policy replay: {crashes} crashes, distance {dist}")
+    task.close()
 
 
 def main() -> int:
@@ -415,7 +762,8 @@ def main() -> int:
     from aerial_gym_simulator_tpu_torch.ops import attention_cuda as ac
     from aerial_gym_simulator_tpu_torch.ops import raycast_cuda as rc
     from aerial_gym_simulator_tpu_torch.ops._build import build_all
-    from aerial_gym_simulator_tpu_torch.ops.attention import attention_reference
+    from aerial_gym_simulator_tpu_torch.ops.attention import (
+        attention_backward_reference, attention_reference)
     from aerial_gym_simulator_tpu_torch.sensors.raycast_sensor import (
         camera_ray_dirs, render_camera, sensor_world_pose)
     from aerial_gym_simulator_tpu_torch.sim import dynamics
@@ -463,7 +811,8 @@ def main() -> int:
     syn_args, syn_counts = synthetic_scene(torch, rc, dirs_full, dev)
     compare(rc, syn_args, syn_counts[:3] + (12.0,), syn_counts[3], "synthetic324", errs)
     del env
-    errs["attention_fwd"] = compare_attention(torch, ac, attention_reference, dev)
+    errs["attention_fwd"], k5_train_err = compare_attention(torch, ac, attention_reference, dev)
+    errs["attention_bwd"] = compare_attention_bwd(torch, ac, attention_backward_reference, dev)
 
     # 4. the slice at full width
     t0 = time.perf_counter()
@@ -569,15 +918,54 @@ def main() -> int:
     records[0]["launches"] += nav_launches["raycast_depth"]
     records[0]["launches_nav_path"] = nav_launches["raycast_depth"]
 
-    # 6b. the attention at the nav path's shapes
-    k5 = time_attention(torch, ac, attention_reference, card)
+    # 6b. the attention forward at the nav path's shape and type (bf16, the
+    #     tensor-core kernel) and at the training path's (f32, the
+    #     multiply-add kernel)
+    k5 = time_attention(torch, ac, attention_reference, card, ATTENTION_MAIN_SHAPE, "bfloat16",
+                        0.05)
+    k5_train = time_attention(torch, ac, attention_reference, card, ATTENTION_TRAIN_SHAPE,
+                              "float32", 1e-4)
+    k5_train["max_abs_err"] = max(k5_train["max_abs_err"], k5_train_err)
     records.append({
         "name": "attention_fwd", "route": "cuda", "source": ATTENTION_SOURCE,
         "replaces": ATTENTION_REPLACES, "launches": nav_launches["attention_fwd"],
         "max_abs_err": max(errs["attention_fwd"], k5["max_abs_err"]), "ms": k5["ms"],
         "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
         "library_ms": k5["library_ms"],
+        "at_64x225x256_f32": k5_train,      # the training path; its launches join below
     })
+
+    # 7. training: train_vae through the ViT with K5 and K6, then the conv VAE
+    train_launches = train_phase(torch, rc, ac, card)
+    records[0]["launches"] += train_launches["raycast_depth"]
+    records[0]["launches_train_path"] = train_launches["raycast_depth"]
+    # each path's launches beside that path's own time and error: the top
+    # level of K5's record is the nav path, the sub-record the training path
+    records[2]["at_64x225x256_f32"]["launches"] = train_launches["attention_fwd"]
+
+    # 6c. the attention backward at the training path's shape, and at the
+    #     serving shape in bf16 beside it
+    k6 = time_attention_bwd(torch, ac, attention_backward_reference, card,
+                            ATTENTION_TRAIN_SHAPE, "float32")
+    k6_bf16 = time_attention_bwd(torch, ac, attention_backward_reference, card,
+                                 ATTENTION_MAIN_SHAPE, "bfloat16")
+    # the same width at 4 heads: head_dim 64 in f32, staged two tensors at a time
+    k6_hd64 = time_attention_bwd(torch, ac, attention_backward_reference, card,
+                                 (TRAIN_BATCH, 225, 256, 4), "float32")
+    records.append({
+        "name": "attention_bwd", "route": "cuda", "source": ATTENTION_SOURCE,
+        "replaces": ATTENTION_BWD_REPLACES, "launches": train_launches["attention_bwd"],
+        "max_abs_err": max(errs["attention_bwd"], k6["max_abs_err"]), "ms": k6["ms"],
+        "plain_ms": k6["plain_ms"], "bound_ms": k6["bound_ms"], "bound_by": k6["bound_by"],
+        "library_ms": k6["library_ms"],
+        "at_1024x225x256_bf16": {key: k6_bf16[key] for key in
+                                 ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                  "max_abs_err")},
+        "at_64x225x256_f32_head_dim_64": k6_hd64,
+    })
+
+    # 8. position PPO, the state-step line, the shipped position policy
+    ppo_phase(torch, port, card)
 
     log(json.dumps({"kernels": records}))
     log(card)

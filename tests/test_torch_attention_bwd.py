@@ -1,0 +1,164 @@
+"""Port parity for the fused attention backward: the port's plain backward
+(ops/attention.attention_backward_reference, what CPU tensors run under
+autograd and what the CUDA kernel is held against on the card) against
+jax.vjp through the JAX package's XLA oracle and through its Pallas kernels
+in interpret mode, on the same numpy-seeded inputs.
+
+Tolerances: f32 atol = rtol 2e-4, the bar tests/test_attention_pallas.py
+holds the Pallas backward to (the same sums in another order); bf16 atol
+0.05 + rtol 0.05 (both sides compute in f32 from bf16 inputs, the JAX
+oracle rounds P to bf16 before the second product and the results are
+rounded to bf16 once more); the adversarial case 1e-3 against autograd
+through the port's own plain forward.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from aerial_gym_simulator_tpu.ops.attention_pallas import attention_oracle
+from aerial_gym_simulator_tpu.ops.attention_pallas import fused_attention as j_fused
+
+from aerial_gym_simulator_tpu_torch.ops import attention_cuda as ac
+from aerial_gym_simulator_tpu_torch.ops.attention import (
+    attention_backward_reference, attention_reference)
+
+# (B, S, D, heads): the shapes of tests/test_attention_pallas.py
+SHAPES = [
+    pytest.param((2, 128, 64, 2), id="2x128x64-h2"),       # no padding on the TPU
+    pytest.param((2, 100, 64, 4), id="2x100x64-h4"),       # padded 100 -> 128 there
+    pytest.param((1, 225, 128, 4), id="1x225x128-h4"),     # the ViT sequence
+]
+
+
+def _inputs(shape, seed=0, n=4):
+    rs = np.random.RandomState(seed)
+    return [rs.standard_normal(shape[:3]).astype(np.float32) for _ in range(n)]
+
+
+def _jax_vjp(fn, arrays, heads, dtype=jnp.float32):
+    q, k, v, do = (jnp.asarray(a).astype(dtype) for a in arrays)
+    _, pull = jax.vjp(lambda q, k, v: fn(q, k, v, heads), q, k, v)
+    return [np.asarray(g.astype(jnp.float32)) for g in pull(do)]
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_backward_matches_jax_grad_of_oracle(shape):
+    arrays = _inputs(shape)
+    want = _jax_vjp(attention_oracle, arrays, shape[3])
+    got = attention_backward_reference(*(torch.from_numpy(a) for a in arrays), shape[3])
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.float32 and tuple(g.shape) == shape[:3]
+        np.testing.assert_allclose(g.numpy(), w, atol=2e-4, rtol=2e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_backward_matches_pallas_backward_interpreted(shape):
+    arrays = _inputs(shape, seed=1)
+    fused = lambda q, k, v, h: j_fused(q, k, v, h, interpret=True)
+    want = _jax_vjp(fused, arrays, shape[3])
+    got = attention_backward_reference(*(torch.from_numpy(a) for a in arrays), shape[3])
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), w, atol=2e-4, rtol=2e-4, err_msg=name)
+
+
+def test_plain_backward_bf16_matches_pallas_backward_interpreted():
+    shape = (2, 225, 128, 4)
+    arrays = _inputs(shape, seed=2)
+    fused = lambda q, k, v, h: j_fused(q, k, v, h, interpret=True)
+    want = _jax_vjp(fused, arrays, shape[3], jnp.bfloat16)
+    got = attention_backward_reference(*(torch.from_numpy(a).bfloat16() for a in arrays),
+                                       shape[3])
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_allclose(g.float().numpy(), w, atol=0.05, rtol=0.05, err_msg=name)
+
+
+def test_backward_honours_sm_scale():
+    shape = (2, 17, 64, 4)
+    arrays = _inputs(shape, seed=3)
+    want = _jax_vjp(lambda q, k, v, h: attention_oracle(q, k, v, h, sm_scale=0.05), arrays, 4)
+    got = attention_backward_reference(*(torch.from_numpy(a) for a in arrays), 4, sm_scale=0.05)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w, atol=2e-4, rtol=2e-4)
+
+
+def _autograd(fn, arrays, heads, loss):
+    q, k, v = (torch.from_numpy(a).clone().requires_grad_(True) for a in arrays[:3])
+    loss(fn(q, k, v, heads)).backward()
+    return [x.grad for x in (q, k, v)]
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_fused_attention_differentiates_on_cpu_tensors(shape):
+    """The autograd function's backward on CPU tensors is the plain backward
+    and agrees with autograd through the plain forward; no kernel launch is
+    counted."""
+    arrays = _inputs(shape, seed=4)
+    target = torch.from_numpy(arrays[3])
+    loss = lambda o: ((o - target) ** 2).sum()
+    before = dict(ac.LAUNCHES)
+    got = _autograd(ac.fused_attention, arrays, shape[3], loss)
+    assert ac.LAUNCHES == before
+    want = _autograd(attention_reference, arrays, shape[3], loss)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=2e-4, rtol=2e-4, err_msg=name)
+
+
+def test_fused_attention_gradients_match_jax_grad_of_loss():
+    """The whole chain as tests/test_attention_pallas.py::
+    test_fused_gradients_match_oracle runs it: sum((attention - target)^2)."""
+    shape = (2, 100, 64, 4)
+    arrays = _inputs(shape, seed=5)
+    tgt = jnp.asarray(arrays[3])
+    j_loss = lambda q, k, v: jnp.sum((attention_oracle(q, k, v, 4) - tgt) ** 2)
+    want = jax.grad(j_loss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in arrays[:3]))
+    target = torch.from_numpy(arrays[3])
+    got = _autograd(ac.fused_attention, arrays, 4, lambda o: ((o - target) ** 2).sum())
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-4, rtol=2e-4,
+                                   err_msg=name)
+
+
+def test_backward_survives_adversarial_magnitudes():
+    """q and k scaled by 30 (logits of order 1e3 before scaling), the case of
+    test_padding_mask_survives_adversarial_magnitudes: gradients finite and
+    equal to autograd through the plain forward."""
+    shape = (1, 96, 64, 2)
+    arrays = _inputs(shape, seed=6)
+    arrays[0], arrays[1] = arrays[0] * 30.0, arrays[1] * 30.0
+    loss = lambda o: (o ** 2).sum()
+    got = _autograd(ac.fused_attention, arrays, 2, loss)
+    want = _autograd(attention_reference, arrays, 2, loss)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-3, rtol=1e-3)
+    j_loss = lambda q, k, v: jnp.sum(j_fused(q, k, v, 2, interpret=True) ** 2)
+    j_grads = jax.grad(j_loss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in arrays[:3]))
+    for g, w in zip(got, j_grads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-3, rtol=1e-3)
+
+
+def test_fused_attention_works_under_activation_checkpointing():
+    shape = (2, 17, 64, 4)
+    arrays = _inputs(shape, seed=7)
+    loss = lambda o: (o ** 2).sum()
+    fused_ckpt = lambda q, k, v, h: checkpoint(ac.fused_attention, q, k, v, h,
+                                               use_reentrant=False)
+    got = _autograd(fused_ckpt, arrays, 4, loss)
+    want = _autograd(ac.fused_attention, arrays, 4, loss)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_backward_takes_a_non_contiguous_output_gradient():
+    shape = (3, 17, 64, 4)
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(shape, seed=8))
+    strided = do.transpose(0, 1).contiguous().transpose(0, 1)
+    assert not strided.is_contiguous()
+    for a, b in zip(ac.attention_backward(q, k, v, strided, 4),
+                    attention_backward_reference(q, k, v, do, 4)):
+        assert torch.equal(a, b)

@@ -1,6 +1,6 @@
 """The ray-cast kernel (csrc/raycast.cu) and the fused-attention forward
-kernel (csrc/attention.cu) against their plain PyTorch versions, and the
-wrappers' contracts. This file imports only the port, so it also runs where
+and backward kernels (csrc/attention.cu) against their plain PyTorch
+versions, and the wrappers' contracts. This file imports only the port, so it also runs where
 JAX is not installed:
 
     python -m pytest tests/test_torch_kernels.py -q -m cuda    # on the card
@@ -15,7 +15,11 @@ the same order, so the difference is expected to be 0. Broad phase on and
 off must give bit-identical images. Attention: f32 atol/rtol 1e-4 (the
 kernel sums in another order than the matrix products of the plain
 version), bf16 atol/rtol 0.05 (the probabilities are rounded to bf16 at
-another place).
+another place). Attention backward: f32 atol/rtol 2e-4, the bar the JAX
+package holds its own backward kernel to; bf16 atol/rtol 0.02 (both sides
+compute in f32 from the same bf16 inputs and round the result once; five
+times the 0.004 seen on an H100 at S = 225); two launches on the same
+inputs give the same bits (no atomics).
 """
 
 import numpy as np
@@ -25,7 +29,8 @@ import torch
 import aerial_gym_simulator_tpu_torch as port
 from aerial_gym_simulator_tpu_torch.ops import attention_cuda as ac
 from aerial_gym_simulator_tpu_torch.ops import raycast_cuda as rc
-from aerial_gym_simulator_tpu_torch.ops.attention import attention_reference
+from aerial_gym_simulator_tpu_torch.ops.attention import (
+    attention_backward_reference, attention_reference)
 from aerial_gym_simulator_tpu_torch.sensors.raycast_sensor import camera_ray_dirs
 from aerial_gym_simulator_tpu_torch.utils.math import quat_to_rotation_matrix
 
@@ -196,11 +201,12 @@ def test_kernel_wrapper_checks_on_card(cuda_device):
 # ---------------------------------------------------------------------------
 
 
-def qkv(shape, dtype, device, seed=0):
-    """Seeded (B, S, D) q, k, v; ``shape`` is (B, S, D, num_heads)."""
+def qkv(shape, dtype, device, seed=0, n=3):
+    """Seeded (B, S, D) q, k, v (and further tensors of that shape when n >
+    3); ``shape`` is (B, S, D, num_heads)."""
     rs = np.random.RandomState(seed)
     return [torch.from_numpy(rs.standard_normal(shape[:3]).astype(np.float32))
-            .to(dtype).to(device) for _ in range(3)]
+            .to(dtype).to(device) for _ in range(n)]
 
 
 def test_attention_cpu_tensors_run_the_plain_version():
@@ -271,6 +277,95 @@ def test_attention_wrapper_checks_on_card(cuda_device):
         ac.fused_attention(q, k.cpu(), v, 4)
     with pytest.raises(ValueError):
         ac.fused_attention(q, k[:, :16].contiguous(), v, 4)
-    with pytest.raises(NotImplementedError, match="K6"):
-        q.requires_grad_(True)
-        ac.fused_attention(q, k, v, 4).sum().backward()
+
+
+# ---------------------------------------------------------------------------
+# fused attention backward
+# ---------------------------------------------------------------------------
+
+
+def test_attention_backward_cpu_tensors_run_the_plain_version():
+    q, k, v, do = qkv((2, 17, 128, 4), torch.float32, "cpu", n=4)
+    before = dict(ac.LAUNCHES)
+    got = ac.attention_backward(q, k, v, do.transpose(0, 1).contiguous().transpose(0, 1), 4)
+    want = attention_backward_reference(q, k, v, do, 4)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert ac.LAUNCHES == before
+    with pytest.raises(ValueError):
+        ac.attention_backward(q, k, v, do, 3)
+
+
+BACKWARD_CASES = [
+    ((2, 17, 128, 4), torch.float32, 2e-4),
+    ((2, 100, 64, 4), torch.float32, 2e-4),               # head_dim 16
+    ((64, 225, 256, 8), torch.float32, 2e-4),             # the ViT training shape
+    ((2, 100, 256, 4), torch.float32, 2e-4),              # head_dim 64, ragged
+    ((2, 225, 256, 4), torch.float32, 2e-4),              # head_dim 64, staged two at a time
+    ((8, 225, 256, 8), torch.bfloat16, 0.02),
+    ((2, 225, 256, 4), torch.bfloat16, 0.02),             # head_dim 64 staged as bf16
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,tol", BACKWARD_CASES,
+                         ids=lambda x: str(x).replace("torch.", ""))
+def test_attention_backward_kernel_matches_plain_version(cuda_device, shape, dtype, tol):
+    q, k, v, do = qkv(shape, dtype, cuda_device, n=4)
+    before = ac.LAUNCHES["attention_bwd"]
+    got = ac.attention_backward(q, k, v, do, shape[3])
+    again = ac.attention_backward(q, k, v, do, shape[3])
+    want = attention_backward_reference(q, k, v, do, shape[3])
+    torch.cuda.synchronize()
+    assert ac.LAUNCHES["attention_bwd"] == before + 2
+    for name, a, a2, b in zip(("dq", "dk", "dv"), got, again, want):
+        assert a.dtype == dtype and a.shape == q.shape, name
+        assert torch.equal(a, a2), f"{name}: two launches differ"
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol, msg=name)
+
+
+@pytest.mark.cuda
+def test_attention_autograd_runs_both_kernels(cuda_device):
+    """loss.backward() through fused_attention launches the backward kernel
+    once, takes a non-contiguous output gradient, and agrees with autograd
+    through the plain version."""
+    q, k, v, w = qkv((3, 65, 128, 4), torch.float32, cuda_device, seed=2, n=4)
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    before = dict(ac.LAUNCHES)
+    # the transposes hand backward an output gradient with permuted strides
+    (ac.fused_attention(q, k, v, 4).transpose(0, 1) * w.transpose(0, 1)).sum().backward()
+    assert ac.LAUNCHES == {"attention_fwd": before["attention_fwd"] + 1,
+                           "attention_bwd": before["attention_bwd"] + 1}
+    got = [t.grad.clone() for t in (q, k, v)]
+    for t in (q, k, v):
+        t.grad = None
+    (attention_reference(q, k, v, 4) * w).sum().backward()
+    torch.cuda.synchronize()
+    for a, t in zip(got, (q, k, v)):
+        torch.testing.assert_close(a, t.grad, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.cuda
+def test_attention_backward_survives_adversarial_magnitudes(cuda_device):
+    """q and k scaled by 30 (logits of order 1e3): gradients stay finite and
+    close to the plain version. No key is padded or masked, so no 0 * inf.
+    1e-2: a logit of order 1e3 carries a rounding error of order 1e-4, which
+    moves P by that share, and the gradients here reach the hundreds."""
+    q, k, v, do = qkv((1, 96, 64, 2), torch.float32, cuda_device, seed=4, n=4)
+    q, k = q * 30.0, k * 30.0
+    got = ac.attention_backward(q, k, v, do, 2)
+    want = attention_backward_reference(q, k, v, do, 2)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.cuda
+def test_attention_backward_refuses_what_does_not_fit(cuda_device):
+    # f32 at head_dim 64: S = 225 is staged two tensors at a time, S = 300 fits neither way
+    q, k, v, do = qkv((1, 300, 256, 4), torch.float32, cuda_device, n=4)
+    with pytest.raises(ValueError, match="shared memory"):
+        ac.attention_backward(q, k, v, do, 4)
+    with pytest.raises(ValueError):
+        ac.attention_backward(q, k, v, do[:, :100], 4)

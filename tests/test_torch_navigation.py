@@ -310,4 +310,4 @@ def test_task_without_gpu_raises_and_torch_vae_is_refused():
     with pytest.raises(NotImplementedError, match="torch_vae_path"):
         port.task_registry.make_task("navigation_task", num_envs=2, task_config=cfg,
                                      device="cpu")
-    assert port.task_registry.get_task_names() == ["navigation_task"]
+    assert port.task_registry.get_task_names() == ["navigation_task", "position_setpoint_task"]
