@@ -112,6 +112,8 @@ class RobotAssetConfig:
 class SensorEnableConfig:
     enable_camera: bool = False
     camera_config: object = None
+    enable_lidar: bool = False
+    lidar_config: object = None
 
 
 @dataclass

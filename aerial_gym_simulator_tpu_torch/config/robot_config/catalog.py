@@ -21,6 +21,21 @@ def base_quadrotor_with_camera() -> RobotConfig:
     return cfg
 
 
+def base_quadrotor_with_lidar() -> RobotConfig:
+    cfg = RobotConfig(name="base_quadrotor_with_lidar")
+    cfg.sensor_config.enable_lidar = True
+    return cfg
+
+
+def base_quadrotor_with_faceid_normal_camera() -> RobotConfig:
+    """The base quad with the normal + face-id dataset camera."""
+    from ..sensor_config.sensor_configs import BaseNormalFaceIDCameraConfig
+    cfg = RobotConfig(name="base_quadrotor_with_faceid_normal_camera")
+    cfg.sensor_config.enable_camera = True
+    cfg.sensor_config.camera_config = BaseNormalFaceIDCameraConfig()
+    return cfg
+
+
 def _motors(use_rps=True, kt_min=0.00000926312, kt_max=0.00001826312,
             tau_inc=(0.04, 0.04), tau_dec=(0.04, 0.04), max_thrust=2.0,
             min_thrust=0.0, max_rate=100000.0, cq=0.01,
@@ -91,4 +106,7 @@ def lmf2() -> RobotConfig:
 def register_robots(robot_registry):
     robot_registry.register("base_quadrotor", base_quadrotor)
     robot_registry.register("base_quadrotor_with_camera", base_quadrotor_with_camera)
+    robot_registry.register("base_quadrotor_with_lidar", base_quadrotor_with_lidar)
+    robot_registry.register("base_quadrotor_with_faceid_normal_camera",
+                            base_quadrotor_with_faceid_normal_camera)
     robot_registry.register("lmf2", lmf2)

@@ -1,10 +1,11 @@
-"""Depth camera config, copied from the JAX package's
-``config/sensor_config/sensor_configs.py`` and cut to the base camera."""
+"""Sensor configs, copied from the JAX package's
+``config/sensor_config/sensor_configs.py`` and cut to the base depth
+camera, the normal/face-id camera and the base lidar."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, Optional
 
 
 @dataclass
@@ -49,3 +50,53 @@ class BaseDepthCameraConfig:
     @property
     def near_out_of_range_value(self) -> float:
         return -self.max_range if self.normalize_range else -1.0
+
+
+@dataclass
+class BaseNormalFaceIDCameraConfig(BaseDepthCameraConfig):
+    """Returns surface normals + face (primitive) ids for dataset generation;
+    its depth is range (multiplier 1)."""
+    segmentation_camera: bool = True
+    calculate_depth: bool = False
+
+
+@dataclass
+class BaseLidarConfig:
+    num_sensors: int = 1
+    sensor_type: str = "lidar"
+    height: int = 128                  # scan lines
+    width: int = 512                   # points per line
+    horizontal_fov_deg_min: float = -180.0
+    horizontal_fov_deg_max: float = 180.0
+    vertical_fov_deg_min: float = -45.0
+    vertical_fov_deg_max: float = 45.0
+    max_range: float = 10.0
+    min_range: float = 0.2
+    calculate_depth: bool = False      # lidar returns range, not depth
+    return_pointcloud: bool = False
+    pointcloud_in_world_frame: bool = False
+    segmentation_camera: bool = True
+    euler_frame_rot_deg: List[float] = field(default_factory=lambda: [0.0, 0.0, 0.0])
+    normalize_range: bool = True
+    randomize_placement: bool = True
+    min_translation: List[float] = field(default_factory=lambda: [0.07, -0.06, 0.01])
+    max_translation: List[float] = field(default_factory=lambda: [0.12, 0.03, 0.04])
+    min_euler_rotation_deg: List[float] = field(default_factory=lambda: [-5.0, -5.0, -5.0])
+    max_euler_rotation_deg: List[float] = field(default_factory=lambda: [5.0, 5.0, 5.0])
+    nominal_position: List[float] = field(default_factory=lambda: [0.10, 0.0, 0.03])
+    nominal_orientation_euler_deg: List[float] = field(default_factory=lambda: [0.0, 0.0, 0.0])
+    sensor_noise: SensorNoiseConfig = field(
+        default_factory=lambda: SensorNoiseConfig(
+            enable_sensor_noise=True, std_a=1e-5, std_b=1e-5, std_c=1e-5,
+            mean_offset=-0.05, pixel_dropout_prob=0.0))
+    stereo_baseline: float = 0.0
+    # out-of-range sentinels; None derives them from normalize_range and
+    # max_range (a subclass may pin the reference's inherited values)
+    far_out_of_range_value: Optional[float] = None
+    near_out_of_range_value: Optional[float] = None
+
+    def __post_init__(self):
+        if self.far_out_of_range_value is None:
+            self.far_out_of_range_value = self.max_range if self.normalize_range else -1.0
+        if self.near_out_of_range_value is None:
+            self.near_out_of_range_value = -self.max_range if self.normalize_range else -1.0

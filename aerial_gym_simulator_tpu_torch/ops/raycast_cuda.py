@@ -1,10 +1,11 @@
 """Ray-cast kernel wrapper (CUDA C++ for sm_90a) and its plain version.
 
-The kernel, ``csrc/raycast.cu``, replaces the depth-only and depth+seg
-modes of the JAX package's Pallas kernel
-(``aerial_gym_simulator_tpu/ops/raycast_pallas.py``, ``raycast_pallas`` /
-``_make_kernel``). It is built with ``nvcc`` into ``_build/`` at first use
-and called through ``ctypes`` on PyTorch's current stream.
+The kernel, ``csrc/raycast.cu``, replaces the four modes of the JAX
+package's Pallas kernel (``aerial_gym_simulator_tpu/ops/raycast_pallas.py``,
+``raycast_pallas`` / ``_make_kernel``): depth only, depth + seg, + normal
+and face id, and in-kernel RGB shading. It is built with ``nvcc`` into
+``_build/`` at first use and called through ``ctypes`` on PyTorch's
+current stream.
 
 ``raycast`` is the one entry point: a CUDA tensor launches the kernel, a
 CPU tensor runs ``raycast_reference``, the plain PyTorch version built on
@@ -17,14 +18,16 @@ Table layouts (shared by both versions):
                     sorted box | cylinder | sphere | triangle
   dirs  (R, 3)      sensor-frame unit ray directions (shared by all envs)
   mult  (R,)        per-ray depth multiplier
-  out   depth (N, R) f32, seg (N, R) int32 (seg mode only)
+  out   depth (N, R) f32, seg (N, R) int32 (every mode but depth only),
+        normal (N, R, 3) f32 + face (N, R) int32 (normal mode),
+        rgb (N, R, 3) f32 (RGB mode)
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import raycast as oracle
@@ -39,10 +42,21 @@ THREADS = 256          # rays per block (one thread per ray), see raycast.cu
 # (~40 live (rays,) f32 tensors) to a few GB at the main path's width
 REFERENCE_CHUNK_RAYS = 1 << 24
 
+# the kernel's modes (template argument of raycast_kernel in raycast.cu)
+MODE_DEPTH, MODE_SEG, MODE_NORMALS, MODE_RGB = 0, 1, 2, 3
+MODE_NAMES = ("raycast_depth", "raycast_seg", "raycast_normals", "raycast_rgb")
+
 # launches of the kernel per mode, counted where the wrapper launches it
-LAUNCHES = {"raycast_depth": 0, "raycast_seg": 0}
+LAUNCHES = {name: 0 for name in MODE_NAMES}
+
+# the RGB mode's constants, copied into the kernel's constant memory once
+# per device: palette (10 x 3), sun (3), sky (3), ambient, 1 - ambient
+SHADING = np.concatenate([
+    oracle.SEG_ALBEDO.reshape(-1), oracle.SUN_DIR, oracle.SKY_RGB,
+    np.array([oracle.RGB_AMBIENT, 1.0 - oracle.RGB_AMBIENT], np.float32)]).astype(np.float32)
 
 _lib = None
+_shading_devices = set()
 
 
 def _load():
@@ -50,9 +64,11 @@ def _load():
     if _lib is None:
         lib = LIBRARY.load()
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.raycast_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,
+        lib.raycast_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
                                        ctypes.c_float, i, i, p]
         lib.raycast_launch.restype = i
+        lib.raycast_set_shading.argtypes = [p, i]
+        lib.raycast_set_shading.restype = i
         lib.raycast_error_string.argtypes = [i]
         lib.raycast_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -166,22 +182,94 @@ def tile_visibility(pose, prims, dirs, n_box: int, n_cyl: int, n_sph: int,
 # ---------------------------------------------------------------------------
 
 
+def _mode(want_seg: bool, want_normals: bool, want_rgb: bool) -> int:
+    if want_normals and want_rgb:
+        raise ValueError("want_normals and want_rgb are exclusive modes")
+    if want_rgb:
+        return MODE_RGB
+    if want_normals:
+        return MODE_NORMALS
+    return MODE_SEG if want_seg else MODE_DEPTH
+
+
+def _sign(x):
+    return torch.where(x > 0.0, torch.ones_like(x),
+                       torch.where(x < 0.0, -torch.ones_like(x), torch.zeros_like(x)))
+
+
+def winner_normal(pr, o, dw, t, p_best, n_box: int, n_cyl: int, n_sph: int):
+    """World normal of each ray's winning primitive, oriented against the
+    ray, in the kernel's operation order (winner_normal in raycast.cu).
+    pr (n, P, 16), o (n, 3), dw (n, R, 3), t (n, R), p_best (n, R) long
+    (any valid index where the ray missed: those rays are garbage)."""
+    rec = torch.gather(pr, 1, p_best[..., None].expand(-1, -1, 16))    # (n, R, 16)
+    kind = ((p_best >= n_box).int() + (p_best >= n_box + n_cyl).int()
+            + (p_best >= n_box + n_cyl + n_sph).int())
+    dxw, dyw, dzw = dw[..., 0], dw[..., 1], dw[..., 2]
+    ux = o[:, 0, None] - rec[..., 3]
+    uy = o[:, 1, None] - rec[..., 4]
+    uz = o[:, 2, None] - rec[..., 5]
+    # sphere: radial, in the world frame
+    sx, sy, sz = ux + t * dxw, uy + t * dyw, uz + t * dzw
+    s_len = torch.clamp(torch.sqrt(sx * sx + sy * sy + sz * sz), min=1e-9)
+    n_sph = (sx / s_len, sy / s_len, sz / s_len)
+    # the other kinds: the hit point in the primitive's frame, as the sweep
+    # computes origin and direction there
+    r = [rec[..., 6 + k] for k in range(9)]                             # row-major R
+    rox = r[0] * ux + r[3] * uy + r[6] * uz
+    roy = r[1] * ux + r[4] * uy + r[7] * uz
+    roz = r[2] * ux + r[5] * uy + r[8] * uz
+    rdx = r[0] * dxw + r[3] * dyw + r[6] * dzw
+    rdy = r[1] * dxw + r[4] * dyw + r[7] * dzw
+    rdz = r[2] * dxw + r[5] * dyw + r[8] * dzw
+    hx, hy, hz = rox + t * rdx, roy + t * rdy, roz + t * rdz
+    zero, one = torch.zeros_like(hx), torch.ones_like(hx)
+    # box: dominant axis of |p| / half; x wins ties, then y
+    qx = torch.abs(hx) / torch.clamp(0.5 * rec[..., 0], min=1e-9)
+    qy = torch.abs(hy) / torch.clamp(0.5 * rec[..., 1], min=1e-9)
+    qz = torch.abs(hz) / torch.clamp(0.5 * rec[..., 2], min=1e-9)
+    pick_x = (qx >= qy) & (qx >= qz)
+    pick_y = ~pick_x & (qy >= qz)
+    pick_z = ~pick_x & ~pick_y
+    n_box = (torch.where(pick_x, _sign(hx), zero), torch.where(pick_y, _sign(hy), zero),
+             torch.where(pick_z, _sign(hz), zero))
+    # cylinder: the cap within 1e-4 of |z| = h/2, else radial
+    on_cap = torch.abs(torch.abs(hz) - 0.5 * rec[..., 1]) < 1e-4
+    c_len = torch.clamp(torch.sqrt(hx * hx + hy * hy), min=1e-9)
+    n_cyl = (torch.where(on_cap, zero, hx / c_len), torch.where(on_cap, zero, hy / c_len),
+             torch.where(on_cap, _sign(hz), zero))
+    # triangle: +z of its frame
+    n_p = [torch.where(kind == 0, b, torch.where(kind == 1, c, tri))
+           for b, c, tri in zip(n_box, n_cyl, (zero, zero, one))]
+    n_w = (r[0] * n_p[0] + r[1] * n_p[1] + r[2] * n_p[2],
+           r[3] * n_p[0] + r[4] * n_p[1] + r[5] * n_p[2],
+           r[6] * n_p[0] + r[7] * n_p[1] + r[8] * n_p[2])
+    n = torch.stack([torch.where(kind == 2, a, b) for a, b in zip(n_sph, n_w)], dim=-1)
+    flip = (n[..., 0] * dxw + n[..., 1] * dyw + n[..., 2] * dzw) > 0.0
+    return torch.where(flip[..., None], -n, n)
+
+
 def raycast_reference(pose, prims, dirs, mult, n_box: int, n_cyl: int, n_sph: int,
                       max_range: float, want_seg: bool = True, n_tri: int = 0,
-                      cull: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                      cull: bool = True, want_normals: bool = False, want_rgb: bool = False):
     """Plain PyTorch version of the kernel, same signature and outputs.
 
     Casts every ray against every primitive (``cull`` only matters to the
     kernel, whose broad phase never changes an output). Envs are processed
     in chunks of about REFERENCE_CHUNK_RAYS rays to bound memory."""
+    mode = _mode(want_seg, want_normals, want_rgb)
     N, R = pose.shape[0], dirs.shape[0]
     P = prims.shape[1]
     if P != n_box + n_cyl + n_sph + n_tri:
         raise ValueError(f"prims has {P} columns, counts sum to "
                          f"{n_box + n_cyl + n_sph + n_tri}")
-    depth = torch.empty((N, R), dtype=torch.float32, device=pose.device)
-    seg = (torch.empty((N, R), dtype=torch.int32, device=pose.device)
-           if want_seg else None)
+    dev = pose.device
+    depth = torch.empty((N, R), dtype=torch.float32, device=dev)
+    seg = (torch.empty((N, R), dtype=torch.int32, device=dev)
+           if mode != MODE_DEPTH else None)
+    face = torch.empty((N, R), dtype=torch.int32, device=dev) if mode == MODE_NORMALS else None
+    vec = (torch.empty((N, R, 3), dtype=torch.float32, device=dev)
+           if mode >= MODE_NORMALS else None)
     step = max(1, REFERENCE_CHUNK_RAYS // max(R, 1))
     for lo in range(0, N, step):
         hi = min(N, lo + step)
@@ -189,10 +277,10 @@ def raycast_reference(pose, prims, dirs, mult, n_box: int, n_cyl: int, n_sph: in
         o = ps[:, 0:3]
         dw = rotate_dirs(ps[:, 3:7], dirs)                             # (n, R, 3)
         dxw, dyw, dzw = dw[..., 0], dw[..., 1], dw[..., 2]
-        t_best = torch.full(dxw.shape, oracle.BIG, dtype=torch.float32,
-                            device=pose.device)
+        t_best = torch.full(dxw.shape, oracle.BIG, dtype=torch.float32, device=dev)
         s_best = torch.full(dxw.shape, oracle.NO_HIT_SEGMENTATION_VAL,
-                            dtype=torch.int32, device=pose.device)
+                            dtype=torch.int32, device=dev)
+        p_best = torch.full(dxw.shape, oracle.NO_HIT_FACE_VAL, dtype=torch.int32, device=dev)
         for p in range(P):
             kind = _kind_of(p, n_box, n_cyl, n_sph)
             size = pr[:, p, 0:3][:, None, :]                           # (n, 1, 3)
@@ -220,14 +308,38 @@ def raycast_reference(pose, prims, dirs, mult, n_box: int, n_cyl: int, n_sph: in
                     t = oracle.ray_triangle(ro, rd, size)
             closer = t < t_best
             t_best = torch.where(closer, t, t_best)
-            if want_seg:
+            if mode != MODE_DEPTH:
                 s_best = torch.where(closer, pr[:, p, 15, None].to(torch.int32), s_best)
+            if mode >= MODE_NORMALS:
+                p_best = torch.where(closer, torch.full_like(p_best, p), p_best)
         miss = t_best >= min(max_range, 0.5 * oracle.BIG)
-        t_best = torch.where(miss, torch.full_like(t_best, oracle.NO_HIT_RAY_VAL), t_best)
-        depth[lo:hi] = t_best * mult[None, :]
-        if want_seg:
+        if mode != MODE_DEPTH:
             seg[lo:hi] = torch.where(
                 miss, torch.full_like(s_best, oracle.NO_HIT_SEGMENTATION_VAL), s_best)
+        if mode >= MODE_NORMALS:
+            normal = (winner_normal(pr, o, dw, t_best, p_best.clamp(min=0).long(),
+                                    n_box, n_cyl, n_sph) if P else torch.zeros_like(dw))
+            p_best = torch.where(miss, torch.full_like(p_best, oracle.NO_HIT_FACE_VAL), p_best)
+        if mode == MODE_RGB:
+            # the true depth (range x multiplier) fades the shade
+            depth_px = t_best * mult[None, :]
+            depth[lo:hi] = torch.where(miss, torch.full_like(depth_px, oracle.NO_HIT_RAY_VAL),
+                                       depth_px)
+            vec[lo:hi] = oracle.shade_rgb(depth_px, normal, p_best, seg[lo:hi], max_range)
+            continue
+        t_best = torch.where(miss, torch.full_like(t_best, oracle.NO_HIT_RAY_VAL), t_best)
+        depth[lo:hi] = t_best * mult[None, :]
+        if mode == MODE_NORMALS:
+            face[lo:hi] = p_best
+            vec[lo:hi] = torch.where(miss[..., None], torch.zeros_like(normal), normal)
+    return _outputs(mode, depth, seg, face, vec)
+
+
+def _outputs(mode: int, depth, seg, face, vec):
+    if mode == MODE_NORMALS:
+        return depth, seg, vec, face
+    if mode == MODE_RGB:
+        return depth, seg, vec
     return depth, seg
 
 
@@ -247,19 +359,41 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _set_shading(lib, dev: torch.device):
+    """Copy the RGB mode's constants into the kernel's constant memory of
+    ``dev`` (once per device)."""
+    if dev.index in _shading_devices:
+        return
+    with torch.cuda.device(dev):
+        rc = lib.raycast_set_shading(SHADING.ctypes.data, SHADING.size)
+    if rc != 0:
+        raise RuntimeError("raycast shading constants: " + lib.raycast_error_string(rc).decode())
+    _shading_devices.add(dev.index)
+
+
 def raycast(pose, prims, dirs, mult, n_box: int, n_cyl: int, n_sph: int,
             max_range: float, want_seg: bool = True, n_tri: int = 0,
-            cull: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Nearest hit of every (env, ray) -> depth (N, R) f32 = t * mult
-    (NO_HIT_RAY_VAL * mult on a miss) and, when want_seg, the winner's
-    semantic id (N, R) int32 (NO_HIT_SEGMENTATION_VAL on a miss).
+            cull: bool = True, want_normals: bool = False, want_rgb: bool = False):
+    """Nearest hit of every (env, ray).
+
+    Returns (depth, seg): depth (N, R) f32 = t * mult (NO_HIT_RAY_VAL *
+    mult on a miss) and, when want_seg, the winner's semantic id (N, R)
+    int32 (NO_HIT_SEGMENTATION_VAL on a miss), else None.
+    want_normals: (depth, seg, normal (N, R, 3), face (N, R) int32) with
+    the winner's world normal oriented against the ray (0 on a miss) and
+    its index in the table (-1 on a miss).
+    want_rgb (exclusive with want_normals): (depth, seg, rgb (N, R, 3))
+    with depth = t * mult, exactly NO_HIT_RAY_VAL on a miss, and the
+    Lambert shade of ops/raycast.shade_rgb on that depth (sky on a miss).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel.
     ``cull=False`` turns the kernel's broad phase off (a debug switch:
     outputs are identical either way)."""
+    mode = _mode(want_seg, want_normals, want_rgb)
     if pose.device.type == "cpu":
-        return raycast_reference(pose, prims, dirs, mult, n_box, n_cyl, n_sph,
-                                 max_range, want_seg=want_seg, n_tri=n_tri, cull=cull)
+        return raycast_reference(pose, prims, dirs, mult, n_box, n_cyl, n_sph, max_range,
+                                 want_seg=want_seg, n_tri=n_tri, cull=cull,
+                                 want_normals=want_normals, want_rgb=want_rgb)
     if pose.device.type != "cuda":
         raise ValueError(f"unsupported device {pose.device}")
     N, R, P = pose.shape[0], dirs.shape[0], prims.shape[1]
@@ -274,18 +408,23 @@ def raycast(pose, prims, dirs, mult, n_box: int, n_cyl: int, n_sph: int,
     if -(-R // THREADS) > 65535:
         raise ValueError(f"{R} rays exceed the kernel's grid limit")
     lib = _load()
+    if mode == MODE_RGB:
+        _set_shading(lib, dev)
     depth = torch.empty((N, R), dtype=torch.float32, device=dev)
-    seg = torch.empty((N, R), dtype=torch.int32, device=dev) if want_seg else None
+    seg = torch.empty((N, R), dtype=torch.int32, device=dev) if mode != MODE_DEPTH else None
+    face = torch.empty((N, R), dtype=torch.int32, device=dev) if mode == MODE_NORMALS else None
+    vec = (torch.empty((N, R, 3), dtype=torch.float32, device=dev)
+           if mode >= MODE_NORMALS else None)
     if N == 0 or R == 0:
-        return depth, seg
+        return _outputs(mode, depth, seg, face, vec)
+    ptr = lambda t: None if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.raycast_launch(pose.data_ptr(), prims.data_ptr(), dirs.data_ptr(),
-                            mult.data_ptr(), depth.data_ptr(),
-                            seg.data_ptr() if want_seg else None,
+                            mult.data_ptr(), depth.data_ptr(), ptr(seg), ptr(face), ptr(vec),
                             N, R, P, n_box, n_cyl, n_sph, n_tri, float(max_range),
-                            int(bool(cull)), int(bool(want_seg)), stream)
+                            int(bool(cull)), mode, stream)
     if rc != 0:
         raise RuntimeError("raycast kernel launch failed: "
                            + lib.raycast_error_string(rc).decode())
-    LAUNCHES["raycast_seg" if want_seg else "raycast_depth"] += 1
-    return depth, seg
+    LAUNCHES[MODE_NAMES[mode]] += 1
+    return _outputs(mode, depth, seg, face, vec)

@@ -1,11 +1,12 @@
-"""Ray-cast camera pipeline: ray table, mount pose, render, noise, range
-limits.
+"""Ray-cast sensor pipeline: camera and lidar ray tables, mount pose,
+render, noise, range limits, and the normal/face-id and RGB captures.
 
-Counterpart of ``aerial_gym_simulator_tpu/sensors/raycast_sensor.py``, cut
-to a single depth camera (no stereo, lidar or normal/RGB modes). The
-render packs the scene into world-frame tables and calls
-``ops/raycast_cuda.raycast``: the ray-cast kernel on the card, its plain
-version for CPU tensors.
+Counterpart of ``aerial_gym_simulator_tpu/sensors/raycast_sensor.py``
+for one sensor of each kind per robot (no stereo or pointcloud capture,
+no multi-sensor mount sampling; the captures stack any number of mounts
+they are given). Every capture packs the scene into world-frame tables
+and calls ``ops/raycast_cuda.raycast``: the ray-cast kernel on the card,
+its plain version for CPU tensors. Rays are cast in row-major order.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from ..ops import raycast, raycast_cuda
+from ..ops.raycast import shade_rgb
 from ..sim.params import f32
 from ..sim.structs import RaySensorParams, SimParams, SimState
 from ..utils.math import quat_from_euler_xyz, quat_mul, tf_apply
@@ -42,13 +44,35 @@ def camera_ray_dirs(height: int, width: int, hfov_deg: float):
     return dirs.astype(np.float32), mult.astype(np.float32)
 
 
+def lidar_ray_dirs(height: int, width: int, h_min: float, h_max: float,
+                   v_min: float, v_max: float):
+    """Spherical azimuth/elevation table in the sensor frame (x forward),
+    in the reference's scan order (+HFOV -> -HFOV, +VFOV -> -VFOV), and
+    a multiplier of ones (a lidar returns range); numpy f32 arrays."""
+    h_min, h_max = math.radians(h_min), math.radians(h_max)
+    v_min, v_max = math.radians(v_min), math.radians(v_max)
+    j = np.arange(width, dtype=np.float32)
+    i = np.arange(height, dtype=np.float32)
+    az = h_max - (h_max - h_min) * (j / max(width - 1, 1))
+    el = v_max - (v_max - v_min) * (i / max(height - 1, 1))
+    azg = np.broadcast_to(az[None, :], (height, width))
+    elg = np.broadcast_to(el[:, None], (height, width))
+    dirs = np.stack([np.cos(azg) * np.cos(elg), np.sin(azg) * np.cos(elg), np.sin(elg)],
+                    axis=-1)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    return dirs.astype(np.float32), np.ones((height, width), np.float32)
+
+
 def build_ray_sensor_params(cfg, device) -> RaySensorParams:
-    """Compile a camera config into device params."""
-    if cfg.sensor_type != "camera":
-        raise NotImplementedError(f"sensor type {cfg.sensor_type!r} is not ported yet")
-    dirs, mult = camera_ray_dirs(cfg.height, cfg.width, cfg.horizontal_fov_deg)
-    if not cfg.calculate_depth:
-        mult = np.ones_like(mult)
+    """Compile a camera or lidar config into device params."""
+    if cfg.sensor_type == "camera":
+        dirs, mult = camera_ray_dirs(cfg.height, cfg.width, cfg.horizontal_fov_deg)
+        if not cfg.calculate_depth:
+            mult = np.ones_like(mult)
+    else:
+        dirs, mult = lidar_ray_dirs(cfg.height, cfg.width, cfg.horizontal_fov_deg_min,
+                                    cfg.horizontal_fov_deg_max, cfg.vertical_fov_deg_min,
+                                    cfg.vertical_fov_deg_max)
     t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
     rot = t(np.radians(cfg.euler_frame_rot_deg))
     noise = cfg.sensor_noise
@@ -106,6 +130,19 @@ def sensor_world_pose(sp: RaySensorParams, state: SimState, mount_pos, mount_qua
     return pos, quat
 
 
+def cast_inputs(params: SimParams, state: SimState, sp: RaySensorParams, mount_pos,
+                mount_quat):
+    """The ray-cast kernel's inputs for one mount, as every capture packs
+    them: (pose, prims, dirs, mult, n_box, n_cyl, n_sph, max_range)."""
+    sc = params.scene
+    R = sp.height * sp.width
+    pos_w, quat_w = sensor_world_pose(sp, state, mount_pos, mount_quat)
+    return (raycast_cuda.pack_pose(pos_w, quat_w),
+            raycast_cuda.pack_prims_world(sc, state.obstacle_pos, state.obstacle_quat),
+            sp.dirs.reshape(R, 3), sp.depth_multiplier.reshape(R),
+            sc.n_box, sc.n_cyl, sc.n_sph, sp.max_range)
+
+
 def render(params: SimParams, state: SimState, sp: RaySensorParams, mount_pos,
            mount_quat, gen: torch.Generator = None, want_seg=None):
     """Sensor capture -> (pixels (N, H, W), segmentation (N, H, W) int32 or
@@ -126,11 +163,8 @@ def render(params: SimParams, state: SimState, sp: RaySensorParams, mount_pos,
         seg = torch.full((N, R), raycast.NO_HIT_SEGMENTATION_VAL, dtype=torch.int32,
                          device=depth.device) if want_seg else None
     else:
-        pos_w, quat_w = sensor_world_pose(sp, state, mount_pos, mount_quat)
-        prims = raycast_cuda.pack_prims_world(sc, state.obstacle_pos, state.obstacle_quat)
         depth, seg = raycast_cuda.raycast(
-            raycast_cuda.pack_pose(pos_w, quat_w), prims, sp.dirs.reshape(R, 3),
-            mult, sc.n_box, sc.n_cyl, sc.n_sph, sp.max_range, want_seg=want_seg,
+            *cast_inputs(params, state, sp, mount_pos, mount_quat), want_seg=want_seg,
             n_tri=sc.n_tri)
     pixels = depth.reshape(N, H, W)
     if sp.enable_noise and gen is not None:
@@ -157,7 +191,87 @@ def apply_range_limits(sp: RaySensorParams, pixels):
                        pixels)
 
 
+def _stacked(fn, params, state, sp, mount_pos, mount_quat):
+    """Mounts (N, S, 3)/(N, S, 4): capture each and stack on axis 1."""
+    outs = [fn(params, state, sp, mount_pos[:, k], mount_quat[:, k])
+            for k in range(mount_pos.shape[1])]
+    return tuple(torch.stack(parts, dim=1) for parts in zip(*outs))
+
+
+def render_normal_faceid(params: SimParams, state: SimState, sp: RaySensorParams,
+                         mount_pos, mount_quat):
+    """Normal + face-id capture (the reference's NormalFaceID cameras and
+    lidars): per-pixel world surface normal oriented against the ray and
+    the hit primitive's index, with depth/range and segmentation. No noise,
+    range limits or normalization.
+
+    Returns (depth (N,H,W), normals (N,H,W,3), face_id (N,H,W) int32, seg
+    (N,H,W) int32): depth NO_HIT_RAY_VAL, normal 0, face -1 and seg -2
+    where nothing was hit; with mounts (N, S, ...) every output gains the
+    sensor axis at position 1."""
+    if mount_pos.dim() == 3:
+        return _stacked(render_normal_faceid, params, state, sp, mount_pos, mount_quat)
+    N, H, W = state.pos.shape[0], sp.height, sp.width
+    sc = params.scene
+    dev = state.pos.device
+    if sc is None or sc.num_env_prims == 0:
+        return (torch.full((N, H, W), raycast.NO_HIT_RAY_VAL, device=dev),
+                torch.zeros((N, H, W, 3), device=dev),
+                torch.full((N, H, W), raycast.NO_HIT_FACE_VAL, dtype=torch.int32, device=dev),
+                torch.full((N, H, W), raycast.NO_HIT_SEGMENTATION_VAL, dtype=torch.int32,
+                           device=dev))
+    depth, seg, normals, face = raycast_cuda.raycast(
+        *cast_inputs(params, state, sp, mount_pos, mount_quat), n_tri=sc.n_tri,
+        want_normals=True)
+    depth = torch.where(face >= 0, depth, torch.full_like(depth, raycast.NO_HIT_RAY_VAL))
+    return (depth.reshape(N, H, W), normals.reshape(N, H, W, 3), face.reshape(N, H, W),
+            seg.reshape(N, H, W))
+
+
+def render_rgb(params: SimParams, state: SimState, sp: RaySensorParams, mount_pos,
+               mount_quat):
+    """Onboard RGB capture: the Lambert shade (``shade_rgb``) of the ray-cast
+    render. On the card one launch of the kernel's RGB mode; on the CPU
+    render_normal_faceid + shade_rgb, which evaluate the same expressions.
+
+    Returns (rgb (N,H,W,3) f32 in [0, 1], depth (N,H,W), seg (N,H,W));
+    with mounts (N, S, ...) every output gains the sensor axis at
+    position 1."""
+    if mount_pos.dim() == 3:
+        return _stacked(render_rgb, params, state, sp, mount_pos, mount_quat)
+    sc = params.scene
+    if state.pos.device.type == "cuda" and sc is not None and sc.num_env_prims > 0:
+        N, H, W = state.pos.shape[0], sp.height, sp.width
+        depth, seg, rgb = raycast_cuda.raycast(
+            *cast_inputs(params, state, sp, mount_pos, mount_quat), n_tri=sc.n_tri,
+            want_rgb=True)
+        return rgb.reshape(N, H, W, 3), depth.reshape(N, H, W), seg.reshape(N, H, W)
+    depth, normals, face, seg = render_normal_faceid(params, state, sp, mount_pos, mount_quat)
+    return shade_rgb(depth, normals, face, seg, sp.max_range), depth, seg
+
+
 def render_camera(params: SimParams, state: SimState, gen: torch.Generator = None,
                   want_seg=None):
     return render(params, state, params.camera, state.cam_mount_pos,
                   state.cam_mount_quat, gen, want_seg=want_seg)
+
+
+def render_lidar(params: SimParams, state: SimState, gen: torch.Generator = None,
+                 want_seg=None):
+    return render(params, state, params.lidar, state.lidar_mount_pos,
+                  state.lidar_mount_quat, gen, want_seg=want_seg)
+
+
+def render_rgb_camera(params: SimParams, state: SimState):
+    return render_rgb(params, state, params.camera, state.cam_mount_pos,
+                      state.cam_mount_quat)
+
+
+def render_normal_faceid_camera(params: SimParams, state: SimState):
+    return render_normal_faceid(params, state, params.camera, state.cam_mount_pos,
+                                state.cam_mount_quat)
+
+
+def render_normal_faceid_lidar(params: SimParams, state: SimState):
+    return render_normal_faceid(params, state, params.lidar, state.lidar_mount_pos,
+                                state.lidar_mount_quat)

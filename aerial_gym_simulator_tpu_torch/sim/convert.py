@@ -72,8 +72,8 @@ def _record(cls, d: dict, device):
 
 def params_from_numpy(d: dict, device) -> SimParams:
     """Nested dict of numpy leaves -> SimParams on ``device`` (rigid robots,
-    optional obstacle scene and camera)."""
-    for unported in ("dof", "art", "lidar", "imu"):
+    optional obstacle scene, camera and lidar)."""
+    for unported in ("dof", "art", "imu"):
         if d.get(unported) is not None:
             raise NotImplementedError(f"SimParams.{unported} is not ported yet")
     opt = lambda cls, key: None if d.get(key) is None else _record(cls, d[key], device)
@@ -86,6 +86,7 @@ def params_from_numpy(d: dict, device) -> SimParams:
         env=_record(EnvParams, d["env"], device),
         scene=opt(SceneParams, "scene"),
         camera=opt(RaySensorParams, "camera"),
+        lidar=opt(RaySensorParams, "lidar"),
     )
 
 

@@ -221,13 +221,15 @@ def reset_envs(params: SimParams, state: SimState, mask: torch.Tensor) -> SimSta
     if params.scene is not None and params.scene.num_assets > 0:
         from ..envs.scene import reset_obstacles
         state = reset_obstacles(params, state, mask)
-    if params.camera is not None:
-        from ..sensors.raycast_sensor import sample_mount_pose
-        mpos, mquat = sample_mount_pose(params.camera, state.rng, state.num_envs)
-        state = replace(state,
-                        cam_mount_pos=torch.where(mb[:, None], mpos, state.cam_mount_pos),
-                        cam_mount_quat=torch.where(mb[:, None], mquat,
-                                                   state.cam_mount_quat))
+    from ..sensors.raycast_sensor import sample_mount_pose
+    for sp, prefix in ((params.camera, "cam"), (params.lidar, "lidar")):
+        if sp is None:
+            continue
+        mpos, mquat = sample_mount_pose(sp, state.rng, state.num_envs)
+        pos_name, quat_name = f"{prefix}_mount_pos", f"{prefix}_mount_quat"
+        state = replace(state, **{
+            pos_name: torch.where(mb[:, None], mpos, getattr(state, pos_name)),
+            quat_name: torch.where(mb[:, None], mquat, getattr(state, quat_name))})
     return state
 
 

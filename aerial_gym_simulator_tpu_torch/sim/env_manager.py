@@ -9,6 +9,7 @@ value back to the host.
 
 from __future__ import annotations
 
+import logging
 import math
 import random as pyrandom
 from typing import Dict
@@ -19,6 +20,8 @@ from ..control.controllers import compute_robot_obs
 from . import dynamics
 from .params import initial_state
 from .structs import SimParams, SimState, replace
+
+logger = logging.getLogger(__name__)
 
 
 class EnvManager:
@@ -38,9 +41,12 @@ class EnvManager:
         self.state: SimState = initial_state(params, seed=seed)
         self.step_counter = 0
         self._py_rng = pyrandom.Random(seed)
-        # latest sensor capture (filled by render())
+        # latest sensor captures (filled by render())
         self._sensor_frames = None
         self._sensor_seg = None
+        self._lidar_frames = None
+        self._lidar_seg = None
+        self._rgb_frames = None
         self.reset()
 
     # -- core loop ---------------------------------------------------------
@@ -117,6 +123,13 @@ class EnvManager:
             out["depth_range_pixels"] = self._sensor_frames
         if self._sensor_seg is not None:
             out["segmentation_pixels"] = self._sensor_seg
+        if self._lidar_frames is not None:
+            # a robot with camera and lidar: the lidar rides its own keys
+            out["lidar_range_pixels"] = self._lidar_frames
+        if self._lidar_seg is not None:
+            out["lidar_segmentation_pixels"] = self._lidar_seg
+        if self._rgb_frames is not None:
+            out["rgb_pixels"] = self._rgb_frames
         return out
 
     @property
@@ -124,14 +137,38 @@ class EnvManager:
         return self.state.sim_steps
 
     def render(self, render_components: str = "sensors"):
-        """Capture the camera into get_obs()["depth_range_pixels"] (and
-        "segmentation_pixels" for a segmentation camera). Configured noise
-        is drawn from the state's generator. No-op without a camera."""
-        if self.params.camera is None:
+        """Capture the sensors into get_obs()["depth_range_pixels"] (and
+        "segmentation_pixels" for a segmentation sensor). Configured noise
+        is drawn from the state's generator. No-op without a camera or
+        lidar.
+
+        A robot with camera and lidar captures both: the camera keeps those
+        keys, the lidar lands in "lidar_range_pixels" /
+        "lidar_segmentation_pixels"; a lidar-only robot keeps the camera's
+        keys. render_components="rgb" also captures the camera's RGB image
+        into get_obs()["rgb_pixels"]; a plain render() drops a stale one."""
+        params, state = self.params, self.state
+        if params.camera is None and params.lidar is None:
             return None
-        from ..sensors.raycast_sensor import render_camera
-        self._sensor_frames, self._sensor_seg = render_camera(self.params, self.state,
-                                                              gen=self.state.rng)
+        from ..sensors.raycast_sensor import render_camera, render_lidar, render_rgb_camera
+        if "rgb" in render_components:
+            if params.camera is None:
+                logger.warning("render('rgb') requested but no camera sensor is configured; "
+                               "rgb_pixels will not be captured (lidar-only robot)")
+            else:
+                self._rgb_frames = render_rgb_camera(params, state)[0]
+        else:
+            # a plain render() advances depth but not rgb: do not pair them
+            self._rgb_frames = None
+        camera = (render_camera(params, state, gen=state.rng) if params.camera is not None
+                  else None)
+        lidar = (render_lidar(params, state, gen=state.rng) if params.lidar is not None
+                 else (None, None))
+        if camera is not None:
+            (self._sensor_frames, self._sensor_seg), (self._lidar_frames, self._lidar_seg) = (
+                camera, lidar)
+        else:
+            self._sensor_frames, self._sensor_seg = lidar
         return self._sensor_frames
 
     def delete_env(self):

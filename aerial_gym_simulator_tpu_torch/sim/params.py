@@ -150,15 +150,18 @@ def build_env_params(env_cfg, device, num_envs: Optional[int] = None) -> EnvPara
 def build_sim_params(sim_cfg, env_cfg, robot_cfg, ctrl_cfg, device,
                      num_envs: Optional[int] = None,
                      scene: Optional[SceneParams] = None) -> SimParams:
-    camera = None
+    from ..config.sensor_config.sensor_configs import BaseDepthCameraConfig, BaseLidarConfig
+    from ..sensors.raycast_sensor import build_ray_sensor_params
+
+    def ray_sensor(enabled, cfg, default):
+        if not enabled:
+            return None
+        cfg = cfg or default
+        return build_ray_sensor_params(cfg() if isinstance(cfg, type) else cfg, device)
+
     sens = robot_cfg.sensor_config
-    if sens.enable_camera:
-        from ..config.sensor_config.sensor_configs import BaseDepthCameraConfig
-        from ..sensors.raycast_sensor import build_ray_sensor_params
-        cam_cfg = sens.camera_config or BaseDepthCameraConfig()
-        if isinstance(cam_cfg, type):
-            cam_cfg = cam_cfg()
-        camera = build_ray_sensor_params(cam_cfg, device)
+    camera = ray_sensor(sens.enable_camera, sens.camera_config, BaseDepthCameraConfig)
+    lidar = ray_sensor(sens.enable_lidar, sens.lidar_config, BaseLidarConfig)
     return SimParams(
         dt=f32(sim_cfg.dt),
         gravity=tensor(sim_cfg.gravity, device),
@@ -168,6 +171,7 @@ def build_sim_params(sim_cfg, env_cfg, robot_cfg, ctrl_cfg, device,
         env=build_env_params(env_cfg, device, num_envs),
         scene=scene,
         camera=camera,
+        lidar=lidar,
     )
 
 

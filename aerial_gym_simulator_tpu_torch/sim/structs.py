@@ -184,7 +184,7 @@ class SimParams:
     art: None = None
     scene: Optional[SceneParams] = None
     camera: Optional[RaySensorParams] = None
-    lidar: None = None
+    lidar: Optional[RaySensorParams] = None
     imu: None = None
 
     @property

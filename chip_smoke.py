@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Phases, each printed on its own line:
-  1. build   - compile the ray-cast kernel (csrc/raycast.cu) and the fused
-               attention kernels, forward and backward (csrc/attention.cu),
-               with nvcc, side by side;
+  1. build   - compile the ray-cast kernel in its four modes (csrc/raycast.cu)
+               and the fused attention kernels, forward and backward
+               (csrc/attention.cu), with nvcc, side by side;
   2. device  - the card's name and power limit (nvidia-smi);
   3. kernel  - the ray cast in depth (K1) and depth+seg (K2) mode against
                its plain PyTorch version on the card, on the obstacle env at
@@ -14,6 +14,11 @@ Phases, each printed on its own line:
                steps) and on a seeded synthetic scene with all four
                primitive kinds; depth max-abs-err <= 2e-3, seg agreement
                >= 0.999 on hit pixels, broad phase on == off bit for bit.
+               The normal/face-id (K3) and RGB (K4) modes on the same three
+               inputs: depth, seg and face bit-equal to the plain version,
+               normals and rgb within 1e-6, exact sentinels on a miss, rgb in
+               [0, 1], broad phase on == off; then K1/K2 and K3 on the 128x512
+               lidar table at 64 envs.
                The attention forward (K5) against its plain version on
                numpy-seeded q, k, v: f32 at five shapes, the ViT training
                shape (64, 225, 256) among them, within atol/rtol 1e-4, bf16
@@ -28,6 +33,13 @@ Phases, each printed on its own line:
                with zero actions (the bench loop), then EnvManager.step +
                render() (segmentation camera); finite outputs, the kernels'
                launch counts from that run, throughput and peak memory;
+     modalities - the obstacle env at 16384 envs with the normal/face-id
+               camera: env.step + render_normal_faceid_camera (K3), then
+               env.step + render("rgb") (K2 + K4); finite outputs, rgb_pixels
+               (N, 135, 240, 3), launch counts, env-steps/s, peak memory;
+     lidar   - the obstacle env at 1024 envs with the 128x512 lidar:
+               env.step + render() (K2) + render_normal_faceid_lidar (K3);
+               finite outputs, launch counts, env-steps/s, peak memory;
   5. nav     - the navigation task at 1024 envs (lmf2, 135x240 camera)
                flown closed loop for 300 steps by the shipped ViT encoder
                (dim 256, depth 4, 8 heads, bf16, attention through K5) and
@@ -39,7 +51,8 @@ Phases, each printed on its own line:
                version, its least possible time on this card and, for K5 and
                K6, torch's scaled_dot_product_attention (forward, backward)
                on the same tensors: K5 and K6 each at the serving shape in
-               bf16 and at the training shape in f32;
+               bf16 and at the training shape in f32, K3 and K4 at the
+               modalities path's shape and K2, K3 at the lidar path's;
   7. train   - models/train_vae at full width (ViT dim 256, depth 4, 8
                heads, fused attention, batch 64, 135x240, f32) for 60 steps:
                finite falling loss, K1 once and K5 and K6 four times per
@@ -71,7 +84,11 @@ from pathlib import Path
 
 DEPTH_ATOL = 2e-3
 SEG_AGREE = 0.999
+NORMALS_ATOL = 1e-6      # normals and rgb against the plain version
 NUM_ENVS = 16384
+MODALITY_STEPS = 3
+LIDAR_ENVS = 1024
+LIDAR_STEPS = 3
 RAYCAST_SOURCE = "aerial_gym_simulator_tpu_torch/csrc/raycast.cu"
 RAYCAST_REPLACES = "aerial_gym_simulator_tpu/ops/raycast_pallas.py:90"
 ATTENTION_SOURCE = "aerial_gym_simulator_tpu_torch/csrc/attention.cu"
@@ -126,6 +143,14 @@ PEAK_BYTES = 3.35e12
 # not counted), rotation of the ray into the primitive frame included
 FLOPS_PER_TEST = {0: 46, 1: 66, 2: 21, 3: 26}
 FLOPS_PER_RAY = 24   # world rotation of the ray, miss test, multiplier
+# per hit ray of the normal and RGB modes, counted from winner_normal in
+# csrc/raycast.cu by the winner's kind (frame origin and direction, hit
+# point, normal, rotation to world, orientation), and the shade on top
+NORMAL_FLOPS = {0: 68, 1: 68, 2: 24, 3: 59}
+SHADE_FLOPS = 16
+# bytes written per ray: depth, + seg, + face and normal, or + rgb
+OUT_BYTES_PER_RAY = {"raycast_depth": 4, "raycast_seg": 8, "raycast_normals": 24,
+                     "raycast_rgb": 20}
 
 
 def log(*parts):
@@ -164,6 +189,43 @@ def compare(rc, args, counts, n_tri, tag, errs):
         if err > DEPTH_ATOL:
             raise AssertionError(line)
         del d_k, d_n, d_r, s_k, s_n, s_r
+
+
+def compare_modes(rc, args, counts, n_tri, tag, errs):
+    """The normal (K3) and RGB (K4) modes, kernel (cull on/off) vs plain
+    version on the same inputs: depth, seg and face bit-equal, normals and
+    rgb within NORMALS_ATOL, exact sentinels on a miss."""
+    import torch
+    for mode, name in (("want_normals", "raycast_normals"), ("want_rgb", "raycast_rgb")):
+        k = rc.raycast(*args, *counts, n_tri=n_tri, **{mode: True})
+        k_off = rc.raycast(*args, *counts, n_tri=n_tri, cull=False, **{mode: True})
+        ref = rc.raycast_reference(*args, *counts, n_tri=n_tri, **{mode: True})
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(k, k_off)):
+            raise AssertionError(f"{tag}/{name}: broad phase on and off differ")
+        depth, seg, vec = k[0], k[1], k[2]
+        miss = seg == rc.oracle.NO_HIT_SEGMENTATION_VAL
+        exact = torch.equal(depth, ref[0]) and torch.equal(seg, ref[1])
+        err = (vec - ref[2]).abs().max().item()
+        if name == "raycast_normals":
+            exact = exact and torch.equal(k[3], ref[3])
+            sentinels = bool((k[3][miss] == -1).all() and (vec[miss] == 0.0).all())
+        else:
+            sky = torch.as_tensor(rc.oracle.SKY_RGB, device=vec.device)
+            sentinels = bool((depth[miss] == rc.oracle.NO_HIT_RAY_VAL).all()
+                             and (vec[miss] == sky).all())
+            if not (vec.min().item() >= 0.0 and vec.max().item() <= 1.0):
+                raise AssertionError(f"{tag}/{name}: rgb outside [0, 1]")
+        errs[name] = max(errs[name], err)
+        exact_what, vec_what = (("depth/seg/face", "normal") if name == "raycast_normals"
+                                else ("depth/seg", "rgb"))
+        line = (f"kernel {tag} {name}: {exact_what} {'bit-equal' if exact else 'DIFFER'}, "
+                f"{vec_what} max_abs_err={err:.3g}, misses {int(miss.sum())} with exact "
+                f"sentinels {sentinels}, cull_on==off")
+        log(line)
+        if not (exact and sentinels and err <= NORMALS_ATOL):
+            raise AssertionError(line)
+        del k, k_off, ref
 
 
 def synthetic_scene(torch, rc, cam_dirs, device, seed=7):
@@ -205,11 +267,12 @@ def event_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(torch, rc, pose, prims, dirs, counts, n_tri, max_range, want_seg):
+def bound_ms(torch, rc, pose, prims, dirs, counts, n_tri, max_range, name, face=None):
     """Least time for this call's work on the card: the larger of the bytes
     it must move (inputs once, outputs once) over 3.35 TB/s and the f32
     operations of the (ray, primitive) tests the broad phase keeps for this
-    data over 67 TFLOP/s."""
+    data over 67 TFLOP/s; for the normal and RGB modes, plus the winner's
+    normal (and shade) on each ray that ``face`` says hit."""
     N, R, P = pose.shape[0], dirs.shape[0], prims.shape[1]
     T = -(-R // rc.THREADS)
     rays_per_tile = torch.full((T,), float(rc.THREADS), device=dirs.device)
@@ -222,7 +285,14 @@ def bound_ms(torch, rc, pose, prims, dirs, counts, n_tri, max_range, want_seg):
         vis = rc.tile_visibility(pose[lo:lo + 512], prims[lo:lo + 512], dirs, *counts,
                                  max_range)                              # (n, T, P)
         ops += float((vis.float() * flops_per_prim).sum(-1).mul(rays_per_tile).sum())
-    n_bytes = 4 * (pose.numel() + prims.numel() + dirs.numel() + R + N * R * (2 if want_seg else 1))
+    if name in ("raycast_normals", "raycast_rgb"):
+        per_prim = torch.tensor([float(NORMAL_FLOPS[int(k)]) for k in kinds], device=dirs.device)
+        per_prim += SHADE_FLOPS if name == "raycast_rgb" else 0.0
+        for lo in range(0, N, 512):
+            f = face[lo:lo + 512]
+            ops += float((torch.bincount(f[f >= 0].long(), minlength=P).float()
+                          * per_prim).sum())
+    n_bytes = 4 * (pose.numel() + prims.numel() + dirs.numel() + R) + N * R * OUT_BYTES_PER_RAY[name]
     t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, n_bytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), ops
 
@@ -357,8 +427,8 @@ def nav_phase(torch, port, rc, ac, card):
     log(f"nav: launches {launches}, successes {succ:.0f} crashes {crash:.0f} "
         f"timeouts {timo:.0f} (success share {succ / max(ended, 1.0):.3f}), curriculum level "
         f"{float(task.nav_state.curriculum_level):.0f}, peak memory {peak_gb:.2f} GB")
-    want = {"raycast_depth": NAV_STEPS, "raycast_seg": 0, "attention_fwd": 4 * NAV_STEPS,
-            "attention_bwd": 0}
+    want = {"raycast_depth": NAV_STEPS, "raycast_seg": 0, "raycast_normals": 0,
+            "raycast_rgb": 0, "attention_fwd": 4 * NAV_STEPS, "attention_bwd": 0}
     if launches != want:
         raise AssertionError(f"nav launches {launches}, expected {want}")
     if not (succ > 0 and succ / max(ended, 1.0) > NAV_SUCCESS_SHARE):
@@ -412,8 +482,8 @@ def nav_phase(torch, port, rc, ac, card):
     log(f"nav: conv VAE loop {NAV_CONV_STEPS * NAV_ENVS / dt:.1f} env-steps/s "
         f"({dt / NAV_CONV_STEPS * 1e3:.2f} ms/step), launches {conv_launches}, "
         f"successes {succ:.0f} crashes {crash:.0f} timeouts {timo:.0f} | {card}")
-    want = {"raycast_depth": NAV_CONV_STEPS, "raycast_seg": 0, "attention_fwd": 0,
-            "attention_bwd": 0}
+    want = {"raycast_depth": NAV_CONV_STEPS, "raycast_seg": 0, "raycast_normals": 0,
+            "raycast_rgb": 0, "attention_fwd": 0, "attention_bwd": 0}
     if conv_launches != want:
         raise AssertionError(f"conv nav launches {conv_launches}, expected {want}")
     conv_task.close()
@@ -596,8 +666,8 @@ def train_phase(torch, rc, ac, card):
         f"peak memory {peak_gb:.2f} GB")
     if not last < losses[0]:
         raise AssertionError(f"train_vae: loss did not fall: {losses[0]} -> {last}")
-    want = {"raycast_depth": TRAIN_STEPS, "raycast_seg": 0, "attention_fwd": 4 * TRAIN_STEPS,
-            "attention_bwd": 4 * TRAIN_STEPS}
+    want = {"raycast_depth": TRAIN_STEPS, "raycast_seg": 0, "raycast_normals": 0,
+            "raycast_rgb": 0, "attention_fwd": 4 * TRAIN_STEPS, "attention_bwd": 4 * TRAIN_STEPS}
     if launches != want:
         raise AssertionError(f"train launches {launches}, expected {want}")
 
@@ -656,8 +726,8 @@ def train_phase(torch, rc, ac, card):
     conv_ms = (conv_hist[-1]["wall_s"] - conv_hist[1]["wall_s"]) / (TRAIN_CONV_STEPS - 2) * 1e3
     log(f"train: --arch conv {TRAIN_CONV_STEPS} steps, loss {conv_hist[0]['loss']:.5f} -> "
         f"{conv_hist[-1]['loss']:.5f}, {conv_ms:.2f} ms/step, launches {conv_launches} | {card}")
-    want = {"raycast_depth": TRAIN_CONV_STEPS, "raycast_seg": 0, "attention_fwd": 0,
-            "attention_bwd": 0}
+    want = {"raycast_depth": TRAIN_CONV_STEPS, "raycast_seg": 0, "raycast_normals": 0,
+            "raycast_rgb": 0, "attention_fwd": 0, "attention_bwd": 0}
     if conv_launches != want or not all(math.isfinite(h["loss"]) for h in conv_hist):
         raise AssertionError(f"conv train: launches {conv_launches}, history {conv_hist}")
     del conv_model
@@ -752,6 +822,171 @@ def ppo_phase(torch, port, card):
     task.close()
 
 
+def modalities_phase(torch, port, rc, card):
+    """The obstacle env at full width with the normal/face-id camera through
+    the user entry points: env.step + render_normal_faceid_camera (K3), then
+    env.step + render("rgb") (K2 + K4). Returns the kernels' launch counts
+    from these loops and the kernel's inputs on the final state."""
+    from aerial_gym_simulator_tpu_torch.sensors.raycast_sensor import (
+        cast_inputs, render_normal_faceid_camera)
+    t0 = time.perf_counter()
+    env = port.SimBuilder().build_env("base_sim", "env_with_obstacles",
+                                      "base_quadrotor_with_faceid_normal_camera",
+                                      "lee_velocity_control", num_envs=NUM_ENVS, seed=0)
+    torch.cuda.synchronize()
+    sp = env.params.camera
+    log(f"modalities: build_env({NUM_ENVS} envs, normal/face-id camera {sp.height}x{sp.width}) "
+        f"{time.perf_counter() - t0:.2f} s")
+    zeros = torch.zeros((NUM_ENVS, 4), device="cuda")
+    env.step(zeros)                                              # warm-up
+    out = render_normal_faceid_camera(env.params, env.state)
+    del out
+    env.render("rgb")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(rc.LAUNCHES)
+    finite = torch.ones((), dtype=torch.bool, device="cuda")
+    t0 = time.perf_counter()
+    for _ in range(MODALITY_STEPS):
+        env.step(zeros)
+        depth, normals, face, seg = render_normal_faceid_camera(env.params, env.state)
+        finite &= torch.isfinite(depth).all() & torch.isfinite(normals).all()
+        del depth, normals, face, seg                # 12.7 GB of images per capture
+    torch.cuda.synchronize()
+    dt_normals = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(MODALITY_STEPS):
+        env.step(zeros)
+        env.render("rgb")
+        finite &= torch.isfinite(env.get_obs()["rgb_pixels"]).all()
+    torch.cuda.synchronize()
+    dt_rgb = time.perf_counter() - t0
+    launches = dict(rc.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    obs = env.get_obs()
+    rgb = obs["rgb_pixels"]
+    log(f"modalities: step+render_normal_faceid_camera {MODALITY_STEPS * NUM_ENVS / dt_normals:.1f} "
+        f"env-steps/s ({dt_normals / MODALITY_STEPS * 1e3:.2f} ms/step), step+render('rgb') "
+        f"{MODALITY_STEPS * NUM_ENVS / dt_rgb:.1f} env-steps/s ({dt_rgb / MODALITY_STEPS * 1e3:.2f} "
+        f"ms/step) | {card}")
+    log(f"modalities: launches {launches}, rgb_pixels {tuple(rgb.shape)} in "
+        f"[{rgb.min().item():.4f}, {rgb.max().item():.4f}], finite {bool(finite)}, peak memory "
+        f"{peak_gb:.2f} GB")
+    if not (bool(finite) and rgb.shape == (NUM_ENVS, sp.height, sp.width, 3)
+            and rgb.min().item() >= 0.0 and rgb.max().item() <= 1.0
+            and torch.isfinite(obs["depth_range_pixels"]).all()):
+        raise AssertionError("bad output in the modalities loops")
+    want = {"raycast_depth": 0, "raycast_seg": MODALITY_STEPS, "raycast_normals": MODALITY_STEPS,
+            "raycast_rgb": MODALITY_STEPS}
+    if launches != want:
+        raise AssertionError(f"modalities launches {launches}, expected {want}")
+    del obs, rgb
+    # where a step's time goes: its pieces timed apart
+    parts = {"env.step": lambda: env.step(zeros),
+             "render_normal_faceid_camera": lambda: render_normal_faceid_camera(env.params,
+                                                                                env.state),
+             "render('rgb')": lambda: env.render("rgb")}
+    split = {name: wall_ms(torch, fn) for name, fn in parts.items()}
+    log("modalities: split " + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items())
+        + f" (render('rgb') = K4 + the camera's K2 render) | {card}")
+    args = cast_inputs(env.params, env.state, sp, env.state.cam_mount_pos,
+                       env.state.cam_mount_quat)
+    n_tri = env.params.scene.n_tri
+    del env, parts
+    torch.cuda.empty_cache()
+    return launches, args, n_tri
+
+
+def lidar_phase(torch, port, rc, card):
+    """The obstacle env with the 128x512 lidar through the user entry points:
+    env.step + render() (K2) + render_normal_faceid_lidar (K3). Returns the
+    kernels' launch counts and the kernel's inputs on the final state."""
+    from aerial_gym_simulator_tpu_torch.sensors.raycast_sensor import (
+        cast_inputs, render_normal_faceid_lidar)
+    env = port.SimBuilder().build_env("base_sim", "env_with_obstacles",
+                                      "base_quadrotor_with_lidar", "lee_velocity_control",
+                                      num_envs=LIDAR_ENVS, seed=0)
+    sp = env.params.lidar
+    zeros = torch.zeros((LIDAR_ENVS, 4), device="cuda")
+    env.step(zeros)                                              # warm-up
+    env.render()
+    out = render_normal_faceid_lidar(env.params, env.state)
+    del out
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(rc.LAUNCHES)
+    finite = torch.ones((), dtype=torch.bool, device="cuda")
+    t0 = time.perf_counter()
+    for _ in range(LIDAR_STEPS):
+        env.step(zeros)
+        env.render()
+        depth, normals, face, seg = render_normal_faceid_lidar(env.params, env.state)
+        finite &= (torch.isfinite(env.get_obs()["depth_range_pixels"]).all()
+                   & torch.isfinite(depth).all() & torch.isfinite(normals).all())
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(rc.LAUNCHES)
+    obs = env.get_obs()
+    hit_share = (face >= 0).float().mean().item()
+    log(f"lidar: {LIDAR_ENVS} envs, {sp.height}x{sp.width} lidar: step+render()+"
+        f"render_normal_faceid_lidar {LIDAR_STEPS * LIDAR_ENVS / dt:.1f} env-steps/s "
+        f"({dt / LIDAR_STEPS * 1e3:.2f} ms/step) | {card}")
+    log(f"lidar: launches {launches}, depth_range_pixels {tuple(obs['depth_range_pixels'].shape)}, "
+        f"hit share {hit_share:.4f}, finite {bool(finite)}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if not (bool(finite) and obs["depth_range_pixels"].shape == (LIDAR_ENVS, sp.height, sp.width)
+            and obs["segmentation_pixels"].shape == (LIDAR_ENVS, sp.height, sp.width)
+            and normals.shape == (LIDAR_ENVS, sp.height, sp.width, 3)):
+        raise AssertionError("bad output in the lidar loop")
+    want = {"raycast_depth": 0, "raycast_seg": LIDAR_STEPS, "raycast_normals": LIDAR_STEPS,
+            "raycast_rgb": 0}
+    if launches != want:
+        raise AssertionError(f"lidar launches {launches}, expected {want}")
+    args = cast_inputs(env.params, env.state, sp, env.state.lidar_mount_pos,
+                       env.state.lidar_mount_quat)
+    n_tri = env.params.scene.n_tri
+    del env, obs, depth, normals, face, seg
+    torch.cuda.empty_cache()
+    return launches, args, n_tri
+
+
+def time_mode(torch, rc, args, n_tri, name, card, tag, face=None):
+    """One ray-cast mode at one path's shapes: kernel ms by CUDA events, the
+    plain version once, both compared, and the bound. ``face`` (the normal
+    mode's, on the same inputs) counts the RGB mode's per-hit work.
+    Returns the record's numbers and the face ids of the normal mode."""
+    kw = {"raycast_seg": {}, "raycast_normals": {"want_normals": True},
+          "raycast_rgb": {"want_rgb": True}}[name]
+    call = lambda: rc.raycast(*args, n_tri=n_tri, **kw)
+    ms = event_ms(torch, call, 5)
+    k = call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = rc.raycast_reference(*args, n_tri=n_tri, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    exact = all(torch.equal(a, b) for a, b in zip(k[:2], ref[:2]))
+    if name == "raycast_normals":
+        exact = exact and torch.equal(k[3], ref[3])
+        face = k[3]
+    err = max((a.float() - b.float()).abs().max().item() for a, b in zip(k[:3], ref[:3]))
+    pose, prims, dirs = args[:3]
+    b_ms, b_by, ops = bound_ms(torch, rc, pose, prims, dirs, args[4:7], n_tri, args[7], name,
+                               face)
+    hit = (k[1] != rc.oracle.NO_HIT_SEGMENTATION_VAL).float().mean().item()
+    line = (f"timing {name} {tag} ({pose.shape[0]}x{dirs.shape[0]} rays, {prims.shape[1]} prims, "
+            f"hit share {hit:.4f}): kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
+            f"{'bit-equal' if exact else 'DIFFER'} (max_abs_err {err:.3g}) | bound {b_ms:.3f} ms "
+            f"by {b_by} ({ops:.4g} f32 ops) | {card}")
+    log(line)
+    if not (exact and err <= NORMALS_ATOL):
+        raise AssertionError(line)
+    del k, ref
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": err}, face
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -765,7 +1000,7 @@ def main() -> int:
     from aerial_gym_simulator_tpu_torch.ops.attention import (
         attention_backward_reference, attention_reference)
     from aerial_gym_simulator_tpu_torch.sensors.raycast_sensor import (
-        camera_ray_dirs, render_camera, sensor_world_pose)
+        camera_ray_dirs, cast_inputs, render_camera, sensor_world_pose)
     from aerial_gym_simulator_tpu_torch.sim import dynamics
     dev = torch.device("cuda")
     names = ("base_sim", "env_with_obstacles", "base_quadrotor_with_camera",
@@ -786,7 +1021,7 @@ def main() -> int:
     log(f"device: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
 
     # 3. kernel vs plain version on the card
-    errs = {"raycast_depth": 0.0, "raycast_seg": 0.0}
+    errs = {"raycast_depth": 0.0, "raycast_seg": 0.0, "raycast_normals": 0.0, "raycast_rgb": 0.0}
     env = port.SimBuilder().build_env(*names, num_envs=64, seed=0)
     sp, sc = env.params.camera, env.params.scene
     R = sp.height * sp.width
@@ -802,15 +1037,28 @@ def main() -> int:
                 cam.dirs.reshape(R, 3), cam.depth_multiplier.reshape(R))
 
     cnt = counts + (sp.max_range,)
-    compare(rc, render_args(env.params, env.state), cnt, n_tri, "obstacles64/reset", errs)
-    zeros64 = torch.zeros((64, 4), device=dev)
-    for _ in range(20):
-        env.step(zeros64)
-    compare(rc, render_args(env.params, env.state), cnt, n_tri, "obstacles64/step20", errs)
+    for tag in ("obstacles64/reset", "obstacles64/step20"):
+        if tag.endswith("step20"):
+            zeros64 = torch.zeros((64, 4), device=dev)
+            for _ in range(20):
+                env.step(zeros64)
+        compare(rc, render_args(env.params, env.state), cnt, n_tri, tag, errs)
+        compare_modes(rc, render_args(env.params, env.state), cnt, n_tri, tag, errs)
     dirs_full = torch.as_tensor(camera_ray_dirs(135, 240, 87.0)[0].reshape(-1, 3), device=dev)
     syn_args, syn_counts = synthetic_scene(torch, rc, dirs_full, dev)
     compare(rc, syn_args, syn_counts[:3] + (12.0,), syn_counts[3], "synthetic324", errs)
-    del env
+    compare_modes(rc, syn_args, syn_counts[:3] + (12.0,), syn_counts[3], "synthetic324", errs)
+    # the 360-degree lidar table: each 256-ray tile spans 180 degrees of azimuth
+    env = port.SimBuilder().build_env("base_sim", "env_with_obstacles",
+                                      "base_quadrotor_with_lidar", "lee_velocity_control",
+                                      num_envs=64, seed=0)
+    for _ in range(5):
+        env.step(torch.zeros((64, 4), device=dev))
+    st, lp = env.state, env.params.lidar
+    lidar_args = cast_inputs(env.params, st, lp, st.lidar_mount_pos, st.lidar_mount_quat)
+    compare(rc, lidar_args[:4], lidar_args[4:], n_tri, "lidar64", errs)
+    compare_modes(rc, lidar_args[:4], lidar_args[4:], n_tri, "lidar64", errs)
+    del env, lidar_args, syn_args
     errs["attention_fwd"], k5_train_err = compare_attention(torch, ac, attention_reference, dev)
     errs["attention_bwd"] = compare_attention_bwd(torch, ac, attention_backward_reference, dev)
 
@@ -901,7 +1149,7 @@ def main() -> int:
         if (err > DEPTH_ATOL).float().mean().item() > 1.0 - SEG_AGREE:
             raise AssertionError(line)
         del d_k, s_k, d_r, s_r, err
-        b_ms, b_by, ops = bound_ms(torch, rc, *a[:3], counts, n_tri, mr, want_seg)
+        b_ms, b_by, ops = bound_ms(torch, rc, *a[:3], counts, n_tri, mr, name)
         log(line + f" | bound {b_ms:.3f} ms by {b_by} ({ops:.4g} f32 ops) | {card}")
         records.append({
             "name": name, "route": "cuda", "source": RAYCAST_SOURCE,
@@ -911,6 +1159,37 @@ def main() -> int:
         })
     del a, env, state, params, zeros
     torch.cuda.empty_cache()
+
+    # 4b. the normal/face-id and RGB captures at full width, then K3 and K4
+    #     at this path's shapes while its inputs are in memory
+    mod_launches, mod_args, mod_tri = modalities_phase(torch, port, rc, card)
+    k3, face = time_mode(torch, rc, mod_args, mod_tri, "raycast_normals", card, "modalities")
+    k4, _ = time_mode(torch, rc, mod_args, mod_tri, "raycast_rgb", card, "modalities", face)
+    del mod_args, face
+    # 4c. the lidar at 1024 envs, then K2 and K3 at its shapes
+    lid_launches, lid_args, lid_tri = lidar_phase(torch, port, rc, card)
+    k2_lidar, _ = time_mode(torch, rc, lid_args, lid_tri, "raycast_seg", card, "lidar")
+    k3_lidar, _ = time_mode(torch, rc, lid_args, lid_tri, "raycast_normals", card, "lidar")
+    del lid_args
+    torch.cuda.empty_cache()
+    lidar_tag = f"at_{LIDAR_ENVS}x{128 * 512}_lidar"
+    records[1]["launches"] += mod_launches["raycast_seg"] + lid_launches["raycast_seg"]
+    records[1]["launches_modalities_path"] = mod_launches["raycast_seg"]
+    records[1][lidar_tag] = dict(k2_lidar, launches=lid_launches["raycast_seg"], library_ms=None)
+    errs["raycast_seg"] = max(errs["raycast_seg"], k2_lidar["max_abs_err"])
+    records[1]["max_abs_err"] = errs["raycast_seg"]
+    mode_records = []
+    for name, rec, sub in (("raycast_normals", k3, k3_lidar), ("raycast_rgb", k4, None)):
+        record = {"name": name, "route": "cuda", "source": RAYCAST_SOURCE,
+                  "replaces": RAYCAST_REPLACES, "launches": mod_launches[name],
+                  **rec, "max_abs_err": max(errs[name], rec["max_abs_err"]), "library_ms": None}
+        if sub is not None:
+            # the lidar path: its launches beside its own time
+            record["launches"] += lid_launches[name]
+            record["launches_modalities_path"] = mod_launches[name]
+            record[lidar_tag] = dict(sub, launches=lid_launches[name], library_ms=None)
+            record["max_abs_err"] = max(record["max_abs_err"], sub["max_abs_err"])
+        mode_records.append(record)
 
     # 5. the navigation task flown by the shipped networks
     nav_launches, nav_k1_err = nav_phase(torch, port, rc, ac, card)
@@ -967,7 +1246,7 @@ def main() -> int:
     # 8. position PPO, the state-step line, the shipped position policy
     ppo_phase(torch, port, card)
 
-    log(json.dumps({"kernels": records}))
+    log(json.dumps({"kernels": records + mode_records}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

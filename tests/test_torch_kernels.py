@@ -1,6 +1,6 @@
-"""The ray-cast kernel (csrc/raycast.cu) and the fused-attention forward
-and backward kernels (csrc/attention.cu) against their plain PyTorch
-versions, and the wrappers' contracts. This file imports only the port, so it also runs where
+"""The ray-cast kernel (csrc/raycast.cu) in its four modes and the
+fused-attention forward and backward kernels (csrc/attention.cu) against
+their plain PyTorch versions, and the wrappers' contracts. This file imports only the port, so it also runs where
 JAX is not installed:
 
     python -m pytest tests/test_torch_kernels.py -q -m cuda    # on the card
@@ -12,7 +12,10 @@ phase on a seeded synthetic scene.
 Tolerances (kernel vs plain version): depth max-abs-err 2e-3 and seg
 agreement >= 0.999 on hit pixels; both evaluate the same expressions in
 the same order, so the difference is expected to be 0. Broad phase on and
-off must give bit-identical images. Attention: f32 atol/rtol 1e-4 (the
+off must give bit-identical images. The normal (K3) and RGB (K4) modes:
+depth, seg and face bit-equal to the plain version, normals and rgb within
+1e-6 (the same expressions in the same order, IEEE division and square
+root on both sides, so 0 is expected), exact sentinels on a miss. Attention: f32 atol/rtol 1e-4 (the
 kernel sums in another order than the matrix products of the plain
 version), bf16 atol/rtol 0.05 (the probabilities are rounded to bf16 at
 another place). Attention backward: f32 atol/rtol 2e-4, the bar the JAX
@@ -31,7 +34,8 @@ from aerial_gym_simulator_tpu_torch.ops import attention_cuda as ac
 from aerial_gym_simulator_tpu_torch.ops import raycast_cuda as rc
 from aerial_gym_simulator_tpu_torch.ops.attention import (
     attention_backward_reference, attention_reference)
-from aerial_gym_simulator_tpu_torch.sensors.raycast_sensor import camera_ray_dirs
+from aerial_gym_simulator_tpu_torch.sensors.raycast_sensor import (
+    camera_ray_dirs, lidar_ray_dirs)
 from aerial_gym_simulator_tpu_torch.utils.math import quat_to_rotation_matrix
 
 DEPTH_ATOL = 2e-3
@@ -40,9 +44,10 @@ MAX_RANGE = 12.0
 COUNTS = (12, 8, 4, 300)      # box, cylinder, sphere, triangle: 324 > one chunk
 
 
-def synthetic_scene(device, n_envs=3, seed=7, H=24, W=40):
+def synthetic_scene(device, n_envs=3, seed=7, H=24, W=40, lidar=False):
     """Seeded world-frame soup of all four kinds; ~10% of the primitives
-    parked at -1000 with zero size, as culled obstacles and padding are."""
+    parked at -1000 with zero size, as culled obstacles and padding are.
+    The rays are a camera's, or with ``lidar`` a 360-degree lidar's."""
     g = torch.Generator().manual_seed(seed)
     P = sum(COUNTS)
     size = torch.rand((n_envs, P, 3), generator=g) * 1.2 + 0.05
@@ -59,7 +64,8 @@ def synthetic_scene(device, n_envs=3, seed=7, H=24, W=40):
     qs = torch.randn((n_envs, 4), generator=g)
     pose = rc.pack_pose((torch.rand((n_envs, 3), generator=g) - 0.5) * 4.0,
                         qs / qs.norm(dim=-1, keepdim=True))
-    dirs, mult = camera_ray_dirs(H, W, 87.0)
+    dirs, mult = (lidar_ray_dirs(H, W, -180.0, 180.0, -45.0, 45.0) if lidar
+                  else camera_ray_dirs(H, W, 87.0))
     as_t = lambda x: torch.as_tensor(x).reshape(-1, *x.shape[2:]).contiguous().to(device)
     return (pose.to(device), prims.contiguous().to(device), as_t(dirs), as_t(mult))
 
@@ -138,6 +144,56 @@ def test_wrapper_rejects_bad_inputs():
         rc.raycast(pose, prims, dirs, mult, 1, 1, 0, MAX_RANGE)        # counts != P
 
 
+def test_normal_and_rgb_modes_on_cpu_tensors():
+    """The plain normal and RGB modes: shapes, sentinels on a miss, unit
+    normals, rgb in [0, 1]; both modes at once raise; nothing launches."""
+    args = synthetic_scene("cpu")
+    before = dict(rc.LAUNCHES)
+    d, s, n, f = _run(rc.raycast, args, want_normals=True)
+    d2, s2 = _run(rc.raycast, args)
+    assert torch.equal(d, d2) and torch.equal(s, s2)
+    hit = f >= 0
+    assert 0.05 < hit.float().mean() < 0.95 and torch.equal(hit, s != -2)
+    assert (n[~hit] == 0.0).all()
+    torch.testing.assert_close(n[hit].norm(dim=-1), torch.ones(int(hit.sum())))
+    assert ((f[hit] >= 0) & (f[hit] < sum(COUNTS))).all()
+    d3, s3, rgb = _run(rc.raycast, args, want_rgb=True)
+    assert torch.equal(s3, s) and (d3[~hit] == 1000.0).all()
+    assert torch.equal(d3[hit], d[hit])
+    sky = torch.as_tensor(rc.oracle.SKY_RGB)
+    assert (rgb[~hit] == sky).all() and rgb.min() >= 0.0 and rgb.max() <= 1.0
+    assert rc.LAUNCHES == before
+    with pytest.raises(ValueError, match="exclusive"):
+        _run(rc.raycast, args, want_normals=True, want_rgb=True)
+
+
+def test_env_chunking_does_not_change_normal_and_rgb_modes(monkeypatch):
+    args = synthetic_scene("cpu", n_envs=2, H=8, W=16)
+    a = _run(rc.raycast_reference, args, want_normals=True)
+    b = _run(rc.raycast_reference, args, want_rgb=True)
+    monkeypatch.setattr(rc, "REFERENCE_CHUNK_RAYS", 1)          # one env per pass
+    assert all(torch.equal(x, y) for x, y in
+               zip(a + b, _run(rc.raycast_reference, args, want_normals=True)
+                   + _run(rc.raycast_reference, args, want_rgb=True)))
+
+
+def test_broad_phase_is_conservative_on_a_lidar_table():
+    """A 360-degree scan line of 512 rays: each tile of 256 spans 180
+    degrees of azimuth, a cone of half-angle past 90 degrees."""
+    pose, prims, dirs, mult = synthetic_scene("cpu", n_envs=2, H=3, W=512, lidar=True)
+    vis = rc.tile_visibility(pose, prims, dirs, *COUNTS[:3], MAX_RANGE)  # (N, T, P)
+    N, R, P = pose.shape[0], dirs.shape[0], prims.shape[1]
+    tile = torch.arange(R) // rc.THREADS
+    for p in range(P):
+        counts = [0, 0, 0, 0]
+        counts[rc._kind_of(p, *COUNTS[:3])] = 1
+        d, _ = rc.raycast_reference(pose, prims[:, p:p + 1].contiguous(), dirs, mult,
+                                    *counts[:3], MAX_RANGE, want_seg=False, n_tri=counts[3])
+        hit = d < 999.0
+        assert vis[:, :, p][torch.arange(N)[:, None], tile[None, :]][hit].all(), p
+    assert (~vis).any()
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -194,6 +250,73 @@ def test_kernel_wrapper_checks_on_card(cuda_device):
         _run(rc.raycast, (pose, prims[:, ::2].contiguous(), dirs, mult))
     with pytest.raises(ValueError):
         _run(rc.raycast, (pose, prims, dirs.cpu(), mult))
+
+
+def _compare_modes(args, counts, n_tri):
+    """Normal and RGB modes, kernel (cull on and off) vs plain version."""
+    for mode, name in (("want_normals", "raycast_normals"), ("want_rgb", "raycast_rgb")):
+        before = rc.LAUNCHES[name]
+        k = rc.raycast(*args, *counts, n_tri=n_tri, **{mode: True})
+        k_off = rc.raycast(*args, *counts, n_tri=n_tri, cull=False, **{mode: True})
+        ref = rc.raycast_reference(*args, *counts, n_tri=n_tri, **{mode: True})
+        torch.cuda.synchronize()
+        assert rc.LAUNCHES[name] == before + 2
+        for a, b in zip(k, k_off):
+            assert torch.equal(a, b), name
+        depth, seg = k[0], k[1]
+        assert torch.equal(depth, ref[0]) and torch.equal(seg, ref[1]), name
+        hit = seg != -2
+        assert hit.any() and (~hit).any()
+        if mode == "want_normals":
+            normal, face = k[2], k[3]
+            assert torch.equal(face, ref[3]) and (face[~hit] == -1).all()
+            assert (normal[~hit] == 0.0).all()
+            assert (normal - ref[2]).abs().max().item() <= 1e-6
+        else:
+            rgb = k[2]
+            assert (depth[~hit] == 1000.0).all()
+            assert (rgb[~hit] == torch.as_tensor(rc.oracle.SKY_RGB, device=rgb.device)).all()
+            assert rgb.min() >= 0.0 and rgb.max() <= 1.0
+            assert (rgb - ref[2]).abs().max().item() <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lidar", [False, True], ids=["camera", "lidar"])
+def test_normal_and_rgb_kernels_match_plain_version_synthetic(cuda_device, lidar):
+    args = (synthetic_scene(cuda_device, H=8, W=512, lidar=True) if lidar
+            else synthetic_scene(cuda_device))
+    _compare_modes(args, COUNTS[:3] + (MAX_RANGE,), COUNTS[3])
+
+
+@pytest.mark.cuda
+def test_normal_and_rgb_kernels_match_plain_version_obstacle_env(cuda_device):
+    from aerial_gym_simulator_tpu_torch.sensors.raycast_sensor import sensor_world_pose
+    env = port.SimBuilder().build_env("base_sim", "env_with_obstacles",
+                                      "base_quadrotor_with_faceid_normal_camera",
+                                      "lee_velocity_control", num_envs=4, seed=1)
+    for _ in range(5):
+        env.step(torch.zeros((4, 4), device=cuda_device))
+    sp, sc, st = env.params.camera, env.params.scene, env.state
+    pos_w, quat_w = sensor_world_pose(sp, st, st.cam_mount_pos, st.cam_mount_quat)
+    R = sp.height * sp.width
+    args = (rc.pack_pose(pos_w, quat_w),
+            rc.pack_prims_world(sc, st.obstacle_pos, st.obstacle_quat),
+            sp.dirs.reshape(R, 3), sp.depth_multiplier.reshape(R))
+    # a 4 m range leaves misses in the enclosed env
+    _compare_modes(args, (sc.n_box, sc.n_cyl, sc.n_sph, 4.0), sc.n_tri)
+
+
+@pytest.mark.cuda
+def test_normal_and_rgb_wrapper_checks_on_card(cuda_device):
+    pose, prims, dirs, mult = synthetic_scene(cuda_device)
+    for mode in ("want_normals", "want_rgb"):
+        with pytest.raises(ValueError):
+            _run(rc.raycast, (pose, prims, dirs, mult.double()), **{mode: True})
+        with pytest.raises(ValueError):
+            _run(rc.raycast, (pose, prims.transpose(0, 1).contiguous().transpose(0, 1), dirs,
+                              mult), **{mode: True})
+    with pytest.raises(ValueError, match="exclusive"):
+        _run(rc.raycast, (pose, prims, dirs, mult), want_normals=True, want_rgb=True)
 
 
 # ---------------------------------------------------------------------------

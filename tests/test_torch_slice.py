@@ -133,6 +133,18 @@ def test_source_imports_no_jax(path):
         assert not any(_forbidden(n) for n in names), (path, names)
 
 
+def test_scan_covers_the_capture_slice():
+    """The scan above reads every module the normal/face-id, RGB and lidar
+    captures run, and the kernel source those modules build."""
+    scanned = {str(p.relative_to(PKG)) for p in _sources() if PKG in p.parents}
+    for module in ("ops/raycast.py", "ops/raycast_cuda.py", "sensors/raycast_sensor.py",
+                   "config/sensor_config/sensor_configs.py", "config/robot_config/catalog.py",
+                   "sim/env_manager.py", "sim/params.py", "sim/dynamics.py", "sim/convert.py",
+                   "sim/structs.py"):
+        assert module in scanned, module
+    assert (PKG / "csrc" / "raycast.cu").exists()
+
+
 def test_importing_every_module_loads_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
