@@ -1,9 +1,9 @@
 // Fused multi-head attention for NVIDIA Hopper (sm_90a), forward and backward:
 //   o[b, :, h*hd:(h+1)*hd] = softmax(q_h k_h^T * scale) v_h      per (b, h)
-// on the packed (B, S, D = H*hd) layout, whole sequence per head, softmax
-// in f32, results in the input type. The (S, S) logits never reach device
-// memory in either direction: the backward keeps q, k, v only and
-// recomputes the probabilities.
+// on the packed (B, S, D = H*hd) layout, softmax in f32, results in the input
+// type. The (S, S) logits never reach device memory in either direction: the
+// forward can write the row log-sum-exp L (B, H, S) beside o, and the
+// backward recomputes the probabilities from q, k and L.
 //
 // Replaces the TPU kernels of
 // aerial_gym_simulator_tpu/ops/attention_pallas.py: the forward
@@ -11,94 +11,98 @@
 // attention_pallas.py:153) and the backward _bwd_call / _bwd_kernel
 // (pallas_call at attention_pallas.py:169).
 // Plain versions: aerial_gym_simulator_tpu_torch/ops/attention.py,
-// attention_reference and attention_backward_reference.
+// attention_reference, attention_lse_reference and
+// attention_backward_reference.
 //
-// Bound on this card, forward. At the ViT encoder's shapes (B=1024, S=225,
-// D=256, H=8, bf16) a call must move q, k, v in and o out once, 0.47 GB,
-// which takes 0.14 ms at 3.35 TB/s; its 53 GFLOP of products take 0.05 ms
-// at the 989 TFLOP/s bf16 tensor-core peak. The kernel is bound by bytes:
-// the design's job is to touch device memory once and keep the tensor cores
-// and the exp unit from becoming the limit instead.
+// Bound on this card, forward. At the ViT encoder's serving shape (B=1024,
+// S=225, D=256, H=8, bf16) a call must move q, k, v in and o out once, 0.47
+// GB, 0.14 ms at 3.35 TB/s; its 53 GFLOP of products take 0.05 ms at the 989
+// TFLOP/s bf16 tensor-core peak: bound by bytes. At the training shape (B=64,
+// f32) the 3.3 GFLOP take 0.050 ms as f32 multiply-adds (67 TFLOP/s) or 0.020
+// ms as three TF32 products each (495 TFLOP/s); bytes 0.018 ms.
+// Bound, backward. Training shape f32: q, k, v, do in and dq, dk, dv out are
+// 103 MB (0.031 ms); the five products Q K^T, dO V^T, dQ = dS K, dK = dS^T Q,
+// dV = P^T dO are 8.3 GFLOP, 0.124 ms as f32 multiply-adds, 0.050 ms as
+// 3xTF32. bf16 at the serving shape: 0.246 ms by bytes.
 //
-// Bound on this card, backward. The training path is f32 at B=64, S=225,
-// D=256, H=8: q, k, v, do in and dq, dk, dv out once are 103 MB (0.03 ms at
-// 3.35 TB/s); the five products dV = P^T dO, dP = dO V^T, dQ = dS K,
-// dK = dS^T Q and the recomputed Q K^T are 8.3 GFLOP, 0.12 ms at the
-// 67 TFLOP/s f32 rate: bound by operations. f32 inputs are held to 2e-4,
-// which tensor-core products of bf16 or TF32 operands do not give, so the
-// backward is a multiply-add kernel like the f32 forward.
+// f32 accuracy from the tensor cores ("3xTF32"). A TF32 operand keeps 10
+// mantissa bits, so one TF32 product misses the f32 tolerances (1e-4 forward,
+// 2e-4 backward). Split x = hi + lo with hi = tf32(x), lo = tf32(x - hi); then
+// a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi with f32 accumulation, about 2^-21
+// relative per product (a_lo b_lo, 2^-22, is dropped). The cross terms are
+// added first so the small terms are not lost behind the large one. A bf16
+// operand is exact in TF32 and takes one product; P and dS are rounded to
+// TF32 there (10 bits, where the library rounds them to bf16's 7).
 //
 // Forward, two kernels behind one launcher:
-//  * attention_mma_kernel (bf16, head_dim 32 or 64, positive scale): one
-//    block per (batch row, head). The head's K and V are staged once in
-//    shared memory with 16-byte loads and read back as mma fragments by
-//    ldmatrix (V transposed on the way), rows padded so that no fragment
-//    load has a bank conflict. Each of 8 warps owns 16 query rows at a
-//    time, keeps their Q fragments in registers, and walks the keys in
+//  * attention_mma_kernel (bf16, head_dim 32 or 64, positive scale): the
+//    serving kernel. One block per (batch row, head). The head's K and V are
+//    staged once in shared memory with 16-byte loads and read back as mma
+//    fragments by ldmatrix (V transposed on the way), rows padded so that no
+//    fragment load has a bank conflict. Each of 8 warps owns 16 query rows at
+//    a time, keeps their Q fragments in registers, and walks the keys in
 //    chunks of 64: S = Q K^T by mma.sync m16n8k16 (bf16 operands, f32
 //    accumulate), online softmax in f32 (running max and sum per row; per
 //    score one multiply-add that folds the scale in and one exp2 on the
 //    special-function unit), then O += P V with P re-used from the
-//    accumulator registers as the next mma's A operand. The key loop is
-//    bounded by S: keys past the end are masked to -inf in registers in
-//    the last chunk only, nothing is padded in device memory. O is
-//    normalised and written as bf16 pairs straight into the packed layout.
-//    The softmax's scalar instructions, not the tensor cores or memory,
-//    set its time: the loops are fully unrolled and free of branches so
-//    that loads, products and exps of neighbouring tiles overlap (skipping
-//    the tiles past S by a branch made it slower).
-//  * attention_fma_kernel (f32, and bf16 at other head sizes): one block
-//    per (batch row, head, tile of 64 query rows), K and V staged in
-//    shared memory as f32, one warp per query row: lanes take keys for the
-//    logits (plain f32 multiply-adds), the row's max, exp and sum are warp
-//    reductions, then lanes take output columns for P V. It keeps full f32
-//    accuracy, which bf16 tensor-core products cannot give f32 inputs.
-// Backward, attention_bwd_kernel (f32 and bf16, any head size): one block
-// per (batch row, head) stages that head's q, k, v and do in shared memory
-// in the input type (rows padded to an odd count of 32-bit words, so lanes
-// on neighbouring rows hit distinct banks) and makes two passes with f32
-// arithmetic. Where the four do not fit one block together (f32 at head_dim
-// 64 beyond S = 177) it stages two at a time, the pair that each pass walks
-// in full: k and v for the row pass, then q and do in their place for the
-// column pass, and each warp fetches the two rows it holds fixed from device
-// memory into a small buffer of its own. The arithmetic and its order are
-// the same, so both stagings give the same bits. Row pass, one warp per pair of query rows: logits and dP =
-// do . v with lanes over keys, row max, exp and sum, delta = sum_j P dP,
-// dS = P (dP - delta) scale, then dQ = dS K with lanes over head columns; the
-// row's max, 1/sum and delta stay in shared memory. Column pass, one warp
-// per pair of keys: P and dS of those columns recomputed from the stored row
-// statistics with lanes over queries, then dV = P^T dO and dK = dS^T Q with
-// lanes over head columns. What limits a multiply-add kernel here is
-// shared-memory bandwidth, one 128-byte access per clock against four warp
-// multiply-adds per clock: the dot products therefore keep a 2 x 256 tile
-// of (pair row, running row) sums in registers, 20 accesses for 32
-// multiply-adds per head column (one row at a time would take 4 accesses
-// for 2), and the pair's P and dS sit interleaved so that one
-// 8-byte broadcast feeds both rows' sums. dK and dV sum over queries and dQ
-// over keys inside one block, so there is no float atomic and two launches
-// on the same inputs give the same bits. The loops are bounded by S: no
-// padded key exists, so no masked logit and no 0 * inf can arise at any
-// magnitude of q and k.
+//    accumulator registers as the next mma's A operand. Keys past S are
+//    masked to -inf in registers in the last chunk only; nothing is padded in
+//    device memory. The softmax's scalar instructions, not the tensor cores
+//    or memory, set its time: the loops are fully unrolled and free of
+//    branches so that loads, products and exps of neighbouring tiles overlap.
+//    kLse adds the write of L for the autograd forward; the serving
+//    instantiation (kLse false) is the same code as before it existed.
+//  * attention_tf32_kernel (f32 at any head size up to 128; bf16 at other
+//    head sizes or a non-positive scale): the same online softmax on
+//    mma.sync m16n8k8 TF32 products, 3xTF32 for f32 inputs. One block of 4
+//    warps per (batch row, head, 64 query rows), 16 rows per warp with their
+//    Q fragments (hi and lo) in registers. K and V come in 64-key tiles,
+//    double-buffered in shared memory by 16-byte cp.async so that a block
+//    loads the next tile while it multiplies the current one, and several
+//    blocks share an SM (37 KB of shared memory at head_dim 32). hi/lo are
+//    split in registers as fragments are read. The head is padded with zero
+//    columns to the instantiated width (32, 64 or 128: exact for every dot
+//    product), rows past S are zero-filled by the copy itself.
+//    P V without a shuffle: the S accumulator holds columns 2t and 2t+1 of
+//    each 8-key tile in lane (g, t), and the TF32 A operand wants columns t
+//    and t+4. Taking the tile's keys in the order 0, 2, 4, 6, 1, 3, 5, 7
+//    makes the accumulator the A operand as it stands; V's rows are read in
+//    that order (lane (g, t) reads keys 2t and 2t+1 of column g), and tiles
+//    are padded to HD + 4 floats a row so that this read and the K^T read
+//    (row g, columns t and t + 4) are both free of bank conflicts.
+// Backward (FlashAttention-2's shape, deterministic): two tiled TF32 kernels
+// after the forward has left o and L.
+//  * attention_bwd_dq_kernel, one block per (batch row, head, 64 query rows):
+//    delta = rowsum(dO o) from the fragments it loads anyway (written out for
+//    the second kernel), then over key tiles: S = Q K^T, P = exp(S scale - L),
+//    dP = dO V^T, dS = P (dP - delta), dQ += dS K (3 products).
+//  * attention_bwd_dkdv_kernel, one block per (batch row, head, 64 keys): over
+//    query tiles (Q, dO, L, delta staged): S^T = K Q^T, P^T, dP^T = V dO^T,
+//    dS^T, dV += P^T dO, dK += dS^T Q (4 products), sums in registers.
+//  Each output row belongs to one warp and is summed in one fixed order: no
+//  float atomic, two calls on the same inputs give the same bits. No tile
+//  holds a whole head, so S has no limit from shared memory. Keys and
+//  queries past S are zero rows in the staged tiles; the dQ kernel also sets
+//  P to 0 on keys past S in the last tile, so no exp of an unbounded
+//  argument can reach a sum.
 // What the TPU kernels did for their own hardware and is not carried over:
-// padding S to a multiple of 128 in device memory with -1e30 on padded
-// keys, casting bf16 operands to f32 before the products, one sequential
-// grid step per batch row looping over heads.
-// Making it faster (wgmma, TMA loads, fusing the QKV projection, tensor-core
-// products for the bf16 backward) is later work.
+// padding S to a multiple of 128 in device memory with -1e30 on padded keys,
+// casting bf16 operands to f32 before the products, one sequential grid step
+// per batch row looping over heads, recomputing the softmax statistics in
+// the backward. Left for later: wgmma and TMA, bf16 m16n8k16 products for
+// the bf16 backward.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-// ---------------------------------------------------------------------------
-// f32-accurate kernel: plain multiply-adds
-// ---------------------------------------------------------------------------
-
-constexpr int kFmaWarps = 8;
-constexpr int kFmaRows = 64;          // query rows per block
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -107,75 +111,11 @@ __device__ __forceinline__ void from_float(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// shared memory: Ks[S][hd+1], Vs[S][hd+1], prob[warps][S], qrow[warps][hd]
-template <typename T>
-__global__ void __launch_bounds__(kFmaWarps * 32)
-attention_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int S, int H, int hd,
-                     float scale) {
-  extern __shared__ float smem[];
-  const int ld = hd + 1;               // odd row stride: lanes on distinct banks
-  float* Ks = smem;
-  float* Vs = Ks + (size_t)S * ld;
-  float* prob = Vs + (size_t)S * ld;
-  float* qrow = prob + (size_t)kFmaWarps * S;
-
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int D = H * hd;
-  const size_t base = (size_t)b * S * D + (size_t)h * hd;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  for (int i = threadIdx.x; i < S * hd; i += blockDim.x) {
-    const int key = i / hd, d = i - key * hd;
-    Ks[key * ld + d] = to_float(k[base + (size_t)key * D + d]);
-    Vs[key * ld + d] = to_float(v[base + (size_t)key * D + d]);
-  }
-  __syncthreads();
-
-  float* p = prob + warp * S;
-  float* qr = qrow + warp * hd;
-  const int row_end = min(S, (int)(blockIdx.y + 1) * kFmaRows);
-  for (int row = blockIdx.y * kFmaRows + warp; row < row_end; row += kFmaWarps) {
-    for (int d = lane; d < hd; d += 32) qr[d] = to_float(q[base + (size_t)row * D + d]);
-    __syncwarp();
-    float m = -CUDART_INF_F;
-    for (int key = lane; key < S; key += 32) {
-      const float* kr = Ks + key * ld;
-      float acc = 0.0f;
-      for (int d = 0; d < hd; ++d) acc = fmaf(qr[d], kr[d], acc);
-      acc *= scale;
-      p[key] = acc;
-      m = fmaxf(m, acc);
-    }
-    m = warp_max(m);
-    float sum = 0.0f;
-    for (int key = lane; key < S; key += 32) {
-      const float e = expf(p[key] - m);
-      p[key] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    __syncwarp();
-    const float inv = 1.0f / sum;
-    for (int d = lane; d < hd; d += 32) {
-      float acc = 0.0f;
-      for (int key = 0; key < S; ++key) acc = fmaf(p[key], Vs[key * ld + d], acc);
-      from_float(o + base + (size_t)row * D + d, acc * inv);
-    }
-    __syncwarp();
-  }
+// 2^x on the special-function unit; 2^-inf = 0
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // ---------------------------------------------------------------------------
@@ -213,13 +153,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                : "r"(addr));
 }
 
-// 2^x on the special-function unit; 2^-inf = 0
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -228,12 +161,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // shared memory (bf16): Ks[Sp][HD + kPad] and Vs[Sp][HD + kPad], both
 // row-major by key, Sp = S rounded up to kKeyChunk; padded keys are zero.
 // Rows are 16 bytes longer than the head so that the eight row addresses of
-// an ldmatrix fall on distinct banks.
-template <int HD>
+// an ldmatrix fall on distinct banks. kLse: also write the row log-sum-exp
+// lse[(b * H + h) * S + row] (natural log).
+template <int HD, bool kLse>
 __global__ void __launch_bounds__(kMmaWarps * 32)
 attention_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int S,
-                     int H, float scale_log2e) {
+                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                     float* __restrict__ lse, int S, int H, float scale_log2e) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int kLdK = HD + kPad;
   constexpr int kVec = HD / 8;         // 16-byte pieces per head row
@@ -383,266 +317,618 @@ attention_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
         *reinterpret_cast<uint32_t*>(o + base + (size_t)r_hi * D + d) =
             pack_bf16(oacc[dt][2] * i_hi, oacc[dt][3] * i_hi);
     }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// backward: recompute P, dq / dk / dv with plain multiply-adds
-// ---------------------------------------------------------------------------
-
-constexpr int kBwdWarps = 16;
-constexpr int kBwdTiles = 8;   // 32-wide tiles of the running axis held in registers
-
-// elements of padding per staged row: the row then spans an odd number of
-// 32-bit words (head_dim even for bf16), so lanes on neighbouring rows and
-// the same column fall on distinct banks
-template <typename T>
-__host__ __device__ constexpr int bwd_row_pad() { return 4 / (int)sizeof(T); }
-
-// Two fixed rows a0, a1 of A and dA against the 32 * kBwdTiles rows of B and
-// dB that start at j0 (this lane takes rows j0 + 32 t + lane):
-//   s[r][t] = A[a_r] . B[j],  dp[r][t] = dA[a_r] . dB[j],
-// summed over the head in ascending order. The row pass calls it with
-// queries fixed and keys running, the column pass the other way round; the
-// products commute, so both passes see the same bits. Rows past S repeat
-// row S - 1 and are dropped by the caller. Per head column this costs 4
-// broadcast loads and 2 loads per tile for 4 multiply-adds per tile.
-template <typename T>
-__device__ __forceinline__ void pair_dots(const T* __restrict__ A, const T* __restrict__ dA,
-                                          const T* __restrict__ B, const T* __restrict__ dB,
-                                          int a0, int a1, int j0, int lane, int S, int hd,
-                                          int ld, float (&s)[2][kBwdTiles],
-                                          float (&dp)[2][kBwdTiles]) {
-  int off[kBwdTiles];
-#pragma unroll
-  for (int t = 0; t < kBwdTiles; ++t) {
-    off[t] = min(j0 + t * 32 + lane, S - 1) * ld;
-    s[0][t] = s[1][t] = dp[0][t] = dp[1][t] = 0.0f;
-  }
-  const T* x0 = A + a0 * ld;
-  const T* x1 = A + a1 * ld;
-  const T* y0 = dA + a0 * ld;
-  const T* y1 = dA + a1 * ld;
-  for (int d = 0; d < hd; ++d) {
-    const float xa = to_float(x0[d]), xb = to_float(x1[d]);
-    const float ya = to_float(y0[d]), yb = to_float(y1[d]);
-#pragma unroll
-    for (int t = 0; t < kBwdTiles; ++t) {
-      const float b = to_float(B[off[t] + d]);
-      const float db = to_float(dB[off[t] + d]);
-      s[0][t] = fmaf(xa, b, s[0][t]);
-      s[1][t] = fmaf(xb, b, s[1][t]);
-      dp[0][t] = fmaf(ya, db, dp[0][t]);
-      dp[1][t] = fmaf(yb, db, dp[1][t]);
+    if constexpr (kLse) {
+      if (t == 0) {
+        float* row_lse = lse + (size_t)blockIdx.x * S;
+        if (r_lo < S) row_lse[r_lo] = (m_lo + log2f(l_lo)) * kLn2;
+        if (r_hi < S) row_lse[r_hi] = (m_hi + log2f(l_hi)) * kLn2;
+      }
     }
   }
 }
 
-// one head of two packed (S, D) tensors into shared rows of ld elements, by
-// the whole block. The loads of one pass are independent, so a block that has
-// nothing else to run hides their latency behind each other: staging tensor
-// by tensor in loops of their own made the whole kernel 10-20% slower.
+// ---------------------------------------------------------------------------
+// TF32 tensor-core kernels: mma.sync m16n8k8, 3xTF32 for f32 inputs
+// ---------------------------------------------------------------------------
+
+constexpr int kWarps = 4;                 // warps per block
+constexpr int kThreads = kWarps * 32;
+constexpr int kTile = kWarps * 16;        // rows a block owns, rows per staged tile
+
+// floats per staged row: HD + 4 makes both fragment reads conflict-free
+// (row g, column t: bank 4g + t; rows 2t and 2t+1, column g: bank 8t + g)
+// and keeps rows 16-byte aligned for cp.async
+template <int HD>
+__host__ __device__ constexpr int tile_ld() { return HD + 4; }
+
+template <int HD>
+__host__ __device__ constexpr int tile_floats() { return kTile * tile_ld<HD>(); }
+
+__device__ __forceinline__ uint32_t tf32_of(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo, both TF32; lo only where the operands are f32
+template <bool kSplit>
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_of(x);
+  if constexpr (kSplit)
+    lo = tf32_of(x - __uint_as_float(hi));
+  else
+    lo = 0u;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b: a_lo b_hi, a_hi b_lo, then a_hi b_hi (one product without kSplit)
+template <bool kSplit>
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                     const uint32_t (&bl)[2]) {
+  if constexpr (kSplit) {
+    mma_tf32(c, al, bh[0], bh[1]);
+    mma_tf32(c, ah, bl[0], bl[1]);
+  }
+  mma_tf32(c, ah, bh[0], bh[1]);
+}
+
+template <bool kSplit>
+__device__ __forceinline__ void split4(const float (&x)[4], uint32_t (&h)[4], uint32_t (&l)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split<kSplit>(x[e], h[e], l[e]);
+}
+
+// A operand (16 rows x 8 head columns from col0) of one head of a packed
+// tensor, from device memory: a0 (g, t), a1 (g+8, t), a2 (g, t+4),
+// a3 (g+8, t+4); zero past S and past the head
 template <typename T>
-__device__ __forceinline__ void stage_two(T* dst0, const T* __restrict__ src0, T* dst1,
-                                          const T* __restrict__ src1, size_t base, int S,
-                                          int hd, int ld, int D) {
-  for (int i = threadIdx.x; i < S * hd; i += blockDim.x) {
-    const int row = i / hd, d = i - row * hd;
-    const size_t src = base + (size_t)row * D + d;
-    dst0[row * ld + d] = src0[src];
-    dst1[row * ld + d] = src1[src];
+__device__ __forceinline__ void a_values(const T* __restrict__ x, size_t base, int row0,
+                                         int col0, int S, int D, int hd, int g, int t,
+                                         float (&v)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int row = row0 + g + (e & 1) * 8, col = col0 + t + (e >> 1) * 4;
+    v[e] = (row < S && col < hd) ? to_float(x[base + (size_t)row * D + col]) : 0.0f;
   }
 }
 
-// rows r0, r1 of a and of da into a warp's own buffer: a[r0], a[r1], da[r0],
-// da[r1], each ld elements long
-template <typename T>
-__device__ __forceinline__ void stage_pair(T* dst, const T* __restrict__ a,
-                                           const T* __restrict__ da, size_t base, int r0,
-                                           int r1, int hd, int ld, int D, int lane) {
-  for (int d = lane; d < hd; d += 32) {
-    dst[d] = a[base + (size_t)r0 * D + d];
-    dst[ld + d] = a[base + (size_t)r1 * D + d];
-    dst[2 * ld + d] = da[base + (size_t)r0 * D + d];
-    dst[3 * ld + d] = da[base + (size_t)r1 * D + d];
-  }
-  __syncwarp();
+// B operand X^T (k = head column, n = row of X) of a staged tile:
+// b0 = X[n0 + g][k0 + t], b1 = X[n0 + g][k0 + t + 4]
+template <bool kSplit>
+__device__ __forceinline__ void b_rows(const float* X, int ld, int n0, int k0, int g, int t,
+                                       uint32_t (&h)[2], uint32_t (&l)[2]) {
+  const float* p = X + (n0 + g) * ld + k0 + t;
+  split<kSplit>(p[0], h[0], l[0]);
+  split<kSplit>(p[4], h[1], l[1]);
 }
 
-// shared memory: float2 scratch[warps][2][S] (P and dP / dS of a pair of rows
-// or columns per warp, the pair interleaved), float stats[3][S] (row max,
-// 1 / row sum, delta), then in T with rows of hd + pad: Qs, Ks, Vs, dOs [S]
-// each when kAll; else two [S] buffers (Ks and Vs, later Qs and dOs) and
-// pairs[warps][4]
-template <typename T, bool kAll>
-__global__ void __launch_bounds__(kBwdWarps * 32)
-attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dout, T* __restrict__ dq, T* __restrict__ dk,
-                     T* __restrict__ dv, int S, int H, int hd, float scale) {
+// B operand X (k = row of X, n = head column) of a staged tile, its 8 rows
+// in the order of acc_as_a: b0 = X[k0 + 2t][n0 + g], b1 = X[k0 + 2t + 1][n0 + g]
+template <bool kSplit>
+__device__ __forceinline__ void b_cols(const float* X, int ld, int k0, int n0, int g, int t,
+                                       uint32_t (&h)[2], uint32_t (&l)[2]) {
+  const float* p = X + (k0 + 2 * t) * ld + n0 + g;
+  split<kSplit>(p[0], h[0], l[0]);
+  split<kSplit>(p[ld], h[1], l[1]);
+}
+
+// A 16x8 accumulator tile (lane (g, t) holds columns 2t, 2t+1 of rows g,
+// g+8) as the A operand of the next product with its columns taken in the
+// order 0, 2, 4, 6, 1, 3, 5, 7: column 2t goes to k-slot t, 2t+1 to t+4
+template <bool kSplit>
+__device__ __forceinline__ void acc_as_a(const float (&c)[4], uint32_t (&h)[4],
+                                         uint32_t (&l)[4]) {
+  split<kSplit>(c[0], h[0], l[0]);
+  split<kSplit>(c[2], h[1], l[1]);
+  split<kSplit>(c[1], h[2], l[2]);
+  split<kSplit>(c[3], h[3], l[3]);
+}
+
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// src_bytes 0: the destination is zero-filled and nothing is read
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(shared_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(shared_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows row0 .. row0 + kTile - 1, columns [0, hd), of one head of a packed
+// (B, S, D) tensor into a staged tile of f32 rows ld floats apart; rows past
+// S are zero. f32 by cp.async (16 bytes a copy where hd is a multiple of 4),
+// bf16 converted to f32 on the way.
+template <typename T>
+__device__ __forceinline__ void stage_tile(float* dst, int ld, const T* __restrict__ src,
+                                           size_t base, int row0, int S, int D, int hd) {
+  if constexpr (std::is_same<T, float>::value) {
+    if ((hd & 3) == 0) {
+      const int per_row = hd >> 2;
+      for (int i = threadIdx.x; i < kTile * per_row; i += kThreads) {
+        const int r = i / per_row, c = (i - r * per_row) * 4, row = row0 + r;
+        cp_async16(dst + r * ld + c, src + base + (size_t)min(row, S - 1) * D + c,
+                   row < S ? 16 : 0);
+      }
+    } else {
+      for (int i = threadIdx.x; i < kTile * hd; i += kThreads) {
+        const int r = i / hd, c = i - r * hd, row = row0 + r;
+        cp_async4(dst + r * ld + c, src + base + (size_t)min(row, S - 1) * D + c,
+                  row < S ? 4 : 0);
+      }
+    }
+  } else {
+    if ((hd & 3) == 0) {
+      const int per_row = hd >> 2;
+      for (int i = threadIdx.x; i < kTile * per_row; i += kThreads) {
+        const int r = i / per_row, c = (i - r * per_row) * 4, row = row0 + r;
+        float4 f = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (row < S) {
+          const uint2 raw = *reinterpret_cast<const uint2*>(src + base + (size_t)row * D + c);
+          const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+          const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+          f = make_float4(a.x, a.y, b.x, b.y);
+        }
+        *reinterpret_cast<float4*>(dst + r * ld + c) = f;
+      }
+    } else {
+      for (int i = threadIdx.x; i < kTile * hd; i += kThreads) {
+        const int r = i / hd, c = i - r * hd, row = row0 + r;
+        dst[r * ld + c] = row < S ? to_float(src[base + (size_t)row * D + c]) : 0.0f;
+      }
+    }
+  }
+}
+
+// kTile entries of a (B, H, S) row vector from row0; zero past S
+__device__ __forceinline__ void stage_vec(float* dst, const float* __restrict__ src, int row0,
+                                          int S) {
+  for (int i = threadIdx.x; i < kTile; i += kThreads) {
+    const int row = row0 + i;
+    cp_async4(dst + i, src + min(row, S - 1), row < S ? 4 : 0);
+  }
+}
+
+// columns [hd, HD) of n_tiles consecutive staged tiles, which the staging
+// never writes, to zero
+template <int HD>
+__device__ __forceinline__ void zero_pad_columns(float* tiles, int n_tiles, int hd) {
+  const int w = HD - hd;
+  for (int i = threadIdx.x; i < n_tiles * kTile * w; i += kThreads) {
+    const int r = i / w;
+    tiles[r * tile_ld<HD>() + hd + (i - r * w)] = 0.0f;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store_pair(T* __restrict__ row, int col, int hd, float x,
+                                           float y) {
+  if (col < hd) from_float(row + col, x);
+  if (col + 1 < hd) from_float(row + col + 1, y);
+}
+
+// Forward. shared memory: K and V tiles, two stages each, kTile x tile_ld f32
+template <typename T, int HD, bool kLse>
+__global__ void __launch_bounds__(kThreads)
+attention_tf32_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      T* __restrict__ o, float* __restrict__ lse, int S, int H, int hd,
+                      float scale_log2e) {
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  constexpr int ld = tile_ld<HD>(), kSteps = HD / 8, kTf = tile_floats<HD>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ld = hd + bwd_row_pad<T>();
-  float2* scratch = reinterpret_cast<float2*>(smem_raw);
-  float* row_max = reinterpret_cast<float*>(scratch + (size_t)kBwdWarps * 2 * S);
-  float* row_inv = row_max + S;
-  float* row_delta = row_inv + S;
-  T* buf = reinterpret_cast<T*>(row_delta + S);
-  const size_t head = (size_t)S * ld;
-  // kAll: q, k, v, do side by side. Else k and v first, q and do over them
-  // after the row pass, and a buffer of four rows per warp behind them.
-  T* Qs = buf;
-  T* dOs = kAll ? buf + 3 * head : buf + head;
-  T* Ks = kAll ? buf + head : buf;
-  T* Vs = kAll ? buf + 2 * head : buf + head;
+  float* Ks = reinterpret_cast<float*>(smem_raw);   // [2][kTile][ld]
+  float* Vs = Ks + 2 * kTf;                         // [2][kTile][ld]
 
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
   const int D = H * hd;
   const size_t base = (size_t)b * S * D + (size_t)h * hd;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  T* rows = buf + 2 * head + (size_t)warp * 4 * ld;   // !kAll only
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = blockIdx.y * kTile + warp * 16;
+  const int n_tiles = (S + kTile - 1) / kTile;
 
-  if (kAll) {
-    for (int i = threadIdx.x; i < S * hd; i += blockDim.x) {
-      const int row = i / hd, d = i - row * hd;
-      const size_t src = base + (size_t)row * D + d;
-      Qs[row * ld + d] = q[src];
-      Ks[row * ld + d] = k[src];
-      Vs[row * ld + d] = v[src];
-      dOs[row * ld + d] = dout[src];
-    }
-  } else {
-    stage_two(Ks, k, Vs, v, base, S, hd, ld, D);
-  }
-  __syncthreads();
+  zero_pad_columns<HD>(Ks, 4, hd);
+  stage_tile<T>(Ks, ld, k, base, 0, S, D, hd);
+  stage_tile<T>(Vs, ld, v, base, 0, S, D, hd);
+  cp_async_commit();
 
-  float2* pw = scratch + (size_t)warp * 2 * S;   // P of this warp's pair
-  float2* dw = pw + S;                           // dP, then dS
-  float s[2][kBwdTiles], dp[2][kBwdTiles];
-
-  // row pass, two query rows per warp at a time: statistics and dQ
-  for (int i0 = warp * 2; i0 < S; i0 += kBwdWarps * 2) {
-    const bool pair = i0 + 1 < S;
-    const int i1 = pair ? i0 + 1 : i0;
-    float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;
-    if (!kAll) stage_pair(rows, q, dout, base, i0, i1, hd, ld, D, lane);
-    for (int j0 = 0; j0 < S; j0 += 32 * kBwdTiles) {
-      if (kAll)
-        pair_dots<T>(Qs, dOs, Ks, Vs, i0, i1, j0, lane, S, hd, ld, s, dp);
-      else
-        pair_dots<T>(rows, rows + 2 * ld, Ks, Vs, 0, 1, j0, lane, S, hd, ld, s, dp);
+  uint32_t qh[kSteps][4], ql[kSteps][4];
 #pragma unroll
-      for (int t = 0; t < kBwdTiles; ++t) {
-        const int j = j0 + t * 32 + lane;
-        if (j < S) {
-          const float s0 = __fmul_rn(s[0][t], scale), s1 = __fmul_rn(s[1][t], scale);
-          pw[j] = make_float2(s0, s1);
-          dw[j] = make_float2(dp[0][t], dp[1][t]);
-          m0 = fmaxf(m0, s0);
-          m1 = fmaxf(m1, s1);
-        }
-      }
-    }
-    m0 = warp_max(m0);
-    m1 = warp_max(m1);
-    float sum0 = 0.0f, sum1 = 0.0f;
-    for (int j = lane; j < S; j += 32) {
-      float2 e = pw[j];
-      e.x = expf(e.x - m0);
-      e.y = expf(e.y - m1);
-      pw[j] = e;
-      sum0 += e.x;
-      sum1 += e.y;
-    }
-    const float inv0 = 1.0f / warp_sum(sum0), inv1 = 1.0f / warp_sum(sum1);
-    float del0 = 0.0f, del1 = 0.0f;
-    for (int j = lane; j < S; j += 32) {
-      float2 p = pw[j];
-      const float2 g = dw[j];
-      p.x *= inv0;
-      p.y *= inv1;
-      pw[j] = p;
-      del0 = fmaf(p.x, g.x, del0);
-      del1 = fmaf(p.y, g.y, del1);
-    }
-    del0 = warp_sum(del0);
-    del1 = warp_sum(del1);
-    for (int j = lane; j < S; j += 32) {
-      const float2 p = pw[j], g = dw[j];
-      dw[j] = make_float2(p.x * (g.x - del0) * scale, p.y * (g.y - del1) * scale);
-    }
-    if (lane == 0) {
-      row_max[i0] = m0;
-      row_inv[i0] = inv0;
-      row_delta[i0] = del0;
-      if (pair) {
-        row_max[i1] = m1;
-        row_inv[i1] = inv1;
-        row_delta[i1] = del1;
-      }
-    }
-    __syncwarp();
-    for (int d = lane; d < hd; d += 32) {
-      float acc0 = 0.0f, acc1 = 0.0f;
-      for (int j = 0; j < S; ++j) {
-        const float2 g = dw[j];
-        const float kk = to_float(Ks[j * ld + d]);
-        acc0 = fmaf(g.x, kk, acc0);
-        acc1 = fmaf(g.y, kk, acc1);
-      }
-      from_float(dq + base + (size_t)i0 * D + d, acc0);
-      if (pair) from_float(dq + base + (size_t)i1 * D + d, acc1);
-    }
-    __syncwarp();
+  for (int ks = 0; ks < kSteps; ++ks) {
+    float x[4];
+    a_values(q, base, row0, ks * 8, S, D, hd, g, t, x);
+    split4<kSplit>(x, qh[ks], ql[ks]);
   }
-  __syncthreads();
-  if (!kAll) {   // q and do take the place of k and v
-    stage_two(Qs, q, dOs, dout, base, S, hd, ld, D);
+  float oacc[kSteps][4];
+#pragma unroll
+  for (int dt = 0; dt < kSteps; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[dt][e] = 0.0f;
+  float m_lo = -CUDART_INF_F, m_hi = -CUDART_INF_F;   // running row max (log2 units)
+  float l_lo = 0.0f, l_hi = 0.0f;                     // this thread's share of the row sums
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) {   // the next tile loads while this one is multiplied
+      const int nb = (it + 1) & 1;
+      stage_tile<T>(Ks + nb * kTf, ld, k, base, (it + 1) * kTile, S, D, hd);
+      stage_tile<T>(Vs + nb * kTf, ld, v, base, (it + 1) * kTile, S, D, hd);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* Kt = Ks + (it & 1) * kTf;
+    const float* Vt = Vs + (it & 1) * kTf;
+    const int keys_left = S - it * kTile;
+
+    float s[kTile / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < kTile / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
+#pragma unroll
+      for (int ks = 0; ks < kSteps; ++ks) {
+        uint32_t bfh[2], bfl[2];
+        b_rows<kSplit>(Kt, ld, nt * 8, ks * 8, g, t, bfh, bfl);
+        mma3<kSplit>(s[nt], qh[ks], ql[ks], bfh, bfl);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] *= scale_log2e;   // log2 units, any sign of scale
+    }
+    if (keys_left < kTile) {   // mask the keys past the end
+#pragma unroll
+      for (int nt = 0; nt < kTile / 8; ++nt) {
+        const int key = nt * 8 + t * 2;
+        if (key >= keys_left) s[nt][0] = s[nt][2] = -CUDART_INF_F;
+        if (key + 1 >= keys_left) s[nt][1] = s[nt][3] = -CUDART_INF_F;
+      }
+    }
+    float c_lo = -CUDART_INF_F, c_hi = -CUDART_INF_F;
+#pragma unroll
+    for (int nt = 0; nt < kTile / 8; ++nt) {
+      c_lo = fmaxf(c_lo, fmaxf(s[nt][0], s[nt][1]));
+      c_hi = fmaxf(c_hi, fmaxf(s[nt][2], s[nt][3]));
+    }
+    c_lo = fmaxf(c_lo, __shfl_xor_sync(0xffffffffu, c_lo, 1));
+    c_lo = fmaxf(c_lo, __shfl_xor_sync(0xffffffffu, c_lo, 2));
+    c_hi = fmaxf(c_hi, __shfl_xor_sync(0xffffffffu, c_hi, 1));
+    c_hi = fmaxf(c_hi, __shfl_xor_sync(0xffffffffu, c_hi, 2));
+    // every tile holds at least one real key, so the new max is finite
+    const float n_lo = fmaxf(m_lo, c_lo), n_hi = fmaxf(m_hi, c_hi);
+    const float a_lo = fast_exp2(m_lo - n_lo), a_hi = fast_exp2(m_hi - n_hi);
+    m_lo = n_lo;
+    m_hi = n_hi;
+    l_lo *= a_lo;
+    l_hi *= a_hi;
+#pragma unroll
+    for (int dt = 0; dt < kSteps; ++dt) {
+      oacc[dt][0] *= a_lo;
+      oacc[dt][1] *= a_lo;
+      oacc[dt][2] *= a_hi;
+      oacc[dt][3] *= a_hi;
+    }
+#pragma unroll
+    for (int nt = 0; nt < kTile / 8; ++nt) {
+      s[nt][0] = fast_exp2(s[nt][0] - m_lo);
+      s[nt][1] = fast_exp2(s[nt][1] - m_lo);
+      s[nt][2] = fast_exp2(s[nt][2] - m_hi);
+      s[nt][3] = fast_exp2(s[nt][3] - m_hi);
+      l_lo += s[nt][0] + s[nt][1];
+      l_hi += s[nt][2] + s[nt][3];
+    }
+    // O += P V, 8 keys per k-step, P straight from the accumulators
+#pragma unroll
+    for (int kt = 0; kt < kTile / 8; ++kt) {
+      uint32_t ph[4], pl[4];
+      acc_as_a<kSplit>(s[kt], ph, pl);
+#pragma unroll
+      for (int dt = 0; dt < kSteps; ++dt) {
+        uint32_t bfh[2], bfl[2];
+        b_cols<kSplit>(Vt, ld, kt * 8, dt * 8, g, t, bfh, bfl);
+        mma3<kSplit>(oacc[dt], ph, pl, bfh, bfl);
+      }
+    }
+    __syncthreads();   // the next iteration's copy overwrites this buffer
+  }
+
+  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
+  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
+  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
+  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
+  const float i_lo = 1.0f / l_lo, i_hi = 1.0f / l_hi;
+  const int r_lo = row0 + g, r_hi = r_lo + 8;
+#pragma unroll
+  for (int dt = 0; dt < kSteps; ++dt) {
+    const int col = dt * 8 + 2 * t;
+    if (r_lo < S)
+      store_pair(o + base + (size_t)r_lo * D, col, hd, oacc[dt][0] * i_lo, oacc[dt][1] * i_lo);
+    if (r_hi < S)
+      store_pair(o + base + (size_t)r_hi * D, col, hd, oacc[dt][2] * i_hi, oacc[dt][3] * i_hi);
+  }
+  if constexpr (kLse) {
+    if (t == 0) {
+      float* row_lse = lse + (size_t)bh * S;
+      if (r_lo < S) row_lse[r_lo] = (m_lo + log2f(l_lo)) * kLn2;
+      if (r_hi < S) row_lse[r_hi] = (m_hi + log2f(l_hi)) * kLn2;
+    }
+  }
+}
+
+// Backward, first kernel: delta and dQ for kTile query rows. shared memory
+// as the forward's: K and V tiles, two stages each
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ o,
+                        const T* __restrict__ dout, const float* __restrict__ lse,
+                        float* __restrict__ delta, T* __restrict__ dq, int S, int H, int hd,
+                        float scale, float scale_log2e) {
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  constexpr int ld = tile_ld<HD>(), kSteps = HD / 8, kTf = tile_floats<HD>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Ks = reinterpret_cast<float*>(smem_raw);
+  float* Vs = Ks + 2 * kTf;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  const int D = H * hd;
+  const size_t base = (size_t)b * S * D + (size_t)h * hd;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = blockIdx.y * kTile + warp * 16;
+  const int n_tiles = (S + kTile - 1) / kTile;
+
+  zero_pad_columns<HD>(Ks, 4, hd);
+  stage_tile<T>(Ks, ld, k, base, 0, S, D, hd);
+  stage_tile<T>(Vs, ld, v, base, 0, S, D, hd);
+  cp_async_commit();
+
+  // Q and dO fragments; delta = rowsum(dO o) over the same elements
+  uint32_t qh[kSteps][4], ql[kSteps][4], gh[kSteps][4], gl[kSteps][4];
+  float del_lo = 0.0f, del_hi = 0.0f;
+#pragma unroll
+  for (int ks = 0; ks < kSteps; ++ks) {
+    float x[4], y[4], z[4];
+    a_values(q, base, row0, ks * 8, S, D, hd, g, t, x);
+    a_values(dout, base, row0, ks * 8, S, D, hd, g, t, y);
+    a_values(o, base, row0, ks * 8, S, D, hd, g, t, z);
+    del_lo = fmaf(y[0], z[0], fmaf(y[2], z[2], del_lo));
+    del_hi = fmaf(y[1], z[1], fmaf(y[3], z[3], del_hi));
+    split4<kSplit>(x, qh[ks], ql[ks]);
+    split4<kSplit>(y, gh[ks], gl[ks]);
+  }
+  // a row's four lanes (t = 0..3) hold a quarter of its columns each
+  del_lo += __shfl_xor_sync(0xffffffffu, del_lo, 1);
+  del_lo += __shfl_xor_sync(0xffffffffu, del_lo, 2);
+  del_hi += __shfl_xor_sync(0xffffffffu, del_hi, 1);
+  del_hi += __shfl_xor_sync(0xffffffffu, del_hi, 2);
+  const int r_lo = row0 + g, r_hi = r_lo + 8;
+  const float* row_lse = lse + (size_t)bh * S;
+  const float L_lo = r_lo < S ? row_lse[r_lo] * kLog2e : 0.0f;
+  const float L_hi = r_hi < S ? row_lse[r_hi] * kLog2e : 0.0f;
+  if (t == 0) {
+    if (r_lo < S) delta[(size_t)bh * S + r_lo] = del_lo;
+    if (r_hi < S) delta[(size_t)bh * S + r_hi] = del_hi;
+  }
+
+  float dacc[kSteps][4];
+#pragma unroll
+  for (int dt = 0; dt < kSteps; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dacc[dt][e] = 0.0f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) {
+      const int nb = (it + 1) & 1;
+      stage_tile<T>(Ks + nb * kTf, ld, k, base, (it + 1) * kTile, S, D, hd);
+      stage_tile<T>(Vs + nb * kTf, ld, v, base, (it + 1) * kTile, S, D, hd);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* Kt = Ks + (it & 1) * kTf;
+    const float* Vt = Vs + (it & 1) * kTf;
+    const int keys_left = S - it * kTile;
+
+    // 8 keys at a time: S, dP, then dS K into dQ
+#pragma unroll 2
+    for (int nt = 0; nt < kTile / 8; ++nt) {
+      float s[4] = {0.0f, 0.0f, 0.0f, 0.0f}, dp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int ks = 0; ks < kSteps; ++ks) {
+        uint32_t bfh[2], bfl[2];
+        b_rows<kSplit>(Kt, ld, nt * 8, ks * 8, g, t, bfh, bfl);
+        mma3<kSplit>(s, qh[ks], ql[ks], bfh, bfl);
+        b_rows<kSplit>(Vt, ld, nt * 8, ks * 8, g, t, bfh, bfl);
+        mma3<kSplit>(dp, gh[ks], gl[ks], bfh, bfl);
+      }
+      float p[4];
+      p[0] = fast_exp2(fmaf(s[0], scale_log2e, -L_lo));
+      p[1] = fast_exp2(fmaf(s[1], scale_log2e, -L_lo));
+      p[2] = fast_exp2(fmaf(s[2], scale_log2e, -L_hi));
+      p[3] = fast_exp2(fmaf(s[3], scale_log2e, -L_hi));
+      if (keys_left < kTile) {   // keys past the end: zero rows of K and V, P set to 0
+        const int key = nt * 8 + 2 * t;
+        if (key >= keys_left) p[0] = p[2] = 0.0f;
+        if (key + 1 >= keys_left) p[1] = p[3] = 0.0f;
+      }
+      float ds[4];
+      ds[0] = p[0] * (dp[0] - del_lo);
+      ds[1] = p[1] * (dp[1] - del_lo);
+      ds[2] = p[2] * (dp[2] - del_hi);
+      ds[3] = p[3] * (dp[3] - del_hi);
+      uint32_t ah[4], al[4];
+      acc_as_a<kSplit>(ds, ah, al);
+#pragma unroll
+      for (int dt = 0; dt < kSteps; ++dt) {
+        uint32_t bfh[2], bfl[2];
+        b_cols<kSplit>(Kt, ld, nt * 8, dt * 8, g, t, bfh, bfl);
+        mma3<kSplit>(dacc[dt], ah, al, bfh, bfl);
+      }
+    }
     __syncthreads();
   }
 
-  // column pass, two keys per warp at a time: dK and dV from the stored row
-  // statistics
-  for (int k0 = warp * 2; k0 < S; k0 += kBwdWarps * 2) {
-    const bool pair = k0 + 1 < S;
-    const int k1 = pair ? k0 + 1 : k0;
-    if (!kAll) stage_pair(rows, k, v, base, k0, k1, hd, ld, D, lane);
-    for (int i0 = 0; i0 < S; i0 += 32 * kBwdTiles) {
-      if (kAll)
-        pair_dots<T>(Ks, Vs, Qs, dOs, k0, k1, i0, lane, S, hd, ld, s, dp);
-      else
-        pair_dots<T>(rows, rows + 2 * ld, Qs, dOs, 0, 1, i0, lane, S, hd, ld, s, dp);
 #pragma unroll
-      for (int t = 0; t < kBwdTiles; ++t) {
-        const int i = i0 + t * 32 + lane;
-        if (i < S) {
-          const float m = row_max[i], inv = row_inv[i], del = row_delta[i];
-          const float p0 = expf(__fmul_rn(s[0][t], scale) - m) * inv;
-          const float p1 = expf(__fmul_rn(s[1][t], scale) - m) * inv;
-          pw[i] = make_float2(p0, p1);
-          dw[i] = make_float2(p0 * (dp[0][t] - del) * scale, p1 * (dp[1][t] - del) * scale);
-        }
-      }
-    }
-    __syncwarp();
-    for (int d = lane; d < hd; d += 32) {
-      float av0 = 0.0f, av1 = 0.0f, ak0 = 0.0f, ak1 = 0.0f;
-      for (int i = 0; i < S; ++i) {
-        const float2 p = pw[i], g = dw[i];
-        const float od = to_float(dOs[i * ld + d]), qd = to_float(Qs[i * ld + d]);
-        av0 = fmaf(p.x, od, av0);
-        av1 = fmaf(p.y, od, av1);
-        ak0 = fmaf(g.x, qd, ak0);
-        ak1 = fmaf(g.y, qd, ak1);
-      }
-      from_float(dv + base + (size_t)k0 * D + d, av0);
-      from_float(dk + base + (size_t)k0 * D + d, ak0);
-      if (pair) {
-        from_float(dv + base + (size_t)k1 * D + d, av1);
-        from_float(dk + base + (size_t)k1 * D + d, ak1);
-      }
-    }
-    __syncwarp();
+  for (int dt = 0; dt < kSteps; ++dt) {
+    const int col = dt * 8 + 2 * t;
+    if (r_lo < S)
+      store_pair(dq + base + (size_t)r_lo * D, col, hd, dacc[dt][0] * scale,
+                 dacc[dt][1] * scale);
+    if (r_hi < S)
+      store_pair(dq + base + (size_t)r_hi * D, col, hd, dacc[dt][2] * scale,
+                 dacc[dt][3] * scale);
   }
 }
+
+// Backward, second kernel: dK and dV for kTile keys, after the first has
+// written delta. shared memory: Q and dO tiles, two stages each, then L and
+// delta for each stage's kTile queries
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          T* __restrict__ dk, T* __restrict__ dv, int S, int H, int hd,
+                          float scale, float scale_log2e) {
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  constexpr int ld = tile_ld<HD>(), kSteps = HD / 8, kTf = tile_floats<HD>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);   // [2][kTile][ld]
+  float* Gs = Qs + 2 * kTf;                         // dO, [2][kTile][ld]
+  float* Ls = Gs + 2 * kTf;                         // [2][kTile]
+  float* Ds = Ls + 2 * kTile;                       // [2][kTile]
+
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  const int D = H * hd;
+  const size_t base = (size_t)b * S * D + (size_t)h * hd;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int key0 = blockIdx.y * kTile + warp * 16;
+  const int n_tiles = (S + kTile - 1) / kTile;
+  const float* row_lse = lse + (size_t)bh * S;
+  const float* row_delta = delta + (size_t)bh * S;
+
+  zero_pad_columns<HD>(Qs, 4, hd);
+  stage_tile<T>(Qs, ld, q, base, 0, S, D, hd);
+  stage_tile<T>(Gs, ld, dout, base, 0, S, D, hd);
+  stage_vec(Ls, row_lse, 0, S);
+  stage_vec(Ds, row_delta, 0, S);
+  cp_async_commit();
+
+  uint32_t kh[kSteps][4], kl[kSteps][4], vh[kSteps][4], vl[kSteps][4];
+#pragma unroll
+  for (int ks = 0; ks < kSteps; ++ks) {
+    float x[4];
+    a_values(k, base, key0, ks * 8, S, D, hd, g, t, x);
+    split4<kSplit>(x, kh[ks], kl[ks]);
+    a_values(v, base, key0, ks * 8, S, D, hd, g, t, x);
+    split4<kSplit>(x, vh[ks], vl[ks]);
+  }
+  float kacc[kSteps][4], vacc[kSteps][4];
+#pragma unroll
+  for (int dt = 0; dt < kSteps; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) kacc[dt][e] = vacc[dt][e] = 0.0f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) {
+      const int nb = (it + 1) & 1, next = (it + 1) * kTile;
+      stage_tile<T>(Qs + nb * kTf, ld, q, base, next, S, D, hd);
+      stage_tile<T>(Gs + nb * kTf, ld, dout, base, next, S, D, hd);
+      stage_vec(Ls + nb * kTile, row_lse, next, S);
+      stage_vec(Ds + nb * kTile, row_delta, next, S);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* Qt = Qs + (it & 1) * kTf;
+    const float* Gt = Gs + (it & 1) * kTf;
+    const float* Lt = Ls + (it & 1) * kTile;
+    const float* Dt = Ds + (it & 1) * kTile;
+
+    // 8 queries at a time. Queries past S are zero rows with L = delta = 0:
+    // P = 1 there, and dO = 0 and dS = 0 keep them out of both sums.
+#pragma unroll 2
+    for (int nt = 0; nt < kTile / 8; ++nt) {
+      float st[4] = {0.0f, 0.0f, 0.0f, 0.0f}, dpt[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int ks = 0; ks < kSteps; ++ks) {
+        uint32_t bfh[2], bfl[2];
+        b_rows<kSplit>(Qt, ld, nt * 8, ks * 8, g, t, bfh, bfl);
+        mma3<kSplit>(st, kh[ks], kl[ks], bfh, bfl);
+        b_rows<kSplit>(Gt, ld, nt * 8, ks * 8, g, t, bfh, bfl);
+        mma3<kSplit>(dpt, vh[ks], vl[ks], bfh, bfl);
+      }
+      const int qa = nt * 8 + 2 * t;   // this lane's two queries: columns 0/2 and 1/3
+      const float L0 = Lt[qa] * kLog2e, L1 = Lt[qa + 1] * kLog2e;
+      const float d0 = Dt[qa], d1 = Dt[qa + 1];
+      float p[4], ds[4];
+      p[0] = fast_exp2(fmaf(st[0], scale_log2e, -L0));
+      p[1] = fast_exp2(fmaf(st[1], scale_log2e, -L1));
+      p[2] = fast_exp2(fmaf(st[2], scale_log2e, -L0));
+      p[3] = fast_exp2(fmaf(st[3], scale_log2e, -L1));
+      ds[0] = p[0] * (dpt[0] - d0);
+      ds[1] = p[1] * (dpt[1] - d1);
+      ds[2] = p[2] * (dpt[2] - d0);
+      ds[3] = p[3] * (dpt[3] - d1);
+      uint32_t ph[4], pl[4], sh[4], sl[4];
+      acc_as_a<kSplit>(p, ph, pl);
+      acc_as_a<kSplit>(ds, sh, sl);
+#pragma unroll
+      for (int dt = 0; dt < kSteps; ++dt) {
+        uint32_t bfh[2], bfl[2];
+        b_cols<kSplit>(Gt, ld, nt * 8, dt * 8, g, t, bfh, bfl);
+        mma3<kSplit>(vacc[dt], ph, pl, bfh, bfl);
+        b_cols<kSplit>(Qt, ld, nt * 8, dt * 8, g, t, bfh, bfl);
+        mma3<kSplit>(kacc[dt], sh, sl, bfh, bfl);
+      }
+    }
+    __syncthreads();
+  }
+
+  const int r_lo = key0 + g, r_hi = r_lo + 8;
+#pragma unroll
+  for (int dt = 0; dt < kSteps; ++dt) {
+    const int col = dt * 8 + 2 * t;
+    if (r_lo < S) {
+      store_pair(dk + base + (size_t)r_lo * D, col, hd, kacc[dt][0] * scale,
+                 kacc[dt][1] * scale);
+      store_pair(dv + base + (size_t)r_lo * D, col, hd, vacc[dt][0], vacc[dt][1]);
+    }
+    if (r_hi < S) {
+      store_pair(dk + base + (size_t)r_hi * D, col, hd, kacc[dt][2] * scale,
+                 kacc[dt][3] * scale);
+      store_pair(dv + base + (size_t)r_hi * D, col, hd, vacc[dt][2], vacc[dt][3]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launchers
+// ---------------------------------------------------------------------------
 
 template <typename Kernel>
 cudaError_t allow_shared(Kernel kernel, size_t bytes) {
@@ -651,132 +937,136 @@ cudaError_t allow_shared(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-size_t fma_shared_bytes(int S, int hd) {
-  return sizeof(float) * (2 * (size_t)S * (hd + 1) + (size_t)kFmaWarps * (S + hd));
-}
-
 size_t mma_shared_bytes(int S, int hd) {
   const size_t Sp = (size_t)(S + kKeyChunk - 1) / kKeyChunk * kKeyChunk;
   return sizeof(__nv_bfloat16) * 2 * Sp * (hd + kPad);
 }
 
-template <typename T>
-cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o, int B, int S,
-                       int H, int hd, float scale, cudaStream_t s) {
-  const size_t bytes = fma_shared_bytes(S, hd);
-  cudaError_t err = allow_shared(attention_fma_kernel<T>, bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (S + kFmaRows - 1) / kFmaRows);
-  attention_fma_kernel<T><<<grid, kFmaWarps * 32, bytes, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, H, hd, scale);
-  return cudaGetLastError();
-}
-
 template <int HD>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int B, int S,
-                       int H, float scale, cudaStream_t s) {
+size_t tf32_shared_bytes(bool with_vectors) {
+  return sizeof(float) * (4 * (size_t)tile_floats<HD>() + (with_vectors ? 4 * kTile : 0));
+}
+
+template <int HD, bool kLse>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                       int S, int H, float scale, cudaStream_t s) {
   const size_t bytes = mma_shared_bytes(S, HD);
-  cudaError_t err = allow_shared(attention_mma_kernel<HD>, bytes);
+  cudaError_t err = allow_shared(attention_mma_kernel<HD, kLse>, bytes);
   if (err != cudaSuccess) return err;
-  attention_mma_kernel<HD><<<B * H, kMmaWarps * 32, bytes, s>>>(
+  attention_mma_kernel<HD, kLse><<<B * H, kMmaWarps * 32, bytes, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S, H,
-      scale * 1.4426950408889634f);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, S, H,
+      scale * kLog2e);
   return cudaGetLastError();
 }
 
-constexpr size_t kMaxSharedBytes = 232448;   // what one block may use on sm_90
-
-template <typename T>
-size_t bwd_shared_bytes(int S, int hd, bool all) {
-  const size_t staged_rows = all ? 4 * (size_t)S : 2 * (size_t)S + 4 * (size_t)kBwdWarps;
-  return sizeof(float) * (3 + 4 * (size_t)kBwdWarps) * S
-         + sizeof(T) * staged_rows * (hd + bwd_row_pad<T>());
-}
-
-// all four tensors of a head staged at once where they fit, else two at a time
-template <typename T>
-bool bwd_stages_all(int S, int hd) { return bwd_shared_bytes<T>(S, hd, true) <= kMaxSharedBytes; }
-
-template <typename T, bool kAll>
-cudaError_t launch_bwd_staged(const void* q, const void* k, const void* v, const void* dout,
-                              void* dq, void* dk, void* dv, int B, int S, int H, int hd,
-                              float scale, cudaStream_t s) {
-  const size_t bytes = bwd_shared_bytes<T>(S, hd, kAll);
-  cudaError_t err = allow_shared(attention_bwd_kernel<T, kAll>, bytes);
+template <typename T, int HD, bool kLse>
+cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                        int S, int H, int hd, float scale, cudaStream_t s) {
+  const size_t bytes = tf32_shared_bytes<HD>(false);
+  cudaError_t err = allow_shared(attention_tf32_kernel<T, HD, kLse>, bytes);
   if (err != cudaSuccess) return err;
-  attention_bwd_kernel<T, kAll><<<B * H, kBwdWarps * 32, bytes, s>>>(
+  const dim3 grid(B * H, (S + kTile - 1) / kTile);
+  attention_tf32_kernel<T, HD, kLse><<<grid, kThreads, bytes, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<T*>(dq), static_cast<T*>(dk),
-      static_cast<T*>(dv), S, H, hd, scale);
+      static_cast<T*>(o), lse, S, H, hd, scale * kLog2e);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* dout, void* dq,
-                       void* dk, void* dv, int B, int S, int H, int hd, float scale,
-                       cudaStream_t s) {
-  if (bwd_stages_all<T>(S, hd))
-    return launch_bwd_staged<T, true>(q, k, v, dout, dq, dk, dv, B, S, H, hd, scale, s);
-  return launch_bwd_staged<T, false>(q, k, v, dout, dq, dk, dv, B, S, H, hd, scale, s);
+template <typename T, int HD>
+cudaError_t launch_tf32_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
+                            int B, int S, int H, int hd, float scale, cudaStream_t s) {
+  if (lse) return launch_tf32<T, HD, true>(q, k, v, o, lse, B, S, H, hd, scale, s);
+  return launch_tf32<T, HD, false>(q, k, v, o, lse, B, S, H, hd, scale, s);
+}
+
+template <typename T, int HD>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* o,
+                       const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                       void* dv, int B, int S, int H, int hd, float scale, cudaStream_t s) {
+  const dim3 grid(B * H, (S + kTile - 1) / kTile);
+  const size_t dq_bytes = tf32_shared_bytes<HD>(false);
+  cudaError_t err = allow_shared(attention_bwd_dq_kernel<T, HD>, dq_bytes);
+  if (err != cudaSuccess) return err;
+  attention_bwd_dq_kernel<T, HD><<<grid, kThreads, dq_bytes, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(o), static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq),
+      S, H, hd, scale, scale * kLog2e);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t kv_bytes = tf32_shared_bytes<HD>(true);
+  err = allow_shared(attention_bwd_dkdv_kernel<T, HD>, kv_bytes);
+  if (err != cudaSuccess) return err;
+  attention_bwd_dkdv_kernel<T, HD><<<grid, kThreads, kv_bytes, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), S, H,
+      hd, scale, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+// head_dim -> the instantiated tile width (32, 64 or 128), 0 beyond
+int padded_head(int hd) { return hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128 : 0; }
+
+template <typename T, int HD>
+struct Instance {
+  using type = T;
+  static constexpr int width = HD;
+};
+
+// calls launch(Instance<input type, tile width>{}) for this type and head size
+template <typename F>
+cudaError_t dispatch(int hd, int is_bf16, F&& launch) {
+  switch (padded_head(hd)) {
+    case 32:
+      return is_bf16 ? launch(Instance<__nv_bfloat16, 32>{}) : launch(Instance<float, 32>{});
+    case 64:
+      return is_bf16 ? launch(Instance<__nv_bfloat16, 64>{}) : launch(Instance<float, 64>{});
+    case 128:
+      return is_bf16 ? launch(Instance<__nv_bfloat16, 128>{}) : launch(Instance<float, 128>{});
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// Shared memory one block needs for these sizes; the wrapper refuses a
-// sequence that does not fit the card's 227 KB.
-extern "C" long long attention_shared_bytes(int S, int hd, int use_mma) {
-  return static_cast<long long>(use_mma ? mma_shared_bytes(S, hd) : fma_shared_bytes(S, hd));
-}
-
 // q, k, v, o: contiguous (B, S, H*hd), 16-byte aligned, f32 (is_bf16 = 0) or
-// bf16. use_mma picks the tensor-core kernel (bf16, hd 32 or 64, scale > 0
-// only: it takes the row maximum before scaling).
+// bf16. lse: null, or (B, H, S) f32 for the row log-sum-exp. use_mma picks the
+// bf16 serving kernel (hd 32 or 64, scale > 0 only: it takes the row maximum
+// before scaling); else the TF32 kernel, hd up to 128.
 extern "C" int attention_fwd_launch(const void* q, const void* k, const void* v, void* o,
-                                    int B, int S, int H, int hd, float scale, int is_bf16,
-                                    int use_mma, void* stream) {
+                                    float* lse, int B, int S, int H, int hd, float scale,
+                                    int is_bf16, int use_mma, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
   if (use_mma) {
     if (!is_bf16 || !(scale > 0.0f)) return static_cast<int>(cudaErrorInvalidValue);
     if (hd == 32)
-      err = launch_mma<32>(q, k, v, o, B, S, H, scale, s);
-    else if (hd == 64)
-      err = launch_mma<64>(q, k, v, o, B, S, H, scale, s);
-    else
-      return static_cast<int>(cudaErrorInvalidValue);
-  } else if (is_bf16) {
-    err = launch_fma<__nv_bfloat16>(q, k, v, o, B, S, H, hd, scale, s);
-  } else {
-    err = launch_fma<float>(q, k, v, o, B, S, H, hd, scale, s);
+      return static_cast<int>(lse ? launch_mma<32, true>(q, k, v, o, lse, B, S, H, scale, s)
+                                  : launch_mma<32, false>(q, k, v, o, lse, B, S, H, scale, s));
+    if (hd == 64)
+      return static_cast<int>(lse ? launch_mma<64, true>(q, k, v, o, lse, B, S, H, scale, s)
+                                  : launch_mma<64, false>(q, k, v, o, lse, B, S, H, scale, s));
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(err);
+  return static_cast<int>(dispatch(hd, is_bf16, [&](auto inst) {
+    using I = decltype(inst);
+    return launch_tf32_fwd<typename I::type, I::width>(q, k, v, o, lse, B, S, H, hd, scale, s);
+  }));
 }
 
-// Shared memory one block of the backward needs with the staging the
-// launcher picks for these sizes; the wrapper refuses sizes that do not fit.
-extern "C" long long attention_bwd_shared_bytes(int S, int hd, int is_bf16) {
-  return static_cast<long long>(
-      is_bf16 ? bwd_shared_bytes<__nv_bfloat16>(S, hd, bwd_stages_all<__nv_bfloat16>(S, hd))
-              : bwd_shared_bytes<float>(S, hd, bwd_stages_all<float>(S, hd)));
-}
-
-// q, k, v, dout (the gradient of the output) in; dq, dk, dv out: contiguous
-// (B, S, H*hd), f32 (is_bf16 = 0) or bf16 (hd even). P is recomputed.
-extern "C" int attention_bwd_launch(const void* q, const void* k, const void* v,
-                                    const void* dout, void* dq, void* dk, void* dv, int B,
-                                    int S, int H, int hd, float scale, int is_bf16,
-                                    void* stream) {
+// q, k, v, o (the forward's output), dout (its gradient): contiguous (B, S,
+// H*hd); lse: (B, H, S) f32 from the forward; delta: (B, H, S) f32 scratch;
+// dq, dk, dv out. Two launches on the stream: delta and dq, then dk and dv.
+extern "C" int attention_bwd_launch(const void* q, const void* k, const void* v, const void* o,
+                                    const void* dout, const float* lse, float* delta, void* dq,
+                                    void* dk, void* dv, int B, int S, int H, int hd,
+                                    float scale, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (is_bf16) {
-    if (hd % 2) return static_cast<int>(cudaErrorInvalidValue);
-    err = launch_bwd<__nv_bfloat16>(q, k, v, dout, dq, dk, dv, B, S, H, hd, scale, s);
-  } else {
-    err = launch_bwd<float>(q, k, v, dout, dq, dk, dv, B, S, H, hd, scale, s);
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(dispatch(hd, is_bf16, [&](auto inst) {
+    using I = decltype(inst);
+    return launch_bwd<typename I::type, I::width>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S,
+                                                  H, hd, scale, s);
+  }));
 }
 
 extern "C" const char* attention_error_string(int code) {

@@ -8,6 +8,8 @@ against it on the card. It is differentiable on its own.
 ``attention_backward_reference`` is the plain version of the backward
 kernel: the gradient formulas of the JAX package's ``_bwd_kernel`` written
 out, with the probabilities recomputed from q and k.
+``attention_lse_reference`` is the plain version of the row log-sum-exp
+the forward kernel leaves for the backward.
 """
 
 from __future__ import annotations
@@ -37,6 +39,22 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_h
     p = torch.softmax(logits, dim=-1)
     o = torch.matmul(p.to(v.dtype).float(), vh.float())
     return o.transpose(1, 2).reshape(b, s, d).to(q.dtype)
+
+
+def attention_lse_reference(q: torch.Tensor, k: torch.Tensor, num_heads: int,
+                            sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Row log-sum-exp of the scaled logits, (B, H, S) f32:
+    L = m + log(sum_j exp(q_i . k_j * sm_scale - m)) with m the row max."""
+    b, s, d = q.shape
+    if d % num_heads:
+        raise ValueError(f"model dim {d} not divisible by heads {num_heads}")
+    hd = d // num_heads
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(hd)
+    split = lambda x: x.reshape(b, s, num_heads, hd).transpose(1, 2).float()
+    logits = torch.matmul(split(q), split(k).transpose(-1, -2)) * sm_scale
+    m = logits.amax(dim=-1, keepdim=True)
+    return (m + torch.log(torch.exp(logits - m).sum(dim=-1, keepdim=True))).squeeze(-1)
 
 
 def attention_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

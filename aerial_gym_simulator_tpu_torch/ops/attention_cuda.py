@@ -9,20 +9,22 @@ PyTorch's current stream.
 
 ``fused_attention`` is the public function: a ``torch.autograd.Function``
 whose forward and backward launch the kernels for CUDA tensors and run the
-plain versions (``ops/attention.attention_reference`` and
-``attention_backward_reference``) for CPU tensors. There is no other switch
-and no fallback: a failed build or launch raises. As in the JAX package the
-backward keeps q, k and v only and recomputes the probabilities, so nothing
-of size S x S is saved between the two passes.
+plain versions (``ops/attention.attention_reference``,
+``attention_lse_reference`` and ``attention_backward_reference``) for CPU
+tensors. There is no other switch and no fallback: a failed build or launch
+raises. When a gradient is wanted the forward also writes the row
+log-sum-exp L (B, H, S) f32 and saves the output and L beside q, k, v; the
+backward recomputes the probabilities from them, so nothing of size S x S is
+kept between the two passes.
 
 Layout: q, k, v, the output and every gradient are (B, S, D = num_heads *
 head_dim), contiguous, all bf16 or all f32. Forward: bf16 with head_dim 32
-or 64 (and a positive scale) runs the tensor-core kernel, everything else
-the f32-accurate one. Backward: one multiply-add kernel with f32 arithmetic
-for both types; it stages a head's q, k, v and output gradient in shared
-memory, all four where they fit one block and two at a time where they do
-not (f32 with head_dim 64 beyond S = 177), and refuses what fits neither way
-(f32 with head_dim 64 beyond S = 273).
+or 64 (and a positive scale) runs the bf16 tensor-core kernel; everything
+else, f32 above all, the TF32 tensor-core kernel, with each f32 product
+split into three TF32 products (3xTF32) for f32 accuracy. Backward: two
+TF32 tensor-core kernels (delta and dQ over query tiles, then dK and dV
+over key tiles), 3xTF32 for f32, deterministic, any sequence length. The
+TF32 kernels take head sizes up to 128.
 """
 
 from __future__ import annotations
@@ -34,13 +36,15 @@ from typing import Optional
 import torch
 
 from ._build import KernelLibrary
-from .attention import attention_backward_reference, attention_reference
+from .attention import (attention_backward_reference, attention_lse_reference,
+                        attention_reference)
 
 LIBRARY = KernelLibrary("attention")
-MAX_SHARED_BYTES = 232448          # what one block may use on sm_90
-MMA_HEAD_DIMS = (32, 64)           # head sizes the tensor-core kernel is built for
+MMA_HEAD_DIMS = (32, 64)           # head sizes the bf16 serving kernel is built for
+MAX_HEAD_DIM = 128                 # widest head the TF32 kernels are built for
 
-# launches of each kernel, counted where its wrapper launches it
+# calls of each kernel's wrapper that launched it, counted where it launches:
+# one per forward, one per backward (whose two kernels launch together)
 LAUNCHES = {"attention_fwd": 0, "attention_bwd": 0}
 
 _lib = None
@@ -50,29 +54,26 @@ def _load():
     global _lib
     if _lib is None:
         lib = LIBRARY.load()
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.attention_fwd_launch.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, i, i, p]
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.attention_fwd_launch.argtypes = [p, p, p, p, p, i, i, i, i, f, i, i, p]
         lib.attention_fwd_launch.restype = i
-        lib.attention_shared_bytes.argtypes = [i, i, i]
-        lib.attention_shared_bytes.restype = ctypes.c_longlong
-        lib.attention_bwd_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, ctypes.c_float,
-                                             i, p]
+        lib.attention_bwd_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, f, i, p]
         lib.attention_bwd_launch.restype = i
-        lib.attention_bwd_shared_bytes.argtypes = [i, i, i]
-        lib.attention_bwd_shared_bytes.restype = ctypes.c_longlong
         lib.attention_error_string.argtypes = [i]
         lib.attention_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
 
-def _check(name: str, t: torch.Tensor, like: torch.Tensor):
+def _check(name: str, t: torch.Tensor, like: torch.Tensor, shape=None, dtype=None):
+    shape = like.shape if shape is None else shape
+    dtype = like.dtype if dtype is None else dtype
     if t.device != like.device:
         raise ValueError(f"{name} is on {t.device}, expected {like.device}")
-    if t.dtype != like.dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {like.dtype}")
-    if t.shape != like.shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(like.shape)}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if t.shape != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if t.data_ptr() % 16:
@@ -96,16 +97,24 @@ def _prepare(q: torch.Tensor, num_heads: int, sm_scale: Optional[float]):
     return hd, sm_scale, q.device.type == "cpu"
 
 
+def _raise_on(rc: int, lib, what: str):
+    if rc != 0:
+        raise RuntimeError(f"attention {what} launch failed: "
+                           + lib.attention_error_string(rc).decode())
+
+
 def attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
-                      sm_scale: Optional[float] = None,
-                      use_mma: Optional[bool] = None) -> torch.Tensor:
-    """The forward without autograd: kernel on CUDA tensors, plain version
+                      sm_scale: Optional[float] = None, use_mma: Optional[bool] = None,
+                      want_lse: bool = False):
+    """The forward without autograd -> o, or (o, L) with ``want_lse`` (L the
+    row log-sum-exp, (B, H, S) f32): kernel on CUDA tensors, plain version
     on CPU tensors. ``use_mma`` overrides the choice between the two
     kernels in the source (a debug switch; None picks by dtype and head
     size)."""
     hd, sm_scale, on_cpu = _prepare(q, num_heads, sm_scale)
     if on_cpu:
-        return attention_reference(q, k, v, num_heads, sm_scale)
+        out = attention_reference(q, k, v, num_heads, sm_scale)
+        return (out, attention_lse_reference(q, k, num_heads, sm_scale)) if want_lse else out
     B, S, _ = q.shape
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check(name, t, q)
@@ -114,35 +123,35 @@ def attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_hea
     if use_mma is None:
         use_mma = mma_takes_it
     elif use_mma and not mma_takes_it:
-        raise ValueError(f"the tensor-core kernel takes bf16 with head_dim in {MMA_HEAD_DIMS} "
+        raise ValueError(f"the bf16 serving kernel takes bf16 with head_dim in {MMA_HEAD_DIMS} "
                          "and a positive scale")
+    if not use_mma and hd > MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {hd}: the TF32 kernel takes head sizes up to {MAX_HEAD_DIM}")
     out = torch.empty_like(q)
+    lse = torch.empty((B, num_heads, S), device=q.device, dtype=torch.float32) if want_lse else None
     if B == 0 or S == 0:
-        return out
+        return (out, lse) if want_lse else out
     lib = _load()
-    need = lib.attention_shared_bytes(S, hd, int(use_mma))
-    if need > MAX_SHARED_BYTES:
-        raise ValueError(f"sequence {S} x head_dim {hd} needs {need} bytes of shared memory, "
-                         f"a block has {MAX_SHARED_BYTES}")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         rc = lib.attention_fwd_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                      B, S, num_heads, hd, float(sm_scale), int(is_bf16),
-                                      int(use_mma), stream)
-    if rc != 0:
-        raise RuntimeError("attention kernel launch failed: "
-                           + lib.attention_error_string(rc).decode())
+                                      lse.data_ptr() if want_lse else None, B, S, num_heads, hd,
+                                      float(sm_scale), int(is_bf16), int(use_mma), stream)
+    _raise_on(rc, lib, "forward")
     LAUNCHES["attention_fwd"] += 1
-    return out
+    return (out, lse) if want_lse else out
 
 
 def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        grad_out: torch.Tensor, num_heads: int,
-                       sm_scale: Optional[float] = None):
-    """The backward without autograd -> (dq, dk, dv): kernel on CUDA
-    tensors, plain version on CPU tensors. ``grad_out`` may arrive with any
-    strides (autograd often hands over a view); it is made contiguous
-    here."""
+                       sm_scale: Optional[float] = None, out: Optional[torch.Tensor] = None,
+                       lse: Optional[torch.Tensor] = None):
+    """The backward without autograd -> (dq, dk, dv): kernels on CUDA
+    tensors, plain version on CPU tensors. ``out`` and ``lse`` are the
+    forward's output and row log-sum-exp (``attention_forward(...,
+    want_lse=True)``); where either is missing one forward launch makes
+    both. ``grad_out`` may arrive with any strides (autograd often hands
+    over a view); it is made contiguous here."""
     hd, sm_scale, on_cpu = _prepare(q, num_heads, sm_scale)
     if on_cpu:
         return attention_backward_reference(q, k, v, grad_out, num_heads, sm_scale)
@@ -150,46 +159,52 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     grad_out = grad_out.contiguous()
     for name, t in (("q", q), ("k", k), ("v", v), ("grad_out", grad_out)):
         _check(name, t, q)
-    is_bf16 = q.dtype == torch.bfloat16
-    if is_bf16 and hd % 2:
-        raise ValueError(f"the backward kernel takes bf16 with an even head_dim, got {hd}")
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {hd}: the backward kernels take head sizes up to "
+                         f"{MAX_HEAD_DIM}")
+    if out is None or lse is None:
+        out, lse = attention_forward(q, k, v, num_heads, sm_scale, want_lse=True)
+    _check("out", out, q)
+    _check("lse", lse, q, shape=(B, num_heads, S), dtype=torch.float32)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
     if B == 0 or S == 0:
         return dq, dk, dv
+    delta = torch.empty_like(lse)
     lib = _load()
-    need = lib.attention_bwd_shared_bytes(S, hd, int(is_bf16))
-    if need > MAX_SHARED_BYTES:
-        raise ValueError(f"the backward of sequence {S} x head_dim {hd} ({q.dtype}) needs {need} "
-                         f"bytes of shared memory, a block has {MAX_SHARED_BYTES}")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        rc = lib.attention_bwd_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                      grad_out.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                                      dv.data_ptr(), B, S, num_heads, hd, float(sm_scale),
-                                      int(is_bf16), stream)
-    if rc != 0:
-        raise RuntimeError("attention backward kernel launch failed: "
-                           + lib.attention_error_string(rc).decode())
+        rc = lib.attention_bwd_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                      grad_out.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                                      dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S,
+                                      num_heads, hd, float(sm_scale),
+                                      int(q.dtype == torch.bfloat16), stream)
+    _raise_on(rc, lib, "backward")
     LAUNCHES["attention_bwd"] += 1
     return dq, dk, dv
 
 
 class _FusedAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, num_heads, sm_scale):
-        ctx.save_for_backward(q, k, v)
+    def forward(ctx, q, k, v, num_heads, sm_scale, want_grad):
         ctx.num_heads, ctx.sm_scale = num_heads, sm_scale
-        return attention_forward(q, k, v, num_heads, sm_scale)
+        if not want_grad:
+            return attention_forward(q, k, v, num_heads, sm_scale)
+        out, lse = attention_forward(q, k, v, num_heads, sm_scale, want_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        q, k, v = ctx.saved_tensors
-        dq, dk, dv = attention_backward(q, k, v, grad_out, ctx.num_heads, ctx.sm_scale)
-        return dq, dk, dv, None, None
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = attention_backward(q, k, v, grad_out, ctx.num_heads, ctx.sm_scale,
+                                        out=out, lse=lse)
+        return dq, dk, dv, None, None, None
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
     """Fused short-sequence multi-head attention on packed (B, S, D)
     tensors; returns (B, S, D) in q's dtype. Differentiable in q, k, v."""
-    return _FusedAttention.apply(q, k, v, num_heads, sm_scale)
+    want_grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                             or v.requires_grad)
+    return _FusedAttention.apply(q, k, v, num_heads, sm_scale, want_grad)

@@ -20,14 +20,15 @@ Phases, each printed on its own line:
                [0, 1], broad phase on == off; then K1/K2 and K3 on the 128x512
                lidar table at 64 envs.
                The attention forward (K5) against its plain version on
-               numpy-seeded q, k, v: f32 at five shapes, the ViT training
-               shape (64, 225, 256) among them, within atol/rtol 1e-4, bf16
-               within 0.05; a non-contiguous input must raise.
+               numpy-seeded q, k, v: f32 at six shapes, the ViT training
+               shape (64, 225, 256) at 8 and 4 heads among them, within
+               atol/rtol 1e-4, bf16 within 0.05; a non-contiguous input must
+               raise.
                The attention backward (K6) against its plain version at the
-               ViT training shape f32 and at head_dim 64 f32 (ragged, and
-               S = 225 staged two tensors at a time) within 2e-4, at (1024,
-               225, 256) bf16 and at head_dim 64 bf16 within 0.02, and a
-               second launch on the same inputs bit for bit;
+               ViT training shape f32, at head_dim 64 f32 (ragged, S = 225,
+               and S = 300) within 2e-4, at (1024, 225, 256) bf16 and at
+               head_dim 64 bf16 within 0.02, and a second call on the same
+               inputs bit for bit;
   4. slice   - the obstacle env + depth camera at 16384 envs through the
                user entry points: env_step + render_camera(want_seg=False)
                with zero actions (the bench loop), then EnvManager.step +
@@ -50,9 +51,12 @@ Phases, each printed on its own line:
   6. timing  - each kernel at its main path's shapes against its plain
                version, its least possible time on this card and, for K5 and
                K6, torch's scaled_dot_product_attention (forward, backward)
-               on the same tensors: K5 and K6 each at the serving shape in
-               bf16 and at the training shape in f32, K3 and K4 at the
-               modalities path's shape and K2, K3 at the lidar path's;
+               on the same tensors: K5 at the serving shape in bf16 and at
+               the training shape in f32 (8 and 4 heads), K6 the same way
+               (8 and 4 heads f32, and bf16 at the serving shape), timed as
+               autograd runs it (from the forward's output and L) and as a
+               whole direct call; K3 and K4 at the modalities path's shape
+               and K2, K3 at the lidar path's;
   7. train   - models/train_vae at full width (ViT dim 256, depth 4, 8
                heads, fused attention, batch 64, 135x240, f32) for 60 steps:
                finite falling loss, K1 once and K5 and K6 four times per
@@ -107,6 +111,7 @@ ATTENTION_CASES = [
     ((3, 128, 256, 8), "float32", 1e-4),
     ((2, 300, 256, 8), "float32", 1e-4),
     ((64, 225, 256, 8), "float32", 1e-4),       # the training path's shape and type
+    ((2, 225, 256, 4), "float32", 1e-4),        # head_dim 64
     ((64, 225, 256, 8), "bfloat16", 0.05),
     ((2, 100, 256, 4), "bfloat16", 0.05),       # head_dim 64
 ]
@@ -125,8 +130,9 @@ ATTENTION_BWD_CASES = [
     (ATTENTION_TRAIN_SHAPE, "float32", 2e-4),
     (ATTENTION_MAIN_SHAPE, "bfloat16", 0.02),   # five times the error seen there
     ((2, 100, 256, 4), "float32", 2e-4),        # ragged, head_dim 64
-    ((2, 225, 256, 4), "float32", 2e-4),        # head_dim 64 staged two tensors at a time
-    ((2, 225, 256, 4), "bfloat16", 0.02),       # head_dim 64 staged as bf16
+    ((2, 225, 256, 4), "float32", 2e-4),        # head_dim 64 at the ViT sequence
+    ((1, 300, 256, 4), "float32", 2e-4),        # past the old shared-memory limit
+    ((2, 225, 256, 4), "bfloat16", 0.02),       # head_dim 64
 ]
 PPO_ITERATIONS = 3
 STATE_STEP_ENVS = 16384
@@ -136,6 +142,7 @@ POSITION_POLICY = (Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12     # an f32-accurate product takes three (3xTF32)
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 # f32 operations per (ray, primitive) test, counted from csrc/raycast.cu
@@ -297,16 +304,32 @@ def bound_ms(torch, rc, pose, prims, dirs, counts, n_tri, max_range, name, face=
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), ops
 
 
+def products_ms(ops, itemsize):
+    """Least time for ``ops`` operations of products: bf16 at the tensor-core
+    peak; f32 the faster of f32 multiply-adds (67 TFLOP/s) and three TF32
+    products each (3 x ops over 495 TFLOP/s) -> (ms, {route: ms})."""
+    if itemsize == 2:
+        t = ops / PEAK_BF16_FLOPS * 1e3
+        return t, {"bf16 tensor cores": t}
+    routes = {"f32 multiply-adds": ops / PEAK_F32_FLOPS * 1e3,
+              "3xTF32": 3 * ops / PEAK_TF32_FLOPS * 1e3}
+    return min(routes.values()), routes
+
+
+def bound_of(n_bytes, ops, itemsize):
+    """-> (bound ms, "bytes" or "operations", text naming every bound)."""
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_ops, routes = products_ms(ops, itemsize)
+    text = ", ".join([f"bytes {t_bytes:.3f} ms"] + [f"{k} {v:.3f} ms" for k, v in routes.items()])
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), text
+
+
 def attention_bound_ms(shape, itemsize):
     """Least time for one attention call: q, k, v in and o out once over
     3.35 TB/s, against the two products' operations (2 x 2 x B x H x S x S
-    x head_dim) over the tensor-core peak for bf16, the f32 peak else."""
+    x head_dim)."""
     B, S, D, H = shape
-    n_bytes = 4 * B * S * D * itemsize
-    ops = 4.0 * B * H * S * S * (D // H)
-    t_bytes = n_bytes / PEAK_BYTES * 1e3
-    t_ops = ops / (PEAK_BF16_FLOPS if itemsize == 2 else PEAK_F32_FLOPS) * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), t_bytes, t_ops
+    return bound_of(4 * B * S * D * itemsize, 4.0 * B * H * S * S * (D // H), itemsize)
 
 
 def numpy_tensors(torch, shape, dtype, device, n=3, seed=0):
@@ -493,7 +516,7 @@ def nav_phase(torch, port, rc, ac, card):
 def time_attention(torch, ac, attention_reference, card, shape, dtype_name, tol):
     """K5 at one path's shape and type: kernel, plain version, the library's
     fused attention on the same tensors, and the bound. bf16 at head_dim 32
-    runs the tensor-core kernel, f32 the multiply-add kernel."""
+    runs the bf16 serving kernel, f32 the TF32 kernel (3xTF32)."""
     import torch.nn.functional as F
     B, S, D, H = shape
     dtype = getattr(torch, dtype_name)
@@ -511,9 +534,9 @@ def time_attention(torch, ac, attention_reference, card, shape, dtype_name, tol)
     plain_ms = event_ms(torch, lambda: attention_reference(q, k, v, H), 3)
     other = ""
     if dtype_name == "bfloat16":
-        # the source's other kernel (f32-accurate multiply-adds) on the same tensors
-        fma_ms = event_ms(torch, lambda: ac.attention_forward(q, k, v, H, use_mma=False), 3)
-        other = f"multiply-add kernel {fma_ms:.2f} ms, "
+        # the source's other kernel (TF32 products) on the same tensors
+        tf32_ms = event_ms(torch, lambda: ac.attention_forward(q, k, v, H, use_mma=False), 3)
+        other = f"TF32 kernel {tf32_ms:.3f} ms, "
     out, ref = run(), attention_reference(q, k, v, H)
     lib = lib_run().transpose(1, 2)
     torch.cuda.synchronize()
@@ -522,14 +545,14 @@ def time_attention(torch, ac, attention_reference, card, shape, dtype_name, tol)
     lib_err = (lib.reshape(B, S, D).float() - ref.float()).abs().max().item()
     if not bool((diff <= tol + tol * ref.float().abs()).all()):
         raise AssertionError(f"attention at {shape} {dtype_name}: max_abs_err {err}")
-    b_ms, b_by, t_bytes, t_ops = attention_bound_ms(shape, q.element_size())
+    b_ms, b_by, bounds = attention_bound_ms(shape, q.element_size())
     ms, lib_ms = min(ms_a, ms_b), min(lib_a, lib_b)
     log(f"timing attention_fwd {shape} {dtype_name}: kernel {ms:.3f} ms ({ms_a:.3f}, "
         f"{ms_b:.3f}), plain {plain_ms:.2f} ms, {other}"
         f"scaled_dot_product_attention {lib_ms:.3f} ms "
         f"({lib_a:.3f}, {lib_b:.3f}; its max_abs_err {lib_err:.3g}), max_abs_err {err:.3g} | "
-        f"bound {b_ms:.3f} ms by {b_by} (bytes {t_bytes:.3f} ms, operations {t_ops:.3f} ms) "
-        f"| {card}")
+        f"bound {b_ms:.3f} ms by {b_by} ({bounds}); share of the bound {b_ms / ms:.1%}, "
+        f"library's {b_ms / lib_ms:.1%} | {card}")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
             "bound_by": b_by, "max_abs_err": err}
 
@@ -537,14 +560,9 @@ def time_attention(torch, ac, attention_reference, card, shape, dtype_name, tol)
 def attention_bwd_bound_ms(shape, itemsize):
     """Least time for one attention backward: q, k, v, do in and dq, dk, dv
     out once over 3.35 TB/s, against five products' operations (5 x 2 x B x
-    H x S x S x head_dim) over the tensor-core peak for bf16, the f32 peak
-    else."""
+    H x S x S x head_dim)."""
     B, S, D, H = shape
-    n_bytes = 7 * B * S * D * itemsize
-    ops = 10.0 * B * H * S * S * (D // H)
-    t_bytes = n_bytes / PEAK_BYTES * 1e3
-    t_ops = ops / (PEAK_BF16_FLOPS if itemsize == 2 else PEAK_F32_FLOPS) * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), t_bytes, t_ops
+    return bound_of(7 * B * S * D * itemsize, 10.0 * B * H * S * S * (D // H), itemsize)
 
 
 def compare_attention_bwd(torch, ac, attention_backward_reference, device):
@@ -587,8 +605,11 @@ def compare_attention_bwd(torch, ac, attention_backward_reference, device):
 
 
 def time_attention_bwd(torch, ac, attention_backward_reference, card, shape, dtype_name):
-    """K6 at one shape: kernel, plain backward, the backward of the library's
-    fused attention on the same tensors, and the bound."""
+    """K6 at one shape: the kernels as autograd runs them (from the
+    forward's output and L, as the library's backward has its own), the
+    whole direct call (a forward launch to make them, then the backward),
+    the plain backward, the backward of the library's fused attention on the
+    same tensors, and the bound."""
     import torch.nn.functional as F
     B, S, D, H = shape
     dtype = getattr(torch, dtype_name)
@@ -599,7 +620,8 @@ def time_attention_bwd(torch, ac, attention_backward_reference, card, shape, dty
     lq, lk, lv = (heads(x).detach().requires_grad_(True) for x in (q, k, v))
     lib_out = F.scaled_dot_product_attention(lq, lk, lv)
     lib_do = heads(do)
-    run = lambda: ac.attention_backward(q, k, v, do, H)
+    out, lse = ac.attention_forward(q, k, v, H, want_lse=True)
+    run = lambda: ac.attention_backward(q, k, v, do, H, out=out, lse=lse)
     lib = lambda: torch.autograd.grad(lib_out, (lq, lk, lv), lib_do, retain_graph=True)
     iters = 20 if B <= 64 else 5
     # kernel, library, library, kernel: both see the same card state
@@ -607,6 +629,7 @@ def time_attention_bwd(torch, ac, attention_backward_reference, card, shape, dty
     lib_a = event_ms(torch, lib, iters)
     lib_b = event_ms(torch, lib, iters)
     ms_b = event_ms(torch, run, iters)
+    direct_ms = event_ms(torch, lambda: ac.attention_backward(q, k, v, do, H), iters)
     plain_ms = event_ms(torch, lambda: attention_backward_reference(q, k, v, do, H), 3)
     got, want, lib_g = run(), attention_backward_reference(q, k, v, do, H), lib()
     torch.cuda.synchronize()
@@ -614,15 +637,16 @@ def time_attention_bwd(torch, ac, attention_backward_reference, card, shape, dty
     lib_err = max((a.transpose(1, 2).reshape(B, S, D).float() - b.float()).abs().max().item()
                   for a, b in zip(lib_g, want))
     itemsize = 2 if dtype_name == "bfloat16" else 4
-    b_ms, b_by, t_bytes, t_ops = attention_bwd_bound_ms(shape, itemsize)
+    b_ms, b_by, bounds = attention_bwd_bound_ms(shape, itemsize)
     ms, lib_ms = min(ms_a, ms_b), min(lib_a, lib_b)
-    log(f"timing attention_bwd {shape} {dtype_name}: kernel {ms:.3f} ms ({ms_a:.3f}, "
-        f"{ms_b:.3f}), plain {plain_ms:.2f} ms, scaled_dot_product_attention backward "
-        f"{lib_ms:.3f} ms ({lib_a:.3f}, {lib_b:.3f}; its max_abs_err {lib_err:.3g}), "
-        f"max_abs_err {err:.3g} | bound {b_ms:.3f} ms by {b_by} (bytes {t_bytes:.3f} ms, "
-        f"operations {t_ops:.3f} ms) | {card}")
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "max_abs_err": err}
+    log(f"timing attention_bwd {shape} {dtype_name}: kernels from o and L {ms:.3f} ms "
+        f"({ms_a:.3f}, {ms_b:.3f}), whole direct call {direct_ms:.3f} ms, plain "
+        f"{plain_ms:.2f} ms, scaled_dot_product_attention backward {lib_ms:.3f} ms "
+        f"({lib_a:.3f}, {lib_b:.3f}; its max_abs_err {lib_err:.3g}), max_abs_err {err:.3g} | "
+        f"bound {b_ms:.3f} ms by {b_by} ({bounds}); share of the bound {b_ms / ms:.1%}, "
+        f"library's {b_ms / lib_ms:.1%} | {card}")
+    return {"ms": ms, "direct_ms": direct_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
 
 
 def timed(torch, fn):
@@ -1198,13 +1222,15 @@ def main() -> int:
     records[0]["launches_nav_path"] = nav_launches["raycast_depth"]
 
     # 6b. the attention forward at the nav path's shape and type (bf16, the
-    #     tensor-core kernel) and at the training path's (f32, the
-    #     multiply-add kernel)
+    #     serving kernel) and at the training path's (f32, the TF32 kernel),
+    #     the latter also at 4 heads (head_dim 64)
     k5 = time_attention(torch, ac, attention_reference, card, ATTENTION_MAIN_SHAPE, "bfloat16",
                         0.05)
     k5_train = time_attention(torch, ac, attention_reference, card, ATTENTION_TRAIN_SHAPE,
                               "float32", 1e-4)
     k5_train["max_abs_err"] = max(k5_train["max_abs_err"], k5_train_err)
+    k5_hd64 = time_attention(torch, ac, attention_reference, card, (TRAIN_BATCH, 225, 256, 4),
+                             "float32", 1e-4)
     records.append({
         "name": "attention_fwd", "route": "cuda", "source": ATTENTION_SOURCE,
         "replaces": ATTENTION_REPLACES, "launches": nav_launches["attention_fwd"],
@@ -1212,6 +1238,7 @@ def main() -> int:
         "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
         "library_ms": k5["library_ms"],
         "at_64x225x256_f32": k5_train,      # the training path; its launches join below
+        "at_64x225x256_f32_head_dim_64": k5_hd64,
     })
 
     # 7. training: train_vae through the ViT with K5 and K6, then the conv VAE
@@ -1228,7 +1255,7 @@ def main() -> int:
                             ATTENTION_TRAIN_SHAPE, "float32")
     k6_bf16 = time_attention_bwd(torch, ac, attention_backward_reference, card,
                                  ATTENTION_MAIN_SHAPE, "bfloat16")
-    # the same width at 4 heads: head_dim 64 in f32, staged two tensors at a time
+    # the same width at 4 heads: head_dim 64 in f32
     k6_hd64 = time_attention_bwd(torch, ac, attention_backward_reference, card,
                                  (TRAIN_BATCH, 225, 256, 4), "float32")
     records.append({
@@ -1237,9 +1264,8 @@ def main() -> int:
         "max_abs_err": max(errs["attention_bwd"], k6["max_abs_err"]), "ms": k6["ms"],
         "plain_ms": k6["plain_ms"], "bound_ms": k6["bound_ms"], "bound_by": k6["bound_by"],
         "library_ms": k6["library_ms"],
-        "at_1024x225x256_bf16": {key: k6_bf16[key] for key in
-                                 ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                  "max_abs_err")},
+        "direct_ms": k6["direct_ms"],
+        "at_1024x225x256_bf16": k6_bf16,
         "at_64x225x256_f32_head_dim_64": k6_hd64,
     })
 

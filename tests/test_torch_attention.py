@@ -65,11 +65,10 @@ def test_sm_scale_is_honoured():
                                atol=1e-5, rtol=0)
 
 
-def test_fused_backward_raises_and_plain_version_differentiates():
-    """The name dates from when the backward kernel was missing: the fused
-    function's backward no longer raises. On CPU tensors it runs the plain
-    backward and agrees with autograd through the plain version (f32, 1e-5:
-    the same formulas)."""
+def test_fused_backward_runs_the_plain_backward_on_cpu():
+    """On CPU tensors the fused function's backward runs the plain backward
+    and agrees with autograd through the plain version (f32, 1e-5: the same
+    formulas)."""
     q, k, v = (torch.from_numpy(a).requires_grad_(True) for a in _qkv((2, 17, 128, 4)))
     out = ac.fused_attention(q, k, v, 4)
     assert out.requires_grad

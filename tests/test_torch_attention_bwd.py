@@ -4,12 +4,21 @@ autograd and what the CUDA kernel is held against on the card) against
 jax.vjp through the JAX package's XLA oracle and through its Pallas kernels
 in interpret mode, on the same numpy-seeded inputs.
 
+The kernels' precision scheme is checked here too, before any card runs
+it: each f32 product as three TF32 products (3xTF32, emulated in plain
+torch by rounding to TF32 with a bit mask), the row log-sum-exp L saved by
+the forward, P recomputed from it and delta = rowsum(dO o) in the backward,
+against the JAX oracle and jax.grad.
+
 Tolerances: f32 atol = rtol 2e-4, the bar tests/test_attention_pallas.py
 holds the Pallas backward to (the same sums in another order); bf16 atol
 0.05 + rtol 0.05 (both sides compute in f32 from bf16 inputs, the JAX
 oracle rounds P to bf16 before the second product and the results are
 rounded to bf16 once more); the adversarial case 1e-3 against autograd
-through the port's own plain forward.
+through the port's own plain forward. The emulated 3xTF32 scheme is held
+to the kernels' own bars on the card: forward 1e-4 and backward 2e-4, and
+1e-2 in the adversarial case (a product of 3xTF32 is good to about 2^-21
+of the sum of |q_i k_i|, 3e-3 of a logit of order 1e3 at worst).
 """
 
 import jax
@@ -24,7 +33,7 @@ from aerial_gym_simulator_tpu.ops.attention_pallas import fused_attention as j_f
 
 from aerial_gym_simulator_tpu_torch.ops import attention_cuda as ac
 from aerial_gym_simulator_tpu_torch.ops.attention import (
-    attention_backward_reference, attention_reference)
+    attention_backward_reference, attention_lse_reference, attention_reference)
 
 # (B, S, D, heads): the shapes of tests/test_attention_pallas.py
 SHAPES = [
@@ -162,3 +171,115 @@ def test_backward_takes_a_non_contiguous_output_gradient():
     for a, b in zip(ac.attention_backward(q, k, v, strided, 4),
                     attention_backward_reference(q, k, v, do, 4)):
         assert torch.equal(a, b)
+
+
+def _tf32(x):
+    """Round f32 to TF32 (10 mantissa bits), to nearest with ties away from
+    zero, as cvt.rna.tf32.f32 does."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm3(a, b):
+    """a @ b as the kernels run an f32 product: a = a_hi + a_lo, b = b_hi +
+    b_lo, all four TF32, and a_lo b_hi + a_hi b_lo + a_hi b_hi summed in
+    f32 (a TF32 product is exact in f32)."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _split_heads(x, heads):
+    b, s, d = x.shape
+    return x.reshape(b, s, heads, d // heads).transpose(1, 2)
+
+
+def _merge_heads(x):
+    b, h, s, hd = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * hd)
+
+
+def _emulated_3xtf32(q, k, v, do, heads):
+    """The kernels' f32 arithmetic in plain torch -> (o, L, dq, dk, dv): the
+    forward keeps L, the backward recomputes P from it and takes delta from
+    the forward's output."""
+    scale = 1.0 / np.sqrt(q.shape[2] // heads)
+    qh, kh, vh, doh = (_split_heads(x, heads) for x in (q, k, v, do))
+    s = _mm3(qh, kh.transpose(-1, -2)) * scale
+    lse = torch.logsumexp(s, dim=-1)
+    o = _mm3(torch.exp(s - lse[..., None]), vh)
+    p = torch.exp(_mm3(qh, kh.transpose(-1, -2)) * scale - lse[..., None])
+    delta = (doh * o).sum(-1, keepdim=True)
+    ds = p * (_mm3(doh, vh.transpose(-1, -2)) - delta)
+    dq = _mm3(ds, kh) * scale
+    dk = _mm3(ds.transpose(-1, -2), qh) * scale
+    dv = _mm3(p.transpose(-1, -2), doh)
+    return _merge_heads(o), lse, _merge_heads(dq), _merge_heads(dk), _merge_heads(dv)
+
+
+def test_tf32_rounding_keeps_ten_mantissa_bits():
+    x = torch.tensor([1.0 + 2 ** -11, 1.0 + 2 ** -10 + 2 ** -11, -(1.0 + 3 * 2 ** -12), 3.0],
+                     dtype=torch.float32)
+    want = torch.tensor([1.0 + 2 ** -10, 1.0 + 2 ** -9, -(1.0 + 2 ** -10), 3.0])
+    assert torch.equal(_tf32(x), want)                 # ties away from zero
+    r = torch.from_numpy(np.random.RandomState(0).standard_normal(1000).astype(np.float32))
+    hi = _tf32(r)
+    assert (hi.view(torch.int32) & 0x1FFF).eq(0).all()
+    assert ((r - hi).abs() <= r.abs() * 2.0 ** -11).all()
+
+
+def test_3xtf32_scheme_matches_jax_at_the_training_heads():
+    """One (1, 225, 256, 8) head group, the ViT training layer's: forward
+    within 1e-4 of the JAX oracle, L within 1e-4 of the plain log-sum-exp,
+    gradients within 2e-4 of jax.vjp through the oracle."""
+    shape = (1, 225, 256, 8)
+    arrays = _inputs(shape, seed=9)
+    q, k, v, do = (torch.from_numpy(a) for a in arrays)
+    o, lse, *grads = _emulated_3xtf32(q, k, v, do, 8)
+    want_o = np.asarray(attention_oracle(*(jnp.asarray(a) for a in arrays[:3]), 8))
+    np.testing.assert_allclose(o.numpy(), want_o, atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(lse.numpy(), attention_lse_reference(q, k, 8).numpy(),
+                               atol=1e-4, rtol=1e-4)
+    for name, g, w in zip(("dq", "dk", "dv"), grads, _jax_vjp(attention_oracle, arrays, 8)):
+        np.testing.assert_allclose(g.numpy(), w, atol=2e-4, rtol=2e-4, err_msg=name)
+
+
+def test_3xtf32_scheme_survives_adversarial_magnitudes():
+    """q and k scaled by 30 (logits of order 1e3): the emulated scheme stays
+    within the 1e-2 the card's adversarial test holds the kernels to."""
+    shape = (1, 96, 64, 2)
+    arrays = _inputs(shape, seed=4)
+    q, k, v, do = (torch.from_numpy(a) for a in arrays)
+    q, k = q * 30.0, k * 30.0
+    o, _, *grads = _emulated_3xtf32(q, k, v, do, 2)
+    np.testing.assert_allclose(o.numpy(), attention_reference(q, k, v, 2).numpy(),
+                               atol=1e-2, rtol=1e-2)
+    for g, w in zip(grads, attention_backward_reference(q, k, v, do, 2)):
+        assert torch.isfinite(g).all()
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_lse_matches_logsumexp_of_the_plain_logits(shape):
+    """L (B, H, S) f32, what the forward kernel saves for the backward, from
+    the plain path the CPU runs: the wrapper's want_lse output."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(shape, seed=10, n=3))
+    out, lse = ac.attention_forward(q, k, v, shape[3], want_lse=True)
+    logits = (_split_heads(q, shape[3]) @ _split_heads(k, shape[3]).transpose(-1, -2)
+              / np.sqrt(shape[2] // shape[3]))
+    assert lse.shape == (shape[0], shape[3], shape[1]) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, torch.logsumexp(logits, dim=-1), atol=1e-5, rtol=1e-5)
+    assert torch.equal(out, attention_reference(q, k, v, shape[3]))
+
+
+def test_autograd_saves_output_and_lse_not_probabilities():
+    """With a gradient wanted the forward saves q, k, v, its output and L,
+    B x H x S floats beside the activations and nothing S x S; without one
+    it saves nothing."""
+    q, k, v = (torch.from_numpy(a).requires_grad_(True) for a in _inputs((2, 17, 64, 4), n=3))
+    out = ac.fused_attention(q, k, v, 4)
+    saved = out.grad_fn.saved_tensors
+    assert [tuple(t.shape) for t in saved] == [(2, 17, 64)] * 4 + [(2, 4, 17)]
+    torch.testing.assert_close(saved[3], out)
+    with torch.no_grad():
+        assert not ac.fused_attention(q, k, v, 4).requires_grad

@@ -33,7 +33,7 @@ import aerial_gym_simulator_tpu_torch as port
 from aerial_gym_simulator_tpu_torch.ops import attention_cuda as ac
 from aerial_gym_simulator_tpu_torch.ops import raycast_cuda as rc
 from aerial_gym_simulator_tpu_torch.ops.attention import (
-    attention_backward_reference, attention_reference)
+    attention_backward_reference, attention_lse_reference, attention_reference)
 from aerial_gym_simulator_tpu_torch.sensors.raycast_sensor import (
     camera_ray_dirs, lidar_ray_dirs)
 from aerial_gym_simulator_tpu_torch.utils.math import quat_to_rotation_matrix
@@ -347,9 +347,12 @@ ATTENTION_CASES = [
     ((1, 225, 128, 4), torch.float32, 1e-4),
     ((3, 128, 256, 8), torch.float32, 1e-4),
     ((2, 300, 256, 8), torch.float32, 1e-4),
-    ((64, 225, 256, 8), torch.bfloat16, 0.05),            # tensor-core kernel, hd 32
-    ((2, 100, 256, 4), torch.bfloat16, 0.05),             # tensor-core kernel, hd 64
-    ((2, 65, 96, 4), torch.bfloat16, 0.05),               # hd 24: f32-accurate kernel
+    ((2, 225, 256, 4), torch.float32, 1e-4),              # head_dim 64, 3xTF32
+    ((2, 65, 384, 3), torch.float32, 1e-4),               # head_dim 128
+    ((2, 33, 68, 4), torch.float32, 1e-4),                # head_dim 17: 4-byte copies
+    ((64, 225, 256, 8), torch.bfloat16, 0.05),            # bf16 serving kernel, hd 32
+    ((2, 100, 256, 4), torch.bfloat16, 0.05),             # bf16 serving kernel, hd 64
+    ((2, 65, 96, 4), torch.bfloat16, 0.05),               # hd 24: TF32 kernel
 ]
 
 
@@ -423,9 +426,12 @@ BACKWARD_CASES = [
     ((2, 100, 64, 4), torch.float32, 2e-4),               # head_dim 16
     ((64, 225, 256, 8), torch.float32, 2e-4),             # the ViT training shape
     ((2, 100, 256, 4), torch.float32, 2e-4),              # head_dim 64, ragged
-    ((2, 225, 256, 4), torch.float32, 2e-4),              # head_dim 64, staged two at a time
+    ((2, 225, 256, 4), torch.float32, 2e-4),              # head_dim 64 at the ViT sequence
+    ((2, 65, 384, 3), torch.float32, 2e-4),               # head_dim 128
+    ((2, 33, 68, 4), torch.float32, 2e-4),                # head_dim 17: 4-byte copies
     ((8, 225, 256, 8), torch.bfloat16, 0.02),
-    ((2, 225, 256, 4), torch.bfloat16, 0.02),             # head_dim 64 staged as bf16
+    ((16, 225, 256, 8), torch.bfloat16, 0.02),            # the serving shape, 16 batch rows
+    ((2, 225, 256, 4), torch.bfloat16, 0.02),             # head_dim 64
 ]
 
 
@@ -448,15 +454,21 @@ def test_attention_backward_kernel_matches_plain_version(cuda_device, shape, dty
 
 @pytest.mark.cuda
 def test_attention_autograd_runs_both_kernels(cuda_device):
-    """loss.backward() through fused_attention launches the backward kernel
-    once, takes a non-contiguous output gradient, and agrees with autograd
-    through the plain version."""
+    """loss.backward() through fused_attention makes one forward and one
+    backward call, saves q, k, v, the output and L (nothing S x S), takes a
+    non-contiguous output gradient, and agrees with autograd through the
+    plain version."""
     q, k, v, w = qkv((3, 65, 128, 4), torch.float32, cuda_device, seed=2, n=4)
     for t in (q, k, v):
         t.requires_grad_(True)
     before = dict(ac.LAUNCHES)
+    out = ac.fused_attention(q, k, v, 4)
+    saved = out.grad_fn.saved_tensors
+    assert [tuple(t.shape) for t in saved] == [(3, 65, 128)] * 4 + [(3, 4, 65)]
+    assert saved[3].data_ptr() == out.data_ptr()
+    torch.testing.assert_close(saved[4], attention_lse_reference(q, k, 4), atol=1e-4, rtol=1e-4)
     # the transposes hand backward an output gradient with permuted strides
-    (ac.fused_attention(q, k, v, 4).transpose(0, 1) * w.transpose(0, 1)).sum().backward()
+    (out.transpose(0, 1) * w.transpose(0, 1)).sum().backward()
     assert ac.LAUNCHES == {"attention_fwd": before["attention_fwd"] + 1,
                            "attention_bwd": before["attention_bwd"] + 1}
     got = [t.grad.clone() for t in (q, k, v)]
@@ -485,10 +497,36 @@ def test_attention_backward_survives_adversarial_magnitudes(cuda_device):
 
 
 @pytest.mark.cuda
-def test_attention_backward_refuses_what_does_not_fit(cuda_device):
-    # f32 at head_dim 64: S = 225 is staged two tensors at a time, S = 300 fits neither way
+def test_attention_backward_runs_past_the_old_shared_memory_limit(cuda_device):
+    """f32 at head_dim 64 and S = 300, which no longer has to fit one
+    block's shared memory, runs both ways and matches the plain versions;
+    a gradient of the wrong shape is refused."""
     q, k, v, do = qkv((1, 300, 256, 4), torch.float32, cuda_device, n=4)
-    with pytest.raises(ValueError, match="shared memory"):
-        ac.attention_backward(q, k, v, do, 4)
+    out = ac.fused_attention(q, k, v, 4)
+    got = ac.attention_backward(q, k, v, do, 4)
+    want = attention_backward_reference(q, k, v, do, 4)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, attention_reference(q, k, v, 4), atol=1e-4, rtol=1e-4)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4)
     with pytest.raises(ValueError):
         ac.attention_backward(q, k, v, do[:, :100], 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [((3, 225, 256, 8), torch.float32),
+                                         ((3, 225, 256, 8), torch.bfloat16),
+                                         ((2, 100, 256, 4), torch.bfloat16),
+                                         ((2, 65, 96, 4), torch.bfloat16)],
+                         ids=lambda x: str(x).replace("torch.", ""))
+def test_attention_lse_matches_plain_version(cuda_device, shape, dtype):
+    """L from each forward kernel (TF32 for f32 and bf16 at head_dim 24, the
+    bf16 serving kernel at 32 and 64) against the plain log-sum-exp, and the
+    output beside it unchanged by asking for L."""
+    q, k, v = qkv(shape, dtype, cuda_device, seed=5)
+    out, lse = ac.attention_forward(q, k, v, shape[3], want_lse=True)
+    plain = ac.attention_forward(q, k, v, shape[3])
+    torch.cuda.synchronize()
+    assert lse.shape == (shape[0], shape[3], shape[1]) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, attention_lse_reference(q, k, shape[3]), atol=1e-4, rtol=1e-4)
+    assert torch.equal(out, plain)
