@@ -52,8 +52,8 @@
 //    branches so that loads, products and exps of neighbouring tiles overlap.
 //    kLse adds the write of L for the autograd forward; the serving
 //    instantiation (kLse false) is the same code as before it existed.
-//  * attention_tf32_kernel (f32 at any head size up to 128; bf16 at other
-//    head sizes or a non-positive scale): the same online softmax on
+//  * attention_tf32_kernel (f32 at head sizes up to 128; bf16 at other head
+//    sizes up to 128 or a non-positive scale): the same online softmax on
 //    mma.sync m16n8k8 TF32 products, 3xTF32 for f32 inputs. One block of 4
 //    warps per (batch row, head, 64 query rows), 16 rows per warp with their
 //    Q fragments (hi and lo) in registers. K and V come in 64-key tiles,
@@ -85,6 +85,11 @@
 //  queries past S are zero rows in the staged tiles; the dQ kernel also sets
 //  P to 0 on keys past S in the last tile, so no exp of an unbounded
 //  argument can reach a sum.
+// Heads wider than 128 columns (any width; ViT dim 512 at one head is 512)
+// run three sliced kernels, attention_wide_fwd_kernel and the backward pair
+// attention_wide_bwd_dq_kernel / attention_wide_bwd_dkdv_kernel: the same
+// products and softmax over 128-column slices of the head, one output
+// slice per block (see their section).
 // What the TPU kernels did for their own hardware and is not carried over:
 // padding S to a multiple of 128 in device memory with -1e30 on padded keys,
 // casting bf16 operands to f32 before the products, one sequential grid step
@@ -531,6 +536,56 @@ __device__ __forceinline__ void store_pair(T* __restrict__ row, int col, int hd,
   if (col + 1 < hd) from_float(row + col + 1, y);
 }
 
+// One key tile of the online softmax, on logits already in log2 units:
+// mask the keys past the end, move the running row maxima, rescale the sums
+// and the output accumulators, and turn s into the tile's probabilities
+template <int kSteps>
+__device__ __forceinline__ void softmax_step(float (&s)[kTile / 8][4], int keys_left, int t,
+                                             float& m_lo, float& m_hi, float& l_lo,
+                                             float& l_hi, float (&oacc)[kSteps][4]) {
+  if (keys_left < kTile) {   // mask the keys past the end
+#pragma unroll
+    for (int nt = 0; nt < kTile / 8; ++nt) {
+      const int key = nt * 8 + t * 2;
+      if (key >= keys_left) s[nt][0] = s[nt][2] = -CUDART_INF_F;
+      if (key + 1 >= keys_left) s[nt][1] = s[nt][3] = -CUDART_INF_F;
+    }
+  }
+  float c_lo = -CUDART_INF_F, c_hi = -CUDART_INF_F;
+#pragma unroll
+  for (int nt = 0; nt < kTile / 8; ++nt) {
+    c_lo = fmaxf(c_lo, fmaxf(s[nt][0], s[nt][1]));
+    c_hi = fmaxf(c_hi, fmaxf(s[nt][2], s[nt][3]));
+  }
+  c_lo = fmaxf(c_lo, __shfl_xor_sync(0xffffffffu, c_lo, 1));
+  c_lo = fmaxf(c_lo, __shfl_xor_sync(0xffffffffu, c_lo, 2));
+  c_hi = fmaxf(c_hi, __shfl_xor_sync(0xffffffffu, c_hi, 1));
+  c_hi = fmaxf(c_hi, __shfl_xor_sync(0xffffffffu, c_hi, 2));
+  // every tile holds at least one real key, so the new max is finite
+  const float n_lo = fmaxf(m_lo, c_lo), n_hi = fmaxf(m_hi, c_hi);
+  const float a_lo = fast_exp2(m_lo - n_lo), a_hi = fast_exp2(m_hi - n_hi);
+  m_lo = n_lo;
+  m_hi = n_hi;
+  l_lo *= a_lo;
+  l_hi *= a_hi;
+#pragma unroll
+  for (int dt = 0; dt < kSteps; ++dt) {
+    oacc[dt][0] *= a_lo;
+    oacc[dt][1] *= a_lo;
+    oacc[dt][2] *= a_hi;
+    oacc[dt][3] *= a_hi;
+  }
+#pragma unroll
+  for (int nt = 0; nt < kTile / 8; ++nt) {
+    s[nt][0] = fast_exp2(s[nt][0] - m_lo);
+    s[nt][1] = fast_exp2(s[nt][1] - m_lo);
+    s[nt][2] = fast_exp2(s[nt][2] - m_hi);
+    s[nt][3] = fast_exp2(s[nt][3] - m_hi);
+    l_lo += s[nt][0] + s[nt][1];
+    l_hi += s[nt][2] + s[nt][3];
+  }
+}
+
 // Forward. shared memory: K and V tiles, two stages each, kTile x tile_ld f32
 template <typename T, int HD, bool kLse>
 __global__ void __launch_bounds__(kThreads)
@@ -598,47 +653,7 @@ attention_tf32_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nt][e] *= scale_log2e;   // log2 units, any sign of scale
     }
-    if (keys_left < kTile) {   // mask the keys past the end
-#pragma unroll
-      for (int nt = 0; nt < kTile / 8; ++nt) {
-        const int key = nt * 8 + t * 2;
-        if (key >= keys_left) s[nt][0] = s[nt][2] = -CUDART_INF_F;
-        if (key + 1 >= keys_left) s[nt][1] = s[nt][3] = -CUDART_INF_F;
-      }
-    }
-    float c_lo = -CUDART_INF_F, c_hi = -CUDART_INF_F;
-#pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-      c_lo = fmaxf(c_lo, fmaxf(s[nt][0], s[nt][1]));
-      c_hi = fmaxf(c_hi, fmaxf(s[nt][2], s[nt][3]));
-    }
-    c_lo = fmaxf(c_lo, __shfl_xor_sync(0xffffffffu, c_lo, 1));
-    c_lo = fmaxf(c_lo, __shfl_xor_sync(0xffffffffu, c_lo, 2));
-    c_hi = fmaxf(c_hi, __shfl_xor_sync(0xffffffffu, c_hi, 1));
-    c_hi = fmaxf(c_hi, __shfl_xor_sync(0xffffffffu, c_hi, 2));
-    // every tile holds at least one real key, so the new max is finite
-    const float n_lo = fmaxf(m_lo, c_lo), n_hi = fmaxf(m_hi, c_hi);
-    const float a_lo = fast_exp2(m_lo - n_lo), a_hi = fast_exp2(m_hi - n_hi);
-    m_lo = n_lo;
-    m_hi = n_hi;
-    l_lo *= a_lo;
-    l_hi *= a_hi;
-#pragma unroll
-    for (int dt = 0; dt < kSteps; ++dt) {
-      oacc[dt][0] *= a_lo;
-      oacc[dt][1] *= a_lo;
-      oacc[dt][2] *= a_hi;
-      oacc[dt][3] *= a_hi;
-    }
-#pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-      s[nt][0] = fast_exp2(s[nt][0] - m_lo);
-      s[nt][1] = fast_exp2(s[nt][1] - m_lo);
-      s[nt][2] = fast_exp2(s[nt][2] - m_hi);
-      s[nt][3] = fast_exp2(s[nt][3] - m_hi);
-      l_lo += s[nt][0] + s[nt][1];
-      l_hi += s[nt][2] + s[nt][3];
-    }
+    softmax_step<kSteps>(s, keys_left, t, m_lo, m_hi, l_lo, l_hi, oacc);
     // O += P V, 8 keys per k-step, P straight from the accumulators
 #pragma unroll
     for (int kt = 0; kt < kTile / 8; ++kt) {
@@ -927,6 +942,364 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// Wide heads (head_dim above 128): the same TF32 products over head slices
+// ---------------------------------------------------------------------------
+//
+// A head wider than 128 columns does not fit the kernels above: their
+// register-resident fragments cover the whole head. These kernels walk the
+// head in slices of kSlice columns. Dot products over the head (Q K^T,
+// dO V^T) accumulate slice by slice, the register-side operand read from
+// device memory (L1/L2) one 8-column step at a time and the tile-side
+// operand staged one slice at a time; each block owns one kSlice-column
+// slice of the output (blockIdx.z), so the logits are recomputed once per
+// output slice. Nothing is sized by the head or by S: any head size runs.
+// Simple and right first: one stage per tile, no overlap of copy and
+// products.
+
+constexpr int kSlice = 128;
+
+// Rows row0 .. row0 + kTile - 1 and head columns col0 .. col0 + kSlice - 1 of
+// one head of a packed (B, S, D) tensor into a staged tile of kSlice + 4
+// floats a row; rows past S and columns past hd are zero
+template <typename T>
+__device__ __forceinline__ void stage_slice(float* dst, const T* __restrict__ src, size_t base,
+                                            int row0, int col0, int S, int D, int hd) {
+  constexpr int ld = tile_ld<kSlice>();
+  if constexpr (std::is_same<T, float>::value) {
+    if ((hd & 3) == 0) {
+      constexpr int per_row = kSlice / 4;
+      for (int i = threadIdx.x; i < kTile * per_row; i += kThreads) {
+        const int r = i / per_row, c = (i - r * per_row) * 4, row = row0 + r, col = col0 + c;
+        cp_async16(dst + r * ld + c, src + base + (size_t)min(row, S - 1) * D + min(col, hd - 4),
+                   row < S && col < hd ? 16 : 0);
+      }
+      return;
+    }
+    for (int i = threadIdx.x; i < kTile * kSlice; i += kThreads) {
+      const int r = i / kSlice, c = i - r * kSlice, row = row0 + r, col = col0 + c;
+      cp_async4(dst + r * ld + c, src + base + (size_t)min(row, S - 1) * D + min(col, hd - 1),
+                row < S && col < hd ? 4 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kTile * kSlice; i += kThreads) {
+      const int r = i / kSlice, c = i - r * kSlice, row = row0 + r, col = col0 + c;
+      dst[r * ld + c] = row < S && col < hd ? to_float(src[base + (size_t)row * D + col]) : 0.0f;
+    }
+  }
+}
+
+// the staged slice is complete and visible to every thread
+__device__ __forceinline__ void slice_ready() {
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// acc += A[row0 .., head] X[n0 .., head]^T for 8 column tiles n0 = 0, 8, ..
+// of the staged tiles: the slice sl of the head, A from device memory
+template <bool kSplit, typename T>
+__device__ __forceinline__ void slice_dots(float (&acc)[kTile / 8][4], const T* __restrict__ a,
+                                           const float* X, size_t base, int row0, int col0,
+                                           int S, int D, int hd, int g, int t) {
+  constexpr int ld = tile_ld<kSlice>();
+#pragma unroll 4
+  for (int ks = 0; ks < kSlice / 8; ++ks) {
+    float x[4];
+    uint32_t ah[4], al[4];
+    a_values(a, base, row0, col0 + ks * 8, S, D, hd, g, t, x);
+    split4<kSplit>(x, ah, al);
+#pragma unroll
+    for (int nt = 0; nt < kTile / 8; ++nt) {
+      uint32_t bfh[2], bfl[2];
+      b_rows<kSplit>(X, ld, nt * 8, ks * 8, g, t, bfh, bfl);
+      mma3<kSplit>(acc[nt], ah, al, bfh, bfl);
+    }
+  }
+}
+
+// acc += P X for the 8-key tiles of P (accumulator layout) and the staged
+// slice X (rows in the order of acc_as_a)
+template <bool kSplit>
+__device__ __forceinline__ void slice_pv(float (&acc)[kSlice / 8][4],
+                                         const float (&p)[kTile / 8][4], const float* X, int g,
+                                         int t) {
+  constexpr int ld = tile_ld<kSlice>();
+#pragma unroll
+  for (int kt = 0; kt < kTile / 8; ++kt) {   // unrolled: p stays in registers
+    uint32_t ph[4], pl[4];
+    acc_as_a<kSplit>(p[kt], ph, pl);
+#pragma unroll
+    for (int dt = 0; dt < kSlice / 8; ++dt) {
+      uint32_t bfh[2], bfl[2];
+      b_cols<kSplit>(X, ld, kt * 8, dt * 8, g, t, bfh, bfl);
+      mma3<kSplit>(acc[dt], ph, pl, bfh, bfl);
+    }
+  }
+}
+
+// rows r_lo and r_hi of an output slice: acc times f, from head column col0
+template <typename T>
+__device__ __forceinline__ void store_slice(T* __restrict__ out, size_t base, int r_lo, int col0,
+                                            int S, int D, int hd, int t,
+                                            const float (&acc)[kSlice / 8][4], float f) {
+#pragma unroll
+  for (int dt = 0; dt < kSlice / 8; ++dt) {
+    const int col = col0 + dt * 8 + 2 * t;
+    if (r_lo < S) store_pair(out + base + (size_t)r_lo * D, col, hd, acc[dt][0] * f, acc[dt][1] * f);
+    if (r_lo + 8 < S)
+      store_pair(out + base + (size_t)(r_lo + 8) * D, col, hd, acc[dt][2] * f, acc[dt][3] * f);
+  }
+}
+
+// Forward, wide heads: grid (B * H, query tiles, output slices). shared
+// memory: one K slice and one V slice of a key tile
+template <typename T, bool kLse>
+__global__ void __launch_bounds__(kThreads)
+attention_wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+                          int S, int H, int hd, float scale_log2e) {
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  constexpr int kSteps = kSlice / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Ks = reinterpret_cast<float*>(smem_raw);   // [kTile][tile_ld<kSlice>]
+  float* Vs = Ks + tile_floats<kSlice>();
+
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  const int D = H * hd;
+  const size_t base = (size_t)b * S * D + (size_t)h * hd;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = blockIdx.y * kTile + warp * 16, out0 = blockIdx.z * kSlice;
+  const int n_tiles = (S + kTile - 1) / kTile, n_slices = (hd + kSlice - 1) / kSlice;
+
+  float oacc[kSteps][4];
+#pragma unroll
+  for (int dt = 0; dt < kSteps; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[dt][e] = 0.0f;
+  float m_lo = -CUDART_INF_F, m_hi = -CUDART_INF_F, l_lo = 0.0f, l_hi = 0.0f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    float s[kTile / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < kTile / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
+    for (int sl = 0; sl < n_slices; ++sl) {
+      __syncthreads();   // the previous slice is consumed
+      stage_slice<T>(Ks, k, base, it * kTile, sl * kSlice, S, D, hd);
+      if (sl == n_slices - 1) stage_slice<T>(Vs, v, base, it * kTile, out0, S, D, hd);
+      slice_ready();
+      slice_dots<kSplit>(s, q, Ks, base, row0, sl * kSlice, S, D, hd, g, t);
+    }
+#pragma unroll
+    for (int nt = 0; nt < kTile / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] *= scale_log2e;
+    softmax_step<kSteps>(s, S - it * kTile, t, m_lo, m_hi, l_lo, l_hi, oacc);
+    slice_pv<kSplit>(oacc, s, Vs, g, t);
+  }
+
+  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
+  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
+  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
+  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
+  const int r_lo = row0 + g, r_hi = r_lo + 8;
+  const float i_lo = 1.0f / l_lo, i_hi = 1.0f / l_hi;
+#pragma unroll
+  for (int dt = 0; dt < kSteps; ++dt) {
+    oacc[dt][0] *= i_lo;
+    oacc[dt][1] *= i_lo;
+    oacc[dt][2] *= i_hi;
+    oacc[dt][3] *= i_hi;
+  }
+  store_slice(o, base, r_lo, out0, S, D, hd, t, oacc, 1.0f);
+  if constexpr (kLse) {
+    if (t == 0 && blockIdx.z == 0) {
+      float* row_lse = lse + (size_t)bh * S;
+      if (r_lo < S) row_lse[r_lo] = (m_lo + log2f(l_lo)) * kLn2;
+      if (r_hi < S) row_lse[r_hi] = (m_hi + log2f(l_hi)) * kLn2;
+    }
+  }
+}
+
+// Backward, wide heads, first kernel: delta and one output slice of dQ for
+// kTile query rows; grid (B * H, query tiles, output slices). shared
+// memory: one K slice and one V slice of a key tile
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+attention_wide_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v, const T* __restrict__ o,
+                             const T* __restrict__ dout, const float* __restrict__ lse,
+                             float* __restrict__ delta, T* __restrict__ dq, int S, int H, int hd,
+                             float scale, float scale_log2e) {
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Ks = reinterpret_cast<float*>(smem_raw);
+  float* Vs = Ks + tile_floats<kSlice>();
+
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  const int D = H * hd;
+  const size_t base = (size_t)b * S * D + (size_t)h * hd;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = blockIdx.y * kTile + warp * 16, out0 = blockIdx.z * kSlice;
+  const int n_tiles = (S + kTile - 1) / kTile, n_slices = (hd + kSlice - 1) / kSlice;
+
+  // delta = rowsum(dO o) over the whole head, in the narrow kernel's order
+  float del_lo = 0.0f, del_hi = 0.0f;
+  for (int c0 = 0; c0 < hd; c0 += 8) {
+    float y[4], z[4];
+    a_values(dout, base, row0, c0, S, D, hd, g, t, y);
+    a_values(o, base, row0, c0, S, D, hd, g, t, z);
+    del_lo = fmaf(y[0], z[0], fmaf(y[2], z[2], del_lo));
+    del_hi = fmaf(y[1], z[1], fmaf(y[3], z[3], del_hi));
+  }
+  del_lo += __shfl_xor_sync(0xffffffffu, del_lo, 1);
+  del_lo += __shfl_xor_sync(0xffffffffu, del_lo, 2);
+  del_hi += __shfl_xor_sync(0xffffffffu, del_hi, 1);
+  del_hi += __shfl_xor_sync(0xffffffffu, del_hi, 2);
+  const int r_lo = row0 + g, r_hi = r_lo + 8;
+  const float* row_lse = lse + (size_t)bh * S;
+  const float L_lo = r_lo < S ? row_lse[r_lo] * kLog2e : 0.0f;
+  const float L_hi = r_hi < S ? row_lse[r_hi] * kLog2e : 0.0f;
+  if (t == 0 && blockIdx.z == 0) {
+    if (r_lo < S) delta[(size_t)bh * S + r_lo] = del_lo;
+    if (r_hi < S) delta[(size_t)bh * S + r_hi] = del_hi;
+  }
+
+  float dacc[kSlice / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < kSlice / 8; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dacc[dt][e] = 0.0f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    float s[kTile / 8][4], dp[kTile / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < kTile / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.0f;
+    for (int sl = 0; sl < n_slices; ++sl) {
+      __syncthreads();
+      stage_slice<T>(Ks, k, base, it * kTile, sl * kSlice, S, D, hd);
+      stage_slice<T>(Vs, v, base, it * kTile, sl * kSlice, S, D, hd);
+      slice_ready();
+      slice_dots<kSplit>(s, q, Ks, base, row0, sl * kSlice, S, D, hd, g, t);
+      slice_dots<kSplit>(dp, dout, Vs, base, row0, sl * kSlice, S, D, hd, g, t);
+    }
+    const int keys_left = S - it * kTile;
+#pragma unroll
+    for (int nt = 0; nt < kTile / 8; ++nt) {
+      float p[4];
+      p[0] = fast_exp2(fmaf(s[nt][0], scale_log2e, -L_lo));
+      p[1] = fast_exp2(fmaf(s[nt][1], scale_log2e, -L_lo));
+      p[2] = fast_exp2(fmaf(s[nt][2], scale_log2e, -L_hi));
+      p[3] = fast_exp2(fmaf(s[nt][3], scale_log2e, -L_hi));
+      const int key = nt * 8 + 2 * t;   // keys past the end: P set to 0
+      if (key >= keys_left) p[0] = p[2] = 0.0f;
+      if (key + 1 >= keys_left) p[1] = p[3] = 0.0f;
+      s[nt][0] = p[0] * (dp[nt][0] - del_lo);   // dS in place of the logits
+      s[nt][1] = p[1] * (dp[nt][1] - del_lo);
+      s[nt][2] = p[2] * (dp[nt][2] - del_hi);
+      s[nt][3] = p[3] * (dp[nt][3] - del_hi);
+    }
+    __syncthreads();
+    stage_slice<T>(Ks, k, base, it * kTile, out0, S, D, hd);
+    slice_ready();
+    slice_pv<kSplit>(dacc, s, Ks, g, t);
+  }
+  store_slice(dq, base, r_lo, out0, S, D, hd, t, dacc, scale);
+}
+
+// Backward, wide heads, second kernel: one output slice of dV (even
+// blockIdx.z) or dK (odd) for kTile keys, after the first kernel has written
+// delta; grid (B * H, key tiles, 2 x output slices). shared memory: one Q
+// slice and one dO slice of a query tile, then L and delta of its queries
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+attention_wide_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                               const T* __restrict__ v, const T* __restrict__ dout,
+                               const float* __restrict__ lse, const float* __restrict__ delta,
+                               T* __restrict__ dk, T* __restrict__ dv, int S, int H, int hd,
+                               float scale, float scale_log2e) {
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);
+  float* Gs = Qs + tile_floats<kSlice>();
+  float* Ls = Gs + tile_floats<kSlice>();   // [kTile]
+  float* Ds = Ls + kTile;                   // [kTile]
+
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  const int D = H * hd;
+  const size_t base = (size_t)b * S * D + (size_t)h * hd;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int key0 = blockIdx.y * kTile + warp * 16;
+  const bool want_dk = blockIdx.z & 1;
+  const int out0 = (blockIdx.z >> 1) * kSlice;
+  const int n_tiles = (S + kTile - 1) / kTile, n_slices = (hd + kSlice - 1) / kSlice;
+  const float* row_lse = lse + (size_t)bh * S;
+  const float* row_delta = delta + (size_t)bh * S;
+
+  float acc[kSlice / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < kSlice / 8; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.0f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    // S^T = K Q^T and, for dK, dP^T = V dO^T over the head
+    float st[kTile / 8][4], dpt[kTile / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < kTile / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = 0.0f;
+    for (int sl = 0; sl < n_slices; ++sl) {
+      __syncthreads();
+      stage_slice<T>(Qs, q, base, it * kTile, sl * kSlice, S, D, hd);
+      if (want_dk) stage_slice<T>(Gs, dout, base, it * kTile, sl * kSlice, S, D, hd);
+      if (sl == 0) {
+        stage_vec(Ls, row_lse, it * kTile, S);
+        stage_vec(Ds, row_delta, it * kTile, S);
+      }
+      slice_ready();
+      slice_dots<kSplit>(st, k, Qs, base, key0, sl * kSlice, S, D, hd, g, t);
+      if (want_dk) slice_dots<kSplit>(dpt, v, Gs, base, key0, sl * kSlice, S, D, hd, g, t);
+    }
+    // P^T (dV) or dS^T (dK) in place of S^T. Queries past S are zero rows
+    // with L = delta = 0: P = 1 there, and dO = 0 and dS = 0 keep them out
+#pragma unroll
+    for (int nt = 0; nt < kTile / 8; ++nt) {
+      const int qa = nt * 8 + 2 * t;
+      const float L0 = Ls[qa] * kLog2e, L1 = Ls[qa + 1] * kLog2e;
+      const float d0 = Ds[qa], d1 = Ds[qa + 1];
+      float p[4];
+      p[0] = fast_exp2(fmaf(st[nt][0], scale_log2e, -L0));
+      p[1] = fast_exp2(fmaf(st[nt][1], scale_log2e, -L1));
+      p[2] = fast_exp2(fmaf(st[nt][2], scale_log2e, -L0));
+      p[3] = fast_exp2(fmaf(st[nt][3], scale_log2e, -L1));
+      if (want_dk) {
+        st[nt][0] = p[0] * (dpt[nt][0] - d0);
+        st[nt][1] = p[1] * (dpt[nt][1] - d1);
+        st[nt][2] = p[2] * (dpt[nt][2] - d0);
+        st[nt][3] = p[3] * (dpt[nt][3] - d1);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[nt][e] = p[e];
+      }
+    }
+    // dV += P^T dO, dK += dS^T Q: the output slice of dO or Q
+    __syncthreads();
+    stage_slice<T>(Qs, want_dk ? q : dout, base, it * kTile, out0, S, D, hd);
+    slice_ready();
+    slice_pv<kSplit>(acc, st, Qs, g, t);
+  }
+  if (want_dk) store_slice(dk, base, key0 + g, out0, S, D, hd, t, acc, scale);
+  else store_slice(dv, base, key0 + g, out0, S, D, hd, t, acc, 1.0f);
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -1004,7 +1377,60 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
-// head_dim -> the instantiated tile width (32, 64 or 128), 0 beyond
+size_t wide_shared_bytes(bool with_vectors) {
+  return sizeof(float) * (2 * (size_t)tile_floats<kSlice>() + (with_vectors ? 2 * kTile : 0));
+}
+
+template <typename T>
+cudaError_t launch_wide_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
+                            int B, int S, int H, int hd, float scale, cudaStream_t s) {
+  const size_t bytes = wide_shared_bytes(false);
+  const dim3 grid(B * H, (S + kTile - 1) / kTile, (hd + kSlice - 1) / kSlice);
+  if (lse) {
+    cudaError_t err = allow_shared(attention_wide_fwd_kernel<T, true>, bytes);
+    if (err != cudaSuccess) return err;
+    attention_wide_fwd_kernel<T, true><<<grid, kThreads, bytes, s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(o), lse, S, H, hd, scale * kLog2e);
+  } else {
+    cudaError_t err = allow_shared(attention_wide_fwd_kernel<T, false>, bytes);
+    if (err != cudaSuccess) return err;
+    attention_wide_fwd_kernel<T, false><<<grid, kThreads, bytes, s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(o), lse, S, H, hd, scale * kLog2e);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_wide_bwd(const void* q, const void* k, const void* v, const void* o,
+                            const void* dout, const float* lse, float* delta, void* dq,
+                            void* dk, void* dv, int B, int S, int H, int hd, float scale,
+                            cudaStream_t s) {
+  const int n_slices = (hd + kSlice - 1) / kSlice;
+  const dim3 grid(B * H, (S + kTile - 1) / kTile, n_slices);
+  const size_t dq_bytes = wide_shared_bytes(false);
+  cudaError_t err = allow_shared(attention_wide_bwd_dq_kernel<T>, dq_bytes);
+  if (err != cudaSuccess) return err;
+  attention_wide_bwd_dq_kernel<T><<<grid, kThreads, dq_bytes, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(o), static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq),
+      S, H, hd, scale, scale * kLog2e);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t kv_bytes = wide_shared_bytes(true);
+  err = allow_shared(attention_wide_bwd_dkdv_kernel<T>, kv_bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 kv_grid(B * H, (S + kTile - 1) / kTile, 2 * n_slices);
+  attention_wide_bwd_dkdv_kernel<T><<<kv_grid, kThreads, kv_bytes, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), S, H,
+      hd, scale, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+// head_dim -> the instantiated tile width (32, 64 or 128), 0 beyond (the
+// wide kernels)
 int padded_head(int hd) { return hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128 : 0; }
 
 template <typename T, int HD>
@@ -1013,7 +1439,8 @@ struct Instance {
   static constexpr int width = HD;
 };
 
-// calls launch(Instance<input type, tile width>{}) for this type and head size
+// calls launch(Instance<input type, tile width>{}) for this type and head
+// size; width 0 stands for the wide kernels
 template <typename F>
 cudaError_t dispatch(int hd, int is_bf16, F&& launch) {
   switch (padded_head(hd)) {
@@ -1024,7 +1451,7 @@ cudaError_t dispatch(int hd, int is_bf16, F&& launch) {
     case 128:
       return is_bf16 ? launch(Instance<__nv_bfloat16, 128>{}) : launch(Instance<float, 128>{});
     default:
-      return cudaErrorInvalidValue;
+      return is_bf16 ? launch(Instance<__nv_bfloat16, 0>{}) : launch(Instance<float, 0>{});
   }
 }
 
@@ -1033,7 +1460,8 @@ cudaError_t dispatch(int hd, int is_bf16, F&& launch) {
 // q, k, v, o: contiguous (B, S, H*hd), 16-byte aligned, f32 (is_bf16 = 0) or
 // bf16. lse: null, or (B, H, S) f32 for the row log-sum-exp. use_mma picks the
 // bf16 serving kernel (hd 32 or 64, scale > 0 only: it takes the row maximum
-// before scaling); else the TF32 kernel, hd up to 128.
+// before scaling); else the TF32 kernel, hd up to 128, and the wide kernel
+// above that.
 extern "C" int attention_fwd_launch(const void* q, const void* k, const void* v, void* o,
                                     float* lse, int B, int S, int H, int hd, float scale,
                                     int is_bf16, int use_mma, void* stream) {
@@ -1050,7 +1478,10 @@ extern "C" int attention_fwd_launch(const void* q, const void* k, const void* v,
   }
   return static_cast<int>(dispatch(hd, is_bf16, [&](auto inst) {
     using I = decltype(inst);
-    return launch_tf32_fwd<typename I::type, I::width>(q, k, v, o, lse, B, S, H, hd, scale, s);
+    if constexpr (I::width == 0)
+      return launch_wide_fwd<typename I::type>(q, k, v, o, lse, B, S, H, hd, scale, s);
+    else
+      return launch_tf32_fwd<typename I::type, I::width>(q, k, v, o, lse, B, S, H, hd, scale, s);
   }));
 }
 
@@ -1064,8 +1495,12 @@ extern "C" int attention_bwd_launch(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(dispatch(hd, is_bf16, [&](auto inst) {
     using I = decltype(inst);
-    return launch_bwd<typename I::type, I::width>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S,
-                                                  H, hd, scale, s);
+    if constexpr (I::width == 0)
+      return launch_wide_bwd<typename I::type>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H,
+                                               hd, scale, s);
+    else
+      return launch_bwd<typename I::type, I::width>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
+                                                    S, H, hd, scale, s);
   }));
 }
 

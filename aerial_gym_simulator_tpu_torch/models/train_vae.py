@@ -15,8 +15,9 @@ in either package. Weights and compute are f32, as in the JAX package; the
 frozen encoder is cast to bf16 only where it is served.
 
 Flags are the JAX script's, except: ``--device`` takes the place of
-``--cpu`` (the default is CUDA), ``--vit_attn flash`` is gone (a TPU library
-kernel without a counterpart here), ``--log_every`` is new, and
+``--cpu`` (the default is CUDA), ``--vit_attn flash`` runs the fused
+kernels in f32 (the JAX package's flash path runs its library kernel in
+f32), ``--log_every`` is new, and
 ``--collision_targets`` raises until ``utils/collision_image_generator`` is
 ported (see ROADMAP.md).
 """
@@ -97,9 +98,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--vit_dim", type=int, default=128)
     p.add_argument("--vit_depth", type=int, default=4)
     p.add_argument("--vit_heads", type=int, default=4)
-    p.add_argument("--vit_attn", choices=["xla", "fused"], default="xla",
+    p.add_argument("--vit_attn", choices=["xla", "fused", "flash"], default="xla",
                    help="'fused' runs the hand-written attention kernels (forward and "
-                        "backward), 'xla' the plain version through autograd")
+                        "backward), 'flash' the same kernels in f32 whatever the input "
+                        "type, 'xla' the plain version through autograd")
     p.add_argument("--vit_remat", action="store_true",
                    help="recompute each transformer block in the backward instead of "
                         "keeping its activations")

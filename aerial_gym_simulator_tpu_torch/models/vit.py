@@ -8,12 +8,16 @@ tanh GELU, images in (B, H, W, 1), tokens in row-major order over the patch
 grid. ``DepthViT`` pairs the encoder with the conv decoder of
 ``models/vae.py`` and trains through ``vae_loss``.
 
-``attn_impl`` keeps the JAX package's names: ``"fused"`` is the
-hand-written kernel pair (``ops/attention_cuda.fused_attention``; CUDA
-tensors launch the forward and, under autograd, the backward kernel or
-raise, CPU tensors run the plain versions), ``"xla"`` is the plain version
-with the softmax written out (``ops/attention.attention_reference``,
-differentiated by autograd). The projections, the MLP and the patch
+``attn_impl`` takes the JAX package's four names, so its checkpoints load
+whatever they were trained with. ``"fused"`` is the hand-written kernel
+pair (``ops/attention_cuda.fused_attention``; CUDA tensors launch the
+forward and, under autograd, the backward kernel or raise, CPU tensors run
+the plain versions). ``"flash"`` is the same kernels run in f32, as the JAX
+package runs its flash-attention library kernel: q, k and v are cast to f32
+and the result back to the input type. ``"xla"`` and ``"reference"`` are
+the plain version with the softmax written out
+(``ops/attention.attention_reference``, differentiated by autograd). The
+projections, the MLP and the patch
 embedding are ordinary ``linear`` / ``conv2d`` calls. ``remat``
 recomputes each transformer block in the backward
 (``torch.utils.checkpoint``) instead of keeping its activations.
@@ -34,7 +38,7 @@ from ..ops.attention_cuda import fused_attention
 from ..utils.device import resolve_device
 from .vae import Autoencoder, Decoder, FrozenImageEncoder, seeded
 
-ATTN_IMPLS = ("fused", "xla")
+ATTN_IMPLS = ("fused", "xla", "flash", "reference")
 LAYER_NORM_EPS = 1e-6
 
 
@@ -57,8 +61,14 @@ class FusedAttention(nn.Module):
     def forward(self, x):
         q, k, v = self.query(x), self.key(x), self.value(x)
         scale = 1.0 / math.sqrt(self.dim // self.num_heads)
-        attend = fused_attention if self.impl == "fused" else attention_reference
-        return self.out(attend(q, k, v, self.num_heads, scale))
+        if self.impl == "fused":
+            o = fused_attention(q, k, v, self.num_heads, scale)
+        elif self.impl == "flash":
+            o = fused_attention(q.float(), k.float(), v.float(), self.num_heads,
+                                scale).to(q.dtype)
+        else:
+            o = attention_reference(q, k, v, self.num_heads, scale)
+        return self.out(o)
 
 
 class TransformerBlock(nn.Module):

@@ -15,7 +15,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional
+from typing import Iterable, List, Optional
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -74,14 +74,15 @@ class KernelLibrary:
         return self._lib
 
 
-def build_all(libraries: Iterable[KernelLibrary]) -> Dict[str, str]:
-    """Build several sources side by side; returns {name: nvcc log}."""
+def build_all(libraries: Iterable[KernelLibrary]) -> List[str]:
+    """Build several libraries side by side (one source may be built with
+    several sets of flags); returns their nvcc logs in the same order."""
     libraries = list(libraries)
     started = []
     try:
         for lib in libraries:
             started.append(lib._start())
-        return {lib.name: lib._finish(s) for lib, s in zip(libraries, started)}
+        return [lib._finish(s) for lib, s in zip(libraries, started)]
     finally:
         for s in started:                  # a failure leaves no compiler running
             if s is not None and s[0].poll() is None:

@@ -24,7 +24,9 @@ else, f32 above all, the TF32 tensor-core kernel, with each f32 product
 split into three TF32 products (3xTF32) for f32 accuracy. Backward: two
 TF32 tensor-core kernels (delta and dQ over query tiles, then dK and dV
 over key tiles), 3xTF32 for f32, deterministic, any sequence length. The
-TF32 kernels take head sizes up to 128.
+TF32 kernels are built for head sizes up to 128; a wider head (the JAX
+kernel takes any) runs their sliced counterparts, which walk the head in
+128-column slices, so every head size runs on the card.
 """
 
 from __future__ import annotations
@@ -41,7 +43,6 @@ from .attention import (attention_backward_reference, attention_lse_reference,
 
 LIBRARY = KernelLibrary("attention")
 MMA_HEAD_DIMS = (32, 64)           # head sizes the bf16 serving kernel is built for
-MAX_HEAD_DIM = 128                 # widest head the TF32 kernels are built for
 
 # calls of each kernel's wrapper that launched it, counted where it launches:
 # one per forward, one per backward (whose two kernels launch together)
@@ -125,8 +126,6 @@ def attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_hea
     elif use_mma and not mma_takes_it:
         raise ValueError(f"the bf16 serving kernel takes bf16 with head_dim in {MMA_HEAD_DIMS} "
                          "and a positive scale")
-    if not use_mma and hd > MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {hd}: the TF32 kernel takes head sizes up to {MAX_HEAD_DIM}")
     out = torch.empty_like(q)
     lse = torch.empty((B, num_heads, S), device=q.device, dtype=torch.float32) if want_lse else None
     if B == 0 or S == 0:
@@ -159,9 +158,6 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     grad_out = grad_out.contiguous()
     for name, t in (("q", q), ("k", k), ("v", v), ("grad_out", grad_out)):
         _check(name, t, q)
-    if hd > MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {hd}: the backward kernels take head sizes up to "
-                         f"{MAX_HEAD_DIM}")
     if out is None or lse is None:
         out, lse = attention_forward(q, k, v, num_heads, sm_scale, want_lse=True)
     _check("out", out, q)

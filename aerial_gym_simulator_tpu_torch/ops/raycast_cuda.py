@@ -16,8 +16,10 @@ Table layouts (shared by both versions):
   pose  (N, 8)      [ox oy oz qx qy qz qw pad]   sensor origin + world quat
   prims (N, P, 16)  [sx sy sz px py pz r00..r22 sem] world-frame prims,
                     sorted box | cylinder | sphere | triangle
-  dirs  (R, 3)      sensor-frame unit ray directions (shared by all envs)
-  mult  (R,)        per-ray depth multiplier
+  dirs  (H, W, 3)   sensor-frame unit ray directions on the sensor's grid,
+                    row-major (shared by all envs); an (R, 3) table is a
+                    grid of one row
+  mult  (H, W)      per-ray depth multiplier, or (R,)
   out   depth (N, R) f32, seg (N, R) int32 (every mode but depth only),
         normal (N, R, 3) f32 + face (N, R) int32 (normal mode),
         rgb (N, R, 3) f32 (RGB mode)
@@ -37,7 +39,8 @@ from ..utils.math import quat_to_rotation_matrix
 # every multiply and add rounds on its own, as in the plain version, so the
 # two agree bit for bit (fma contraction off)
 LIBRARY = KernelLibrary("raycast", ["-fmad=false"])
-THREADS = 256          # rays per block (one thread per ray), see raycast.cu
+PATCH = (16, 32)       # a block's rays on the (H, W) grid, see raycast.cu
+WARP_PATCH = (8, 8)    # a warp's rays, the unit of the broad phase
 # the plain version casts this many rays per pass, bounding its temporaries
 # (~40 live (rays,) f32 tensors) to a few GB at the main path's width
 REFERENCE_CHUNK_RAYS = 1 << 24
@@ -59,19 +62,23 @@ _lib = None
 _shading_devices = set()
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of a build of csrc/raycast.cu."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.raycast_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
+                                   ctypes.c_float, i, i, p]
+    lib.raycast_launch.restype = i
+    lib.raycast_set_shading.argtypes = [p, i]
+    lib.raycast_set_shading.restype = i
+    lib.raycast_error_string.argtypes = [i]
+    lib.raycast_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _load():
     global _lib
     if _lib is None:
-        lib = LIBRARY.load()
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.raycast_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
-                                       ctypes.c_float, i, i, p]
-        lib.raycast_launch.restype = i
-        lib.raycast_set_shading.argtypes = [p, i]
-        lib.raycast_set_shading.restype = i
-        lib.raycast_error_string.argtypes = [i]
-        lib.raycast_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = bind(LIBRARY.load())
     return _lib
 
 
@@ -128,53 +135,99 @@ def _kind_of(p: int, n_box: int, n_cyl: int, n_sph: int) -> int:
     return 2 if p < n_box + n_cyl + n_sph else 3
 
 
-def tile_visibility(pose, prims, dirs, n_box: int, n_cyl: int, n_sph: int,
-                    max_range: float) -> torch.Tensor:
-    """The kernel's broad phase in plain PyTorch: (N, T, P) bool, whether
-    primitive p is tested for the rays of tile t (THREADS rays each).
+def ray_grid(dirs: torch.Tensor):
+    """(H, W) of a ray table: (H, W, 3) as it is, (R, 3) one row."""
+    if dirs.dim() == 3:
+        return dirs.shape[0], dirs.shape[1]
+    return 1, dirs.shape[0]
 
-    A primitive is skipped only when its bounding sphere lies beyond
-    max_range or outside the tile's cone of world ray directions, each
-    test widened by a margin, so skipping never changes an output."""
-    N, R = pose.shape[0], dirs.shape[0]
-    T = -(-R // THREADS)
-    dw = rotate_dirs(pose[:, 3:7], dirs)                               # (N, R, 3)
-    unit = dw / torch.linalg.norm(dw, dim=-1, keepdim=True)
-    pad = T * THREADS - R
-    valid = torch.ones(R, dtype=torch.bool, device=dirs.device)
-    if pad:
-        unit = torch.cat([unit, torch.zeros_like(unit[:, :pad])], dim=1)
-        valid = torch.cat([valid, torch.zeros(pad, dtype=torch.bool, device=dirs.device)])
-    unit = unit.reshape(N, T, THREADS, 3)
-    axis = unit.sum(dim=2)
-    axis = axis / torch.linalg.norm(axis, dim=-1, keepdim=True)        # (N, T, 3)
-    dots = torch.where(valid.reshape(T, THREADS)[None],
-                       torch.sum(unit * axis[:, :, None], dim=-1),
-                       torch.ones((), device=dirs.device))
-    cos_h = torch.clamp(dots.amin(dim=2) - 1e-5, -1.0, 1.0)            # (N, T)
-    sin_h = torch.sqrt(torch.clamp(1.0 - cos_h * cos_h, min=0.0))
-    # bounding-sphere radius about the table position: box half-diagonal,
-    # cylinder corner radius, sphere radius, triangle's longest edge from v0
+
+def warp_groups(H: int, W: int, device=None) -> torch.Tensor:
+    """The kernel's broad-phase unit of each ray: (R,) long, the index of
+    the 8 x 8 warp patch on the (H, W) grid that holds it, row-major over
+    the patches (the last row and column of patches are ragged)."""
+    rows = torch.arange(H, device=device) // WARP_PATCH[0]
+    cols = torch.arange(W, device=device) // WARP_PATCH[1]
+    return (rows[:, None] * -(-W // WARP_PATCH[1]) + cols[None, :]).reshape(-1)
+
+
+def bounding_radius(prims, n_box: int, n_cyl: int, n_sph: int) -> torch.Tensor:
+    """Bounding-sphere radius of each primitive about its table position,
+    (N, P): box half-diagonal, cylinder corner radius, sphere radius,
+    triangle's longest edge from its first vertex."""
     sx, sy, sz = prims[..., 0], prims[..., 1], prims[..., 2]
     kind = torch.tensor([_kind_of(p, n_box, n_cyl, n_sph) for p in range(prims.shape[1])],
                         device=prims.device)
-    bound = torch.where(kind == 0, 0.5 * torch.sqrt(sx * sx + sy * sy + sz * sz),
-                        torch.where(kind == 1, torch.sqrt(sx * sx + 0.25 * sy * sy),
-                                    torch.where(kind == 3,
-                                                torch.maximum(sx, torch.sqrt(sy * sy + sz * sz)),
-                                                sx)))                   # (N, P)
+    return torch.where(kind == 0, 0.5 * torch.sqrt(sx * sx + sy * sy + sz * sz),
+                       torch.where(kind == 1, torch.sqrt(sx * sx + 0.25 * sy * sy),
+                                   torch.where(kind == 3,
+                                               torch.maximum(sx, torch.sqrt(sy * sy + sz * sz)),
+                                               sx)))
+
+
+def tile_visibility(pose, prims, dirs, n_box: int, n_cyl: int, n_sph: int,
+                    max_range: float, groups=None) -> torch.Tensor:
+    """The kernel's broad phase in plain PyTorch: (N, G, P) bool, whether
+    primitive p is tested for the rays of group g.
+
+    ``groups`` (R,) long assigns each ray to a group; the default is the
+    kernel's, ``warp_groups`` of the ray grid. A primitive is skipped only
+    when its bounding sphere lies beyond max_range or outside the group's
+    cone of world ray directions, each test widened by a margin, so
+    skipping never changes an output."""
+    N = pose.shape[0]
+    if groups is None:
+        groups = warp_groups(*ray_grid(dirs), device=dirs.device)
+    dirs = dirs.reshape(-1, 3)
+    G = int(groups.max()) + 1
+    dw = rotate_dirs(pose[:, 3:7], dirs)                               # (N, R, 3)
+    unit = dw / torch.linalg.norm(dw, dim=-1, keepdim=True)
+    axis = torch.zeros((N, G, 3), device=dirs.device).index_add_(1, groups, unit)
+    axis = axis / torch.linalg.norm(axis, dim=-1, keepdim=True)        # (N, G, 3)
+    dots = torch.sum(unit * axis[:, groups], dim=-1)                   # (N, R)
+    widest = torch.ones((N, G), device=dirs.device).scatter_reduce_(
+        1, groups.expand(N, -1), dots, "amin")
+    cos_h = torch.clamp(widest - 1e-5, -1.0, 1.0)                      # (N, G)
+    sin_h = torch.sqrt(torch.clamp(1.0 - cos_h * cos_h, min=0.0))
+    bound = bounding_radius(prims, n_box, n_cyl, n_sph)               # (N, P)
     u = prims[..., 3:6] - pose[:, None, 0:3]                           # (N, P, 3)
     dist = torch.linalg.norm(u, dim=-1)
     margin = 1e-3 * (1.0 + dist + bound)
     in_range = dist < max_range + bound + margin                       # (N, P)
-    a = [axis[:, :, None, k] for k in range(3)]                        # (N, T, 1)
+    a = [axis[:, :, None, k] for k in range(3)]                        # (N, G, 1)
     v = [u[:, None, :, k] for k in range(3)]                           # (N, 1, P)
-    along = a[0] * v[0] + a[1] * v[1] + a[2] * v[2]                    # (N, T, P)
+    along = a[0] * v[0] + a[1] * v[1] + a[2] * v[2]                    # (N, G, P)
     perp = torch.sqrt((a[1] * v[2] - a[2] * v[1]) ** 2 + (a[2] * v[0] - a[0] * v[2]) ** 2
                       + (a[0] * v[1] - a[1] * v[0]) ** 2)
     in_cone = (perp * cos_h[..., None] - along * sin_h[..., None]
                <= (bound + margin)[:, None, :])
     return in_range[:, None, :] & in_cone
+
+
+def bounding_sphere_hits(pose, prims, dirs, n_box: int, n_cyl: int, n_sph: int,
+                         max_range: float) -> torch.Tensor:
+    """(N, P) float: for each primitive, the number of rays whose half-line
+    meets its bounding sphere (``bounding_radius``, no margin) at a distance
+    below max_range. These are the (ray, primitive) tests that a broad
+    phase on these bounding spheres could not skip, whatever its tiling (a
+    tighter bounding volume could skip more)."""
+    dirs = dirs.reshape(-1, 3)
+    N, P, R = pose.shape[0], prims.shape[1], dirs.shape[0]
+    b = bounding_radius(prims, n_box, n_cyl, n_sph)[:, None, :]        # (N, 1, P)
+    v = prims[..., 3:6] - pose[:, None, 0:3]                           # (N, P, 3)
+    vv = torch.sum(v * v, dim=-1)[:, None, :]                          # (N, 1, P)
+    counts = torch.zeros((N, P), device=pose.device)
+    chunk_rays = max(1, (1 << 25) // max(N * P, 1))       # ~32M (ray, primitive) pairs a pass
+    for lo in range(0, R, chunk_rays):
+        dw = rotate_dirs(pose[:, 3:7], dirs[lo:lo + chunk_rays])
+        unit = dw / torch.linalg.norm(dw, dim=-1, keepdim=True)        # (N, r, 3)
+        along = torch.einsum("nrk,npk->nrp", unit, v)                  # (N, r, P)
+        perp2 = torch.clamp(vv - along * along, min=0.0)
+        inside = vv <= b * b
+        entry = along - torch.sqrt(torch.clamp(b * b - perp2, min=0.0))
+        meets = inside | ((along >= 0.0) & (perp2 <= b * b) & (entry < max_range))
+        counts += meets.sum(dim=1).float()
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -258,6 +311,7 @@ def raycast_reference(pose, prims, dirs, mult, n_box: int, n_cyl: int, n_sph: in
     kernel, whose broad phase never changes an output). Envs are processed
     in chunks of about REFERENCE_CHUNK_RAYS rays to bound memory."""
     mode = _mode(want_seg, want_normals, want_rgb)
+    dirs, mult = dirs.reshape(-1, 3), mult.reshape(-1)
     N, R = pose.shape[0], dirs.shape[0]
     P = prims.shape[1]
     if P != n_box + n_cyl + n_sph + n_tri:
@@ -376,6 +430,10 @@ def raycast(pose, prims, dirs, mult, n_box: int, n_cyl: int, n_sph: int,
             cull: bool = True, want_normals: bool = False, want_rgb: bool = False):
     """Nearest hit of every (env, ray).
 
+    ``dirs`` is the sensor's (H, W, 3) ray grid or an (R, 3) table (a grid
+    of one row), ``mult`` (H, W) or (R,); R = H * W rays in row-major
+    order either way, and the outputs are the same for both.
+
     Returns (depth, seg): depth (N, R) f32 = t * mult (NO_HIT_RAY_VAL *
     mult on a miss) and, when want_seg, the winner's semantic id (N, R)
     int32 (NO_HIT_SEGMENTATION_VAL on a miss), else None.
@@ -396,17 +454,20 @@ def raycast(pose, prims, dirs, mult, n_box: int, n_cyl: int, n_sph: int,
                                  want_normals=want_normals, want_rgb=want_rgb)
     if pose.device.type != "cuda":
         raise ValueError(f"unsupported device {pose.device}")
-    N, R, P = pose.shape[0], dirs.shape[0], prims.shape[1]
+    if dirs.dim() not in (2, 3):
+        raise ValueError(f"dirs must be (H, W, 3) or (R, 3), got {tuple(dirs.shape)}")
+    H, W = ray_grid(dirs)
+    N, R, P = pose.shape[0], H * W, prims.shape[1]
     if P != n_box + n_cyl + n_sph + n_tri:
         raise ValueError(f"prims has {P} columns, counts sum to "
                          f"{n_box + n_cyl + n_sph + n_tri}")
     dev = pose.device
     _check("pose", pose, torch.float32, (N, 8), dev)
     _check("prims", prims, torch.float32, (N, P, 16), dev)
-    _check("dirs", dirs, torch.float32, (R, 3), dev)
-    _check("mult", mult, torch.float32, (R,), dev)
-    if -(-R // THREADS) > 65535:
-        raise ValueError(f"{R} rays exceed the kernel's grid limit")
+    _check("dirs", dirs, torch.float32, tuple(dirs.shape[:-1]) + (3,), dev)
+    _check("mult", mult, torch.float32, tuple(dirs.shape[:-1]) if mult.dim() > 1 else (R,), dev)
+    if N * -(-H // PATCH[0]) * -(-W // PATCH[1]) > 2 ** 31 - 1:
+        raise ValueError(f"{N} envs x {H}x{W} rays exceed the kernel's grid limit")
     lib = _load()
     if mode == MODE_RGB:
         _set_shading(lib, dev)
@@ -421,7 +482,7 @@ def raycast(pose, prims, dirs, mult, n_box: int, n_cyl: int, n_sph: int,
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.raycast_launch(pose.data_ptr(), prims.data_ptr(), dirs.data_ptr(),
                             mult.data_ptr(), depth.data_ptr(), ptr(seg), ptr(face), ptr(vec),
-                            N, R, P, n_box, n_cyl, n_sph, n_tri, float(max_range),
+                            N, H, W, P, n_box, n_cyl, n_sph, n_tri, float(max_range),
                             int(bool(cull)), mode, stream)
     if rc != 0:
         raise RuntimeError("raycast kernel launch failed: "

@@ -5,8 +5,9 @@ Counterpart of ``aerial_gym_simulator_tpu/sensors/raycast_sensor.py``
 for one sensor of each kind per robot (no stereo or pointcloud capture,
 no multi-sensor mount sampling; the captures stack any number of mounts
 they are given). Every capture packs the scene into world-frame tables
-and calls ``ops/raycast_cuda.raycast``: the ray-cast kernel on the card,
-its plain version for CPU tensors. Rays are cast in row-major order.
+and calls ``ops/raycast_cuda.raycast`` with the sensor's (H, W) ray grid:
+the ray-cast kernel on the card, which tiles the grid in 2-D, its plain
+version for CPU tensors. Outputs are in row-major ray order.
 """
 
 from __future__ import annotations
@@ -133,14 +134,14 @@ def sensor_world_pose(sp: RaySensorParams, state: SimState, mount_pos, mount_qua
 def cast_inputs(params: SimParams, state: SimState, sp: RaySensorParams, mount_pos,
                 mount_quat):
     """The ray-cast kernel's inputs for one mount, as every capture packs
-    them: (pose, prims, dirs, mult, n_box, n_cyl, n_sph, max_range)."""
+    them: (pose, prims, dirs, mult, n_box, n_cyl, n_sph, max_range), with
+    the sensor's ray grid as it is, dirs (H, W, 3) and mult (H, W), so that
+    the kernel tiles it in 2-D."""
     sc = params.scene
-    R = sp.height * sp.width
     pos_w, quat_w = sensor_world_pose(sp, state, mount_pos, mount_quat)
     return (raycast_cuda.pack_pose(pos_w, quat_w),
             raycast_cuda.pack_prims_world(sc, state.obstacle_pos, state.obstacle_quat),
-            sp.dirs.reshape(R, 3), sp.depth_multiplier.reshape(R),
-            sc.n_box, sc.n_cyl, sc.n_sph, sp.max_range)
+            sp.dirs, sp.depth_multiplier, sc.n_box, sc.n_cyl, sc.n_sph, sp.max_range)
 
 
 def render(params: SimParams, state: SimState, sp: RaySensorParams, mount_pos,

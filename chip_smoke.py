@@ -6,29 +6,28 @@
 Phases, each printed on its own line:
   1. build   - compile the ray-cast kernel in its four modes (csrc/raycast.cu)
                and the fused attention kernels, forward and backward
-               (csrc/attention.cu), with nvcc, side by side;
+               (csrc/attention.cu), with nvcc, side by side, and two A/B
+               builds of the ray cast (-fmad=true; -prec-div=false);
   2. device  - the card's name and power limit (nvidia-smi);
   3. kernel  - the ray cast in depth (K1) and depth+seg (K2) mode against
                its plain PyTorch version on the card, on the obstacle env at
-               64 envs with the full 135x240 camera (after reset and after 20
-               steps) and on a seeded synthetic scene with all four
-               primitive kinds; depth max-abs-err <= 2e-3, seg agreement
-               >= 0.999 on hit pixels, broad phase on == off bit for bit.
-               The normal/face-id (K3) and RGB (K4) modes on the same three
-               inputs: depth, seg and face bit-equal to the plain version,
-               normals and rgb within 1e-6, exact sentinels on a miss, rgb in
-               [0, 1], broad phase on == off; then K1/K2 and K3 on the 128x512
-               lidar table at 64 envs.
+               64 envs with the full 135x240 camera grid (after reset and
+               after 20 steps) and on a seeded synthetic scene with all four
+               primitive kinds: every output bit-equal, broad phase on ==
+               off. The normal/face-id (K3) and RGB (K4) modes on the same
+               three inputs: every output bit-equal, exact sentinels on a
+               miss, rgb in [0, 1], broad phase on == off; then all four on
+               the 128x512 lidar grid at 64 envs.
                The attention forward (K5) against its plain version on
-               numpy-seeded q, k, v: f32 at six shapes, the ViT training
-               shape (64, 225, 256) at 8 and 4 heads among them, within
-               atol/rtol 1e-4, bf16 within 0.05; a non-contiguous input must
-               raise.
+               numpy-seeded q, k, v: f32 at eight shapes, the ViT training
+               shape (64, 225, 256) at 8 and 4 heads and head sizes 256 and
+               512 among them, within atol/rtol 1e-4, bf16 within 0.05; a
+               non-contiguous input must raise.
                The attention backward (K6) against its plain version at the
                ViT training shape f32, at head_dim 64 f32 (ragged, S = 225,
-               and S = 300) within 2e-4, at (1024, 225, 256) bf16 and at
-               head_dim 64 bf16 within 0.02, and a second call on the same
-               inputs bit for bit;
+               and S = 300) and head_dim 256 and 512 within 2e-4, at (1024,
+               225, 256) bf16 and at head_dim 64 and 256 bf16 within 0.02,
+               and a second call on the same inputs bit for bit;
   4. slice   - the obstacle env + depth camera at 16384 envs through the
                user entry points: env_step + render_camera(want_seg=False)
                with zero actions (the bench loop), then EnvManager.step +
@@ -49,14 +48,24 @@ Phases, each printed on its own line:
                split and peak memory; then 50 steps with the shipped conv
                VAE and its policy (no K5 launch);
   6. timing  - each kernel at its main path's shapes against its plain
-               version, its least possible time on this card and, for K5 and
-               K6, torch's scaled_dot_product_attention (forward, backward)
-               on the same tensors: K5 at the serving shape in bf16 and at
-               the training shape in f32 (8 and 4 heads), K6 the same way
-               (8 and 4 heads f32, and bf16 at the serving shape), timed as
-               autograd runs it (from the forward's output and L) and as a
-               whole direct call; K3 and K4 at the modalities path's shape
-               and K2, K3 at the lidar path's;
+               version (the ray cast bit for bit, broad phase on == off, on
+               every path: obstacle loop, nav, modalities, lidar, train_vae's
+               sampling), its least possible time on this card and, for K5
+               and K6, torch's scaled_dot_product_attention (forward,
+               backward) on the same tensors: K5 at the serving shape in bf16
+               and at the training shape in f32 (8, 4 and 1 heads: head_dim
+               32, 64, 256), K6 the same way (8, 4 and 1 heads f32, and bf16
+               at the serving shape), timed as autograd runs it (from the
+               forward's output and L) and as a whole direct call; the
+               "flash" path (f32 kernel on f32 copies) at the serving shape
+               and the shipped encoder re-tagged "flash"; K3 and K4 at the
+               modalities path's shape and K2, K3 at the lidar path's. The
+               ray cast's bound counts the tests that a broad phase on the
+               primitives' bounding spheres could not skip, the same for any
+               tiling; each line also prints the tests per ray the kernel's
+               warp patches keep and those 256-ray strips kept. K1 also from
+               the two A/B builds on the obstacle path's inputs, each image
+               against the shipped build's;
   7. train   - models/train_vae at full width (ViT dim 256, depth 4, 8
                heads, fused attention, batch 64, 135x240, f32) for 60 steps:
                finite falling loss, K1 once and K5 and K6 four times per
@@ -86,9 +95,6 @@ import tempfile
 import time
 from pathlib import Path
 
-DEPTH_ATOL = 2e-3
-SEG_AGREE = 0.999
-NORMALS_ATOL = 1e-6      # normals and rgb against the plain version
 NUM_ENVS = 16384
 MODALITY_STEPS = 3
 LIDAR_ENVS = 1024
@@ -114,6 +120,9 @@ ATTENTION_CASES = [
     ((2, 225, 256, 4), "float32", 1e-4),        # head_dim 64
     ((64, 225, 256, 8), "bfloat16", 0.05),
     ((2, 100, 256, 4), "bfloat16", 0.05),       # head_dim 64
+    ((2, 225, 256, 1), "float32", 1e-4),        # head_dim 256: the sliced kernel
+    ((1, 225, 512, 1), "float32", 1e-4),        # head_dim 512
+    ((2, 225, 512, 2), "bfloat16", 0.05),       # head_dim 256 in bf16
 ]
 ATTENTION_MAIN_SHAPE = (NAV_ENVS, 225, 256, 8)   # the shipped ViT encoder's
 
@@ -125,6 +134,7 @@ TRAIN_ARGS = ["--arch", "vit", "--vit_attn", "fused", "--vit_dim", "256", "--vit
               "--vit_heads", "8", "--batch", str(TRAIN_BATCH), "--image_h", "135",
               "--image_w", "240", "--log_every", "1"]
 ATTENTION_TRAIN_SHAPE = (TRAIN_BATCH, 225, 256, 8)      # f32: K6's main path
+WIDE_HEAD_SHAPE = (TRAIN_BATCH, 225, 256, 1)            # head_dim 256: the sliced kernels
 # (B, S, D, heads), dtype name, atol = rtol
 ATTENTION_BWD_CASES = [
     (ATTENTION_TRAIN_SHAPE, "float32", 2e-4),
@@ -133,6 +143,9 @@ ATTENTION_BWD_CASES = [
     ((2, 225, 256, 4), "float32", 2e-4),        # head_dim 64 at the ViT sequence
     ((1, 300, 256, 4), "float32", 2e-4),        # past the old shared-memory limit
     ((2, 225, 256, 4), "bfloat16", 0.02),       # head_dim 64
+    ((2, 225, 256, 1), "float32", 2e-4),        # head_dim 256: the sliced kernels
+    ((1, 225, 512, 1), "float32", 2e-4),        # head_dim 512
+    ((2, 225, 512, 2), "bfloat16", 0.02),       # head_dim 256 in bf16
 ]
 PPO_ITERATIONS = 3
 STATE_STEP_ENVS = 16384
@@ -145,19 +158,37 @@ PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12     # an f32-accurate product takes three (3xTF32)
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
-# f32 operations per (ray, primitive) test, counted from csrc/raycast.cu
-# (multiplies, adds, divides, square roots, min/max; compares and selects
-# not counted), rotation of the ray into the primitive frame included
-FLOPS_PER_TEST = {0: 46, 1: 66, 2: 21, 3: 26}
-FLOPS_PER_RAY = 24   # world rotation of the ray, miss test, multiplier
-# per hit ray of the normal and RGB modes, counted from winner_normal in
-# csrc/raycast.cu by the winner's kind (frame origin and direction, hit
-# point, normal, rotation to world, orientation), and the shade on top
-NORMAL_FLOPS = {0: 68, 1: 68, 2: 24, 3: 59}
+# f32 operations of the ray cast, counted from csrc/raycast.cu: multiplies,
+# adds and subtracts (a negation folded into them), divides, square roots,
+# min/max; fabs, compares and selects not counted. Each value is counted
+# once, where it is fixed: by the (env, primitive) pair, the (env, ray)
+# pair, the (ray, primitive) test or the hit ray; bit-equality with the
+# plain version fixes the expressions.
+# per (ray, primitive) test (test_box, test_cylinder, test_sphere,
+# test_triangle), the rotation of the ray into the primitive's frame included
+FLOPS_PER_TEST = {0: 35, 1: 54, 2: 11, 3: 25}
+# per (env, primitive), once, for the pairs some ray has to test
+# (stage_record): o - p; R^T (o - p) but for the sphere; the box's half
+# sizes, slab bounds and the normal's divisors max(h, 1e-9); the cylinder's
+# r^2, side c, h/2 and cap offsets; the sphere's c
+STAGE_FLOPS = {0: 30, 1: 26, 2: 10, 3: 18}
+FLOPS_PER_RAY = 31   # world rotation of the ray (quat_rotate), the multiplier
+# per hit ray of the normal and RGB modes, by the winner's kind
+# (winner_normal; the winner's R^T d is its test's): the hit point, the
+# normal (the cylinder's cap branch, whose side branch does 7 more), its
+# rotation to world and orientation; the shade on top
+NORMAL_FLOPS = {0: 29, 1: 27, 2: 21, 3: 20}
 SHADE_FLOPS = 16
 # bytes written per ray: depth, + seg, + face and normal, or + rgb
 OUT_BYTES_PER_RAY = {"raycast_depth": 4, "raycast_seg": 8, "raycast_normals": 24,
                      "raycast_rgb": 20}
+# A/B builds of csrc/raycast.cu beside the shipped -fmad=false: what its
+# exact arithmetic costs (K1 at the obstacle path's shapes)
+BUILD_AB = {"-fmad=true": ["-fmad=true"],
+            "-fmad=false -prec-div=false": ["-fmad=false", "-prec-div=false"]}
+# the ray tile of the kernel before its 2-D tiles: 256 consecutive rays,
+# whose broad-phase count the timing lines print beside the new one
+STRIP_RAYS = 256
 
 
 def log(*parts):
@@ -171,68 +202,52 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def compare(rc, args, counts, n_tri, tag, errs):
-    """Kernel (cull on/off) vs plain version on the same inputs, both modes."""
-    import torch
-    for want_seg, name in ((False, "raycast_depth"), (True, "raycast_seg")):
-        d_k, s_k = rc.raycast(*args, *counts, want_seg=want_seg, n_tri=n_tri)
-        d_n, s_n = rc.raycast(*args, *counts, want_seg=want_seg, n_tri=n_tri, cull=False)
-        d_r, s_r = rc.raycast_reference(*args, *counts, want_seg=want_seg, n_tri=n_tri)
-        torch.cuda.synchronize()
-        if not torch.isfinite(d_k).all():
-            raise AssertionError(f"{tag}/{name}: non-finite depth")
-        if not torch.equal(d_k, d_n) or (want_seg and not torch.equal(s_k, s_n)):
-            raise AssertionError(f"{tag}/{name}: broad phase on and off differ")
-        err = (d_k - d_r).abs().max().item()
-        errs[name] = max(errs[name], err)
-        line = f"kernel {tag} {name}: max_abs_err={err:.3g}"
-        if want_seg:
-            hit = s_r != rc.oracle.NO_HIT_SEGMENTATION_VAL
-            agree = (s_k[hit] == s_r[hit]).float().mean().item()
-            line += f" seg_agree={agree:.6f} hit_px={int(hit.sum())}"
-            if agree < SEG_AGREE:
-                raise AssertionError(line)
-        log(line + " cull_on==off")
-        if err > DEPTH_ATOL:
-            raise AssertionError(line)
-        del d_k, d_n, d_r, s_k, s_n, s_r
+# the keyword arguments of each ray-cast mode
+MODE_KW = {"raycast_depth": {"want_seg": False}, "raycast_seg": {},
+           "raycast_normals": {"want_normals": True}, "raycast_rgb": {"want_rgb": True}}
 
 
-def compare_modes(rc, args, counts, n_tri, tag, errs):
-    """The normal (K3) and RGB (K4) modes, kernel (cull on/off) vs plain
-    version on the same inputs: depth, seg and face bit-equal, normals and
-    rgb within NORMALS_ATOL, exact sentinels on a miss."""
-    import torch
-    for mode, name in (("want_normals", "raycast_normals"), ("want_rgb", "raycast_rgb")):
-        k = rc.raycast(*args, *counts, n_tri=n_tri, **{mode: True})
-        k_off = rc.raycast(*args, *counts, n_tri=n_tri, cull=False, **{mode: True})
-        ref = rc.raycast_reference(*args, *counts, n_tri=n_tri, **{mode: True})
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(k, k_off)):
-            raise AssertionError(f"{tag}/{name}: broad phase on and off differ")
-        depth, seg, vec = k[0], k[1], k[2]
+def exact_check(torch, rc, args, n_tri, tag, name):
+    """One ray-cast mode, the kernel with its broad phase on and off against
+    the plain version on the same inputs (``args``: pose, prims, dirs, mult,
+    n_box, n_cyl, n_sph, max_range): finite depth, every output equal bit
+    for bit (torch.equal), the exact sentinels on a miss and rgb in [0, 1].
+    Logs one line and raises on any difference.
+
+    Returns (max_abs_err, the plain version's wall ms, the kernel's outputs)."""
+    k = rc.raycast(*args, n_tri=n_tri, **MODE_KW[name])
+    k_off = rc.raycast(*args, n_tri=n_tri, cull=False, **MODE_KW[name])
+    torch.cuda.synchronize()
+    outs = [o for o in k if o is not None]
+    cull_same = all(torch.equal(a, b) for a, b in zip(outs, (o for o in k_off if o is not None)))
+    del k_off
+    t0 = time.perf_counter()
+    ref = rc.raycast_reference(*args, n_tri=n_tri, **MODE_KW[name])
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    refs = [o for o in ref if o is not None]
+    err = max((a.float() - b.float()).abs().max().item() for a, b in zip(outs, refs))
+    exact = all(torch.equal(a, b) for a, b in zip(outs, refs))
+    depth, seg = k[0], k[1]
+    line = (f"kernel {tag} {name}: {'bit-equal' if exact else 'DIFFER'} (max_abs_err "
+            f"{err:.3g}), cull_on{'==' if cull_same else '!='}off")
+    sentinels = True
+    if seg is not None:
         miss = seg == rc.oracle.NO_HIT_SEGMENTATION_VAL
-        exact = torch.equal(depth, ref[0]) and torch.equal(seg, ref[1])
-        err = (vec - ref[2]).abs().max().item()
         if name == "raycast_normals":
-            exact = exact and torch.equal(k[3], ref[3])
-            sentinels = bool((k[3][miss] == -1).all() and (vec[miss] == 0.0).all())
-        else:
-            sky = torch.as_tensor(rc.oracle.SKY_RGB, device=vec.device)
+            sentinels = bool((k[3][miss] == rc.oracle.NO_HIT_FACE_VAL).all()
+                             and (k[2][miss] == 0.0).all())
+        elif name == "raycast_rgb":
+            sky = torch.as_tensor(rc.oracle.SKY_RGB, device=depth.device)
             sentinels = bool((depth[miss] == rc.oracle.NO_HIT_RAY_VAL).all()
-                             and (vec[miss] == sky).all())
-            if not (vec.min().item() >= 0.0 and vec.max().item() <= 1.0):
-                raise AssertionError(f"{tag}/{name}: rgb outside [0, 1]")
-        errs[name] = max(errs[name], err)
-        exact_what, vec_what = (("depth/seg/face", "normal") if name == "raycast_normals"
-                                else ("depth/seg", "rgb"))
-        line = (f"kernel {tag} {name}: {exact_what} {'bit-equal' if exact else 'DIFFER'}, "
-                f"{vec_what} max_abs_err={err:.3g}, misses {int(miss.sum())} with exact "
-                f"sentinels {sentinels}, cull_on==off")
-        log(line)
-        if not (exact and sentinels and err <= NORMALS_ATOL):
-            raise AssertionError(line)
-        del k, k_off, ref
+                             and (k[2][miss] == sky).all()
+                             and k[2].min().item() >= 0.0 and k[2].max().item() <= 1.0)
+        line += f", {int(miss.numel() - miss.sum())} hits, misses with exact sentinels {sentinels}"
+    log(line)
+    if not (exact and cull_same and sentinels and torch.isfinite(depth).all()):
+        raise AssertionError(line)
+    del ref, refs, outs
+    return err, plain_ms, k
 
 
 def synthetic_scene(torch, rc, cam_dirs, device, seed=7):
@@ -256,9 +271,8 @@ def synthetic_scene(torch, rc, cam_dirs, device, seed=7):
     qs = torch.randn((N, 4), generator=g)
     pose = rc.pack_pose((torch.rand((N, 3), generator=g) - 0.5) * 4.0,
                         qs / qs.norm(dim=-1, keepdim=True))
-    R = cam_dirs.shape[0]
     args = (pose.to(device), prims.contiguous().to(device), cam_dirs,
-            torch.ones(R, device=device))
+            torch.ones(cam_dirs.shape[:-1], device=device))
     return args, counts
 
 
@@ -277,21 +291,37 @@ def event_ms(torch, fn, iters):
 def bound_ms(torch, rc, pose, prims, dirs, counts, n_tri, max_range, name, face=None):
     """Least time for this call's work on the card: the larger of the bytes
     it must move (inputs once, outputs once) over 3.35 TB/s and the f32
-    operations of the (ray, primitive) tests the broad phase keeps for this
-    data over 67 TFLOP/s; for the normal and RGB modes, plus the winner's
-    normal (and shade) on each ray that ``face`` says hit."""
-    N, R, P = pose.shape[0], dirs.shape[0], prims.shape[1]
-    T = -(-R // rc.THREADS)
-    rays_per_tile = torch.full((T,), float(rc.THREADS), device=dirs.device)
-    rays_per_tile[-1] = R - (T - 1) * rc.THREADS
+    operations over 67 TFLOP/s: each ray's own, the (ray, primitive) tests
+    that a broad phase on the primitives' bounding spheres could not skip
+    (the ray's half-line meets the sphere within max_range:
+    rc.bounding_sphere_hits), whatever the tiling, and the staged constants
+    of each (env, primitive) pair among them; for the normal and RGB modes,
+    plus the winner's normal (and shade) on each ray that ``face`` says hit.
+
+    Returns (ms, "bytes" or "operations", operations, tests per ray): the
+    tests per ray that bound counts ("needed"), and those the kernel's
+    broad phase keeps with its 8 x 8 warp patches ("patches") and with the
+    256-ray strips of the kernel before them ("strips")."""
+    N, P = pose.shape[0], prims.shape[1]
+    R = dirs.numel() // 3
     kinds = torch.tensor([rc._kind_of(p, *counts) for p in range(P)], device=dirs.device)
     flops_per_prim = torch.tensor([float(FLOPS_PER_TEST[int(k)]) for k in kinds],
                                   device=dirs.device)
+    stage_per_prim = torch.tensor([float(STAGE_FLOPS[int(k)]) for k in kinds],
+                                  device=dirs.device)
+    groups = {"patches": rc.warp_groups(*rc.ray_grid(dirs), device=dirs.device),
+              "strips": torch.arange(R, device=dirs.device) // STRIP_RAYS}
+    sizes = {k: torch.bincount(g).float() for k, g in groups.items()}
     ops = float(FLOPS_PER_RAY) * N * R
+    tests = {"needed": 0.0, "patches": 0.0, "strips": 0.0}
     for lo in range(0, N, 512):
-        vis = rc.tile_visibility(pose[lo:lo + 512], prims[lo:lo + 512], dirs, *counts,
-                                 max_range)                              # (n, T, P)
-        ops += float((vis.float() * flops_per_prim).sum(-1).mul(rays_per_tile).sum())
+        ps, pr = pose[lo:lo + 512], prims[lo:lo + 512]
+        need = rc.bounding_sphere_hits(ps, pr, dirs, *counts, max_range)        # (n, P)
+        ops += float((need * flops_per_prim).sum() + ((need > 0) * stage_per_prim).sum())
+        tests["needed"] += float(need.sum())
+        for k, g in groups.items():
+            vis = rc.tile_visibility(ps, pr, dirs, *counts, max_range, g)      # (n, G, P)
+            tests[k] += float((vis.float() * sizes[k][None, :, None]).sum())
     if name in ("raycast_normals", "raycast_rgb"):
         per_prim = torch.tensor([float(NORMAL_FLOPS[int(k)]) for k in kinds], device=dirs.device)
         per_prim += SHADE_FLOPS if name == "raycast_rgb" else 0.0
@@ -301,7 +331,17 @@ def bound_ms(torch, rc, pose, prims, dirs, counts, n_tri, max_range, name, face=
                           * per_prim).sum())
     n_bytes = 4 * (pose.numel() + prims.numel() + dirs.numel() + R) + N * R * OUT_BYTES_PER_RAY[name]
     t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, n_bytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), ops
+    return (max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), ops,
+            {k: v / (N * R) for k, v in tests.items()})
+
+
+def bound_text(b_ms, b_by, ops, tests, ms):
+    """The bound, its share and the tests per ray, as every ray-cast timing
+    line prints them."""
+    return (f"bound {b_ms:.3f} ms by {b_by} ({ops:.4g} f32 ops), share of the bound "
+            f"{b_ms / ms:.1%} | tests per ray: {tests['needed']:.2f} needed (bounding sphere "
+            f"met in range), {tests['patches']:.2f} kept by the 8x8 warp patches, "
+            f"{tests['strips']:.2f} by {STRIP_RAYS}-ray strips")
 
 
 def products_ms(ops, itemsize):
@@ -416,8 +456,7 @@ def nav_phase(torch, port, rc, ac, card):
     flown by the shipped networks. Returns the kernels' launch counts from
     the ViT run and the task (for the timing phase)."""
     from aerial_gym_simulator_tpu_torch.models.vit import ViTImageEncoder
-    from aerial_gym_simulator_tpu_torch.sensors.raycast_sensor import (
-        render_camera, sensor_world_pose)
+    from aerial_gym_simulator_tpu_torch.sensors.raycast_sensor import cast_inputs, render_camera
     from aerial_gym_simulator_tpu_torch.sim import dynamics
     from aerial_gym_simulator_tpu_torch.sim2real.policy import load_policy_npz
     from aerial_gym_simulator_tpu_torch.tasks import navigation_task as nav
@@ -478,23 +517,12 @@ def nav_phase(torch, port, rc, ac, card):
 
     # K1 at this path's shapes against its plain version, on the final state
     sp, sc, st = params.camera, params.scene, ns.sim
-    pos_w, quat_w = sensor_world_pose(sp, st, st.cam_mount_pos, st.cam_mount_quat)
-    R = sp.height * sp.width
-    args = (rc.pack_pose(pos_w, quat_w),
-            rc.pack_prims_world(sc, st.obstacle_pos, st.obstacle_quat),
-            sp.dirs.reshape(R, 3), sp.depth_multiplier.reshape(R),
-            sc.n_box, sc.n_cyl, sc.n_sph, sp.max_range)
+    args = cast_inputs(params, st, sp, st.cam_mount_pos, st.cam_mount_quat)
     k1_ms = event_ms(torch, lambda: rc.raycast(*args, want_seg=False, n_tri=sc.n_tri), 10)
-    d_k, _ = rc.raycast(*args, want_seg=False, n_tri=sc.n_tri)
-    d_r, _ = rc.raycast_reference(*args, want_seg=False, n_tri=sc.n_tri)
-    torch.cuda.synchronize()
-    k1_err = (d_k - d_r).abs().max().item()
-    log(f"nav: raycast_depth at this path's shapes ({NAV_ENVS}x{R} rays, {args[1].shape[1]} "
-        f"prims, curriculum-culled scene): kernel {k1_ms:.3f} ms, max_abs_err {k1_err:.3g} "
-        f"| {card}")
-    if k1_err > DEPTH_ATOL:
-        raise AssertionError(f"nav raycast_depth max_abs_err {k1_err}")
-    del task, parts, pixels, obs, args, d_k, d_r
+    k1_err = exact_check(torch, rc, args, sc.n_tri, "nav", "raycast_depth")[0]
+    log(f"nav: raycast_depth at this path's shapes ({NAV_ENVS}x{sp.height}x{sp.width} rays, "
+        f"{args[1].shape[1]} prims, curriculum-culled scene): kernel {k1_ms:.3f} ms | {card}")
+    del task, parts, pixels, obs, args
 
     # the task's default perception path: the conv VAE and its policy
     conv_task = make("depth_vae.pkl")
@@ -649,6 +677,79 @@ def time_attention_bwd(torch, ac, attention_backward_reference, card, shape, dty
             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
 
 
+def flash_phase(torch, ac, attention_reference, card):
+    """The JAX package's "flash" attention as the port runs it (K7: the f32
+    fused kernel on f32 copies, the result cast back). Times it at the
+    serving shape beside the plain version, the library's fused attention on
+    the same f32 copies and the bound, then serves the shipped ViT encoder
+    re-tagged "flash" on 1,024 images: four forward launches per encode and
+    the "fused" pickle's latents within the bf16 bar."""
+    import pickle
+    import torch.nn.functional as F
+    from aerial_gym_simulator_tpu_torch.models.vit import ViTImageEncoder
+    from aerial_gym_simulator_tpu_torch.sim.convert import load_encoder_pickle
+    B, S, D, H = ATTENTION_MAIN_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v = (torch.randn((B, S, D), generator=g, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    heads = lambda x: x.view(B, S, H, D // H).transpose(1, 2)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    flash = lambda: ac.fused_attention(q.float(), k.float(), v.float(), H).to(q.dtype)
+    kernel = lambda: ac.fused_attention(qf, kf, vf, H)
+    lib_run = lambda: F.scaled_dot_product_attention(heads(qf), heads(kf), heads(vf))
+    ms_a, lib_a = event_ms(torch, kernel, 20), event_ms(torch, lib_run, 20)
+    lib_b, ms_b = event_ms(torch, lib_run, 20), event_ms(torch, kernel, 20)
+    flash_ms = event_ms(torch, flash, 20)
+    plain_ms = event_ms(torch, lambda: attention_reference(qf, kf, vf, H), 3)
+    out, ref = kernel(), attention_reference(qf, kf, vf, H)
+    torch.cuda.synchronize()
+    diff = (out - ref).abs()
+    err = diff.max().item()
+    if not bool((diff <= 1e-4 + 1e-4 * ref.abs()).all()):
+        raise AssertionError(f"flash path: max_abs_err {err}")
+    b_ms, b_by, bounds = attention_bound_ms(ATTENTION_MAIN_SHAPE, 4)
+    ms, lib_ms = min(ms_a, ms_b), min(lib_a, lib_b)
+    log(f"timing flash path {ATTENTION_MAIN_SHAPE} bf16 -> f32: kernel {ms:.3f} ms ({ms_a:.3f}, "
+        f"{ms_b:.3f}), with the casts {flash_ms:.3f} ms, plain {plain_ms:.2f} ms, "
+        f"scaled_dot_product_attention on the f32 copies {lib_ms:.3f} ms ({lib_a:.3f}, "
+        f"{lib_b:.3f}), max_abs_err {err:.3g} | bound {b_ms:.3f} ms by {b_by} ({bounds}); "
+        f"share of the bound {b_ms / ms:.1%}, library's {b_ms / lib_ms:.1%} | {card}")
+    del q, k, v, qf, kf, vf, out, ref
+
+    with open(NETWORKS / "vit_depth_encoder.pkl", "rb") as f:
+        blob = pickle.load(f)
+    images = torch.rand((NAV_ENVS, 135, 240), generator=g, device="cuda")
+    latents = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag in ("fused", "flash"):
+            path = os.path.join(tmp, f"vit_{tag}.pkl")
+            with open(path, "wb") as f:
+                pickle.dump(dict(blob, attn_impl=tag), f)
+            _, enc = load_encoder_pickle(path)
+            served = ViTImageEncoder(latent_dim=64, image_res=(135, 240), encoder=enc,
+                                     patch=enc.patch)
+            if enc.blocks[0].attn.impl != tag:
+                raise AssertionError(f"the {tag!r} pickle loaded as {enc.blocks[0].attn.impl!r}")
+            served.encode(images)                               # warm-up
+            torch.cuda.synchronize()
+            zero_counts(ac.LAUNCHES)
+            latents[tag] = served.encode(images)
+            torch.cuda.synchronize()
+            launches = dict(ac.LAUNCHES)
+            if launches != {"attention_fwd": 4, "attention_bwd": 0}:
+                raise AssertionError(f"{tag} encoder launches {launches}")
+    lat_err = (latents["flash"] - latents["fused"]).abs().max().item()
+    log(f"flash: the shipped ViT encoder re-tagged 'flash' served on {NAV_ENVS} images (bf16, "
+        f"attention in f32 through the kernel, 4 launches per encode): latents within "
+        f"{lat_err:.3g} of the 'fused' pickle's")
+    if not bool(((latents["flash"] - latents["fused"]).abs()
+                 <= 0.05 + 0.05 * latents["fused"].abs()).all()):
+        raise AssertionError(f"flash-tagged encoder: latents differ by {lat_err}")
+    return {"ms": ms, "ms_with_casts": flash_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err, "launches": 4,
+            "latent_err_vs_fused": lat_err}
+
+
 def timed(torch, fn):
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -663,6 +764,7 @@ def train_phase(torch, rc, ac, card):
     from aerial_gym_simulator_tpu_torch.models import train_vae
     from aerial_gym_simulator_tpu_torch.models.vae import vae_loss
     from aerial_gym_simulator_tpu_torch.models.vit import DepthViT, ViTImageEncoder
+    from aerial_gym_simulator_tpu_torch.sensors.raycast_sensor import cast_inputs
     from aerial_gym_simulator_tpu_torch.sim.convert import load_encoder_pickle, save_model_pickle
 
     args = train_vae.build_parser().parse_args(TRAIN_ARGS + ["--steps", str(TRAIN_STEPS)])
@@ -701,6 +803,14 @@ def train_phase(torch, rc, ac, card):
     import aerial_gym_simulator_tpu_torch as port
     env = port.SimBuilder().build_env(*env_args, num_envs=TRAIN_BATCH, seed=123)
     state, batch, _ = train_vae.sample_batch(env.params, env.state, (135, 240))
+    # K1 on the state sample_batch just rendered: the kernel bit-equal to its
+    # plain version, broad phase on and off
+    cam = env.params.camera
+    k1_args = cast_inputs(env.params, state, cam, state.cam_mount_pos, state.cam_mount_quat)
+    k1_err = exact_check(torch, rc, k1_args, env.params.scene.n_tri,
+                         f"train ({TRAIN_BATCH}x{cam.height}x{cam.width} rays on sample_batch's "
+                         f"teleported poses)", "raycast_depth")[0]
+    del k1_args
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "depth_vit.pkl")
         save_model_pickle(model, path)
@@ -976,39 +1086,69 @@ def lidar_phase(torch, port, rc, card):
 
 def time_mode(torch, rc, args, n_tri, name, card, tag, face=None):
     """One ray-cast mode at one path's shapes: kernel ms by CUDA events, the
-    plain version once, both compared, and the bound. ``face`` (the normal
-    mode's, on the same inputs) counts the RGB mode's per-hit work.
-    Returns the record's numbers and the face ids of the normal mode."""
-    kw = {"raycast_seg": {}, "raycast_normals": {"want_normals": True},
-          "raycast_rgb": {"want_rgb": True}}[name]
-    call = lambda: rc.raycast(*args, n_tri=n_tri, **kw)
-    ms = event_ms(torch, call, 5)
-    k = call()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ref = rc.raycast_reference(*args, n_tri=n_tri, **kw)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    exact = all(torch.equal(a, b) for a, b in zip(k[:2], ref[:2]))
+    exact check against the plain version (timed once), and the bound.
+    ``face`` (the normal mode's, on the same inputs) counts the RGB mode's
+    per-hit work. Returns the record's numbers and the face ids of the
+    normal mode."""
+    ms = event_ms(torch, lambda: rc.raycast(*args, n_tri=n_tri, **MODE_KW[name]), 5)
+    err, plain_ms, k = exact_check(torch, rc, args, n_tri, f"{tag} (timed)", name)
     if name == "raycast_normals":
-        exact = exact and torch.equal(k[3], ref[3])
         face = k[3]
-    err = max((a.float() - b.float()).abs().max().item() for a, b in zip(k[:3], ref[:3]))
     pose, prims, dirs = args[:3]
-    b_ms, b_by, ops = bound_ms(torch, rc, pose, prims, dirs, args[4:7], n_tri, args[7], name,
-                               face)
-    hit = (k[1] != rc.oracle.NO_HIT_SEGMENTATION_VAL).float().mean().item()
-    line = (f"timing {name} {tag} ({pose.shape[0]}x{dirs.shape[0]} rays, {prims.shape[1]} prims, "
-            f"hit share {hit:.4f}): kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
-            f"{'bit-equal' if exact else 'DIFFER'} (max_abs_err {err:.3g}) | bound {b_ms:.3f} ms "
-            f"by {b_by} ({ops:.4g} f32 ops) | {card}")
-    log(line)
-    if not (exact and err <= NORMALS_ATOL):
-        raise AssertionError(line)
-    del k, ref
+    b_ms, b_by, ops, tests = bound_ms(torch, rc, pose, prims, dirs, args[4:7], n_tri, args[7],
+                                      name, face)
+    hit = ("" if k[1] is None else
+           f", hit share {(k[1] != rc.oracle.NO_HIT_SEGMENTATION_VAL).float().mean().item():.4f}")
+    log(f"timing {name} {tag} ({pose.shape[0]}x{tuple(dirs.shape[:-1])} rays, "
+        f"{prims.shape[1]} prims{hit}): kernel {ms:.3f} ms, plain {plain_ms:.1f} ms | "
+        f"{bound_text(b_ms, b_by, ops, tests, ms)} | {card}")
+    del k
     torch.cuda.empty_cache()
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "max_abs_err": err}, face
+            "max_abs_err": err, "tests_per_ray": tests}, face
+
+
+def build_ab(torch, rc, ab_libs, args, n_tri, card):
+    """K1 from the shipped build and from each BUILD_AB build of the same
+    source, launched through the wrapper's ctypes types on the same inputs
+    and timed by CUDA events in the order A B C C B A; each image compared
+    with the shipped build's. -> {build: {ms, ms_each, vs_shipped,
+    pixels_differing, max_abs_diff}}"""
+    pose, prims, dirs, mult, n_box, n_cyl, n_sph, max_range = args
+    (H, W), N, P = rc.ray_grid(dirs), pose.shape[0], prims.shape[1]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launcher(lib):
+        so = rc.bind(lib.load())
+        depth = torch.empty((N, H * W), device=pose.device)
+
+        def run():
+            code = so.raycast_launch(pose.data_ptr(), prims.data_ptr(), dirs.data_ptr(),
+                                     mult.data_ptr(), depth.data_ptr(), None, None, None, N, H,
+                                     W, P, n_box, n_cyl, n_sph, n_tri, float(max_range), 1,
+                                     rc.MODE_DEPTH, stream)
+            if code != 0:
+                raise RuntimeError("A/B launch failed: " + so.raycast_error_string(code).decode())
+            return depth
+        return run
+
+    shipped = "-fmad=false (shipped)"
+    runs = {shipped: launcher(rc.LIBRARY), **dict(zip(BUILD_AB, map(launcher, ab_libs)))}
+    times = {k: [] for k in runs}
+    for k in list(runs) + list(reversed(runs)):
+        times[k].append(event_ms(torch, runs[k], 5))
+    base, out = runs[shipped](), {}
+    for k, run in runs.items():
+        diff = (run() - base).abs()
+        ms = min(times[k])
+        out[k] = {"ms": ms, "ms_each": times[k], "vs_shipped": ms / min(times[shipped]) - 1.0,
+                  "pixels_differing": int((diff > 0).sum()), "max_abs_diff": diff.max().item()}
+        log(f"build A/B {k}: K1 {ms:.3f} ms ({', '.join(f'{t:.3f}' for t in times[k])}), "
+            f"{out[k]['vs_shipped']:+.1%} against the shipped build, image differs from it at "
+            f"{out[k]['pixels_differing']} of {diff.numel()} rays (max {out[k]['max_abs_diff']:.3g})"
+            f" | {N}x{H}x{W} rays, {P} prims | {card}")
+        del diff
+    return out
 
 
 def main() -> int:
@@ -1020,7 +1160,7 @@ def main() -> int:
     import aerial_gym_simulator_tpu_torch as port
     from aerial_gym_simulator_tpu_torch.ops import attention_cuda as ac
     from aerial_gym_simulator_tpu_torch.ops import raycast_cuda as rc
-    from aerial_gym_simulator_tpu_torch.ops._build import build_all
+    from aerial_gym_simulator_tpu_torch.ops._build import KernelLibrary, build_all
     from aerial_gym_simulator_tpu_torch.ops.attention import (
         attention_backward_reference, attention_reference)
     from aerial_gym_simulator_tpu_torch.sensors.raycast_sensor import (
@@ -1030,15 +1170,18 @@ def main() -> int:
     names = ("base_sim", "env_with_obstacles", "base_quadrotor_with_camera",
              "lee_velocity_control")
 
-    # 1. build
+    # 1. build: the two sources, and the ray cast's A/B variants beside them
+    ab_libs = [KernelLibrary("raycast", flags) for flags in BUILD_AB.values()]
+    labels = ["raycast", "attention"] + [f"raycast {k}" for k in BUILD_AB]
     t0 = time.perf_counter()
-    build_logs = build_all([rc.LIBRARY, ac.LIBRARY])
+    build_logs = build_all([rc.LIBRARY, ac.LIBRARY, *ab_libs])
     log(f"build: {time.perf_counter() - t0:.2f} s "
-        f"({rc.LIBRARY.path().name}, {ac.LIBRARY.path().name})")
-    for name, build_log in build_logs.items():
+        f"({rc.LIBRARY.path().name}, {ac.LIBRARY.path().name}; "
+        f"{len(ab_libs)} A/B builds of raycast.cu alongside)")
+    for label, build_log in zip(labels, build_logs):
         for line in build_log.splitlines():
             if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}:", line.strip())
+                log(f"  ptxas {label}:", line.strip())
 
     # 2. device
     card = card_line()
@@ -1058,7 +1201,12 @@ def main() -> int:
                                           state.cam_mount_quat)
         return (rc.pack_pose(pos_w, quat_w),
                 rc.pack_prims_world(scene, state.obstacle_pos, state.obstacle_quat),
-                cam.dirs.reshape(R, 3), cam.depth_multiplier.reshape(R))
+                cam.dirs, cam.depth_multiplier)
+
+    def check_modes(args, n_tri, tag):
+        """Every mode bit-equal to the plain version on one input."""
+        for name in MODE_KW:
+            errs[name] = max(errs[name], exact_check(torch, rc, args, n_tri, tag, name)[0])
 
     cnt = counts + (sp.max_range,)
     for tag in ("obstacles64/reset", "obstacles64/step20"):
@@ -1066,12 +1214,10 @@ def main() -> int:
             zeros64 = torch.zeros((64, 4), device=dev)
             for _ in range(20):
                 env.step(zeros64)
-        compare(rc, render_args(env.params, env.state), cnt, n_tri, tag, errs)
-        compare_modes(rc, render_args(env.params, env.state), cnt, n_tri, tag, errs)
-    dirs_full = torch.as_tensor(camera_ray_dirs(135, 240, 87.0)[0].reshape(-1, 3), device=dev)
+        check_modes(render_args(env.params, env.state) + cnt, n_tri, tag)
+    dirs_full = torch.as_tensor(camera_ray_dirs(135, 240, 87.0)[0], device=dev)
     syn_args, syn_counts = synthetic_scene(torch, rc, dirs_full, dev)
-    compare(rc, syn_args, syn_counts[:3] + (12.0,), syn_counts[3], "synthetic324", errs)
-    compare_modes(rc, syn_args, syn_counts[:3] + (12.0,), syn_counts[3], "synthetic324", errs)
+    check_modes(syn_args + syn_counts[:3] + (12.0,), syn_counts[3], "synthetic324")
     # the 360-degree lidar table: each 256-ray tile spans 180 degrees of azimuth
     env = port.SimBuilder().build_env("base_sim", "env_with_obstacles",
                                       "base_quadrotor_with_lidar", "lee_velocity_control",
@@ -1080,8 +1226,7 @@ def main() -> int:
         env.step(torch.zeros((64, 4), device=dev))
     st, lp = env.state, env.params.lidar
     lidar_args = cast_inputs(env.params, st, lp, st.lidar_mount_pos, st.lidar_mount_quat)
-    compare(rc, lidar_args[:4], lidar_args[4:], n_tri, "lidar64", errs)
-    compare_modes(rc, lidar_args[:4], lidar_args[4:], n_tri, "lidar64", errs)
+    check_modes(lidar_args, n_tri, "lidar64")
     del env, lidar_args, syn_args
     errs["attention_fwd"], k5_train_err = compare_attention(torch, ac, attention_reference, dev)
     errs["attention_bwd"] = compare_attention_bwd(torch, ac, attention_backward_reference, dev)
@@ -1150,37 +1295,15 @@ def main() -> int:
     counts, n_tri = (sc.n_box, sc.n_cyl, sc.n_sph), sc.n_tri
     del obs, depth
     records = []
-    for want_seg, name in ((False, "raycast_depth"), (True, "raycast_seg")):
-        call = lambda: rc.raycast(*a, *counts, mr, want_seg=want_seg, n_tri=n_tri)
-        ms = event_ms(torch, call, 5)
-        d_k, s_k = call()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        d_r, s_r = rc.raycast_reference(*a, *counts, mr, want_seg=want_seg, n_tri=n_tri)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        err = (d_k - d_r).abs()
-        errs[name] = max(errs[name], err.max().item())
-        line = (f"timing {name} ({NUM_ENVS}x{R} rays, {a[1].shape[1]} prims): kernel {ms:.3f} ms, "
-                f"plain {plain_ms:.1f} ms, max_abs_err {err.max().item():.3g}, "
-                f"px>2e-3 {int((err > DEPTH_ATOL).sum())}")
-        if want_seg:
-            hit = s_r != rc.oracle.NO_HIT_SEGMENTATION_VAL
-            agree = (s_k[hit] == s_r[hit]).float().mean().item()
-            line += f", seg_agree {agree:.7f}"
-            if agree < SEG_AGREE:
-                raise AssertionError(line)
-        if (err > DEPTH_ATOL).float().mean().item() > 1.0 - SEG_AGREE:
-            raise AssertionError(line)
-        del d_k, s_k, d_r, s_r, err
-        b_ms, b_by, ops = bound_ms(torch, rc, *a[:3], counts, n_tri, mr, name)
-        log(line + f" | bound {b_ms:.3f} ms by {b_by} ({ops:.4g} f32 ops) | {card}")
+    for name in ("raycast_depth", "raycast_seg"):
+        rec, _ = time_mode(torch, rc, a + counts + (mr,), n_tri, name, card, "obstacles")
+        errs[name] = max(errs[name], rec["max_abs_err"])
         records.append({
             "name": name, "route": "cuda", "source": RAYCAST_SOURCE,
-            "replaces": RAYCAST_REPLACES, "launches": launches[name],
-            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None,
+            "replaces": RAYCAST_REPLACES, "launches": launches[name], **rec,
+            "max_abs_err": errs[name], "library_ms": None,
         })
+    records[0]["build_ab"] = build_ab(torch, rc, ab_libs, a + counts + (mr,), n_tri, card)
     del a, env, state, params, zeros
     torch.cuda.empty_cache()
 
@@ -1231,6 +1354,12 @@ def main() -> int:
     k5_train["max_abs_err"] = max(k5_train["max_abs_err"], k5_train_err)
     k5_hd64 = time_attention(torch, ac, attention_reference, card, (TRAIN_BATCH, 225, 256, 4),
                              "float32", 1e-4)
+    # the same width at one head: head_dim 256, the sliced kernel
+    k5_hd256 = time_attention(torch, ac, attention_reference, card, WIDE_HEAD_SHAPE, "float32",
+                              1e-4)
+    # the flash path (JAX impl "flash", K7): the f32 kernel on f32 copies of
+    # the serving shape's bf16 tensors, and a flash-tagged shipped encoder
+    k7 = flash_phase(torch, ac, attention_reference, card)
     records.append({
         "name": "attention_fwd", "route": "cuda", "source": ATTENTION_SOURCE,
         "replaces": ATTENTION_REPLACES, "launches": nav_launches["attention_fwd"],
@@ -1239,6 +1368,8 @@ def main() -> int:
         "library_ms": k5["library_ms"],
         "at_64x225x256_f32": k5_train,      # the training path; its launches join below
         "at_64x225x256_f32_head_dim_64": k5_hd64,
+        "at_64x225x256_f32_head_dim_256": k5_hd256,
+        "flash_path_at_1024x225x256": k7,
     })
 
     # 7. training: train_vae through the ViT with K5 and K6, then the conv VAE
@@ -1258,6 +1389,8 @@ def main() -> int:
     # the same width at 4 heads: head_dim 64 in f32
     k6_hd64 = time_attention_bwd(torch, ac, attention_backward_reference, card,
                                  (TRAIN_BATCH, 225, 256, 4), "float32")
+    k6_hd256 = time_attention_bwd(torch, ac, attention_backward_reference, card,
+                                  WIDE_HEAD_SHAPE, "float32")
     records.append({
         "name": "attention_bwd", "route": "cuda", "source": ATTENTION_SOURCE,
         "replaces": ATTENTION_BWD_REPLACES, "launches": train_launches["attention_bwd"],
@@ -1267,6 +1400,7 @@ def main() -> int:
         "direct_ms": k6["direct_ms"],
         "at_1024x225x256_bf16": k6_bf16,
         "at_64x225x256_f32_head_dim_64": k6_hd64,
+        "at_64x225x256_f32_head_dim_256": k6_hd256,
     })
 
     # 8. position PPO, the state-step line, the shipped position policy

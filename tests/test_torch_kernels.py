@@ -44,10 +44,11 @@ MAX_RANGE = 12.0
 COUNTS = (12, 8, 4, 300)      # box, cylinder, sphere, triangle: 324 > one chunk
 
 
-def synthetic_scene(device, n_envs=3, seed=7, H=24, W=40, lidar=False):
+def synthetic_scene(device, n_envs=3, seed=7, H=24, W=40, lidar=False, grid=False):
     """Seeded world-frame soup of all four kinds; ~10% of the primitives
     parked at -1000 with zero size, as culled obstacles and padding are.
-    The rays are a camera's, or with ``lidar`` a 360-degree lidar's."""
+    The rays are a camera's, or with ``lidar`` a 360-degree lidar's; dirs
+    (R, 3) and mult (R,), or with ``grid`` the (H, W, 3) and (H, W) grid."""
     g = torch.Generator().manual_seed(seed)
     P = sum(COUNTS)
     size = torch.rand((n_envs, P, 3), generator=g) * 1.2 + 0.05
@@ -66,7 +67,8 @@ def synthetic_scene(device, n_envs=3, seed=7, H=24, W=40, lidar=False):
                         qs / qs.norm(dim=-1, keepdim=True))
     dirs, mult = (lidar_ray_dirs(H, W, -180.0, 180.0, -45.0, 45.0) if lidar
                   else camera_ray_dirs(H, W, 87.0))
-    as_t = lambda x: torch.as_tensor(x).reshape(-1, *x.shape[2:]).contiguous().to(device)
+    as_t = lambda x: (torch.as_tensor(x) if grid else
+                      torch.as_tensor(x).reshape(-1, *x.shape[2:])).contiguous().to(device)
     return (pose.to(device), prims.contiguous().to(device), as_t(dirs), as_t(mult))
 
 
@@ -122,20 +124,98 @@ def test_parked_primitives_never_hit():
     assert (s == -2).all() and torch.equal(d, 1000.0 * mult.expand_as(d))
 
 
-def test_broad_phase_is_conservative_on_synthetic_scene():
-    pose, prims, dirs, mult = synthetic_scene("cpu", n_envs=2)
-    vis = rc.tile_visibility(pose, prims, dirs, *COUNTS[:3], MAX_RANGE)  # (N, T, P)
-    N, R, P = pose.shape[0], dirs.shape[0], prims.shape[1]
-    tile = torch.arange(R) // rc.THREADS
+def _assert_conservative(pose, prims, dirs, mult, counts, max_range):
+    """No primitive that a ray hits alone (t < max_range) is culled for the
+    warp patch that holds the ray, in the plain twin of the kernel's broad
+    phase; and the broad phase does cull something."""
+    vis = rc.tile_visibility(pose, prims, dirs, *counts[:3], max_range)  # (N, G, P)
+    N, P = pose.shape[0], prims.shape[1]
+    tile = rc.warp_groups(*rc.ray_grid(dirs))
+    assert vis.shape == (N, int(tile.max()) + 1, P)
     for p in range(P):
         # this primitive alone, as a one-column table of its kind
-        counts = [0, 0, 0, 0]
-        counts[rc._kind_of(p, *COUNTS[:3])] = 1
+        one = [0, 0, 0, 0]
+        one[rc._kind_of(p, *counts[:3])] = 1
         d, _ = rc.raycast_reference(pose, prims[:, p:p + 1].contiguous(), dirs, mult,
-                                    *counts[:3], MAX_RANGE, want_seg=False, n_tri=counts[3])
-        hit = d < 999.0 * mult
+                                    *one[:3], max_range, want_seg=False, n_tri=one[3])
+        hit = d < max_range * mult.reshape(-1)
         assert vis[:, :, p][torch.arange(N)[:, None], tile[None, :]][hit].all(), p
     assert (~vis).any()
+
+
+def test_broad_phase_is_conservative_on_synthetic_scene():
+    pose, prims, dirs, mult = synthetic_scene("cpu", n_envs=2, grid=True)
+    _assert_conservative(pose, prims, dirs, mult, COUNTS, MAX_RANGE)
+
+
+def _obstacle_env_inputs(robot, n_envs=2, steps=3):
+    """The kernel's inputs as a capture packs them, from the obstacle env
+    on the CPU: ((pose, prims, dirs (H, W, 3), mult (H, W)), counts, range)."""
+    from aerial_gym_simulator_tpu_torch.sensors.raycast_sensor import cast_inputs
+    env = port.SimBuilder().build_env("base_sim", "env_with_obstacles", robot,
+                                      "lee_velocity_control", num_envs=n_envs, seed=2,
+                                      device="cpu")
+    for _ in range(steps):
+        env.step(torch.zeros((n_envs, 4)))
+    st = env.state
+    sp = env.params.lidar if "lidar" in robot else env.params.camera
+    mount = ((st.lidar_mount_pos, st.lidar_mount_quat) if "lidar" in robot
+             else (st.cam_mount_pos, st.cam_mount_quat))
+    a = cast_inputs(env.params, st, sp, *mount)
+    return a[:4], (a[4], a[5], a[6], env.params.scene.n_tri), a[7]
+
+
+def test_broad_phase_is_conservative_on_the_obstacle_camera():
+    """The 135 x 240 camera: 135 rows are 8 patches of 16 and 7 rows, so the
+    last row of warp patches is ragged."""
+    args, counts, max_range = _obstacle_env_inputs("base_quadrotor_with_camera")
+    assert tuple(args[2].shape) == (135, 240, 3)
+    _assert_conservative(*args, counts, max_range)
+
+
+@pytest.mark.parametrize("H", [8, 128])
+def test_broad_phase_is_conservative_on_lidar_grids(H):
+    """360-degree lidar grids of 512 columns: a warp patch spans about 6
+    degrees of azimuth and of elevation at 128 rows, 45 degrees of
+    elevation at 8."""
+    pose, prims, dirs, mult = synthetic_scene("cpu", n_envs=1 if H > 8 else 2, H=H, W=512,
+                                              lidar=True, grid=True)
+    _assert_conservative(pose, prims, dirs, mult, COUNTS, MAX_RANGE)
+
+
+@pytest.mark.parametrize("H,W", [(13, 21), (17, 33), (1, 50)])
+def test_broad_phase_is_conservative_on_ragged_grids(H, W):
+    pose, prims, dirs, mult = synthetic_scene("cpu", n_envs=2, H=H, W=W, grid=True)
+    _assert_conservative(pose, prims, dirs, mult, COUNTS, MAX_RANGE)
+
+
+def test_grid_and_flat_ray_tables_give_equal_outputs():
+    """dirs (H, W, 3) with mult (H, W), and the same rays as (R, 3) and
+    (R,), in every mode."""
+    grid = synthetic_scene("cpu", H=13, W=21, grid=True)
+    flat = synthetic_scene("cpu", H=13, W=21)
+    assert torch.equal(grid[2].reshape(-1, 3), flat[2])
+    for kw in ({"want_seg": False}, {}, {"want_normals": True}, {"want_rgb": True}):
+        a, b = _run(rc.raycast, grid, **kw), _run(rc.raycast, flat, **kw)
+        assert all((x is None and y is None) or torch.equal(x, y) for x, y in zip(a, b)), kw
+        assert a[0].shape == (3, 13 * 21)
+
+
+def test_tiling_free_count_is_below_every_broad_phase():
+    """The tests that a broad phase on these bounding spheres could not skip
+    (a ray's half-line meets the sphere within range) are a subset of what the
+    kernel's warp patches keep and of what 256-ray strips kept: per env and
+    primitive, the ray count is never above either."""
+    for robot in ("base_quadrotor_with_camera", "base_quadrotor_with_lidar"):
+        (pose, prims, dirs, mult), counts, max_range = _obstacle_env_inputs(robot)
+        need = rc.bounding_sphere_hits(pose, prims, dirs, *counts[:3], max_range)  # (N, P)
+        R = dirs.shape[0] * dirs.shape[1]
+        for groups in (rc.warp_groups(*rc.ray_grid(dirs)), torch.arange(R) // 256):
+            vis = rc.tile_visibility(pose, prims, dirs, *counts[:3], max_range, groups)
+            size = torch.bincount(groups).float()
+            kept = (vis.float() * size[None, :, None]).sum(dim=1)          # (N, P)
+            assert (need <= kept).all(), robot
+        assert need.sum() > 0 and (need < R).any()
 
 
 def test_wrapper_rejects_bad_inputs():
@@ -178,20 +258,11 @@ def test_env_chunking_does_not_change_normal_and_rgb_modes(monkeypatch):
 
 
 def test_broad_phase_is_conservative_on_a_lidar_table():
-    """A 360-degree scan line of 512 rays: each tile of 256 spans 180
-    degrees of azimuth, a cone of half-angle past 90 degrees."""
-    pose, prims, dirs, mult = synthetic_scene("cpu", n_envs=2, H=3, W=512, lidar=True)
-    vis = rc.tile_visibility(pose, prims, dirs, *COUNTS[:3], MAX_RANGE)  # (N, T, P)
-    N, R, P = pose.shape[0], dirs.shape[0], prims.shape[1]
-    tile = torch.arange(R) // rc.THREADS
-    for p in range(P):
-        counts = [0, 0, 0, 0]
-        counts[rc._kind_of(p, *COUNTS[:3])] = 1
-        d, _ = rc.raycast_reference(pose, prims[:, p:p + 1].contiguous(), dirs, mult,
-                                    *counts[:3], MAX_RANGE, want_seg=False, n_tri=counts[3])
-        hit = d < 999.0
-        assert vis[:, :, p][torch.arange(N)[:, None], tile[None, :]][hit].all(), p
-    assert (~vis).any()
+    """A 360-degree scan of 3 x 512 rays: the warp patches hold 3 rows, and
+    a patch's cone is narrow in azimuth, wide in elevation."""
+    pose, prims, dirs, mult = synthetic_scene("cpu", n_envs=2, H=3, W=512, lidar=True,
+                                              grid=True)
+    _assert_conservative(pose, prims, dirs, mult, COUNTS, MAX_RANGE)
 
 
 # ---------------------------------------------------------------------------
@@ -317,6 +388,35 @@ def test_normal_and_rgb_wrapper_checks_on_card(cuda_device):
                               mult), **{mode: True})
     with pytest.raises(ValueError, match="exclusive"):
         _run(rc.raycast, (pose, prims, dirs, mult), want_normals=True, want_rgb=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W,lidar", [(135, 240, False), (8, 512, True)],
+                         ids=["camera135x240", "lidar8x512"])
+@pytest.mark.parametrize("as_grid", [True, False], ids=["grid", "flat"])
+def test_all_modes_bit_equal_on_ragged_grids(cuda_device, H, W, lidar, as_grid):
+    """Every mode of the kernel against the plain version with torch.equal
+    on grids whose rows or columns are not a multiple of the 16 x 32 patch
+    (135 = 8 x 16 + 7 rows; an (R, 3) table is one row of R), with the
+    broad phase on and off, and the grid and the flat table give the same
+    images."""
+    grid = synthetic_scene(cuda_device, H=H, W=W, lidar=lidar, grid=True)
+    args = grid if as_grid else (grid[0], grid[1], grid[2].reshape(-1, 3), grid[3].reshape(-1))
+    for kw in ({"want_seg": False}, {}, {"want_normals": True}, {"want_rgb": True}):
+        k = _run(rc.raycast, args, **kw)
+        k_off = _run(rc.raycast, args, cull=False, **kw)
+        ref = _run(rc.raycast_reference, args, **kw)
+        other = _run(rc.raycast, grid if not as_grid else
+                     (grid[0], grid[1], grid[2].reshape(-1, 3), grid[3].reshape(-1)), **kw)
+        torch.cuda.synchronize()
+        for a, b, c, d in zip(k, k_off, ref, other):
+            if a is None:
+                continue
+            assert torch.equal(a, b), f"{kw}: broad phase on and off differ"
+            assert torch.equal(a, c), f"{kw}: kernel and plain version differ"
+            assert torch.equal(a, d), f"{kw}: grid and flat tables differ"
+        hit = k[1] != -2 if k[1] is not None else k[0] < 100.0
+        assert hit.any() and (~hit).any()
 
 
 # ---------------------------------------------------------------------------
@@ -530,3 +630,44 @@ def test_attention_lse_matches_plain_version(cuda_device, shape, dtype):
     assert lse.shape == (shape[0], shape[3], shape[1]) and lse.dtype == torch.float32
     torch.testing.assert_close(lse, attention_lse_reference(q, k, shape[3]), atol=1e-4, rtol=1e-4)
     assert torch.equal(out, plain)
+
+
+# heads wider than 128 columns: the sliced kernels. (B, S, D, heads)
+WIDE_SHAPES = [
+    (2, 225, 256, 1),          # head 256, one head (ViT dim 256 at one head)
+    (2, 225, 512, 2),          # head 256, two heads
+    (1, 225, 512, 1),          # head 512, one head (ViT dim 512 at one head)
+    (1, 225, 1024, 2),         # head 512, two heads
+    (2, 65, 268, 2),           # head 134: a ragged last slice, 4-byte copies
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,fwd_tol,bwd_tol", [(torch.float32, 1e-4, 2e-4),
+                                                   (torch.bfloat16, 0.05, 0.02)],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", WIDE_SHAPES, ids=str)
+def test_attention_wide_heads_match_plain_version(cuda_device, shape, dtype, fwd_tol, bwd_tol):
+    """Forward with and without L and the backward at head sizes above 128,
+    through the kernels (each call counted, none falls back), against the
+    plain versions at the bars of the narrow heads; two backward calls on
+    the same inputs give the same bits."""
+    H = shape[3]
+    q, k, v, do = qkv(shape, dtype, cuda_device, seed=6, n=4)
+    before = dict(ac.LAUNCHES)
+    out, lse = ac.attention_forward(q, k, v, H, want_lse=True)
+    plain = ac.attention_forward(q, k, v, H)
+    got = ac.attention_backward(q, k, v, do, H, out=out, lse=lse)
+    again = ac.attention_backward(q, k, v, do, H, out=out, lse=lse)
+    torch.cuda.synchronize()
+    assert ac.LAUNCHES == {"attention_fwd": before["attention_fwd"] + 2,
+                           "attention_bwd": before["attention_bwd"] + 2}
+    assert torch.equal(out, plain) and out.dtype == dtype
+    torch.testing.assert_close(out.float(), attention_reference(q, k, v, H).float(),
+                               atol=fwd_tol, rtol=fwd_tol)
+    torch.testing.assert_close(lse, attention_lse_reference(q, k, H), atol=1e-4, rtol=1e-4)
+    want = attention_backward_reference(q, k, v, do, H)
+    for name, a, a2, b in zip(("dq", "dk", "dv"), got, again, want):
+        assert a.dtype == dtype and a.shape == q.shape, name
+        assert torch.equal(a, a2), f"{name}: two launches differ"
+        torch.testing.assert_close(a.float(), b.float(), atol=bwd_tol, rtol=bwd_tol, msg=name)

@@ -170,4 +170,76 @@ def test_recurrent_archives_are_refused():
 def test_unknown_attention_impl_is_refused():
     with pytest.raises(ValueError, match="unknown attention impl"):
         ViTImageEncoder(image_res=(27, 48), dim=32, depth=1, num_heads=4,
-                        attn_impl="flash", device="cpu")
+                        attn_impl="pallas", device="cpu")
+
+
+def _retagged(tmp_path, tag):
+    """The shipped ViT encoder's pickle with its attn_impl tag replaced."""
+    with open(VIT_ENC, "rb") as f:
+        blob = pickle.load(f)
+    blob["attn_impl"] = tag
+    path = str(tmp_path / f"vit_{tag}.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(blob, f)
+    return blob, path
+
+
+@pytest.mark.parametrize("tag", ["flash", "reference"])
+def test_retagged_vit_pickle_gives_the_fused_latents(shipped_vit, tmp_path, tag):
+    """The JAX package writes "flash" (train_vae --vit_attn flash) and
+    accepts "reference"; the checkpoints are interchangeable. Both tags
+    load, keep their tag through load_model_pickle and save_model_pickle,
+    and give the "fused" pickle's f32 latents within the shipped-encoder
+    bar."""
+    from aerial_gym_simulator_tpu_torch.sim.convert import load_model_pickle, save_model_pickle
+    _, fused = shipped_vit
+    _, path = _retagged(tmp_path, tag)
+    arch, enc = load_encoder_pickle(path)
+    assert arch == "vit" and all(b.attn.impl == tag for b in enc.blocks)
+    x = torch.from_numpy(images((2, 135, 240), seed=6))
+    encode = lambda e: ViTImageEncoder(latent_dim=64, image_res=(135, 240), encoder=e,
+                                       compute_dtype=torch.float32, patch=e.patch,
+                                       device="cpu").encode(x)
+    np.testing.assert_allclose(encode(enc).numpy(), encode(copy.deepcopy(fused)).numpy(),
+                               atol=1e-3, rtol=0)
+    arch, model = load_model_pickle(path)
+    assert arch == "vit" and model.encoder.blocks[0].attn.impl == tag
+    again = str(tmp_path / "again.pkl")
+    save_model_pickle(model, again)
+    with open(again, "rb") as f:
+        assert pickle.load(f)["attn_impl"] == tag
+
+
+@pytest.mark.parametrize("tag", ["flash", "reference"])
+def test_retagged_vit_encoder_matches_jax(tmp_path, tag):
+    """A "flash"- or "reference"-tagged encoder through sim/convert.py
+    against the JAX package's ViTImageEncoder built from the same pickle, f32
+    at the shipped-encoder bar (the JAX side runs its XLA attention on the
+    CPU for "flash", mha_reference for "reference")."""
+    blob, path = _retagged(tmp_path, tag)
+    kw = {k: blob[k] for k in ("patch", "dim", "depth", "num_heads", "attn_impl")}
+    x = images((2, 135, 240), seed=7)
+    j = JViTImageEncoder(latent_dim=64, image_res=(135, 240), params=blob["params"],
+                         compute_dtype=jnp.float32, **kw)
+    _, enc = load_encoder_pickle(path)
+    t = ViTImageEncoder(latent_dim=64, image_res=(135, 240), encoder=enc,
+                        compute_dtype=torch.float32, patch=enc.patch, device="cpu")
+    np.testing.assert_allclose(t.encode(torch.from_numpy(x)).numpy(),
+                               np.asarray(j.encode(jnp.asarray(x))), atol=1e-3, rtol=0)
+
+
+def test_flash_attention_runs_in_f32_and_casts_back():
+    """``"flash"`` casts q, k, v to f32 for the fused attention and its
+    result back to the input type, as the JAX package's flash path does."""
+    from aerial_gym_simulator_tpu_torch.models.vit import FusedAttention
+    from aerial_gym_simulator_tpu_torch.ops.attention import attention_reference
+    torch.manual_seed(0)
+    layer = FusedAttention(32, 2, impl="flash").to(torch.bfloat16)
+    x = torch.from_numpy(np.random.RandomState(8).standard_normal((2, 9, 32))
+                         .astype(np.float32)).to(torch.bfloat16)
+    with torch.no_grad():
+        out = layer(x)
+        q, k, v = layer.query(x), layer.key(x), layer.value(x)
+        o = attention_reference(q.float(), k.float(), v.float(), 2, 0.25).to(torch.bfloat16)
+        want = layer.out(o)
+    assert out.dtype == torch.bfloat16 and torch.equal(out, want)

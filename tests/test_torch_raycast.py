@@ -134,13 +134,15 @@ def test_port_oracle_matches_jax_oracle(scene):
 
 
 def test_broad_phase_is_conservative(scene):
-    """Every primitive that some ray of a tile hits (t < max_range) must be
-    visible to that tile in the kernel's broad phase (plain mirror)."""
-    pose, prims, dirs = scene["pose"], scene["prims"], torch.from_numpy(scene["dirs"])
+    """Every primitive that some ray of a warp's 8 x 8 patch hits (t <
+    max_range) must be visible to that warp in the kernel's broad phase
+    (plain mirror), on the 8 x 128 ray grid."""
+    pose, prims = scene["pose"], scene["prims"]
+    dirs = torch.from_numpy(scene["dirs"]).reshape(8, 128, 3)
     nb, nc, ns = scene["counts"]
-    vis = rc.tile_visibility(pose, prims, dirs, nb, nc, ns, 10.0)       # (N, T, P)
-    N, R, P = pose.shape[0], dirs.shape[0], prims.shape[1]
-    tile = torch.arange(R) // rc.THREADS
+    vis = rc.tile_visibility(pose, prims, dirs, nb, nc, ns, 10.0)       # (N, G, P)
+    N, R, P = pose.shape[0], 8 * 128, prims.shape[1]
+    tile = rc.warp_groups(8, 128)
     culled_somewhere = 0
     for p in range(P):
         # this primitive alone, as a one-column table of its kind

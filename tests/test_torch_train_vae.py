@@ -398,8 +398,10 @@ def test_train_step_lowers_the_loss_on_cpu(small_env):
 
 
 def test_train_vae_refuses_what_is_not_ported():
+    # the JAX script's choices are xla, fused and flash
+    assert train_vae.build_parser().parse_args(["--vit_attn", "flash"]).vit_attn == "flash"
     with pytest.raises(SystemExit):
-        train_vae.build_parser().parse_args(["--vit_attn", "flash"])
+        train_vae.build_parser().parse_args(["--vit_attn", "reference"])
     with pytest.raises(ValueError, match="without a decoder"):
         enc = cv.load_encoder_pickle(
             "examples/dce_rl_navigation/selected_network/depth_vae.pkl")[1]
