@@ -85,11 +85,15 @@
 //  queries past S are zero rows in the staged tiles; the dQ kernel also sets
 //  P to 0 on keys past S in the last tile, so no exp of an unbounded
 //  argument can reach a sum.
-// Heads wider than 128 columns (any width; ViT dim 512 at one head is 512)
-// run three sliced kernels, attention_wide_fwd_kernel and the backward pair
-// attention_wide_bwd_dq_kernel / attention_wide_bwd_dkdv_kernel: the same
-// products and softmax over 128-column slices of the head, one output
-// slice per block (see their section).
+// Heads of 129 to 256 columns (ViT dim 256 at one head) run the one-pass
+// wide kernels, attention_wide_fwd_kernel and the backward pair
+// attention_wide_bwd_dq_kernel / attention_wide_bwd_dkdv_kernel: a block
+// holds the whole head of its rows in shared memory and takes each product
+// once (see their section). Wider heads (any width; ViT dim 512 at one head
+// is 512) run three sliced kernels, attention_sliced_fwd_kernel and
+// attention_sliced_bwd_dq_kernel / attention_sliced_bwd_dkdv_kernel: the
+// same products and softmax over 128-column slices of the head, one output
+// slice per block, the logits recomputed for each.
 // What the TPU kernels did for their own hardware and is not carried over:
 // padding S to a multiple of 128 in device memory with -1e30 on padded keys,
 // casting bf16 operands to f32 before the products, one sequential grid step
@@ -406,24 +410,25 @@ __device__ __forceinline__ void a_values(const T* __restrict__ x, size_t base, i
   }
 }
 
-// B operand X^T (k = head column, n = row of X) of a staged tile:
+// B operand X^T (k = head column, n = row of X) of a staged tile (f32, or
+// bf16 in the one-pass wide kernels):
 // b0 = X[n0 + g][k0 + t], b1 = X[n0 + g][k0 + t + 4]
-template <bool kSplit>
-__device__ __forceinline__ void b_rows(const float* X, int ld, int n0, int k0, int g, int t,
+template <bool kSplit, typename E>
+__device__ __forceinline__ void b_rows(const E* X, int ld, int n0, int k0, int g, int t,
                                        uint32_t (&h)[2], uint32_t (&l)[2]) {
-  const float* p = X + (n0 + g) * ld + k0 + t;
-  split<kSplit>(p[0], h[0], l[0]);
-  split<kSplit>(p[4], h[1], l[1]);
+  const E* p = X + (n0 + g) * ld + k0 + t;
+  split<kSplit>(to_float(p[0]), h[0], l[0]);
+  split<kSplit>(to_float(p[4]), h[1], l[1]);
 }
 
 // B operand X (k = row of X, n = head column) of a staged tile, its 8 rows
 // in the order of acc_as_a: b0 = X[k0 + 2t][n0 + g], b1 = X[k0 + 2t + 1][n0 + g]
-template <bool kSplit>
-__device__ __forceinline__ void b_cols(const float* X, int ld, int k0, int n0, int g, int t,
+template <bool kSplit, typename E>
+__device__ __forceinline__ void b_cols(const E* X, int ld, int k0, int n0, int g, int t,
                                        uint32_t (&h)[2], uint32_t (&l)[2]) {
-  const float* p = X + (k0 + 2 * t) * ld + n0 + g;
-  split<kSplit>(p[0], h[0], l[0]);
-  split<kSplit>(p[ld], h[1], l[1]);
+  const E* p = X + (k0 + 2 * t) * ld + n0 + g;
+  split<kSplit>(to_float(p[0]), h[0], l[0]);
+  split<kSplit>(to_float(p[ld]), h[1], l[1]);
 }
 
 // A 16x8 accumulator tile (lane (g, t) holds columns 2t, 2t+1 of rows g,
@@ -536,16 +541,17 @@ __device__ __forceinline__ void store_pair(T* __restrict__ row, int col, int hd,
   if (col + 1 < hd) from_float(row + col + 1, y);
 }
 
-// One key tile of the online softmax, on logits already in log2 units:
-// mask the keys past the end, move the running row maxima, rescale the sums
-// and the output accumulators, and turn s into the tile's probabilities
-template <int kSteps>
-__device__ __forceinline__ void softmax_step(float (&s)[kTile / 8][4], int keys_left, int t,
+// One key tile of kN x 8 keys of the online softmax, on logits already in
+// log2 units: mask the keys past the end, move the running row maxima,
+// rescale the sums and the output accumulators, and turn s into the tile's
+// probabilities
+template <int kSteps, int kN = kTile / 8>
+__device__ __forceinline__ void softmax_step(float (&s)[kN][4], int keys_left, int t,
                                              float& m_lo, float& m_hi, float& l_lo,
                                              float& l_hi, float (&oacc)[kSteps][4]) {
-  if (keys_left < kTile) {   // mask the keys past the end
+  if (keys_left < kN * 8) {   // mask the keys past the end
 #pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
+    for (int nt = 0; nt < kN; ++nt) {
       const int key = nt * 8 + t * 2;
       if (key >= keys_left) s[nt][0] = s[nt][2] = -CUDART_INF_F;
       if (key + 1 >= keys_left) s[nt][1] = s[nt][3] = -CUDART_INF_F;
@@ -553,7 +559,7 @@ __device__ __forceinline__ void softmax_step(float (&s)[kTile / 8][4], int keys_
   }
   float c_lo = -CUDART_INF_F, c_hi = -CUDART_INF_F;
 #pragma unroll
-  for (int nt = 0; nt < kTile / 8; ++nt) {
+  for (int nt = 0; nt < kN; ++nt) {
     c_lo = fmaxf(c_lo, fmaxf(s[nt][0], s[nt][1]));
     c_hi = fmaxf(c_hi, fmaxf(s[nt][2], s[nt][3]));
   }
@@ -576,7 +582,7 @@ __device__ __forceinline__ void softmax_step(float (&s)[kTile / 8][4], int keys_
     oacc[dt][3] *= a_hi;
   }
 #pragma unroll
-  for (int nt = 0; nt < kTile / 8; ++nt) {
+  for (int nt = 0; nt < kN; ++nt) {
     s[nt][0] = fast_exp2(s[nt][0] - m_lo);
     s[nt][1] = fast_exp2(s[nt][1] - m_lo);
     s[nt][2] = fast_exp2(s[nt][2] - m_hi);
@@ -942,11 +948,609 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// Wide heads (head_dim above 128): the same TF32 products over head slices
+// Wide heads (129 to 256 columns): one pass over the whole head
 // ---------------------------------------------------------------------------
 //
-// A head wider than 128 columns does not fit the kernels above: their
-// register-resident fragments cover the whole head. These kernels walk the
+// The same TPU kernels (attention_pallas.py:153 forward, :169 backward) at
+// head sizes above 128. Bound at (B=64, S=225, D=256, H=1) f32: the
+// operations of the narrow heads at that width, 0.020 ms forward and 0.050
+// ms backward as 3xTF32 (bytes 0.018 / 0.031 ms): bound by operations. The
+// head is padded with zero columns to kWideHead; the contractions over the
+// head stop at the last 8-column step that holds a real column.
+//
+// A block owns the whole head for its 64 query rows (forward, dQ) or 64
+// keys (dK/dV), staged once in shared memory in the input type (f32 rows of
+// 260 floats, bf16 rows of 264: both fragment reads free of bank conflicts)
+// and read back as fragments, split into TF32 hi/lo on the way: no operand
+// is read from device memory inside the loop over the other side's tiles,
+// and every product is taken once per block. The streamed tiles come in two
+// stages by cp.async (16 bytes a copy where a row allows, else 4; bf16 is
+// copied as it is, so asynchronously too, and converted as fragments are
+// read: a bf16 value is exact in TF32). 8 warps a block, one block per SM.
+// Dynamic shared memory (wide_fwd_bytes, wide_dq_bytes, wide_dkdv_bytes):
+// f32 199,680 / 216,064 / 216,320 bytes (forward, dQ, dK/dV), bf16 101,376 /
+// 117,760 / 118,016. At (64, 225, 256, 1) each grid is 256 blocks, 1.94
+// waves over 132 SMs.
+//  * attention_wide_fwd_kernel: two warpgroups of 4 warps x 16 query rows.
+//    Each 32-key tile of K and V is split between them, keys 0-15 to the
+//    first and 16-31 to the second; each keeps its own online softmax
+//    (m, l) and 16 x 256 output accumulator (128 registers a lane) over its
+//    half of every tile, and the two states are merged once at the end
+//    through shared memory in a fixed order (deterministic).
+//  * attention_wide_bwd_dq_kernel (delta and dQ) and
+//    attention_wide_bwd_dkdv_kernel (dK and dV from the same block): warp
+//    (slab, half) owns 16 rows of the block and 128 of the head's output
+//    columns. Per 16-row streamed tile the pair of warps that owns a slab
+//    splits the logits (and dP) of its 16 rows against the tile's 16 rows
+//    between them by head columns, each contracting its own 128, and adds
+//    the two partial sums through shared memory (pair_logits): every
+//    product once per block, each A operand used for two products, and P /
+//    dS then in registers as the next product's A operand. Sums in one
+//    fixed order, no float atomic: two calls give the same bits.
+//  One block barrier per streamed tile (two in the backward, for the pair's
+//  exchange): the next tile's copy is issued right after it.
+
+constexpr int kWideHead = 256;             // head columns the one-pass kernels hold
+constexpr int kWideWarps = 8;
+constexpr int kWideThreads = kWideWarps * 32;
+constexpr int kWideRows = 64;              // query rows (forward, dQ) or keys (dK/dV) a block owns
+constexpr int kFwdKeys = 32;               // keys per streamed forward tile, 16 per warpgroup
+constexpr int kBwdRows = 16;               // keys (dQ) or queries (dK/dV) per streamed tile
+constexpr int kFrag = 4 * 32;              // one warp's 16 x 8 accumulator tile, in floats
+
+// elements per staged row: 16 bytes past the head keeps rows 16-byte aligned
+// and the fragment reads conflict-free (f32: 260 floats, bf16: 264)
+template <typename T>
+__host__ __device__ constexpr int wide_ld() {
+  return kWideHead + 16 / static_cast<int>(sizeof(T));
+}
+
+template <typename T>
+__device__ __forceinline__ T zero_of() {
+  if constexpr (std::is_same<T, float>::value)
+    return 0.0f;
+  else
+    return __float2bfloat16_rn(0.0f);
+}
+
+// rows row0 .. row0 + n_rows - 1, head columns [0, hd), of one head of a
+// packed (B, S, D) tensor into staged rows ld elements apart, in the input
+// type, by cp.async: 16 bytes a copy where a row is whole 16-byte pieces,
+// else 4 (a bf16 head of odd size cannot be copied in 4-byte pieces and is
+// loaded plainly); rows past S are zero-filled by the copy
+template <typename T>
+__device__ __forceinline__ void stage_rows(T* dst, int ld, const T* __restrict__ src, size_t base,
+                                           int row0, int n_rows, int S, int D, int hd) {
+  constexpr int kPer16 = 16 / sizeof(T), kPer4 = 4 / sizeof(T);
+  if (hd % kPer16 == 0) {
+    const int per_row = hd / kPer16;
+    for (int i = threadIdx.x; i < n_rows * per_row; i += kWideThreads) {
+      const int r = i / per_row, c = (i - r * per_row) * kPer16, row = row0 + r;
+      cp_async16(dst + r * ld + c, src + base + (size_t)min(row, S - 1) * D + c,
+                 row < S ? 16 : 0);
+    }
+  } else if (hd % kPer4 == 0) {
+    const int per_row = hd / kPer4;
+    for (int i = threadIdx.x; i < n_rows * per_row; i += kWideThreads) {
+      const int r = i / per_row, c = (i - r * per_row) * kPer4, row = row0 + r;
+      cp_async4(dst + r * ld + c, src + base + (size_t)min(row, S - 1) * D + c, row < S ? 4 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < n_rows * hd; i += kWideThreads) {
+      const int r = i / hd, c = i - r * hd, row = row0 + r;
+      dst[r * ld + c] = row < S ? src[base + (size_t)row * D + c] : zero_of<T>();
+    }
+  }
+}
+
+// n entries of a (B, H, S) row vector from row0 (zero past S), by cp.async
+__device__ __forceinline__ void stage_entries(float* dst, const float* __restrict__ src, int row0,
+                                              int n, int S) {
+  for (int i = threadIdx.x; i < n; i += kWideThreads) {
+    const int row = row0 + i;
+    cp_async4(dst + i, src + min(row, S - 1), row < S ? 4 : 0);
+  }
+}
+
+// columns [hd, kWideHead) of n_rows consecutive staged rows, which the
+// staging never writes, to zero
+template <typename T>
+__device__ __forceinline__ void zero_head_pad(T* rows, int n_rows, int hd) {
+  constexpr int ld = wide_ld<T>();
+  const int w = kWideHead - hd;
+  for (int i = threadIdx.x; i < n_rows * w; i += kWideThreads) {
+    const int r = i / w;
+    rows[r * ld + hd + (i - r * w)] = zero_of<T>();
+  }
+}
+
+// A operand of a staged tile: rows r0 .. r0 + 15, head columns k0 .. k0 + 7
+// (a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)), split into TF32
+template <bool kSplit, typename T>
+__device__ __forceinline__ void a_rows(const T* X, int r0, int k0, int g, int t,
+                                       uint32_t (&h)[4], uint32_t (&l)[4]) {
+  constexpr int ld = wide_ld<T>();
+  const T* p = X + (r0 + g) * ld + k0 + t;
+  split<kSplit>(to_float(p[0]), h[0], l[0]);
+  split<kSplit>(to_float(p[8 * ld]), h[1], l[1]);
+  split<kSplit>(to_float(p[4]), h[2], l[2]);
+  split<kSplit>(to_float(p[8 * ld + 4]), h[3], l[3]);
+}
+
+// one warp's 16 x 8 accumulator tile to shared memory and back, lane by lane
+__device__ __forceinline__ void put_frag(float* X, const float (&c)[4], int lane) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) X[e * 32 + lane] = c[e];
+}
+
+__device__ __forceinline__ void get_frag(const float* X, float (&c)[4], int lane) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] = X[e * 32 + lane];
+}
+
+template <typename T>
+constexpr size_t wide_fwd_bytes() {
+  return sizeof(T) * (size_t)(kWideRows + 4 * kFwdKeys) * wide_ld<T>();
+}
+
+template <typename T>
+constexpr size_t wide_dq_bytes() {
+  return sizeof(T) * (size_t)(2 * kWideRows + 4 * kBwdRows) * wide_ld<T>() +
+         sizeof(float) * 32 * kFrag;
+}
+
+template <typename T>
+constexpr size_t wide_dkdv_bytes() {
+  return sizeof(T) * (size_t)(2 * kWideRows + 4 * kBwdRows) * wide_ld<T>() +
+         sizeof(float) * (4 * kBwdRows + 32 * kFrag);
+}
+
+// the forward's merge of the second warpgroup's state (16 x 256 outputs per
+// warp, then m and l per lane) must fit where its K and V tiles were
+static_assert(sizeof(float) * (4 * (kWideHead / 8) * kFrag + 4 * kFrag) <=
+                  sizeof(__nv_bfloat16) * 4 * kFwdKeys * wide_ld<__nv_bfloat16>(),
+              "the forward's merge does not fit its K and V tiles");
+static_assert(wide_fwd_bytes<float>() <= 232448 && wide_dq_bytes<float>() <= 232448 &&
+                  wide_dkdv_bytes<float>() <= 232448,
+              "a one-pass wide kernel exceeds a block's shared memory");
+
+// Forward, heads of 129 to 256 columns: grid (B * H, query tiles of 64).
+// shared memory: the block's Q rows, then K and V tiles of kFwdKeys keys,
+// two stages each
+template <typename T, bool kLse>
+__global__ void __launch_bounds__(kWideThreads, 1)
+attention_wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+                          int S, int H, int hd, float scale_log2e) {
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  constexpr int ld = wide_ld<T>(), kSteps = kWideHead / 8, kTileElems = kFwdKeys * ld;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);   // [kWideRows][ld]
+  T* Ks = Qs + kWideRows * ld;              // [2][kFwdKeys][ld]
+  T* Vs = Ks + 2 * kTileElems;              // [2][kFwdKeys][ld]
+
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  const int D = H * hd;
+  const size_t base = (size_t)b * S * D + (size_t)h * hd;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int grp = warp >> 2, slab = warp & 3;   // warpgroup, and the warp's 16 rows in it
+  const int r0 = slab * 16, row0 = blockIdx.y * kWideRows + r0;
+  const int n_tiles = (S + kFwdKeys - 1) / kFwdKeys, n_steps = (hd + 7) / 8;
+
+  zero_head_pad(Qs, kWideRows + 4 * kFwdKeys, hd);
+  stage_rows(Qs, ld, q, base, blockIdx.y * kWideRows, kWideRows, S, D, hd);
+  stage_rows(Ks, ld, k, base, 0, kFwdKeys, S, D, hd);
+  stage_rows(Vs, ld, v, base, 0, kFwdKeys, S, D, hd);
+  cp_async_commit();
+
+  float oacc[kSteps][4];
+#pragma unroll
+  for (int dt = 0; dt < kSteps; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[dt][e] = 0.0f;
+  float m_lo = -CUDART_INF_F, m_hi = -CUDART_INF_F;   // running row max (log2 units)
+  float l_lo = 0.0f, l_hi = 0.0f;                     // this thread's share of the row sums
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();   // this tile has landed; every warp is done with the last one
+    if (it + 1 < n_tiles) {   // the next tile loads while this one is multiplied
+      const int nb = (it + 1) & 1;
+      stage_rows(Ks + nb * kTileElems, ld, k, base, (it + 1) * kFwdKeys, kFwdKeys, S, D, hd);
+      stage_rows(Vs + nb * kTileElems, ld, v, base, (it + 1) * kFwdKeys, kFwdKeys, S, D, hd);
+    }
+    cp_async_commit();
+    // this warpgroup's 16 keys of the tile; the second may have none in the last
+    const T* Kt = Ks + (it & 1) * kTileElems + grp * 16 * ld;
+    const T* Vt = Vs + (it & 1) * kTileElems + grp * 16 * ld;
+    const int keys_left = S - it * kFwdKeys - grp * 16;
+    if (keys_left > 0) {
+      float s[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
+#pragma unroll 4
+      for (int ks = 0; ks < n_steps; ++ks) {
+        uint32_t ah[4], al[4];
+        a_rows<kSplit>(Qs, r0, ks * 8, g, t, ah, al);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          uint32_t bfh[2], bfl[2];
+          b_rows<kSplit>(Kt, ld, nt * 8, ks * 8, g, t, bfh, bfl);
+          mma3<kSplit>(s[nt], ah, al, bfh, bfl);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] *= scale_log2e;   // log2 units, any sign of scale
+      softmax_step<kSteps, 2>(s, keys_left, t, m_lo, m_hi, l_lo, l_hi, oacc);
+      // O += P V, 8 keys per k-step, P straight from the accumulators
+#pragma unroll
+      for (int kt = 0; kt < 2; ++kt) {
+        uint32_t ph[4], pl[4];
+        acc_as_a<kSplit>(s[kt], ph, pl);
+#pragma unroll
+        for (int dt = 0; dt < kSteps; ++dt) {
+          uint32_t bfh[2], bfl[2];
+          b_cols<kSplit>(Vt, ld, kt * 8, dt * 8, g, t, bfh, bfl);
+          mma3<kSplit>(oacc[dt], ph, pl, bfh, bfl);
+        }
+      }
+    }
+  }
+
+  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
+  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
+  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
+  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
+  __syncthreads();   // every warp is done with the last tile
+  // the second warpgroup's state into the first's, where the tiles were:
+  // its outputs [slab][dt][fragment], then m and l [slab][fragment]. A
+  // warpgroup that saw no key (S <= 16) has m = -inf, l = 0, o = 0: weight 0
+  float* Ox = reinterpret_cast<float*>(Ks);
+  float* Mx = Ox + 4 * kSteps * kFrag;
+  if (grp == 1) {
+#pragma unroll
+    for (int dt = 0; dt < kSteps; ++dt) put_frag(Ox + (slab * kSteps + dt) * kFrag, oacc[dt], lane);
+    const float st[4] = {m_lo, m_hi, l_lo, l_hi};
+    put_frag(Mx + slab * kFrag, st, lane);
+  }
+  __syncthreads();
+  if (grp == 1) return;
+  float other[4];
+  get_frag(Mx + slab * kFrag, other, lane);
+  const float n_lo = fmaxf(m_lo, other[0]), n_hi = fmaxf(m_hi, other[1]);
+  const float a_lo = fast_exp2(m_lo - n_lo), a_hi = fast_exp2(m_hi - n_hi);
+  const float b_lo = fast_exp2(other[0] - n_lo), b_hi = fast_exp2(other[1] - n_hi);
+  l_lo = l_lo * a_lo + other[2] * b_lo;
+  l_hi = l_hi * a_hi + other[3] * b_hi;
+  const float i_lo = 1.0f / l_lo, i_hi = 1.0f / l_hi;
+  const int r_lo = row0 + g, r_hi = r_lo + 8;
+#pragma unroll
+  for (int dt = 0; dt < kSteps; ++dt) {
+    float x[4];
+    get_frag(Ox + (slab * kSteps + dt) * kFrag, x, lane);
+    const int col = dt * 8 + 2 * t;
+    if (r_lo < S)
+      store_pair(o + base + (size_t)r_lo * D, col, hd, (oacc[dt][0] * a_lo + x[0] * b_lo) * i_lo,
+                 (oacc[dt][1] * a_lo + x[1] * b_lo) * i_lo);
+    if (r_hi < S)
+      store_pair(o + base + (size_t)r_hi * D, col, hd, (oacc[dt][2] * a_hi + x[2] * b_hi) * i_hi,
+                 (oacc[dt][3] * a_hi + x[3] * b_hi) * i_hi);
+  }
+  if constexpr (kLse) {
+    if (t == 0) {
+      float* row_lse = lse + (size_t)bh * S;
+      if (r_lo < S) row_lse[r_lo] = (n_lo + log2f(l_lo)) * kLn2;
+      if (r_hi < S) row_lse[r_hi] = (n_hi + log2f(l_hi)) * kLn2;
+    }
+  }
+}
+
+// The logits (and dP) of 16 own rows against the 16 rows of a streamed
+// tile, over this warp's half of the head (columns c0 .. c0 + 127), then
+// summed with the partner warp's half through shared memory (X: [slab][half]
+// [4][kFrag]): both warps of a pair end with the same bits, since each adds
+// the same two partial sums (IEEE addition is commutative). A operands from
+// the block's own staged rows (A1 for s, A2 for d), B from the tile's (B1,
+// B2); 8-column steps of the half that hold no real column are skipped.
+template <bool kSplit, typename T>
+__device__ __forceinline__ void pair_logits(const T* A1, const T* A2, const T* B1, const T* B2,
+                                            int r0, int c0, int hd, float* X, int slab, int half,
+                                            int g, int t, int lane, float (&s)[2][4],
+                                            float (&d)[2][4]) {
+  constexpr int ld = wide_ld<T>();
+  const int n_steps = min((hd - c0 + 7) / 8, kWideHead / 16);
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = d[nt][e] = 0.0f;
+#pragma unroll 2
+  for (int ks = 0; ks < n_steps; ++ks) {
+    const int col = c0 + ks * 8;
+    uint32_t ah[4], al[4], gh[4], gl[4];
+    a_rows<kSplit>(A1, r0, col, g, t, ah, al);
+    a_rows<kSplit>(A2, r0, col, g, t, gh, gl);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      uint32_t bfh[2], bfl[2];
+      b_rows<kSplit>(B1, ld, nt * 8, col, g, t, bfh, bfl);
+      mma3<kSplit>(s[nt], ah, al, bfh, bfl);
+      b_rows<kSplit>(B2, ld, nt * 8, col, g, t, bfh, bfl);
+      mma3<kSplit>(d[nt], gh, gl, bfh, bfl);
+    }
+  }
+  float* mine = X + (slab * 2 + half) * 4 * kFrag;
+  const float* other = X + (slab * 2 + (half ^ 1)) * 4 * kFrag;
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+    put_frag(mine + nt * kFrag, s[nt], lane);
+    put_frag(mine + (2 + nt) * kFrag, d[nt], lane);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+    float x[4], y[4];
+    get_frag(other + nt * kFrag, x, lane);
+    get_frag(other + (2 + nt) * kFrag, y, lane);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[nt][e] += x[e];
+      d[nt][e] += y[e];
+    }
+  }
+}
+
+// Backward, heads of 129 to 256 columns, first kernel: delta and dQ for 64
+// query rows; grid (B * H, query tiles). shared memory: the block's Q and dO
+// rows, K and V tiles of kBwdRows keys (two stages each), then the pairs'
+// partial logits [slab][half][S 0-7, S 8-15, dP 0-7, dP 8-15][fragment]
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads, 1)
+attention_wide_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v, const T* __restrict__ o,
+                             const T* __restrict__ dout, const float* __restrict__ lse,
+                             float* __restrict__ delta, T* __restrict__ dq, int S, int H, int hd,
+                             float scale, float scale_log2e) {
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  constexpr int ld = wide_ld<T>(), kHalfSteps = kWideHead / 16, kTileElems = kBwdRows * ld;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);   // [kWideRows][ld]
+  T* Gs = Qs + kWideRows * ld;              // dO, [kWideRows][ld]
+  T* Ks = Gs + kWideRows * ld;              // [2][kBwdRows][ld]
+  T* Vs = Ks + 2 * kTileElems;              // [2][kBwdRows][ld]
+  float* Xs = reinterpret_cast<float*>(Vs + 2 * kTileElems);   // [4][2][4][kFrag]
+
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  const int D = H * hd;
+  const size_t base = (size_t)b * S * D + (size_t)h * hd;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int slab = warp & 3, half = warp >> 2;   // 16 rows; half of the head's columns
+  const int r0 = slab * 16, row0 = blockIdx.y * kWideRows + r0, c0 = half * (kWideHead / 2);
+  const int n_tiles = (S + kBwdRows - 1) / kBwdRows;
+
+  zero_head_pad(Qs, 2 * kWideRows + 4 * kBwdRows, hd);
+  stage_rows(Qs, ld, q, base, blockIdx.y * kWideRows, kWideRows, S, D, hd);
+  stage_rows(Gs, ld, dout, base, blockIdx.y * kWideRows, kWideRows, S, D, hd);
+  cp_async_commit();
+  stage_rows(Ks, ld, k, base, 0, kBwdRows, S, D, hd);
+  stage_rows(Vs, ld, v, base, 0, kBwdRows, S, D, hd);
+  cp_async_commit();
+  cp_async_wait<1>();   // Q and dO have landed; the first K and V tiles may not have
+  __syncthreads();
+
+  // delta = rowsum(dO o) over the whole head, in the narrow kernel's order
+  const int r_lo = row0 + g, r_hi = r_lo + 8;
+  float del_lo = 0.0f, del_hi = 0.0f;
+  for (int col = 0; col < hd; col += 8) {
+    const T* y = Gs + (r0 + g) * ld + col + t;
+    float z[4];
+    a_values(o, base, row0, col, S, D, hd, g, t, z);
+    del_lo = fmaf(to_float(y[0]), z[0], fmaf(to_float(y[4]), z[2], del_lo));
+    del_hi = fmaf(to_float(y[8 * ld]), z[1], fmaf(to_float(y[8 * ld + 4]), z[3], del_hi));
+  }
+  del_lo += __shfl_xor_sync(0xffffffffu, del_lo, 1);
+  del_lo += __shfl_xor_sync(0xffffffffu, del_lo, 2);
+  del_hi += __shfl_xor_sync(0xffffffffu, del_hi, 1);
+  del_hi += __shfl_xor_sync(0xffffffffu, del_hi, 2);
+  const float* row_lse = lse + (size_t)bh * S;
+  const float L_lo = r_lo < S ? row_lse[r_lo] * kLog2e : 0.0f;
+  const float L_hi = r_hi < S ? row_lse[r_hi] * kLog2e : 0.0f;
+  if (t == 0 && half == 0) {
+    if (r_lo < S) delta[(size_t)bh * S + r_lo] = del_lo;
+    if (r_hi < S) delta[(size_t)bh * S + r_hi] = del_hi;
+  }
+
+  float dacc[kHalfSteps][4];
+#pragma unroll
+  for (int dt = 0; dt < kHalfSteps; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dacc[dt][e] = 0.0f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();   // this tile has landed; every warp is done with the last one
+    if (it + 1 < n_tiles) {   // the next tile loads while this one is multiplied
+      const int nb = (it + 1) & 1;
+      stage_rows(Ks + nb * kTileElems, ld, k, base, (it + 1) * kBwdRows, kBwdRows, S, D, hd);
+      stage_rows(Vs + nb * kTileElems, ld, v, base, (it + 1) * kBwdRows, kBwdRows, S, D, hd);
+    }
+    cp_async_commit();
+    const T* Kt = Ks + (it & 1) * kTileElems;
+    const T* Vt = Vs + (it & 1) * kTileElems;
+    const int keys_left = S - it * kBwdRows;
+
+    // S and dP of the warp's 16 rows and the tile's 16 keys, whole head
+    float s[2][4], dp[2][4];
+    pair_logits<kSplit>(Qs, Gs, Kt, Vt, r0, c0, hd, Xs, slab, half, g, t, lane, s, dp);
+    // dS in place of S; keys past the end: zero rows of K and V, P set to 0
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      float p[4];
+      p[0] = fast_exp2(fmaf(s[nt][0], scale_log2e, -L_lo));
+      p[1] = fast_exp2(fmaf(s[nt][1], scale_log2e, -L_lo));
+      p[2] = fast_exp2(fmaf(s[nt][2], scale_log2e, -L_hi));
+      p[3] = fast_exp2(fmaf(s[nt][3], scale_log2e, -L_hi));
+      const int key = nt * 8 + 2 * t;
+      if (key >= keys_left) p[0] = p[2] = 0.0f;
+      if (key + 1 >= keys_left) p[1] = p[3] = 0.0f;
+      s[nt][0] = p[0] * (dp[nt][0] - del_lo);
+      s[nt][1] = p[1] * (dp[nt][1] - del_lo);
+      s[nt][2] = p[2] * (dp[nt][2] - del_hi);
+      s[nt][3] = p[3] * (dp[nt][3] - del_hi);
+    }
+    // dQ[16 rows, this half's 128 columns] += dS (16 rows x 16 keys) K
+#pragma unroll
+    for (int kt = 0; kt < 2; ++kt) {
+      uint32_t ah[4], al[4];
+      acc_as_a<kSplit>(s[kt], ah, al);
+#pragma unroll
+      for (int dt = 0; dt < kHalfSteps; ++dt) {
+        uint32_t bfh[2], bfl[2];
+        b_cols<kSplit>(Kt, ld, kt * 8, c0 + dt * 8, g, t, bfh, bfl);
+        mma3<kSplit>(dacc[dt], ah, al, bfh, bfl);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int dt = 0; dt < kHalfSteps; ++dt) {
+    const int col = c0 + dt * 8 + 2 * t;
+    if (r_lo < S)
+      store_pair(dq + base + (size_t)r_lo * D, col, hd, dacc[dt][0] * scale, dacc[dt][1] * scale);
+    if (r_hi < S)
+      store_pair(dq + base + (size_t)r_hi * D, col, hd, dacc[dt][2] * scale, dacc[dt][3] * scale);
+  }
+}
+
+// Backward, heads of 129 to 256 columns, second kernel: dK and dV for 64
+// keys, after the first has written delta; grid (B * H, key tiles). shared
+// memory: the block's K and V rows, Q and dO tiles of kBwdRows queries and
+// their L and delta (two stages each), then the pairs' partial logits
+// [slab][half][S^T 0-7, S^T 8-15, dP^T 0-7, dP^T 8-15][fragment]
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads, 1)
+attention_wide_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                               const T* __restrict__ v, const T* __restrict__ dout,
+                               const float* __restrict__ lse, const float* __restrict__ delta,
+                               T* __restrict__ dk, T* __restrict__ dv, int S, int H, int hd,
+                               float scale, float scale_log2e) {
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  constexpr int ld = wide_ld<T>(), kHalfSteps = kWideHead / 16, kTileElems = kBwdRows * ld;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Ks = reinterpret_cast<T*>(smem_raw);   // [kWideRows][ld]
+  T* Vs = Ks + kWideRows * ld;              // [kWideRows][ld]
+  T* Qs = Vs + kWideRows * ld;              // [2][kBwdRows][ld]
+  T* Gs = Qs + 2 * kTileElems;              // dO, [2][kBwdRows][ld]
+  float* Ls = reinterpret_cast<float*>(Gs + 2 * kTileElems);   // [2][kBwdRows]
+  float* Ds = Ls + 2 * kBwdRows;                               // [2][kBwdRows]
+  float* Xs = Ds + 2 * kBwdRows;                               // [4][2][4][kFrag]
+
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  const int D = H * hd;
+  const size_t base = (size_t)b * S * D + (size_t)h * hd;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int slab = warp & 3, half = warp >> 2;   // 16 keys; half of the head's columns
+  const int r0 = slab * 16, key0 = blockIdx.y * kWideRows + r0, c0 = half * (kWideHead / 2);
+  const int n_tiles = (S + kBwdRows - 1) / kBwdRows;
+  const float* row_lse = lse + (size_t)bh * S;
+  const float* row_delta = delta + (size_t)bh * S;
+
+  zero_head_pad(Ks, 2 * kWideRows + 4 * kBwdRows, hd);
+  stage_rows(Ks, ld, k, base, blockIdx.y * kWideRows, kWideRows, S, D, hd);
+  stage_rows(Vs, ld, v, base, blockIdx.y * kWideRows, kWideRows, S, D, hd);
+  stage_rows(Qs, ld, q, base, 0, kBwdRows, S, D, hd);
+  stage_rows(Gs, ld, dout, base, 0, kBwdRows, S, D, hd);
+  stage_entries(Ls, row_lse, 0, kBwdRows, S);
+  stage_entries(Ds, row_delta, 0, kBwdRows, S);
+  cp_async_commit();
+
+  float kacc[kHalfSteps][4], vacc[kHalfSteps][4];
+#pragma unroll
+  for (int dt = 0; dt < kHalfSteps; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) kacc[dt][e] = vacc[dt][e] = 0.0f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();   // this tile has landed; every warp is done with the last one
+    if (it + 1 < n_tiles) {   // the next tile loads while this one is multiplied
+      const int nb = (it + 1) & 1, next = (it + 1) * kBwdRows;
+      stage_rows(Qs + nb * kTileElems, ld, q, base, next, kBwdRows, S, D, hd);
+      stage_rows(Gs + nb * kTileElems, ld, dout, base, next, kBwdRows, S, D, hd);
+      stage_entries(Ls + nb * kBwdRows, row_lse, next, kBwdRows, S);
+      stage_entries(Ds + nb * kBwdRows, row_delta, next, kBwdRows, S);
+    }
+    cp_async_commit();
+    const T* Qt = Qs + (it & 1) * kTileElems;
+    const T* Gt = Gs + (it & 1) * kTileElems;
+    const float* Lt = Ls + (it & 1) * kBwdRows;
+    const float* Dt = Ds + (it & 1) * kBwdRows;
+
+    // S^T and dP^T of the warp's 16 keys and the tile's 16 queries, whole
+    // head; then P^T in place of S^T and dS^T in place of dP^T. Queries past
+    // S are zero rows with L = delta = 0: P = 1 there, and dO = 0 and dS = 0
+    // keep them out of both sums.
+    float st[2][4], dpt[2][4];
+    pair_logits<kSplit>(Ks, Vs, Qt, Gt, r0, c0, hd, Xs, slab, half, g, t, lane, st, dpt);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const int qa = nt * 8 + 2 * t;   // this lane's two queries: columns 0/2 and 1/3
+      const float L0 = Lt[qa] * kLog2e, L1 = Lt[qa + 1] * kLog2e;
+      const float d0 = Dt[qa], d1 = Dt[qa + 1];
+      st[nt][0] = fast_exp2(fmaf(st[nt][0], scale_log2e, -L0));
+      st[nt][1] = fast_exp2(fmaf(st[nt][1], scale_log2e, -L1));
+      st[nt][2] = fast_exp2(fmaf(st[nt][2], scale_log2e, -L0));
+      st[nt][3] = fast_exp2(fmaf(st[nt][3], scale_log2e, -L1));
+      dpt[nt][0] = st[nt][0] * (dpt[nt][0] - d0);
+      dpt[nt][1] = st[nt][1] * (dpt[nt][1] - d1);
+      dpt[nt][2] = st[nt][2] * (dpt[nt][2] - d0);
+      dpt[nt][3] = st[nt][3] * (dpt[nt][3] - d1);
+    }
+    // dV += P^T dO, dK += dS^T Q over the tile's 16 queries, this half's columns
+#pragma unroll
+    for (int kt = 0; kt < 2; ++kt) {
+      uint32_t ph[4], pl[4], sh[4], sl[4];
+      acc_as_a<kSplit>(st[kt], ph, pl);
+      acc_as_a<kSplit>(dpt[kt], sh, sl);
+#pragma unroll
+      for (int dt = 0; dt < kHalfSteps; ++dt) {
+        uint32_t bfh[2], bfl[2];
+        b_cols<kSplit>(Gt, ld, kt * 8, c0 + dt * 8, g, t, bfh, bfl);
+        mma3<kSplit>(vacc[dt], ph, pl, bfh, bfl);
+        b_cols<kSplit>(Qt, ld, kt * 8, c0 + dt * 8, g, t, bfh, bfl);
+        mma3<kSplit>(kacc[dt], sh, sl, bfh, bfl);
+      }
+    }
+  }
+
+  const int r_lo = key0 + g, r_hi = r_lo + 8;
+#pragma unroll
+  for (int dt = 0; dt < kHalfSteps; ++dt) {
+    const int col = c0 + dt * 8 + 2 * t;
+    if (r_lo < S) {
+      store_pair(dk + base + (size_t)r_lo * D, col, hd, kacc[dt][0] * scale, kacc[dt][1] * scale);
+      store_pair(dv + base + (size_t)r_lo * D, col, hd, vacc[dt][0], vacc[dt][1]);
+    }
+    if (r_hi < S) {
+      store_pair(dk + base + (size_t)r_hi * D, col, hd, kacc[dt][2] * scale, kacc[dt][3] * scale);
+      store_pair(dv + base + (size_t)r_hi * D, col, hd, vacc[dt][2], vacc[dt][3]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Heads above 256 columns: the same TF32 products over head slices
+// ---------------------------------------------------------------------------
+//
+// A head wider than kWideHead columns fits neither the narrow kernels (their
+// register-resident fragments cover the whole head) nor the one-pass wide
+// kernels (their staged tiles do). These kernels walk the
 // head in slices of kSlice columns. Dot products over the head (Q K^T,
 // dO V^T) accumulate slice by slice, the register-side operand read from
 // device memory (L1/L2) one 8-column step at a time and the tile-side
@@ -1051,11 +1655,11 @@ __device__ __forceinline__ void store_slice(T* __restrict__ out, size_t base, in
   }
 }
 
-// Forward, wide heads: grid (B * H, query tiles, output slices). shared
+// Forward, heads above 256: grid (B * H, query tiles, output slices). shared
 // memory: one K slice and one V slice of a key tile
 template <typename T, bool kLse>
 __global__ void __launch_bounds__(kThreads)
-attention_wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+attention_sliced_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
                           int S, int H, int hd, float scale_log2e) {
   constexpr bool kSplit = std::is_same<T, float>::value;
@@ -1123,12 +1727,12 @@ attention_wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// Backward, wide heads, first kernel: delta and one output slice of dQ for
+// Backward, heads above 256, first kernel: delta and one output slice of dQ for
 // kTile query rows; grid (B * H, query tiles, output slices). shared
 // memory: one K slice and one V slice of a key tile
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-attention_wide_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+attention_sliced_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                              const T* __restrict__ v, const T* __restrict__ o,
                              const T* __restrict__ dout, const float* __restrict__ lse,
                              float* __restrict__ delta, T* __restrict__ dq, int S, int H, int hd,
@@ -1212,13 +1816,13 @@ attention_wide_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_slice(dq, base, r_lo, out0, S, D, hd, t, dacc, scale);
 }
 
-// Backward, wide heads, second kernel: one output slice of dV (even
+// Backward, heads above 256, second kernel: one output slice of dV (even
 // blockIdx.z) or dK (odd) for kTile keys, after the first kernel has written
 // delta; grid (B * H, key tiles, 2 x output slices). shared memory: one Q
 // slice and one dO slice of a query tile, then L and delta of its queries
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-attention_wide_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+attention_sliced_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                const T* __restrict__ v, const T* __restrict__ dout,
                                const float* __restrict__ lse, const float* __restrict__ delta,
                                T* __restrict__ dk, T* __restrict__ dv, int S, int H, int hd,
@@ -1377,25 +1981,73 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
-size_t wide_shared_bytes(bool with_vectors) {
+size_t sliced_shared_bytes(bool with_vectors) {
   return sizeof(float) * (2 * (size_t)tile_floats<kSlice>() + (with_vectors ? 2 * kTile : 0));
+}
+
+template <typename T>
+cudaError_t launch_sliced_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
+                            int B, int S, int H, int hd, float scale, cudaStream_t s) {
+  const size_t bytes = sliced_shared_bytes(false);
+  const dim3 grid(B * H, (S + kTile - 1) / kTile, (hd + kSlice - 1) / kSlice);
+  if (lse) {
+    cudaError_t err = allow_shared(attention_sliced_fwd_kernel<T, true>, bytes);
+    if (err != cudaSuccess) return err;
+    attention_sliced_fwd_kernel<T, true><<<grid, kThreads, bytes, s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(o), lse, S, H, hd, scale * kLog2e);
+  } else {
+    cudaError_t err = allow_shared(attention_sliced_fwd_kernel<T, false>, bytes);
+    if (err != cudaSuccess) return err;
+    attention_sliced_fwd_kernel<T, false><<<grid, kThreads, bytes, s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(o), lse, S, H, hd, scale * kLog2e);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_sliced_bwd(const void* q, const void* k, const void* v, const void* o,
+                            const void* dout, const float* lse, float* delta, void* dq,
+                            void* dk, void* dv, int B, int S, int H, int hd, float scale,
+                            cudaStream_t s) {
+  const int n_slices = (hd + kSlice - 1) / kSlice;
+  const dim3 grid(B * H, (S + kTile - 1) / kTile, n_slices);
+  const size_t dq_bytes = sliced_shared_bytes(false);
+  cudaError_t err = allow_shared(attention_sliced_bwd_dq_kernel<T>, dq_bytes);
+  if (err != cudaSuccess) return err;
+  attention_sliced_bwd_dq_kernel<T><<<grid, kThreads, dq_bytes, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(o), static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq),
+      S, H, hd, scale, scale * kLog2e);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t kv_bytes = sliced_shared_bytes(true);
+  err = allow_shared(attention_sliced_bwd_dkdv_kernel<T>, kv_bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 kv_grid(B * H, (S + kTile - 1) / kTile, 2 * n_slices);
+  attention_sliced_bwd_dkdv_kernel<T><<<kv_grid, kThreads, kv_bytes, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), S, H,
+      hd, scale, scale * kLog2e);
+  return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_wide_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                             int B, int S, int H, int hd, float scale, cudaStream_t s) {
-  const size_t bytes = wide_shared_bytes(false);
-  const dim3 grid(B * H, (S + kTile - 1) / kTile, (hd + kSlice - 1) / kSlice);
+  constexpr size_t bytes = wide_fwd_bytes<T>();
+  const dim3 grid(B * H, (S + kWideRows - 1) / kWideRows);
   if (lse) {
     cudaError_t err = allow_shared(attention_wide_fwd_kernel<T, true>, bytes);
     if (err != cudaSuccess) return err;
-    attention_wide_fwd_kernel<T, true><<<grid, kThreads, bytes, s>>>(
+    attention_wide_fwd_kernel<T, true><<<grid, kWideThreads, bytes, s>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<T*>(o), lse, S, H, hd, scale * kLog2e);
   } else {
     cudaError_t err = allow_shared(attention_wide_fwd_kernel<T, false>, bytes);
     if (err != cudaSuccess) return err;
-    attention_wide_fwd_kernel<T, false><<<grid, kThreads, bytes, s>>>(
+    attention_wide_fwd_kernel<T, false><<<grid, kWideThreads, bytes, s>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<T*>(o), lse, S, H, hd, scale * kLog2e);
   }
@@ -1407,31 +2059,30 @@ cudaError_t launch_wide_bwd(const void* q, const void* k, const void* v, const v
                             const void* dout, const float* lse, float* delta, void* dq,
                             void* dk, void* dv, int B, int S, int H, int hd, float scale,
                             cudaStream_t s) {
-  const int n_slices = (hd + kSlice - 1) / kSlice;
-  const dim3 grid(B * H, (S + kTile - 1) / kTile, n_slices);
-  const size_t dq_bytes = wide_shared_bytes(false);
-  cudaError_t err = allow_shared(attention_wide_bwd_dq_kernel<T>, dq_bytes);
+  const dim3 grid(B * H, (S + kWideRows - 1) / kWideRows);
+  cudaError_t err = allow_shared(attention_wide_bwd_dq_kernel<T>, wide_dq_bytes<T>());
   if (err != cudaSuccess) return err;
-  attention_wide_bwd_dq_kernel<T><<<grid, kThreads, dq_bytes, s>>>(
+  attention_wide_bwd_dq_kernel<T><<<grid, kWideThreads, wide_dq_bytes<T>(), s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(o), static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq),
       S, H, hd, scale, scale * kLog2e);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t kv_bytes = wide_shared_bytes(true);
-  err = allow_shared(attention_wide_bwd_dkdv_kernel<T>, kv_bytes);
+  err = allow_shared(attention_wide_bwd_dkdv_kernel<T>, wide_dkdv_bytes<T>());
   if (err != cudaSuccess) return err;
-  const dim3 kv_grid(B * H, (S + kTile - 1) / kTile, 2 * n_slices);
-  attention_wide_bwd_dkdv_kernel<T><<<kv_grid, kThreads, kv_bytes, s>>>(
+  attention_wide_bwd_dkdv_kernel<T><<<grid, kWideThreads, wide_dkdv_bytes<T>(), s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), S, H,
       hd, scale, scale * kLog2e);
   return cudaGetLastError();
 }
 
-// head_dim -> the instantiated tile width (32, 64 or 128), 0 beyond (the
-// wide kernels)
-int padded_head(int hd) { return hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128 : 0; }
+// head_dim -> the instantiated tile width: 32, 64 or 128 (the narrow
+// kernels), kWideHead (the one-pass wide kernels), 0 beyond (the sliced
+// kernels)
+int padded_head(int hd) {
+  return hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128 : hd <= kWideHead ? kWideHead : 0;
+}
 
 template <typename T, int HD>
 struct Instance {
@@ -1440,7 +2091,7 @@ struct Instance {
 };
 
 // calls launch(Instance<input type, tile width>{}) for this type and head
-// size; width 0 stands for the wide kernels
+// size; width 0 stands for the sliced kernels
 template <typename F>
 cudaError_t dispatch(int hd, int is_bf16, F&& launch) {
   switch (padded_head(hd)) {
@@ -1450,6 +2101,9 @@ cudaError_t dispatch(int hd, int is_bf16, F&& launch) {
       return is_bf16 ? launch(Instance<__nv_bfloat16, 64>{}) : launch(Instance<float, 64>{});
     case 128:
       return is_bf16 ? launch(Instance<__nv_bfloat16, 128>{}) : launch(Instance<float, 128>{});
+    case kWideHead:
+      return is_bf16 ? launch(Instance<__nv_bfloat16, kWideHead>{})
+                     : launch(Instance<float, kWideHead>{});
     default:
       return is_bf16 ? launch(Instance<__nv_bfloat16, 0>{}) : launch(Instance<float, 0>{});
   }
@@ -1458,15 +2112,22 @@ cudaError_t dispatch(int hd, int is_bf16, F&& launch) {
 }  // namespace
 
 // q, k, v, o: contiguous (B, S, H*hd), 16-byte aligned, f32 (is_bf16 = 0) or
-// bf16. lse: null, or (B, H, S) f32 for the row log-sum-exp. use_mma picks the
-// bf16 serving kernel (hd 32 or 64, scale > 0 only: it takes the row maximum
-// before scaling); else the TF32 kernel, hd up to 128, and the wide kernel
-// above that.
+// bf16. lse: null, or (B, H, S) f32 for the row log-sum-exp. kernel 0: the
+// TF32 kernel, hd up to 128, the one-pass wide kernel up to 256 and the
+// sliced kernel above that; 1: the bf16 serving kernel (hd 32 or 64, scale >
+// 0 only: it takes the row maximum before scaling); 2: the sliced kernel at
+// any hd above 128 (what the one-pass wide kernel replaced, for comparison).
 extern "C" int attention_fwd_launch(const void* q, const void* k, const void* v, void* o,
                                     float* lse, int B, int S, int H, int hd, float scale,
-                                    int is_bf16, int use_mma, void* stream) {
+                                    int is_bf16, int kernel, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (use_mma) {
+  if (kernel == 2) {
+    if (hd <= 128) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(
+        is_bf16 ? launch_sliced_fwd<__nv_bfloat16>(q, k, v, o, lse, B, S, H, hd, scale, s)
+                : launch_sliced_fwd<float>(q, k, v, o, lse, B, S, H, hd, scale, s));
+  }
+  if (kernel == 1) {
     if (!is_bf16 || !(scale > 0.0f)) return static_cast<int>(cudaErrorInvalidValue);
     if (hd == 32)
       return static_cast<int>(lse ? launch_mma<32, true>(q, k, v, o, lse, B, S, H, scale, s)
@@ -1479,6 +2140,8 @@ extern "C" int attention_fwd_launch(const void* q, const void* k, const void* v,
   return static_cast<int>(dispatch(hd, is_bf16, [&](auto inst) {
     using I = decltype(inst);
     if constexpr (I::width == 0)
+      return launch_sliced_fwd<typename I::type>(q, k, v, o, lse, B, S, H, hd, scale, s);
+    else if constexpr (I::width == kWideHead)
       return launch_wide_fwd<typename I::type>(q, k, v, o, lse, B, S, H, hd, scale, s);
     else
       return launch_tf32_fwd<typename I::type, I::width>(q, k, v, o, lse, B, S, H, hd, scale, s);
@@ -1496,6 +2159,9 @@ extern "C" int attention_bwd_launch(const void* q, const void* k, const void* v,
   return static_cast<int>(dispatch(hd, is_bf16, [&](auto inst) {
     using I = decltype(inst);
     if constexpr (I::width == 0)
+      return launch_sliced_bwd<typename I::type>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S,
+                                                 H, hd, scale, s);
+    else if constexpr (I::width == kWideHead)
       return launch_wide_bwd<typename I::type>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H,
                                                hd, scale, s);
     else

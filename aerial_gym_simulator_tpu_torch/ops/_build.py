@@ -3,8 +3,9 @@
 Each kernel source in ``csrc/`` has a plain ``extern "C"`` interface (no
 PyTorch headers, so a build takes seconds). It is compiled for ``sm_90a``
 into ``_build/`` at first use, under a name that carries a digest of the
-source and the flags, and loaded as a shared library. ``build_all`` starts
-one ``nvcc`` per source at the same time.
+source and the flags, and loaded as a shared library, with nvcc's log
+(ptxas's registers and spills per kernel) kept beside it. ``build_all``
+starts one ``nvcc`` per source at the same time.
 """
 
 from __future__ import annotations
@@ -53,18 +54,21 @@ class KernelLibrary:
         return proc, tmp
 
     def _finish(self, started) -> str:
+        log_path = self.path().with_suffix(".log")
         if started is None:
-            return ""
+            return log_path.read_text() if log_path.exists() else ""
         proc, tmp = started
         stdout, stderr = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on csrc/{self.name}.cu "
                                f"({proc.returncode}):\n{stderr}")
+        log_path.write_text(stdout + stderr)
         os.replace(tmp, self.path())
         return stdout + stderr
 
     def build(self) -> str:
-        """Compile the source; returns nvcc's log (empty when cached)."""
+        """Compile the source unless it was built already; returns nvcc's
+        log of the build."""
         return self._finish(self._start())
 
     def load(self) -> ctypes.CDLL:

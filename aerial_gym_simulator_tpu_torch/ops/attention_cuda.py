@@ -24,9 +24,13 @@ else, f32 above all, the TF32 tensor-core kernel, with each f32 product
 split into three TF32 products (3xTF32) for f32 accuracy. Backward: two
 TF32 tensor-core kernels (delta and dQ over query tiles, then dK and dV
 over key tiles), 3xTF32 for f32, deterministic, any sequence length. The
-TF32 kernels are built for head sizes up to 128; a wider head (the JAX
-kernel takes any) runs their sliced counterparts, which walk the head in
-128-column slices, so every head size runs on the card.
+TF32 kernels are built for head sizes up to 128. Heads of 129 to 256
+columns (``WIDE_HEAD``) run the one-pass wide kernels, whose blocks hold the
+whole head of their rows in shared memory and take every product once;
+wider heads (the JAX kernel takes any) run the sliced kernels, which walk
+the head in 128-column slices, so every head size runs on the card. Each
+family counts its launches apart (``LAUNCHES``, keys from
+``kernel_family``).
 """
 
 from __future__ import annotations
@@ -43,12 +47,22 @@ from .attention import (attention_backward_reference, attention_lse_reference,
 
 LIBRARY = KernelLibrary("attention")
 MMA_HEAD_DIMS = (32, 64)           # head sizes the bf16 serving kernel is built for
+WIDE_HEAD = 256                    # the widest head the one-pass wide kernels take
+FAMILIES = ("", "_wide", "_sliced")
 
-# calls of each kernel's wrapper that launched it, counted where it launches:
-# one per forward, one per backward (whose two kernels launch together)
-LAUNCHES = {"attention_fwd": 0, "attention_bwd": 0}
+# calls of each kernel's wrapper that launched it, counted where it launches
+# and by the family of kernels that ran (kernel_family): one per forward, one
+# per backward (whose two kernels launch together)
+LAUNCHES = {f"attention_{d}{f}": 0 for f in FAMILIES for d in ("fwd", "bwd")}
 
 _lib = None
+
+
+def kernel_family(head_dim: int) -> str:
+    """The suffix of the kernels ``csrc/attention.cu`` dispatches a head size
+    to: "" (the narrow kernels, up to 128 columns), "_wide" (the one-pass
+    wide kernels, up to ``WIDE_HEAD``) or "_sliced" (wider)."""
+    return "" if head_dim <= 128 else "_wide" if head_dim <= WIDE_HEAD else "_sliced"
 
 
 def _load():
@@ -106,12 +120,14 @@ def _raise_on(rc: int, lib, what: str):
 
 def attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
                       sm_scale: Optional[float] = None, use_mma: Optional[bool] = None,
-                      want_lse: bool = False):
+                      want_lse: bool = False, sliced: bool = False):
     """The forward without autograd -> o, or (o, L) with ``want_lse`` (L the
     row log-sum-exp, (B, H, S) f32): kernel on CUDA tensors, plain version
     on CPU tensors. ``use_mma`` overrides the choice between the two
     kernels in the source (a debug switch; None picks by dtype and head
-    size)."""
+    size). ``sliced`` runs the sliced kernel at a head size of 129-256 as
+    well, where the one-pass wide kernel would run (a debug switch, to time
+    one against the other on the same tensors)."""
     hd, sm_scale, on_cpu = _prepare(q, num_heads, sm_scale)
     if on_cpu:
         out = attention_reference(q, k, v, num_heads, sm_scale)
@@ -126,6 +142,8 @@ def attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_hea
     elif use_mma and not mma_takes_it:
         raise ValueError(f"the bf16 serving kernel takes bf16 with head_dim in {MMA_HEAD_DIMS} "
                          "and a positive scale")
+    if sliced and hd <= 128:
+        raise ValueError(f"the sliced kernel takes head sizes above 128, not {hd}")
     out = torch.empty_like(q)
     lse = torch.empty((B, num_heads, S), device=q.device, dtype=torch.float32) if want_lse else None
     if B == 0 or S == 0:
@@ -135,9 +153,10 @@ def attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_hea
     with torch.cuda.device(q.device):
         rc = lib.attention_fwd_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                                       lse.data_ptr() if want_lse else None, B, S, num_heads, hd,
-                                      float(sm_scale), int(is_bf16), int(use_mma), stream)
+                                      float(sm_scale), int(is_bf16),
+                                      2 if sliced else int(use_mma), stream)
     _raise_on(rc, lib, "forward")
-    LAUNCHES["attention_fwd"] += 1
+    LAUNCHES["attention_fwd" + ("_sliced" if sliced else kernel_family(hd))] += 1
     return (out, lse) if want_lse else out
 
 
@@ -175,7 +194,7 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                       num_heads, hd, float(sm_scale),
                                       int(q.dtype == torch.bfloat16), stream)
     _raise_on(rc, lib, "backward")
-    LAUNCHES["attention_bwd"] += 1
+    LAUNCHES["attention_bwd" + kernel_family(hd)] += 1
     return dq, dk, dv
 
 

@@ -7,7 +7,9 @@ Phases, each printed on its own line:
   1. build   - compile the ray-cast kernel in its four modes (csrc/raycast.cu)
                and the fused attention kernels, forward and backward
                (csrc/attention.cu), with nvcc, side by side, and two A/B
-               builds of the ray cast (-fmad=true; -prec-div=false);
+               builds of the ray cast (-fmad=true; -prec-div=false); ptxas's
+               registers, spills and static shared memory of every kernel by
+               its symbol;
   2. device  - the card's name and power limit (nvidia-smi);
   3. kernel  - the ray cast in depth (K1) and depth+seg (K2) mode against
                its plain PyTorch version on the card, on the obstacle env at
@@ -19,15 +21,17 @@ Phases, each printed on its own line:
                miss, rgb in [0, 1], broad phase on == off; then all four on
                the 128x512 lidar grid at 64 envs.
                The attention forward (K5) against its plain version on
-               numpy-seeded q, k, v: f32 at eight shapes, the ViT training
-               shape (64, 225, 256) at 8 and 4 heads and head sizes 256 and
-               512 among them, within atol/rtol 1e-4, bf16 within 0.05; a
+               numpy-seeded q, k, v: f32 at nine shapes, the ViT training
+               shape (64, 225, 256) at 8 and 4 heads and head sizes 136 and
+               256 (the one-pass wide kernels) and 512 (the sliced kernels)
+               among them, within atol/rtol 1e-4, bf16 within 0.05; a
                non-contiguous input must raise.
                The attention backward (K6) against its plain version at the
                ViT training shape f32, at head_dim 64 f32 (ragged, S = 225,
-               and S = 300) and head_dim 256 and 512 within 2e-4, at (1024,
-               225, 256) bf16 and at head_dim 64 and 256 bf16 within 0.02,
-               and a second call on the same inputs bit for bit;
+               and S = 300) and head_dim 136, 256 (also at the one-head
+               training shape (64, 225, 256, 1)) and 512 within 2e-4, at
+               (1024, 225, 256) bf16 and at head_dim 64 and 256 bf16 within
+               0.02, and a second call on the same inputs bit for bit;
   4. slice   - the obstacle env + depth camera at 16384 envs through the
                user entry points: env_step + render_camera(want_seg=False)
                with zero actions (the bench loop), then EnvManager.step +
@@ -53,10 +57,17 @@ Phases, each printed on its own line:
                sampling), its least possible time on this card and, for K5
                and K6, torch's scaled_dot_product_attention (forward,
                backward) on the same tensors: K5 at the serving shape in bf16
-               and at the training shape in f32 (8, 4 and 1 heads: head_dim
-               32, 64, 256), K6 the same way (8, 4 and 1 heads f32, and bf16
-               at the serving shape), timed as autograd runs it (from the
-               forward's output and L) and as a whole direct call; the
+               and at the training shape in f32 (8 and 4 heads: head_dim 32,
+               64), K6 the same way (8 and 4 heads f32, and bf16 at the
+               serving shape), timed as autograd runs it (from the forward's
+               output and L) and as a whole direct call; the one-pass wide
+               kernels at the one-head training shape (64, 225, 256, 1) f32,
+               forward and backward (each backward kernel's device time by
+               torch.profiler), and the wide forward in bf16 at (1024, 225,
+               256, 1), each forward beside the sliced kernel it replaced on
+               the same tensors; the sliced kernels at head_dim 512 (64, 225,
+               512, 1) f32. Each attention timing holds its output against
+               the plain version at its tolerance. The
                "flash" path (f32 kernel on f32 copies) at the serving shape
                and the shipped encoder re-tagged "flash"; K3 and K4 at the
                modalities path's shape and K2, K3 at the lidar path's. The
@@ -72,6 +83,10 @@ Phases, each printed on its own line:
                step, the checkpoint read back through load_encoder_pickle,
                the step's split and peak memory; then 5 steps of the conv
                VAE;
+     train1  - train_vae at the same width with one head (head_dim 256) for
+               20 steps: finite falling loss, K1 once and the one-pass wide
+               forward and backward four times per step each (counted apart
+               from the narrow kernels), the step's split and peak memory;
   8. ppo     - position PPO at PPOConfig's defaults (8192 envs x 32 steps,
                minibatch 8192, 4 epochs) for 3 iterations: finite metrics,
                parameters moved, lr inside its bounds, env-steps/s and the
@@ -89,6 +104,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -120,8 +136,9 @@ ATTENTION_CASES = [
     ((2, 225, 256, 4), "float32", 1e-4),        # head_dim 64
     ((64, 225, 256, 8), "bfloat16", 0.05),
     ((2, 100, 256, 4), "bfloat16", 0.05),       # head_dim 64
-    ((2, 225, 256, 1), "float32", 1e-4),        # head_dim 256: the sliced kernel
-    ((1, 225, 512, 1), "float32", 1e-4),        # head_dim 512
+    ((2, 225, 256, 1), "float32", 1e-4),        # head_dim 256: the one-pass wide kernel
+    ((2, 65, 272, 2), "float32", 1e-4),         # head_dim 136, a short last key tile
+    ((1, 225, 512, 1), "float32", 1e-4),        # head_dim 512: the sliced kernel
     ((2, 225, 512, 2), "bfloat16", 0.05),       # head_dim 256 in bf16
 ]
 ATTENTION_MAIN_SHAPE = (NAV_ENVS, 225, 256, 8)   # the shipped ViT encoder's
@@ -134,7 +151,12 @@ TRAIN_ARGS = ["--arch", "vit", "--vit_attn", "fused", "--vit_dim", "256", "--vit
               "--vit_heads", "8", "--batch", str(TRAIN_BATCH), "--image_h", "135",
               "--image_w", "240", "--log_every", "1"]
 ATTENTION_TRAIN_SHAPE = (TRAIN_BATCH, 225, 256, 8)      # f32: K6's main path
-WIDE_HEAD_SHAPE = (TRAIN_BATCH, 225, 256, 1)            # head_dim 256: the sliced kernels
+WIDE_HEAD_SHAPE = (TRAIN_BATCH, 225, 256, 1)            # head_dim 256: the one-pass wide kernels
+WIDE_SERVING_SHAPE = (NAV_ENVS, 225, 256, 1)            # the wide forward in bf16 at the serving batch
+SLICED_SHAPE = (TRAIN_BATCH, 225, 512, 1)               # head_dim 512: the sliced kernels
+# train_vae at the shipped width with one head: head_dim 256, the wide kernels
+TRAIN_WIDE_STEPS = 20
+TRAIN_WIDE_ARGS = TRAIN_ARGS + ["--vit_heads", "1"]      # argparse keeps the last
 # (B, S, D, heads), dtype name, atol = rtol
 ATTENTION_BWD_CASES = [
     (ATTENTION_TRAIN_SHAPE, "float32", 2e-4),
@@ -143,8 +165,10 @@ ATTENTION_BWD_CASES = [
     ((2, 225, 256, 4), "float32", 2e-4),        # head_dim 64 at the ViT sequence
     ((1, 300, 256, 4), "float32", 2e-4),        # past the old shared-memory limit
     ((2, 225, 256, 4), "bfloat16", 0.02),       # head_dim 64
-    ((2, 225, 256, 1), "float32", 2e-4),        # head_dim 256: the sliced kernels
-    ((1, 225, 512, 1), "float32", 2e-4),        # head_dim 512
+    ((2, 225, 256, 1), "float32", 2e-4),        # head_dim 256: the one-pass wide kernels
+    (WIDE_HEAD_SHAPE, "float32", 2e-4),         # their one-head training path: 1.94 waves
+    ((2, 65, 272, 2), "float32", 2e-4),         # head_dim 136, a short last tile
+    ((1, 225, 512, 1), "float32", 2e-4),        # head_dim 512: the sliced kernels
     ((2, 225, 512, 2), "bfloat16", 0.02),       # head_dim 256 in bf16
 ]
 PPO_ITERATIONS = 3
@@ -200,6 +224,28 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_kernels(build_log: str) -> dict:
+    """Registers, spill stores and loads (bytes) and static shared memory
+    (bytes) of each kernel in an ``nvcc -Xptxas -v`` log, by its mangled
+    symbol (which holds the kernel's name)."""
+    out, name = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+        elif name is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                out[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                smem = re.search(r"(\d+) bytes smem", line)
+                out[name].update(registers=int(m.group(1)),
+                                 static_smem=int(smem.group(1)) if smem else 0)
+    return out
 
 
 # the keyword arguments of each ray-cast mode
@@ -382,9 +428,10 @@ def numpy_tensors(torch, shape, dtype, device, n=3, seed=0):
 
 def compare_attention(torch, ac, attention_reference, device):
     """K5 against its plain version on the card; returns the largest error
-    seen on the bf16 cases (the serving path's type) and the error at the
-    training path's shape in f32."""
-    worst, train_err = 0.0, None
+    seen on the bf16 cases (the serving path's type), the error at the
+    training path's shape in f32 and the largest error of each kernel family
+    (ac.kernel_family)."""
+    worst, train_err, by_family = 0.0, None, {f: 0.0 for f in ac.FAMILIES}
     for shape, dtype_name, tol in ATTENTION_CASES:
         dtype = getattr(torch, dtype_name)
         q, k, v = numpy_tensors(torch, shape, dtype, device)
@@ -399,6 +446,8 @@ def compare_attention(torch, ac, attention_reference, device):
             f"(atol=rtol={tol})")
         if not bool((diff <= tol + tol * ref.float().abs()).all()):
             raise AssertionError(f"attention {shape} {dtype_name}: max_abs_err {err}")
+        family = ac.kernel_family(shape[2] // shape[3])
+        by_family[family] = max(by_family[family], err)
         if dtype_name == "bfloat16":
             worst = max(worst, err)
         elif shape == ATTENTION_TRAIN_SHAPE:
@@ -410,7 +459,29 @@ def compare_attention(torch, ac, attention_reference, device):
         log("kernel attention_fwd: non-contiguous input refused")
     else:
         raise AssertionError("attention: a non-contiguous input was accepted")
-    return worst, train_err
+    return worst, train_err, by_family
+
+
+def attention_counts(ac, **counts):
+    """The attention wrapper's launch counts by family: 0, or as given."""
+    return {k: counts.get(k, 0) for k in ac.LAUNCHES}
+
+
+def wide_record(name, replaces, launches, rec, errs, ptxas, **subs):
+    """The kernels JSON record of a one-pass wide kernel family: its launches
+    on the one-head training path, its timing there (``rec``), its largest
+    error there and in the comparisons (``errs`` by family), ptxas's numbers
+    for its kernels, and sub-records; a sub-record of the sliced kernels (no
+    path launches them) carries their comparison error."""
+    for tag, sub in subs.items():
+        if tag.startswith("sliced"):
+            subs[tag] = dict(sub, launches=0,
+                             max_abs_err=max(sub["max_abs_err"], errs["_sliced"]))
+    kernel = "attention_wide_" + name.split("_")[1]     # fwd or bwd: the source's prefix
+    return {"name": name, "route": "cuda", "source": ATTENTION_SOURCE, "replaces": replaces,
+            "launches": launches[name], **rec,
+            "max_abs_err": max(rec["max_abs_err"], errs["_wide"]), **subs,
+            "ptxas": {k: v for k, v in ptxas.items() if kernel in k}}
 
 
 def zero_counts(*counters):
@@ -490,7 +561,7 @@ def nav_phase(torch, port, rc, ac, card):
         f"timeouts {timo:.0f} (success share {succ / max(ended, 1.0):.3f}), curriculum level "
         f"{float(task.nav_state.curriculum_level):.0f}, peak memory {peak_gb:.2f} GB")
     want = {"raycast_depth": NAV_STEPS, "raycast_seg": 0, "raycast_normals": 0,
-            "raycast_rgb": 0, "attention_fwd": 4 * NAV_STEPS, "attention_bwd": 0}
+            "raycast_rgb": 0, **attention_counts(ac, attention_fwd=4 * NAV_STEPS)}
     if launches != want:
         raise AssertionError(f"nav launches {launches}, expected {want}")
     if not (succ > 0 and succ / max(ended, 1.0) > NAV_SUCCESS_SHARE):
@@ -534,7 +605,7 @@ def nav_phase(torch, port, rc, ac, card):
         f"({dt / NAV_CONV_STEPS * 1e3:.2f} ms/step), launches {conv_launches}, "
         f"successes {succ:.0f} crashes {crash:.0f} timeouts {timo:.0f} | {card}")
     want = {"raycast_depth": NAV_CONV_STEPS, "raycast_seg": 0, "raycast_normals": 0,
-            "raycast_rgb": 0, "attention_fwd": 0, "attention_bwd": 0}
+            "raycast_rgb": 0, **attention_counts(ac)}
     if conv_launches != want:
         raise AssertionError(f"conv nav launches {conv_launches}, expected {want}")
     conv_task.close()
@@ -560,11 +631,22 @@ def time_attention(torch, ac, attention_reference, card, shape, dtype_name, tol)
     lib_b = event_ms(torch, lib_run, 20)
     ms_b = event_ms(torch, run, 20)
     plain_ms = event_ms(torch, lambda: attention_reference(q, k, v, H), 3)
-    other = ""
-    if dtype_name == "bfloat16":
+    other, sliced_ms = "", None
+    if dtype_name == "bfloat16" and D // H in ac.MMA_HEAD_DIMS:
         # the source's other kernel (TF32 products) on the same tensors
         tf32_ms = event_ms(torch, lambda: ac.attention_forward(q, k, v, H, use_mma=False), 3)
         other = f"TF32 kernel {tf32_ms:.3f} ms, "
+    if ac.kernel_family(D // H) == "_wide":
+        # the sliced kernel that the one-pass wide kernel replaced, on the
+        # same tensors, held to the same tolerance
+        sliced = lambda: ac.attention_forward(q, k, v, H, sliced=True)
+        sliced_ms = min(event_ms(torch, sliced, 5), event_ms(torch, sliced, 5))
+        ref = attention_reference(q, k, v, H).float()
+        diff = (sliced().float() - ref).abs()
+        if not bool((diff <= tol + tol * ref.abs()).all()):
+            raise AssertionError(f"sliced attention at {shape} {dtype_name}: max_abs_err "
+                                 f"{diff.max().item()}")
+        other = f"sliced kernel {sliced_ms:.3f} ms (max_abs_err {diff.max().item():.3g}), "
     out, ref = run(), attention_reference(q, k, v, H)
     lib = lib_run().transpose(1, 2)
     torch.cuda.synchronize()
@@ -581,8 +663,9 @@ def time_attention(torch, ac, attention_reference, card, shape, dtype_name, tol)
         f"({lib_a:.3f}, {lib_b:.3f}; its max_abs_err {lib_err:.3g}), max_abs_err {err:.3g} | "
         f"bound {b_ms:.3f} ms by {b_by} ({bounds}); share of the bound {b_ms / ms:.1%}, "
         f"library's {b_ms / lib_ms:.1%} | {card}")
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "max_abs_err": err}
+    rec = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "max_abs_err": err}
+    return rec if sliced_ms is None else dict(rec, sliced_ms=sliced_ms)
 
 
 def attention_bwd_bound_ms(shape, itemsize):
@@ -596,8 +679,9 @@ def attention_bwd_bound_ms(shape, itemsize):
 def compare_attention_bwd(torch, ac, attention_backward_reference, device):
     """K6 against its plain version on the card, and against itself: two
     launches on the same inputs must give the same bits. Returns the largest
-    error at the training shape (f32, the main path's type)."""
-    main_err = 0.0
+    error at the training shape (f32, the main path's type) and the largest
+    error of each kernel family (ac.kernel_family)."""
+    main_err, by_family = 0.0, {f: 0.0 for f in ac.FAMILIES}
     for shape, dtype_name, tol in ATTENTION_BWD_CASES:
         dtype = getattr(torch, dtype_name)
         q, k, v, do = numpy_tensors(torch, shape, dtype, device, n=4, seed=1)
@@ -621,6 +705,8 @@ def compare_attention_bwd(torch, ac, attention_backward_reference, device):
             f"(atol=rtol={tol}), second launch bit-equal")
         if shape == ATTENTION_TRAIN_SHAPE:
             main_err = worst
+        family = ac.kernel_family(shape[2] // shape[3])
+        by_family[family] = max(by_family[family], worst)
         del q, k, v, do, got, again, want
     torch.cuda.empty_cache()
     # the adversarial case: q and k scaled by 30, gradients must stay finite
@@ -629,15 +715,33 @@ def compare_attention_bwd(torch, ac, attention_backward_reference, device):
         if not torch.isfinite(g).all():
             raise AssertionError("attention_bwd: non-finite gradient at large logits")
     log("kernel attention_bwd: finite at logits of order 1e3")
-    return main_err
+    return main_err, by_family
 
 
-def time_attention_bwd(torch, ac, attention_backward_reference, card, shape, dtype_name):
+def device_ms_by_kernel(torch, fn, names, iters=10):
+    """Device time per call of fn of each kernel whose symbol holds one of
+    ``names``, from torch.profiler's CUDA activity; None where the trace
+    shows no device time for it."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    return {name: (sum(e.device_time_total for e in events if name in e.key) / iters / 1e3
+                   or None) for name in names}
+
+
+def time_attention_bwd(torch, ac, attention_backward_reference, card, shape, dtype_name, tol):
     """K6 at one shape: the kernels as autograd runs them (from the
     forward's output and L, as the library's backward has its own), the
     whole direct call (a forward launch to make them, then the backward),
     the plain backward, the backward of the library's fused attention on the
-    same tensors, and the bound."""
+    same tensors, and the bound; each gradient held against the plain one
+    at atol = rtol = tol. For the one-pass wide kernels also each kernel's
+    device time."""
     import torch.nn.functional as F
     B, S, D, H = shape
     dtype = getattr(torch, dtype_name)
@@ -659,22 +763,32 @@ def time_attention_bwd(torch, ac, attention_backward_reference, card, shape, dty
     ms_b = event_ms(torch, run, iters)
     direct_ms = event_ms(torch, lambda: ac.attention_backward(q, k, v, do, H), iters)
     plain_ms = event_ms(torch, lambda: attention_backward_reference(q, k, v, do, H), 3)
+    split = {}
+    if ac.kernel_family(D // H) == "_wide":
+        split = dict(zip(("dq_kernel_ms", "dkdv_kernel_ms"), device_ms_by_kernel(
+            torch, run, ("wide_bwd_dq", "wide_bwd_dkdv")).values()))
     got, want, lib_g = run(), attention_backward_reference(q, k, v, do, H), lib()
     torch.cuda.synchronize()
-    err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+    err = 0.0
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        diff = (a.float() - b.float()).abs()
+        err = max(err, diff.max().item())
+        if not bool((diff <= tol + tol * b.float().abs()).all()):
+            raise AssertionError(f"attention_bwd at {shape} {dtype_name}: {name} "
+                                 f"max_abs_err {diff.max().item()}")
     lib_err = max((a.transpose(1, 2).reshape(B, S, D).float() - b.float()).abs().max().item()
                   for a, b in zip(lib_g, want))
     itemsize = 2 if dtype_name == "bfloat16" else 4
     b_ms, b_by, bounds = attention_bwd_bound_ms(shape, itemsize)
     ms, lib_ms = min(ms_a, ms_b), min(lib_a, lib_b)
     log(f"timing attention_bwd {shape} {dtype_name}: kernels from o and L {ms:.3f} ms "
-        f"({ms_a:.3f}, {ms_b:.3f}), whole direct call {direct_ms:.3f} ms, plain "
-        f"{plain_ms:.2f} ms, scaled_dot_product_attention backward {lib_ms:.3f} ms "
+        f"({ms_a:.3f}, {ms_b:.3f}){f' {split}' if split else ''}, whole direct call "
+        f"{direct_ms:.3f} ms, plain {plain_ms:.2f} ms, scaled_dot_product_attention backward {lib_ms:.3f} ms "
         f"({lib_a:.3f}, {lib_b:.3f}; its max_abs_err {lib_err:.3g}), max_abs_err {err:.3g} | "
         f"bound {b_ms:.3f} ms by {b_by} ({bounds}); share of the bound {b_ms / ms:.1%}, "
         f"library's {b_ms / lib_ms:.1%} | {card}")
     return {"ms": ms, "direct_ms": direct_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err, **split}
 
 
 def flash_phase(torch, ac, attention_reference, card):
@@ -736,7 +850,7 @@ def flash_phase(torch, ac, attention_reference, card):
             latents[tag] = served.encode(images)
             torch.cuda.synchronize()
             launches = dict(ac.LAUNCHES)
-            if launches != {"attention_fwd": 4, "attention_bwd": 0}:
+            if launches != attention_counts(ac, attention_fwd=4):
                 raise AssertionError(f"{tag} encoder launches {launches}")
     lat_err = (latents["flash"] - latents["fused"]).abs().max().item()
     log(f"flash: the shipped ViT encoder re-tagged 'flash' served on {NAV_ENVS} images (bf16, "
@@ -758,16 +872,16 @@ def timed(torch, fn):
     return out, (time.perf_counter() - t) * 1e3
 
 
-def train_phase(torch, rc, ac, card):
-    """models/train_vae at full width through the functions its main calls;
-    returns the kernels' launch counts from the ViT run."""
+def train_vit(torch, rc, ac, card, argv, steps, want_attention):
+    """models/train_vae --arch vit at full width through the functions its
+    main calls (build_parser, train) for ``steps`` steps: finite loss that
+    falls (the mean of the last 5 below the first), K1 once per step and the
+    attention launches ``want_attention`` (family -> launches per step).
+    Returns (model, args, launches)."""
     from aerial_gym_simulator_tpu_torch.models import train_vae
-    from aerial_gym_simulator_tpu_torch.models.vae import vae_loss
-    from aerial_gym_simulator_tpu_torch.models.vit import DepthViT, ViTImageEncoder
-    from aerial_gym_simulator_tpu_torch.sensors.raycast_sensor import cast_inputs
-    from aerial_gym_simulator_tpu_torch.sim.convert import load_encoder_pickle, save_model_pickle
+    from aerial_gym_simulator_tpu_torch.models.vit import DepthViT
 
-    args = train_vae.build_parser().parse_args(TRAIN_ARGS + ["--steps", str(TRAIN_STEPS)])
+    args = train_vae.build_parser().parse_args(argv + ["--steps", str(steps)])
     torch.cuda.reset_peak_memory_stats()
     zero_counts(rc.LAUNCHES, ac.LAUNCHES)
     t0 = time.perf_counter()
@@ -777,25 +891,69 @@ def train_phase(torch, rc, ac, card):
     launches = {**rc.LAUNCHES, **ac.LAUNCHES}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [h["loss"] for h in history]
-    if not isinstance(model, DepthViT) or len(losses) != TRAIN_STEPS:
+    if not isinstance(model, DepthViT) or len(losses) != steps:
         raise AssertionError(f"train_vae returned {type(model).__name__}, {len(losses)} logs")
     if not all(math.isfinite(h[k]) for h in history for k in ("loss", "bce", "kld")):
         raise AssertionError(f"train_vae: non-finite loss in {losses}")
     last = sum(losses[-5:]) / 5.0
     n_params = sum(p.numel() for p in model.parameters())
-    steady = (history[-1]["wall_s"] - history[4]["wall_s"]) / (TRAIN_STEPS - 5) * 1e3
-    log(f"train: train_vae --arch vit --vit_attn fused dim 256 depth 4 heads 8, batch "
-        f"{TRAIN_BATCH}, 135x240, f32, {n_params / 1e6:.2f}M parameters: {TRAIN_STEPS} steps in "
-        f"{wall:.2f} s incl. set-up, {steady:.2f} ms/step after the first 5 | {card}")
+    steady = (history[-1]["wall_s"] - history[4]["wall_s"]) / (steps - 5) * 1e3
+    log(f"train: train_vae --arch vit --vit_attn fused dim {args.vit_dim} depth {args.vit_depth} "
+        f"heads {args.vit_heads}, batch {args.batch}, {args.image_h}x{args.image_w}, f32, "
+        f"{n_params / 1e6:.2f}M parameters: {steps} steps in {wall:.2f} s incl. set-up, "
+        f"{steady:.2f} ms/step after the first 5 | {card}")
     log(f"train: loss {losses[0]:.5f} -> {last:.5f} (mean of the last 5; bce "
         f"{history[-1]['bce']:.5f}, kld {history[-1]['kld']:.4f}), launches {launches}, "
         f"peak memory {peak_gb:.2f} GB")
     if not last < losses[0]:
         raise AssertionError(f"train_vae: loss did not fall: {losses[0]} -> {last}")
-    want = {"raycast_depth": TRAIN_STEPS, "raycast_seg": 0, "raycast_normals": 0,
-            "raycast_rgb": 0, "attention_fwd": 4 * TRAIN_STEPS, "attention_bwd": 4 * TRAIN_STEPS}
+    want = {"raycast_depth": steps, "raycast_seg": 0, "raycast_normals": 0, "raycast_rgb": 0,
+            **attention_counts(ac, **{k: n * steps for k, n in want_attention.items()})}
     if launches != want:
         raise AssertionError(f"train launches {launches}, expected {want}")
+    return model, args, launches
+
+
+def step_split(torch, model, args, env, state, card, tag):
+    """Where a train_vae step's time goes: its four pieces, synchronised
+    apart, on fresh renders of ``env``; logs them with the peak memory."""
+    from aerial_gym_simulator_tpu_torch.models import train_vae
+    from aerial_gym_simulator_tpu_torch.models.vae import vae_loss
+
+    optimizer = torch.optim.Adam(model.parameters(), lr=args.lr, eps=1e-8)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    hw = (args.image_h, args.image_w)
+    split = {"sample+render": 0.0, "forward": 0.0, "backward": 0.0, "optimizer": 0.0}
+    reps = 5
+    torch.cuda.reset_peak_memory_stats()
+    for rep in range(reps + 1):
+        with torch.no_grad():
+            (state, batch, targets), t_s = timed(
+                torch, lambda: train_vae.sample_batch(env.params, state, hw))
+        optimizer.zero_grad(set_to_none=True)
+        (loss, _), t_f = timed(torch, lambda: vae_loss(model, batch, generator=gen,
+                                                        targets=targets))
+        _, t_b = timed(torch, loss.backward)
+        _, t_o = timed(torch, optimizer.step)
+        if rep:                                            # the first pass warms up
+            for name, t in zip(split, (t_s, t_f, t_b, t_o)):
+                split[name] += t / reps
+    log(f"train{tag}: split " + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items())
+        + f" = {sum(split.values()):.2f} ms/step, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB | {card}")
+    return split
+
+
+def train_phase(torch, rc, ac, card):
+    """models/train_vae at full width through the functions its main calls;
+    returns the kernels' launch counts from the ViT run."""
+    from aerial_gym_simulator_tpu_torch.models import train_vae
+    from aerial_gym_simulator_tpu_torch.models.vit import ViTImageEncoder
+    from aerial_gym_simulator_tpu_torch.sensors.raycast_sensor import cast_inputs
+    from aerial_gym_simulator_tpu_torch.sim.convert import load_encoder_pickle, save_model_pickle
+
+    model, args, launches = train_vit(torch, rc, ac, card, TRAIN_ARGS, TRAIN_STEPS,
+                                      {"attention_fwd": 4, "attention_bwd": 4})
 
     # the checkpoint, written and read back through the loader the nav task uses
     env_args = ("base_sim", "env_with_obstacles", "base_quadrotor_with_camera",
@@ -827,26 +985,8 @@ def train_phase(torch, rc, ac, card):
     if arch != "vit" or encoder.blocks[0].attn.impl != "fused" or not err <= 1e-5:
         raise AssertionError(f"train_vae checkpoint round trip: {arch}, err {err}")
 
-    # where a step's time goes: its four pieces, synchronised apart
-    optimizer = torch.optim.Adam(model.parameters(), lr=args.lr, eps=1e-8)
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    split = {"sample+render": 0.0, "forward": 0.0, "backward": 0.0, "optimizer": 0.0}
-    reps = 5
-    for rep in range(reps + 1):
-        with torch.no_grad():
-            (state, batch, targets), t_s = timed(
-                torch, lambda: train_vae.sample_batch(env.params, state, (135, 240)))
-        optimizer.zero_grad(set_to_none=True)
-        (loss, _), t_f = timed(torch, lambda: vae_loss(model, batch, generator=gen,
-                                                        targets=targets))
-        _, t_b = timed(torch, loss.backward)
-        _, t_o = timed(torch, optimizer.step)
-        if rep:                                            # the first pass warms up
-            for name, t in zip(split, (t_s, t_f, t_b, t_o)):
-                split[name] += t / reps
-    log("train: split " + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items())
-        + f" = {sum(split.values()):.2f} ms/step | {card}")
-    del model, optimizer, env, served, encoder
+    step_split(torch, model, args, env, state, card, "")
+    del model, env, served, encoder
     torch.cuda.empty_cache()
 
     # a few steps of the conv VAE: no attention kernel
@@ -861,10 +1001,32 @@ def train_phase(torch, rc, ac, card):
     log(f"train: --arch conv {TRAIN_CONV_STEPS} steps, loss {conv_hist[0]['loss']:.5f} -> "
         f"{conv_hist[-1]['loss']:.5f}, {conv_ms:.2f} ms/step, launches {conv_launches} | {card}")
     want = {"raycast_depth": TRAIN_CONV_STEPS, "raycast_seg": 0, "raycast_normals": 0,
-            "raycast_rgb": 0, "attention_fwd": 0, "attention_bwd": 0}
+            "raycast_rgb": 0, **attention_counts(ac)}
     if conv_launches != want or not all(math.isfinite(h["loss"]) for h in conv_hist):
         raise AssertionError(f"conv train: launches {conv_launches}, history {conv_hist}")
     del conv_model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_wide_phase(torch, rc, ac, card):
+    """train_vae at the shipped width with one head (head_dim 256): the
+    one-pass wide kernels four times per step each, counted apart from the
+    narrow ones; the step's split and peak memory. Returns the launch
+    counts."""
+    import aerial_gym_simulator_tpu_torch as port
+    from aerial_gym_simulator_tpu_torch.models import train_vae
+
+    model, args, launches = train_vit(torch, rc, ac, card, TRAIN_WIDE_ARGS, TRAIN_WIDE_STEPS,
+                                      {"attention_fwd_wide": 4, "attention_bwd_wide": 4})
+    if model.encoder.blocks[0].attn.num_heads != 1:
+        raise AssertionError("the one-head run did not build a one-head ViT")
+    env = port.SimBuilder().build_env("base_sim", "env_with_obstacles",
+                                      "base_quadrotor_with_camera", "lee_velocity_control",
+                                      num_envs=TRAIN_BATCH, seed=123)
+    state, _, _ = train_vae.sample_batch(env.params, env.state, (args.image_h, args.image_w))
+    step_split(torch, model, args, env, state, card, " (one head)")
+    del model, env
     torch.cuda.empty_cache()
     return launches
 
@@ -1178,10 +1340,12 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.2f} s "
         f"({rc.LIBRARY.path().name}, {ac.LIBRARY.path().name}; "
         f"{len(ab_libs)} A/B builds of raycast.cu alongside)")
-    for label, build_log in zip(labels, build_logs):
-        for line in build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {label}:", line.strip())
+    ptxas = {label: ptxas_kernels(build_log) for label, build_log in zip(labels, build_logs)}
+    for label, kernels in ptxas.items():
+        for name, info in kernels.items():
+            log(f"  ptxas {label} {name}: {info.get('registers')} registers, spill stores "
+                f"{info.get('spill_stores')} / loads {info.get('spill_loads')} bytes, static "
+                f"shared memory {info.get('static_smem')} bytes")
 
     # 2. device
     card = card_line()
@@ -1228,8 +1392,10 @@ def main() -> int:
     lidar_args = cast_inputs(env.params, st, lp, st.lidar_mount_pos, st.lidar_mount_quat)
     check_modes(lidar_args, n_tri, "lidar64")
     del env, lidar_args, syn_args
-    errs["attention_fwd"], k5_train_err = compare_attention(torch, ac, attention_reference, dev)
-    errs["attention_bwd"] = compare_attention_bwd(torch, ac, attention_backward_reference, dev)
+    errs["attention_fwd"], k5_train_err, fwd_errs = compare_attention(torch, ac,
+                                                                      attention_reference, dev)
+    errs["attention_bwd"], bwd_errs = compare_attention_bwd(torch, ac, attention_backward_reference,
+                                                            dev)
 
     # 4. the slice at full width
     t0 = time.perf_counter()
@@ -1354,9 +1520,6 @@ def main() -> int:
     k5_train["max_abs_err"] = max(k5_train["max_abs_err"], k5_train_err)
     k5_hd64 = time_attention(torch, ac, attention_reference, card, (TRAIN_BATCH, 225, 256, 4),
                              "float32", 1e-4)
-    # the same width at one head: head_dim 256, the sliced kernel
-    k5_hd256 = time_attention(torch, ac, attention_reference, card, WIDE_HEAD_SHAPE, "float32",
-                              1e-4)
     # the flash path (JAX impl "flash", K7): the f32 kernel on f32 copies of
     # the serving shape's bf16 tensors, and a flash-tagged shipped encoder
     k7 = flash_phase(torch, ac, attention_reference, card)
@@ -1368,7 +1531,6 @@ def main() -> int:
         "library_ms": k5["library_ms"],
         "at_64x225x256_f32": k5_train,      # the training path; its launches join below
         "at_64x225x256_f32_head_dim_64": k5_hd64,
-        "at_64x225x256_f32_head_dim_256": k5_hd256,
         "flash_path_at_1024x225x256": k7,
     })
 
@@ -1376,6 +1538,10 @@ def main() -> int:
     train_launches = train_phase(torch, rc, ac, card)
     records[0]["launches"] += train_launches["raycast_depth"]
     records[0]["launches_train_path"] = train_launches["raycast_depth"]
+    # 7b. train_vae at one head: the one-pass wide kernels
+    wide_launches = train_wide_phase(torch, rc, ac, card)
+    records[0]["launches"] += wide_launches["raycast_depth"]
+    records[0]["launches_train_one_head_path"] = wide_launches["raycast_depth"]
     # each path's launches beside that path's own time and error: the top
     # level of K5's record is the nav path, the sub-record the training path
     records[2]["at_64x225x256_f32"]["launches"] = train_launches["attention_fwd"]
@@ -1383,14 +1549,12 @@ def main() -> int:
     # 6c. the attention backward at the training path's shape, and at the
     #     serving shape in bf16 beside it
     k6 = time_attention_bwd(torch, ac, attention_backward_reference, card,
-                            ATTENTION_TRAIN_SHAPE, "float32")
+                            ATTENTION_TRAIN_SHAPE, "float32", 2e-4)
     k6_bf16 = time_attention_bwd(torch, ac, attention_backward_reference, card,
-                                 ATTENTION_MAIN_SHAPE, "bfloat16")
+                                 ATTENTION_MAIN_SHAPE, "bfloat16", 0.02)
     # the same width at 4 heads: head_dim 64 in f32
     k6_hd64 = time_attention_bwd(torch, ac, attention_backward_reference, card,
-                                 (TRAIN_BATCH, 225, 256, 4), "float32")
-    k6_hd256 = time_attention_bwd(torch, ac, attention_backward_reference, card,
-                                  WIDE_HEAD_SHAPE, "float32")
+                                 (TRAIN_BATCH, 225, 256, 4), "float32", 2e-4)
     records.append({
         "name": "attention_bwd", "route": "cuda", "source": ATTENTION_SOURCE,
         "replaces": ATTENTION_BWD_REPLACES, "launches": train_launches["attention_bwd"],
@@ -1400,8 +1564,28 @@ def main() -> int:
         "direct_ms": k6["direct_ms"],
         "at_1024x225x256_bf16": k6_bf16,
         "at_64x225x256_f32_head_dim_64": k6_hd64,
-        "at_64x225x256_f32_head_dim_256": k6_hd256,
     })
+
+    # 6d. the one-pass wide kernels at the one-head training path's shape
+    #     (head_dim 256, f32), the wide forward in bf16 at the serving batch,
+    #     and the sliced kernels at head_dim 512
+    k5_wide = time_attention(torch, ac, attention_reference, card, WIDE_HEAD_SHAPE, "float32",
+                             1e-4)
+    k5_wide_bf16 = time_attention(torch, ac, attention_reference, card, WIDE_SERVING_SHAPE,
+                                  "bfloat16", 0.05)
+    k5_sliced = time_attention(torch, ac, attention_reference, card, SLICED_SHAPE, "float32",
+                               1e-4)
+    k6_wide = time_attention_bwd(torch, ac, attention_backward_reference, card, WIDE_HEAD_SHAPE,
+                                 "float32", 2e-4)
+    k6_sliced = time_attention_bwd(torch, ac, attention_backward_reference, card, SLICED_SHAPE,
+                                   "float32", 2e-4)
+    sliced_tag = "sliced_at_{}x{}x{}_f32".format(*SLICED_SHAPE[:3])
+    records.append(wide_record("attention_fwd_wide", ATTENTION_REPLACES, wide_launches,
+                               k5_wide, fwd_errs, ptxas["attention"],
+                               **{"at_{}x{}x{}_bf16".format(*WIDE_SERVING_SHAPE[:3]): k5_wide_bf16,
+                                  sliced_tag: k5_sliced}))
+    records.append(wide_record("attention_bwd_wide", ATTENTION_BWD_REPLACES, wide_launches,
+                               k6_wide, bwd_errs, ptxas["attention"], **{sliced_tag: k6_sliced}))
 
     # 8. position PPO, the state-step line, the shipped position policy
     ppo_phase(torch, port, card)

@@ -25,6 +25,12 @@ CASES = [
     pytest.param((2, 17, 128, 4), "float32", 1e-5, id="f32-2x17x128-h4"),
     pytest.param((1, 225, 128, 4), "float32", 1e-5, id="f32-1x225x128-h4"),
     pytest.param((2, 225, 256, 8), "bfloat16", 0.05, id="bf16-2x225x256-h8"),
+    # heads above 128 columns: 256 (the one-pass wide kernels' width; one head,
+    # then two), and 512 (the sliced kernels')
+    pytest.param((1, 33, 256, 1), "float32", 1e-5, id="f32-1x33x256-h1"),
+    pytest.param((1, 17, 512, 2), "float32", 1e-5, id="f32-1x17x512-h2"),
+    pytest.param((1, 33, 512, 2), "bfloat16", 0.05, id="bf16-1x33x512-h2"),
+    pytest.param((1, 17, 512, 1), "float32", 1e-5, id="f32-1x17x512-h1"),
 ]
 
 

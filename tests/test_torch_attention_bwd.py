@@ -40,6 +40,9 @@ SHAPES = [
     pytest.param((2, 128, 64, 2), id="2x128x64-h2"),       # no padding on the TPU
     pytest.param((2, 100, 64, 4), id="2x100x64-h4"),       # padded 100 -> 128 there
     pytest.param((1, 225, 128, 4), id="1x225x128-h4"),     # the ViT sequence
+    pytest.param((1, 33, 256, 1), id="1x33x256-h1"),       # head 256: the one-pass wide kernels
+    pytest.param((1, 17, 512, 2), id="1x17x512-h2"),       # head 256, two heads
+    pytest.param((1, 17, 512, 1), id="1x17x512-h1"),       # head 512: the sliced kernels
 ]
 
 
@@ -77,6 +80,19 @@ def test_plain_backward_matches_pallas_backward_interpreted(shape):
 def test_plain_backward_bf16_matches_pallas_backward_interpreted():
     shape = (2, 225, 128, 4)
     arrays = _inputs(shape, seed=2)
+    fused = lambda q, k, v, h: j_fused(q, k, v, h, interpret=True)
+    want = _jax_vjp(fused, arrays, shape[3], jnp.bfloat16)
+    got = attention_backward_reference(*(torch.from_numpy(a).bfloat16() for a in arrays),
+                                       shape[3])
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_allclose(g.float().numpy(), w, atol=0.05, rtol=0.05, err_msg=name)
+
+
+def test_plain_backward_bf16_at_head_256_matches_pallas_backward_interpreted():
+    """One head of 256 columns in bf16, the one-pass wide kernels' width."""
+    shape = (1, 33, 256, 1)
+    arrays = _inputs(shape, seed=12)
     fused = lambda q, k, v, h: j_fused(q, k, v, h, interpret=True)
     want = _jax_vjp(fused, arrays, shape[3], jnp.bfloat16)
     got = attention_backward_reference(*(torch.from_numpy(a).bfloat16() for a in arrays),
@@ -215,6 +231,71 @@ def _emulated_3xtf32(q, k, v, do, heads):
     dk = _mm3(ds.transpose(-1, -2), qh) * scale
     dv = _mm3(p.transpose(-1, -2), doh)
     return _merge_heads(o), lse, _merge_heads(dq), _merge_heads(dk), _merge_heads(dv)
+
+
+def _emulated_wide(q, k, v, do, heads):
+    """The one-pass wide kernels' f32 arithmetic in plain torch -> (o, L, dq,
+    dk, dv). Forward: two warpgroups each run an online softmax over their
+    16 keys of every 32-key tile (keys 0-15 and 16-31), 3xTF32 products, and
+    their (m, l, o) states are merged once at the end; a warpgroup that saw
+    no key keeps m = -inf and weighs nothing. Backward: P recomputed from the
+    merged L, its logits (and dP) summed from the head's two 128-column
+    halves (one warp each), dQ summed over 16-key tiles in order, dK and dV
+    over 16-query tiles in order."""
+    scale = 1.0 / np.sqrt(q.shape[2] // heads)
+    qh, kh, vh, doh = (_split_heads(x, heads) for x in (q, k, v, do))
+    S = q.shape[1]
+    states = []
+    for grp in (0, 1):
+        m = torch.full(qh.shape[:-1], -np.inf)
+        l, o = torch.zeros(qh.shape[:-1]), torch.zeros(qh.shape)
+        for k0 in range(16 * grp, S, 32):
+            kc, vc = kh[..., k0:k0 + 16, :], vh[..., k0:k0 + 16, :]
+            s = _mm3(qh, kc.transpose(-1, -2)) * scale
+            m_new = torch.maximum(m, s.amax(-1))
+            a, p = torch.exp(m - m_new), torch.exp(s - m_new[..., None])
+            l, o, m = l * a + p.sum(-1), o * a[..., None] + _mm3(p, vc), m_new
+        states.append((m, l, o))
+    (m0, l0, o0), (m1, l1, o1) = states
+    n = torch.maximum(m0, m1)
+    a0, a1 = torch.exp(m0 - n), torch.exp(m1 - n)
+    l = l0 * a0 + l1 * a1
+    o = (o0 * a0[..., None] + o1 * a1[..., None]) / l[..., None]
+    lse = n + torch.log(l)
+    delta = (doh * o).sum(-1, keepdim=True)
+    halves = lambda a, b: (_mm3(a[..., :128], b[..., :128].transpose(-1, -2))
+                           + _mm3(a[..., 128:], b[..., 128:].transpose(-1, -2)))
+    dq, dk, dv = torch.zeros(qh.shape), torch.zeros(qh.shape), torch.zeros(qh.shape)
+    for k0 in range(0, S, 16):
+        kc, vc = kh[..., k0:k0 + 16, :], vh[..., k0:k0 + 16, :]
+        p = torch.exp(halves(qh, kc) * scale - lse[..., None])
+        dq = dq + _mm3(p * (halves(doh, vc) - delta), kc)
+    for q0 in range(0, S, 16):
+        qc, dc = qh[..., q0:q0 + 16, :], doh[..., q0:q0 + 16, :]
+        pt = torch.exp(halves(kh, qc) * scale - lse[..., None, q0:q0 + 16])
+        dst = pt * (halves(vh, dc) - delta[..., q0:q0 + 16, 0][..., None, :])
+        dv, dk = dv + _mm3(pt, dc), dk + _mm3(dst, qc)
+    return (_merge_heads(o), lse, _merge_heads(dq * scale), _merge_heads(dk * scale),
+            _merge_heads(dv))
+
+
+@pytest.mark.parametrize("shape", [pytest.param((1, 225, 256, 1), id="1x225x256-h1"),
+                                   pytest.param((2, 17, 384, 2), id="2x17x384-h2")])
+def test_wide_kernels_order_matches_jax(shape):
+    """The one-pass wide kernels' order of sums (warpgroup merge, tiled
+    backward) with 3xTF32 products: forward within 1e-4 of the JAX oracle, L
+    within 1e-4 of the plain log-sum-exp, gradients within 2e-4 of jax.vjp
+    through the oracle; S = 17 leaves the second warpgroup one key."""
+    arrays = _inputs(shape, seed=11)
+    q, k, v, do = (torch.from_numpy(a) for a in arrays)
+    o, lse, *grads = _emulated_wide(q, k, v, do, shape[3])
+    want_o = np.asarray(attention_oracle(*(jnp.asarray(a) for a in arrays[:3]), shape[3]))
+    np.testing.assert_allclose(o.numpy(), want_o, atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(lse.numpy(), attention_lse_reference(q, k, shape[3]).numpy(),
+                               atol=1e-4, rtol=1e-4)
+    for name, g, w in zip(("dq", "dk", "dv"), grads,
+                          _jax_vjp(attention_oracle, arrays, shape[3])):
+        np.testing.assert_allclose(g.numpy(), w, atol=2e-4, rtol=2e-4, err_msg=name)
 
 
 def test_tf32_rounding_keeps_ten_mantissa_bits():

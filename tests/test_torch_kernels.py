@@ -569,8 +569,8 @@ def test_attention_autograd_runs_both_kernels(cuda_device):
     torch.testing.assert_close(saved[4], attention_lse_reference(q, k, 4), atol=1e-4, rtol=1e-4)
     # the transposes hand backward an output gradient with permuted strides
     (out.transpose(0, 1) * w.transpose(0, 1)).sum().backward()
-    assert ac.LAUNCHES == {"attention_fwd": before["attention_fwd"] + 1,
-                           "attention_bwd": before["attention_bwd"] + 1}
+    assert ac.LAUNCHES == dict(before, attention_fwd=before["attention_fwd"] + 1,
+                               attention_bwd=before["attention_bwd"] + 1)
     got = [t.grad.clone() for t in (q, k, v)]
     for t in (q, k, v):
         t.grad = None
@@ -632,13 +632,24 @@ def test_attention_lse_matches_plain_version(cuda_device, shape, dtype):
     assert torch.equal(out, plain)
 
 
-# heads wider than 128 columns: the sliced kernels. (B, S, D, heads)
+# heads wider than 128 columns: the one-pass wide kernels up to 256 columns,
+# the sliced kernels above. (B, S, D, heads)
 WIDE_SHAPES = [
     (2, 225, 256, 1),          # head 256, one head (ViT dim 256 at one head)
     (2, 225, 512, 2),          # head 256, two heads
-    (1, 225, 512, 1),          # head 512, one head (ViT dim 512 at one head)
-    (1, 225, 1024, 2),         # head 512, two heads
-    (2, 65, 268, 2),           # head 134: a ragged last slice, 4-byte copies
+    (1, 225, 512, 1),          # head 512, one head (ViT dim 512 at one head): sliced
+    (1, 225, 1024, 2),         # head 512, two heads: sliced
+    (2, 65, 268, 2),           # head 134: 4-byte copies
+    (3, 1, 256, 1),            # S = 1: the second warpgroup of the forward sees no key
+    (2, 17, 256, 1),           # S = 17: one key for the second warpgroup
+    (2, 65, 256, 1),           # S = 65: one key in the last tile
+    (1, 300, 256, 1),          # S = 300
+    (2, 100, 272, 2),          # head 136
+    (2, 225, 384, 2),          # head 192
+    (2, 33, 274, 2),           # head 137: odd, bf16 staged by plain loads
+    (40, 225, 256, 1),         # 160 blocks a kernel: more than one wave over 132 SMs
+    (2, 65, 264, 1),           # head 264: the sliced kernels' narrowest
+    (1, 65, 514, 2),           # head 257: odd, sliced
 ]
 
 
@@ -649,10 +660,13 @@ WIDE_SHAPES = [
 @pytest.mark.parametrize("shape", WIDE_SHAPES, ids=str)
 def test_attention_wide_heads_match_plain_version(cuda_device, shape, dtype, fwd_tol, bwd_tol):
     """Forward with and without L and the backward at head sizes above 128,
-    through the kernels (each call counted, none falls back), against the
-    plain versions at the bars of the narrow heads; two backward calls on
-    the same inputs give the same bits."""
+    through the kernels of the head's family (each call counted under it,
+    none falls back), against the plain versions at the bars of the narrow
+    heads; the forward with L gives the same bits as without it, and two
+    backward calls on the same inputs give the same bits."""
     H = shape[3]
+    family = ac.kernel_family(shape[2] // H)
+    assert family in ("_wide", "_sliced")
     q, k, v, do = qkv(shape, dtype, cuda_device, seed=6, n=4)
     before = dict(ac.LAUNCHES)
     out, lse = ac.attention_forward(q, k, v, H, want_lse=True)
@@ -660,8 +674,10 @@ def test_attention_wide_heads_match_plain_version(cuda_device, shape, dtype, fwd
     got = ac.attention_backward(q, k, v, do, H, out=out, lse=lse)
     again = ac.attention_backward(q, k, v, do, H, out=out, lse=lse)
     torch.cuda.synchronize()
-    assert ac.LAUNCHES == {"attention_fwd": before["attention_fwd"] + 2,
-                           "attention_bwd": before["attention_bwd"] + 2}
+    assert ac.LAUNCHES == dict(before, **{"attention_fwd" + family:
+                                          before["attention_fwd" + family] + 2,
+                                          "attention_bwd" + family:
+                                          before["attention_bwd" + family] + 2})
     assert torch.equal(out, plain) and out.dtype == dtype
     torch.testing.assert_close(out.float(), attention_reference(q, k, v, H).float(),
                                atol=fwd_tol, rtol=fwd_tol)
@@ -671,3 +687,56 @@ def test_attention_wide_heads_match_plain_version(cuda_device, shape, dtype, fwd
         assert a.dtype == dtype and a.shape == q.shape, name
         assert torch.equal(a, a2), f"{name}: two launches differ"
         torch.testing.assert_close(a.float(), b.float(), atol=bwd_tol, rtol=bwd_tol, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 0.05)],
+                         ids=["float32", "bfloat16"])
+def test_sliced_switch_runs_the_sliced_forward_at_head_256(cuda_device, dtype, tol):
+    """``sliced=True`` runs the sliced forward at a head the one-pass wide
+    kernel would take (the comparison the smoke run times), counted under
+    the sliced family, within the forward's bar; at head 128 it raises."""
+    q, k, v = qkv((2, 65, 256, 1), dtype, cuda_device, seed=7, n=3)
+    before = dict(ac.LAUNCHES)
+    out = ac.attention_forward(q, k, v, 1, sliced=True)
+    torch.cuda.synchronize()
+    assert ac.LAUNCHES == dict(before, attention_fwd_sliced=before["attention_fwd_sliced"] + 1)
+    torch.testing.assert_close(out.float(), attention_reference(q, k, v, 1).float(),
+                               atol=tol, rtol=tol)
+    with pytest.raises(ValueError, match="sliced"):
+        ac.attention_forward(q, k, v, 2, sliced=True)
+
+
+def test_kernel_family_follows_the_dispatch():
+    """The wrapper's family of a head size (the LAUNCHES key it counts under)
+    is the one csrc/attention.cu dispatches it to: its kWideHead is the
+    wrapper's WIDE_HEAD."""
+    from pathlib import Path
+    src = (Path(ac.__file__).resolve().parent.parent / "csrc" / "attention.cu").read_text()
+    assert f"constexpr int kWideHead = {ac.WIDE_HEAD};" in src
+    assert [ac.kernel_family(hd) for hd in (17, 32, 64, 128, 129, 136, 192, 256, 257, 512)] == \
+        ["", "", "", "", "_wide", "_wide", "_wide", "_wide", "_sliced", "_sliced"]
+    assert set(ac.LAUNCHES) == {f"attention_{d}{f}" for d in ("fwd", "bwd")
+                                for f in ("", "_wide", "_sliced")}
+
+
+def test_kernel_library_keeps_nvcc_log_beside_the_build(tmp_path, monkeypatch):
+    """A build keeps nvcc's log (ptxas's registers and spills) beside the
+    library, and a later build of the same source and flags, which finds the
+    library built, returns that log instead of compiling again. A stand-in
+    nvcc on PATH writes the output file and a ptxas line."""
+    from aerial_gym_simulator_tpu_torch.ops import _build
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\n: > "$2"\n'
+                    'echo "ptxas info    : Used 42 registers" >&2\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("PATH", f"{nvcc.parent}:{__import__('os').environ['PATH']}")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    lib = _build.KernelLibrary("attention")
+    first = lib.build()
+    assert "Used 42 registers" in first and lib.path().exists()
+    assert lib.path().with_suffix(".log").read_text() == first
+    nvcc.write_text("#!/bin/sh\nexit 1\n")              # a second compile would fail
+    assert lib.build() == first
+    assert _build.build_all([lib]) == [first]

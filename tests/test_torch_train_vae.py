@@ -40,12 +40,14 @@ import aerial_gym_simulator_tpu_torch as port
 from aerial_gym_simulator_tpu_torch.models import train_vae
 from aerial_gym_simulator_tpu_torch.models.vae import (
     Decoder, SameConvTranspose2d, VAEImageEncoder, resize_bilinear, vae_loss)
-from aerial_gym_simulator_tpu_torch.models.vit import ViTImageEncoder
+from aerial_gym_simulator_tpu_torch.models.vit import DepthViT, ViTImageEncoder
 from aerial_gym_simulator_tpu_torch.sim import convert as cv
 
 HW = (27, 48)
 VIT_KW = dict(latent_dim=8, out_hw=(36, 48), patch=(9, 16), dim=32, depth=2, num_heads=2)
 VIT_GRAD_KW = dict(VIT_KW, depth=1)            # one block: the JAX side compiles faster
+# the shipped width at one head (head_dim 256, the one-pass wide kernels on the card)
+VIT_WIDE_KW = dict(VIT_KW, dim=256, depth=1, num_heads=1)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -87,6 +89,15 @@ def vit_params(depth: int):
     key = jax.random.PRNGKey(depth)
     model = JDepthViT(attn_impl="xla", **dict(VIT_KW, depth=depth))
     return perturbed(model.init(key, x, key), seed=depth)
+
+
+def vit_wide_params():
+    """Perturbed DepthViT parameters at VIT_WIDE_KW, from the port's seeded
+    initialisation carried across (flax's eager init at this width costs
+    more than the whole comparison)."""
+    torch.manual_seed(7)
+    model = DepthViT(**VIT_WIDE_KW)
+    return perturbed(cv.depth_vit_to_flax(model), seed=7)
 
 
 @functools.lru_cache(maxsize=None)
@@ -202,9 +213,10 @@ def _grads_as_flax(model, to_flax):
     return to_flax(model)
 
 
-def _loss_and_grads_match(j_model, params, t_model, to_flax, x, key):
-    (loss_j, (bce_j, kld_j)), grads_j = jax.value_and_grad(
-        lambda p: j_vae_loss(j_model, p, jnp.asarray(x), key, 3.0), has_aux=True)(params)
+def _loss_and_grads_match(j_model, params, t_model, to_flax, x, key, jit=False):
+    grad_fn = jax.value_and_grad(lambda p: j_vae_loss(j_model, p, jnp.asarray(x), key, 3.0),
+                                 has_aux=True)
+    (loss_j, (bce_j, kld_j)), grads_j = (jax.jit(grad_fn) if jit else grad_fn)(params)
     noise = _jax_noise(key, (x.shape[0], j_model.latent_dim))
     loss, (bce, kld) = vae_loss(t_model, torch.from_numpy(x), noise=noise, kld_beta=3.0)
     loss.backward()
@@ -227,6 +239,25 @@ def test_vit_vae_loss_and_every_gradient_match_jax(attn_impl, remat):
     t_model = cv.depth_vit_from_flax(params, (36, 48), attn_impl=attn_impl, remat=remat)
     assert t_model.encoder.remat == remat
     _loss_and_grads_match(j_model, params, t_model, cv.depth_vit_to_flax, x, key)
+
+
+def test_vit_one_wide_head_forward_and_every_gradient_match_jax():
+    """dim 256 at one head (head_dim 256) through "fused" attention, depth 1:
+    the forward, vae_loss and the gradient of every parameter against the
+    JAX package (its Pallas kernel interpreted, the JAX side jitted to keep
+    the test short) at the bars above."""
+    x = images((2, 36, 48), seed=8)
+    j_model = JDepthViT(attn_impl="fused", **VIT_WIDE_KW)
+    key = jax.random.PRNGKey(8)
+    params = vit_wide_params()
+    recon_j, mean_j, logvar_j = jax.jit(j_model.apply)(params, jnp.asarray(x), key)
+    t_model = cv.depth_vit_from_flax(params, (36, 48), attn_impl="fused")
+    assert t_model.encoder.blocks[0].attn.num_heads == 1
+    with torch.no_grad():
+        recon, mean, logvar = t_model(torch.from_numpy(x), noise=_jax_noise(key, (2, 8)))
+    for got, want in ((mean, mean_j), (logvar, logvar_j), (recon, recon_j)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4, rtol=0)
+    _loss_and_grads_match(j_model, params, t_model, cv.depth_vit_to_flax, x, key, jit=True)
 
 
 def test_conv_vae_loss_and_every_gradient_match_jax():
