@@ -34,9 +34,11 @@
 // operand is exact in TF32 and takes one product; P and dS are rounded to
 // TF32 there (10 bits, where the library rounds them to bf16's 7).
 //
-// Forward, two kernels behind one launcher:
-//  * attention_mma_kernel (bf16, head_dim 32 or 64, positive scale): the
-//    serving kernel. One block per (batch row, head). The head's K and V are
+// Forward, three kernels behind one launcher:
+//  * attention_mma_kernel (bf16, head_dim 32, positive scale, S up to what
+//    one block's shared memory holds: 1,408 on an H100): the staged serving
+//    kernel, the navigation encoder's (B=1024, S=225, H=8). One block per
+//    (batch row, head). The head's K and V are
 //    staged once in shared memory with 16-byte loads and read back as mma
 //    fragments by ldmatrix (V transposed on the way), rows padded so that no
 //    fragment load has a bank conflict. Each of 8 warps owns 16 query rows at
@@ -52,6 +54,38 @@
 //    branches so that loads, products and exps of neighbouring tiles overlap.
 //    kLse adds the write of L for the autograd forward; the serving
 //    instantiation (kLse false) is the same code as before it existed.
+//  * attention_ring_kernel (bf16, head_dim 32 or 64, positive scale, any S):
+//    the serving kernel redesigned for streaming, which runs head size 64
+//    and every sequence the staged kernel cannot hold. At the serving shape
+//    it computes the same function within the same bars and takes a few
+//    per cent longer than the staged kernel, which is why that one stays
+//    (PERF.md, chip_smoke.py's timing of both); at head size 64 it is the
+//    faster. Bounds at the serving shape: bytes 0.141 ms (above); one exp2
+//    per score, B H S^2 = 415 M, on the special-function units (16 a clock
+//    per SM, 132 SMs), 0.099 ms at 1.98 GHz, the "exp floor"; products
+//    0.054 ms.
+//    - K and V stream through a ring of kServeChunk-key stages in shared
+//      memory: warp 0 fills a stage by cp.async, the stage's full mbarrier
+//      completes when the copies land, every warp arrives on its empty
+//      mbarrier when done with it. Loads overlap the products and exps
+//      with no block-wide barrier after the start, and shared memory does
+//      not depend on S. Each warp copies its own Q rows into shared memory
+//      and reads them back by ldmatrix; O leaves the same way, staged in
+//      those rows and written by 16-byte stores.
+//    - Only the real keys' 8-key tiles are computed (S = 225: 240 rows x 232
+//      keys, 10% over S^2, where the staged kernel's 64-key chunks compute
+//      240 x 256, 21%), and a warp moves its rows' max only when one
+//      outgrows it by kRescaleSlack (log2 units), so most chunks skip the
+//      rescale and its exps; P stays below 2^8 and is rounded to bf16 for
+//      P V either way.
+//    - Each warp holds two 16-row tiles (Serve<HD>), so that each K and V
+//      fragment read from shared memory feeds two products.
+//    What holds both serving kernels at the serving shape, and not at a
+//    bound, is that a warp runs a chunk's products and its exps one after
+//    the other: dropping the exps gained little, and neither more warps, a
+//    persistent grid, a head-contiguous layout nor turns on the tensor
+//    cores between two warp groups helped (PERF.md). wgmma, whose products
+//    run asynchronously beside the softmax, is the next step.
 //  * attention_tf32_kernel (f32 at head sizes up to 128; bf16 at other head
 //    sizes up to 128 or a non-positive scale): the same online softmax on
 //    mma.sync m16n8k8 TF32 products, 3xTF32 for f32 inputs. One block of 4
@@ -127,13 +161,70 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// src_bytes 0: the destination is zero-filled and nothing is read
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(shared_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(shared_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// mbarrier in shared memory: a phase completes after `count` arrivals
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(shared_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n .reg .b64 state;\n mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(
+          shared_addr(bar))
+      : "memory");
+}
+
+// one arrival on bar once every cp.async this thread has issued has landed
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(shared_addr(bar))
+               : "memory");
+}
+
+// until the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n .reg .pred done;\n LAB_WAIT:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      " @!done bra LAB_WAIT;\n}\n" ::"r"(shared_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
 // ---------------------------------------------------------------------------
-// bf16 tensor-core kernel: mma.sync m16n8k16
+// bf16 serving kernels: mma.sync m16n8k16, the staged kernel and the ring
 // ---------------------------------------------------------------------------
 
 constexpr int kMmaWarps = 8;
 constexpr int kKeyChunk = 64;         // keys per online-softmax step
 constexpr int kPad = 8;               // bf16 of padding per shared-memory row
+constexpr int kServeChunk = 32;       // the ring: keys per stage and per online-softmax step
+constexpr float kRescaleSlack = 8.0f; // the ring: log2 units a row max may outgrow the one in use
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
@@ -336,6 +427,357 @@ attention_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   }
 }
 
+// Shape of the ring kernel's block: kWarps warps, each holding kTiles 16-row
+// query tiles (warp w takes tiles w, w + kWarps), kRows query rows in all,
+// and a ring of kStages key chunks. 4 warps x 2 tiles, at 128 registers a
+// thread: four blocks an SM at head size 32 (the ViT's 225 rows in two
+// blocks, 8 + 7 tiles), three at 64. Each K or V fragment read from shared
+// memory feeds both tiles of a warp.
+template <int HD>
+struct Serve {
+  static constexpr int kWarps = 4;
+  static constexpr int kTiles = 2;
+  static constexpr int kBlocksPerSm = HD == 32 ? 4 : 3;   // caps the registers
+  static constexpr int kStages = HD == 32 ? 8 : 6;
+  static constexpr int kLag = kStages / 2;  // chunks a warp may trail warp 0 before it waits
+  static constexpr int kRows = kWarps * kTiles * 16;
+  static constexpr int kLd = HD + kPad;     // bf16 per staged row
+  // a full and an empty barrier per stage, the block's Q (then O) rows, the
+  // ring's K and V stages
+  static constexpr size_t kSharedBytes =
+      2 * kStages * sizeof(uint64_t) +
+      sizeof(__nv_bfloat16) * (size_t)(kRows + 2 * kStages * kServeChunk) * kLd;
+};
+
+// f(std::integral_constant<int, n>) for the warp's n = n_mine (1 .. R) row
+// tiles that hold rows of the sequence, each count its own unrolled code
+template <int R, typename F>
+__device__ __forceinline__ void with_tiles(int n_mine, F&& f) {
+  if constexpr (R > 0) {
+    if (n_mine == R)
+      f(std::integral_constant<int, R>{});
+    else
+      with_tiles<R - 1>(n_mine, f);
+  }
+}
+
+// S = Q K^T for the first NR row tiles of a warp against a staged chunk of
+// kServeChunk keys (Ks): each K fragment (8 keys x 32 head columns) feeds
+// all NR tiles. kFull: every key of the chunk is real. Otherwise keys_left
+// (1 .. kServeChunk - 1) are: the 8-key tiles past them are skipped and the
+// keys past S in the last one are set to -inf.
+template <int HD, int NR, bool kFull>
+__device__ __forceinline__ void serve_qk(const __nv_bfloat16* Ks, int keys_left,
+                                         const uint32_t (&qf)[Serve<HD>::kTiles][HD / 16][4],
+                                         float (&s)[Serve<HD>::kTiles][kServeChunk / 8][4],
+                                         int lane) {
+  constexpr int kLd = Serve<HD>::kLd, NT = kServeChunk / 8;
+  const int t = lane & 3, lm = lane >> 3, lr = lane & 7;
+  const int n_tiles = kFull ? NT : (keys_left + 7) >> 3;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    if (kFull || nt < n_tiles) {
+#pragma unroll
+      for (int i = 0; i < NR; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[i][nt][e] = 0.0f;
+      const __nv_bfloat16* kr = Ks + (nt * 8 + lr) * kLd + lm * 8;
+#pragma unroll
+      for (int kk = 0; kk < HD / 32; ++kk) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, kr + kk * 32);
+#pragma unroll
+        for (int i = 0; i < NR; ++i) {
+          mma_bf16(s[i][nt], qf[i][2 * kk], kb[0], kb[1]);
+          mma_bf16(s[i][nt], qf[i][2 * kk + 1], kb[2], kb[3]);
+        }
+      }
+      if (!kFull) {
+        const int key = nt * 8 + t * 2;
+#pragma unroll
+        for (int i = 0; i < NR; ++i) {
+          if (key >= keys_left) s[i][nt][0] = s[i][nt][2] = -CUDART_INF_F;
+          if (key + 1 >= keys_left) s[i][nt][1] = s[i][nt][3] = -CUDART_INF_F;
+        }
+      }
+    }
+  }
+}
+
+// The online softmax of one chunk's scores s for NR row tiles: the rows'
+// max, the rescale of O and l when it moves, p = 2^(s scale - m) summed into
+// l and packed to bf16 as the A operand of P V (pa; zero for 8-key tiles
+// past the keys).
+template <int HD, int NR, bool kFull>
+__device__ __forceinline__ void serve_softmax(int keys_left,
+                                              float (&s)[Serve<HD>::kTiles][kServeChunk / 8][4],
+                                              float (&oacc)[Serve<HD>::kTiles][HD / 8][4],
+                                              float (&m)[Serve<HD>::kTiles][2],
+                                              float (&l)[Serve<HD>::kTiles][2],
+                                              uint32_t (&pa)[Serve<HD>::kTiles][kServeChunk / 16][4],
+                                              float scale_log2e) {
+  constexpr int NT = kServeChunk / 8;
+  const int n_tiles = kFull ? NT : (keys_left + 7) >> 3;
+  // each row's chunk max on the raw scores (the scale is positive), in log2
+  // units; a row needs a new max once it passes the one in use by the slack
+  float c[NR][2];
+  bool grow = false;
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    c[i][0] = c[i][1] = -CUDART_INF_F;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      if (kFull || nt < n_tiles) {
+        c[i][0] = fmaxf(c[i][0], fmaxf(s[i][nt][0], s[i][nt][1]));
+        c[i][1] = fmaxf(c[i][1], fmaxf(s[i][nt][2], s[i][nt][3]));
+      }
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      c[i][hf] = fmaxf(c[i][hf], __shfl_xor_sync(0xffffffffu, c[i][hf], 1));
+      c[i][hf] = fmaxf(c[i][hf], __shfl_xor_sync(0xffffffffu, c[i][hf], 2));
+      c[i][hf] *= scale_log2e;      // finite: every chunk holds a real key
+      grow |= c[i][hf] > m[i][hf] + kRescaleSlack;
+    }
+  }
+  // The warp moves its rows' max (and rescales O and l) only when some row
+  // outgrew the one in use by more than the slack, so always on the first
+  // chunk (m = -inf, alpha = 0). Between moves p = 2^(s scale - m) stays
+  // below 2^kRescaleSlack, and a chunk skips the rescale and its exps.
+  if (__any_sync(0xffffffffu, grow)) {
+#pragma unroll
+    for (int i = 0; i < NR; ++i)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const float n = fmaxf(m[i][hf], c[i][hf]);
+        const float alpha = fast_exp2(m[i][hf] - n);
+        m[i][hf] = n;
+        l[i][hf] *= alpha;
+#pragma unroll
+        for (int dt = 0; dt < HD / 8; ++dt) {
+          oacc[i][dt][2 * hf] *= alpha;
+          oacc[i][dt][2 * hf + 1] *= alpha;
+        }
+      }
+  }
+  // p = 2^(s scale - m): one multiply-add and one exp2 per score; two
+  // neighbouring 16 x 8 tiles of P are the 16 x 16 A operand of P V
+#pragma unroll
+  for (int i = 0; i < NR; ++i)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      uint32_t* a = &pa[i][nt >> 1][(nt & 1) * 2];
+      if (kFull || nt < n_tiles) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[e] = fast_exp2(fmaf(s[i][nt][e], scale_log2e, -m[i][e >> 1]));
+        l[i][0] += p[0] + p[1];
+        l[i][1] += p[2] + p[3];
+        a[0] = pack_bf16(p[0], p[1]);
+        a[1] = pack_bf16(p[2], p[3]);
+      } else {
+        a[0] = a[1] = 0u;
+      }
+    }
+}
+
+// O += P V for NR row tiles against a staged chunk's V (Vs): each V
+// fragment (16 keys x 16 head columns, by a transposed load) feeds all NR
+// tiles. n_k16: the 16-key steps that hold real keys.
+template <int HD, int NR>
+__device__ __forceinline__ void serve_pv(const __nv_bfloat16* Vs, int n_k16,
+                                         const uint32_t (&pa)[Serve<HD>::kTiles][kServeChunk / 16][4],
+                                         float (&oacc)[Serve<HD>::kTiles][HD / 8][4], int lane) {
+  constexpr int kLd = Serve<HD>::kLd;
+  const int lm = lane >> 3, lr = lane & 7;
+#pragma unroll
+  for (int kt = 0; kt < kServeChunk / 16; ++kt) {
+    if (kt < n_k16) {
+      const __nv_bfloat16* vr = Vs + (kt * 16 + (lm & 1) * 8 + lr) * kLd + (lm >> 1) * 8;
+#pragma unroll
+      for (int dp = 0; dp < HD / 16; ++dp) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, vr + dp * 16);
+#pragma unroll
+        for (int i = 0; i < NR; ++i) {
+          mma_bf16(oacc[i][2 * dp], pa[i][kt], vb[0], vb[1]);
+          mma_bf16(oacc[i][2 * dp + 1], pa[i][kt], vb[2], vb[3]);
+        }
+      }
+    }
+  }
+}
+
+// One block per (batch row, head, kRows query rows). Shared memory: the
+// ring's barriers, then (bf16, rows of kLd) the block's Q rows, which each
+// warp copies and reads once into registers and later overwrites with its
+// own rows of O, then the ring: kStages stages of kServeChunk keys of K and
+// of V. Warp 0 fills the ring by cp.async, chunk x into stage x % kStages,
+// and each stage's full barrier completes when those copies have landed;
+// every warp waits on it, uses the chunk and arrives on the stage's empty
+// barrier. Warp 0 refills a stage only once every warp has left it, and
+// keeps kStages - kLag chunks ahead of its own, so that warps run apart by
+// up to kLag chunks: no block-wide barrier stops them after the start.
+// kLse: also write the row log-sum-exp lse[(b * H + h) * S + row] (natural
+// log).
+template <int HD, bool kLse>
+__global__ void __launch_bounds__(Serve<HD>::kWarps * 32, Serve<HD>::kBlocksPerSm)
+attention_ring_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                     float* __restrict__ lse, int S, int H, float scale_log2e) {
+  using Sv = Serve<HD>;
+  constexpr int kLd = Sv::kLd, R = Sv::kTiles, NS = Sv::kStages;
+  constexpr int kVec = HD / 8;                                  // 16-byte pieces a row
+  constexpr int kStage = 2 * kServeChunk * kLd;                 // bf16 of one ring stage
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw);
+  uint64_t* empty = full + NS;
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(empty + NS);
+  __nv_bfloat16* ring = Qs + Sv::kRows * kLd;
+
+  const int n_row_blocks = (S + Sv::kRows - 1) / Sv::kRows;
+  const int bh = blockIdx.x / n_row_blocks;
+  const int row0 = (blockIdx.x - bh * n_row_blocks) * Sv::kRows;
+  const int D = H * HD;
+  const size_t base = (size_t)(bh / H) * S * D + (size_t)(bh % H) * HD;
+  const int n_chunks = (S + kServeChunk - 1) / kServeChunk;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < NS; ++st) {
+      mbar_init(&full[st], 32);             // warp 0's lanes, once their copies land
+      mbar_init(&empty[st], Sv::kWarps);    // one arrival a warp
+    }
+  }
+  __syncthreads();
+
+  // warp 0: K and V of chunk x into stage x % NS (zeros past S)
+  auto fill = [&](int x) {
+    __nv_bfloat16* Ks = ring + (x % NS) * kStage;
+    for (int i = lane; i < kServeChunk * kVec; i += 32) {
+      const int r = i / kVec, col = (i - r * kVec) * 8, key = x * kServeChunk + r;
+      const size_t src = base + (size_t)min(key, S - 1) * D + col;
+      cp_async16(Ks + r * kLd + col, k + src, key < S ? 16 : 0);
+      cp_async16(Ks + (kServeChunk + r) * kLd + col, v + src, key < S ? 16 : 0);
+    }
+    cp_async_arrive(&full[x % NS]);
+  };
+  // each warp's own Q rows (zeros past S), as its one cp.async group
+  for (int i = 0; i < R; ++i) {
+    const int tr = (warp + i * Sv::kWarps) * 16;
+    for (int j = lane; j < 16 * kVec; j += 32) {
+      const int r = j / kVec, col = (j - r * kVec) * 8, row = row0 + tr + r;
+      cp_async16(Qs + (tr + r) * kLd + col, q + base + (size_t)min(row, S - 1) * D + col,
+                 row < S ? 16 : 0);
+    }
+  }
+  cp_async_commit();
+  if (warp == 0)
+    for (int x = 0; x < min(NS, n_chunks); ++x) fill(x);
+  cp_async_wait<0>();                     // the Q group (the ring's copies are in none)
+  __syncwarp();
+
+  const int g = lane >> 2, t = lane & 3, lm = lane >> 3, lr = lane & 7;
+  int n_mine = 0;                         // this warp's tiles that hold rows < S
+#pragma unroll
+  for (int i = 0; i < R; ++i) n_mine += row0 + (warp + i * Sv::kWarps) * 16 < S;
+
+  uint32_t qf[R][HD / 16][4];
+  float oacc[R][HD / 8][4], m[R][2], l[R][2];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+#pragma unroll
+    for (int dt = 0; dt < HD / 8; ++dt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) oacc[i][dt][e] = 0.0f;
+    m[i][0] = m[i][1] = -CUDART_INF_F;     // row max in use (log2 units)
+    l[i][0] = l[i][1] = 0.0f;               // this lane's share of the row sums
+  }
+
+  // Q fragments: rows g, g + 8 of each tile
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    if (i < n_mine) {
+      const __nv_bfloat16* qr =
+          Qs + ((warp + i * Sv::kWarps) * 16 + (lm & 1) * 8 + lr) * kLd + (lm >> 1) * 8;
+#pragma unroll
+      for (int ks = 0; ks < HD / 16; ++ks) ldmatrix_x4(qf[i][ks], qr + ks * 16);
+    }
+  }
+
+  float s[R][kServeChunk / 8][4];
+  uint32_t pa[R][kServeChunk / 16][4];
+  for (int c = 0; c < n_chunks; ++c) {
+    const int x = c + NS - Sv::kLag;        // warp 0 refills the stage chunk x - NS used
+    if (warp == 0 && x >= NS && x < n_chunks) {
+      mbar_wait(&empty[x % NS], (x / NS - 1) & 1);
+      fill(x);
+    }
+    const int st = c % NS, keys_left = S - c * kServeChunk;
+    const __nv_bfloat16* Ks = ring + st * kStage;
+    mbar_wait(&full[st], (c / NS) & 1);
+    with_tiles<R>(n_mine, [&](auto nr) {
+      constexpr int NR = decltype(nr)::value;
+      if (keys_left >= kServeChunk) {
+        serve_qk<HD, NR, true>(Ks, keys_left, qf, s, lane);
+        serve_softmax<HD, NR, true>(keys_left, s, oacc, m, l, pa, scale_log2e);
+        serve_pv<HD, NR>(Ks + kServeChunk * kLd, kServeChunk / 16, pa, oacc, lane);
+      } else {
+        serve_qk<HD, NR, false>(Ks, keys_left, qf, s, lane);
+        serve_softmax<HD, NR, false>(keys_left, s, oacc, m, l, pa, scale_log2e);
+        serve_pv<HD, NR>(Ks + kServeChunk * kLd, (keys_left + 15) >> 4, pa, oacc, lane);
+      }
+    });
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+
+  // O = acc / l in bf16, staged in the warp's own Q rows (no other warp
+  // reads them), then out by 16-byte stores, a row's 2 * HD bytes from
+  // neighbouring lanes; rows past S are never stored
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    if (i < n_mine) {
+      const int tr = (warp + i * Sv::kWarps) * 16;
+      float sum[2];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        sum[hf] = l[i][hf] + __shfl_xor_sync(0xffffffffu, l[i][hf], 1);
+        sum[hf] += __shfl_xor_sync(0xffffffffu, sum[hf], 2);
+      }
+      const float inv0 = 1.0f / sum[0], inv1 = 1.0f / sum[1];
+#pragma unroll
+      for (int dt = 0; dt < HD / 8; ++dt) {
+        const int col = dt * 8 + t * 2;
+        *reinterpret_cast<uint32_t*>(Qs + (tr + g) * kLd + col) =
+            pack_bf16(oacc[i][dt][0] * inv0, oacc[i][dt][1] * inv0);
+        *reinterpret_cast<uint32_t*>(Qs + (tr + g + 8) * kLd + col) =
+            pack_bf16(oacc[i][dt][2] * inv1, oacc[i][dt][3] * inv1);
+      }
+      if constexpr (kLse) {
+        if (t == 0) {
+          float* row_lse = lse + (size_t)bh * S + row0 + tr;
+          if (row0 + tr + g < S) row_lse[g] = (m[i][0] + log2f(sum[0])) * kLn2;
+          if (row0 + tr + g + 8 < S) row_lse[g + 8] = (m[i][1] + log2f(sum[1])) * kLn2;
+        }
+      }
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    if (i < n_mine) {
+      const int tr = (warp + i * Sv::kWarps) * 16;
+      for (int j = lane; j < 16 * kVec; j += 32) {
+        const int r = j / kVec, col = (j - r * kVec) * 8, row = row0 + tr + r;
+        if (row < S)
+          *reinterpret_cast<uint4*>(o + base + (size_t)row * D + col) =
+              *reinterpret_cast<const uint4*>(Qs + (tr + r) * kLd + col);
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // TF32 tensor-core kernels: mma.sync m16n8k8, 3xTF32 for f32 inputs
 // ---------------------------------------------------------------------------
@@ -441,32 +883,6 @@ __device__ __forceinline__ void acc_as_a(const float (&c)[4], uint32_t (&h)[4],
   split<kSplit>(c[2], h[1], l[1]);
   split<kSplit>(c[1], h[2], l[2]);
   split<kSplit>(c[3], h[3], l[3]);
-}
-
-__device__ __forceinline__ uint32_t shared_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// src_bytes 0: the destination is zero-filled and nothing is read
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(shared_addr(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(shared_addr(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Rows row0 .. row0 + kTile - 1, columns [0, hd), of one head of a packed
@@ -1914,14 +2330,14 @@ cudaError_t allow_shared(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-size_t mma_shared_bytes(int S, int hd) {
-  const size_t Sp = (size_t)(S + kKeyChunk - 1) / kKeyChunk * kKeyChunk;
-  return sizeof(__nv_bfloat16) * 2 * Sp * (hd + kPad);
-}
-
 template <int HD>
 size_t tf32_shared_bytes(bool with_vectors) {
   return sizeof(float) * (4 * (size_t)tile_floats<HD>() + (with_vectors ? 4 * kTile : 0));
+}
+
+size_t mma_shared_bytes(int S, int hd) {
+  const size_t Sp = (size_t)(S + kKeyChunk - 1) / kKeyChunk * kKeyChunk;
+  return sizeof(__nv_bfloat16) * 2 * Sp * (hd + kPad);
 }
 
 template <int HD, bool kLse>
@@ -1931,6 +2347,22 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, flo
   cudaError_t err = allow_shared(attention_mma_kernel<HD, kLse>, bytes);
   if (err != cudaSuccess) return err;
   attention_mma_kernel<HD, kLse><<<B * H, kMmaWarps * 32, bytes, s>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, S, H,
+      scale * kLog2e);
+  return cudaGetLastError();
+}
+
+template <int HD, bool kLse>
+cudaError_t launch_ring(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                        int S, int H, float scale, cudaStream_t s) {
+  // shared memory does not depend on S: any sequence length runs
+  using Sv = Serve<HD>;
+  cudaError_t err = allow_shared(attention_ring_kernel<HD, kLse>, Sv::kSharedBytes);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)B * H * ((S + Sv::kRows - 1) / Sv::kRows);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  attention_ring_kernel<HD, kLse><<<(unsigned)blocks, Sv::kWarps * 32, Sv::kSharedBytes, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, S, H,
       scale * kLog2e);
@@ -2114,9 +2546,12 @@ cudaError_t dispatch(int hd, int is_bf16, F&& launch) {
 // q, k, v, o: contiguous (B, S, H*hd), 16-byte aligned, f32 (is_bf16 = 0) or
 // bf16. lse: null, or (B, H, S) f32 for the row log-sum-exp. kernel 0: the
 // TF32 kernel, hd up to 128, the one-pass wide kernel up to 256 and the
-// sliced kernel above that; 1: the bf16 serving kernel (hd 32 or 64, scale >
-// 0 only: it takes the row maximum before scaling); 2: the sliced kernel at
-// any hd above 128 (what the one-pass wide kernel replaced, for comparison).
+// sliced kernel above that; 1: the bf16 serving kernels (hd 32 or 64, scale >
+// 0 only: they take the row maximum before scaling), the staged one at hd 32
+// while the sequence fits its shared memory, else the ring; 2: the sliced
+// kernel at any hd above 128 (what the one-pass wide kernel replaced, for
+// comparison); 3: the ring at hd 32 or 64 and any S (to compare the two
+// serving kernels on the same tensors).
 extern "C" int attention_fwd_launch(const void* q, const void* k, const void* v, void* o,
                                     float* lse, int B, int S, int H, int hd, float scale,
                                     int is_bf16, int kernel, void* stream) {
@@ -2127,15 +2562,27 @@ extern "C" int attention_fwd_launch(const void* q, const void* k, const void* v,
         is_bf16 ? launch_sliced_fwd<__nv_bfloat16>(q, k, v, o, lse, B, S, H, hd, scale, s)
                 : launch_sliced_fwd<float>(q, k, v, o, lse, B, S, H, hd, scale, s));
   }
-  if (kernel == 1) {
-    if (!is_bf16 || !(scale > 0.0f)) return static_cast<int>(cudaErrorInvalidValue);
+  if (kernel == 1 || kernel == 3) {
+    if (!is_bf16 || !(scale > 0.0f) || (hd != 32 && hd != 64))
+      return static_cast<int>(cudaErrorInvalidValue);
+    // head size 32 keeps the staged kernel while one block's shared memory
+    // holds the whole sequence (S <= 1,408 on an H100: the faster of the two
+    // at the ViT's S = 225); head size 64 and longer sequences run the ring
+    if (kernel == 1 && hd == 32) {
+      int device = 0, optin = 0;
+      cudaError_t err = cudaGetDevice(&device);
+      if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      if (mma_shared_bytes(S, 32) <= (size_t)optin)
+        return static_cast<int>(lse ? launch_mma<32, true>(q, k, v, o, lse, B, S, H, scale, s)
+                                    : launch_mma<32, false>(q, k, v, o, lse, B, S, H, scale, s));
+    }
     if (hd == 32)
-      return static_cast<int>(lse ? launch_mma<32, true>(q, k, v, o, lse, B, S, H, scale, s)
-                                  : launch_mma<32, false>(q, k, v, o, lse, B, S, H, scale, s));
-    if (hd == 64)
-      return static_cast<int>(lse ? launch_mma<64, true>(q, k, v, o, lse, B, S, H, scale, s)
-                                  : launch_mma<64, false>(q, k, v, o, lse, B, S, H, scale, s));
-    return static_cast<int>(cudaErrorInvalidValue);
+      return static_cast<int>(lse ? launch_ring<32, true>(q, k, v, o, lse, B, S, H, scale, s)
+                                  : launch_ring<32, false>(q, k, v, o, lse, B, S, H, scale, s));
+    return static_cast<int>(lse ? launch_ring<64, true>(q, k, v, o, lse, B, S, H, scale, s)
+                                : launch_ring<64, false>(q, k, v, o, lse, B, S, H, scale, s));
   }
   return static_cast<int>(dispatch(hd, is_bf16, [&](auto inst) {
     using I = decltype(inst);

@@ -26,11 +26,13 @@ BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 
 class KernelLibrary:
-    """One ``csrc/<name>.cu`` and the shared library built from it."""
+    """One ``csrc/<name>.cu`` (or the CUDA source at ``source``) and the
+    shared library built from it."""
 
-    def __init__(self, name: str, extra_flags: Optional[List[str]] = None):
+    def __init__(self, name: str, extra_flags: Optional[List[str]] = None,
+                 source: Optional[os.PathLike] = None):
         self.name = name
-        self.source = CSRC_DIR / f"{name}.cu"
+        self.source = Path(source) if source is not None else CSRC_DIR / f"{name}.cu"
         self.flags = BASE_FLAGS + list(extra_flags or [])
         self._lib = None
 
@@ -46,7 +48,7 @@ class KernelLibrary:
             return None
         nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
         if not os.path.exists(nvcc):
-            raise RuntimeError(f"nvcc not found: csrc/{self.name}.cu cannot be built")
+            raise RuntimeError(f"nvcc not found: {self.source} cannot be built")
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         proc = subprocess.Popen([nvcc, *self.flags, "-o", str(tmp), str(self.source)],
@@ -60,7 +62,7 @@ class KernelLibrary:
         proc, tmp = started
         stdout, stderr = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on csrc/{self.name}.cu "
+            raise RuntimeError(f"nvcc failed on {self.source} "
                                f"({proc.returncode}):\n{stderr}")
         log_path.write_text(stdout + stderr)
         os.replace(tmp, self.path())

@@ -19,8 +19,11 @@ kept between the two passes.
 
 Layout: q, k, v, the output and every gradient are (B, S, D = num_heads *
 head_dim), contiguous, all bf16 or all f32. Forward: bf16 with head_dim 32
-or 64 (and a positive scale) runs the bf16 tensor-core kernel; everything
-else, f32 above all, the TF32 tensor-core kernel, with each f32 product
+or 64 (and a positive scale) runs a bf16 tensor-core serving kernel: at
+head_dim 32 the staged one while one block's shared memory holds the whole
+sequence, otherwise the ring kernel, which streams the keys through shared
+memory and so takes any sequence length; everything else, f32 above all,
+the TF32 tensor-core kernel, with each f32 product
 split into three TF32 products (3xTF32) for f32 accuracy. Backward: two
 TF32 tensor-core kernels (delta and dQ over query tiles, then dK and dV
 over key tiles), 3xTF32 for f32, deterministic, any sequence length. The
@@ -46,7 +49,7 @@ from .attention import (attention_backward_reference, attention_lse_reference,
                         attention_reference)
 
 LIBRARY = KernelLibrary("attention")
-MMA_HEAD_DIMS = (32, 64)           # head sizes the bf16 serving kernel is built for
+MMA_HEAD_DIMS = (32, 64)           # head sizes the bf16 serving kernels are built for
 WIDE_HEAD = 256                    # the widest head the one-pass wide kernels take
 FAMILIES = ("", "_wide", "_sliced")
 
@@ -120,14 +123,15 @@ def _raise_on(rc: int, lib, what: str):
 
 def attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
                       sm_scale: Optional[float] = None, use_mma: Optional[bool] = None,
-                      want_lse: bool = False, sliced: bool = False):
+                      want_lse: bool = False, sliced: bool = False, ring: bool = False):
     """The forward without autograd -> o, or (o, L) with ``want_lse`` (L the
     row log-sum-exp, (B, H, S) f32): kernel on CUDA tensors, plain version
-    on CPU tensors. ``use_mma`` overrides the choice between the two
-    kernels in the source (a debug switch; None picks by dtype and head
-    size). ``sliced`` runs the sliced kernel at a head size of 129-256 as
-    well, where the one-pass wide kernel would run (a debug switch, to time
-    one against the other on the same tensors)."""
+    on CPU tensors. ``use_mma`` overrides the choice between the bf16
+    serving kernels and the TF32 kernel (a debug switch; None picks by dtype
+    and head size). ``sliced`` runs the sliced kernel at a head size of
+    129-256 as well, where the one-pass wide kernel would run, and ``ring``
+    the ring serving kernel where the staged one would (debug switches, to
+    time one kernel against the other on the same tensors)."""
     hd, sm_scale, on_cpu = _prepare(q, num_heads, sm_scale)
     if on_cpu:
         out = attention_reference(q, k, v, num_heads, sm_scale)
@@ -144,6 +148,9 @@ def attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_hea
                          "and a positive scale")
     if sliced and hd <= 128:
         raise ValueError(f"the sliced kernel takes head sizes above 128, not {hd}")
+    if ring and not (use_mma and mma_takes_it):
+        raise ValueError(f"the ring kernel takes bf16 with head_dim in {MMA_HEAD_DIMS} and a "
+                         "positive scale")
     out = torch.empty_like(q)
     lse = torch.empty((B, num_heads, S), device=q.device, dtype=torch.float32) if want_lse else None
     if B == 0 or S == 0:
@@ -154,7 +161,7 @@ def attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_hea
         rc = lib.attention_fwd_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                                       lse.data_ptr() if want_lse else None, B, S, num_heads, hd,
                                       float(sm_scale), int(is_bf16),
-                                      2 if sliced else int(use_mma), stream)
+                                      2 if sliced else 3 if ring else int(use_mma), stream)
     _raise_on(rc, lib, "forward")
     LAUNCHES["attention_fwd" + ("_sliced" if sliced else kernel_family(hd))] += 1
     return (out, lse) if want_lse else out

@@ -1,7 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (written for the H100).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent-attention FILE]
+
+``--parent-attention`` builds another ``attention.cu`` (the parent commit's,
+unpacked outside the package) beside the shipped one and times its bf16
+serving kernel in turns with the shipped one on the same tensors.
 
 Phases, each printed on its own line:
   1. build   - compile the ray-cast kernel in its four modes (csrc/raycast.cu)
@@ -24,8 +28,8 @@ Phases, each printed on its own line:
                numpy-seeded q, k, v: f32 at nine shapes, the ViT training
                shape (64, 225, 256) at 8 and 4 heads and head sizes 136 and
                256 (the one-pass wide kernels) and 512 (the sliced kernels)
-               among them, within atol/rtol 1e-4, bf16 within 0.05; a
-               non-contiguous input must raise.
+               among them, within atol/rtol 1e-4, bf16 within 0.05 (S = 900
+               and 1,600 among them); a non-contiguous input must raise.
                The attention backward (K6) against its plain version at the
                ViT training shape f32, at head_dim 64 f32 (ragged, S = 225,
                and S = 300) and head_dim 136, 256 (also at the one-head
@@ -49,15 +53,23 @@ Phases, each printed on its own line:
                (dim 256, depth 4, 8 heads, bf16, attention through K5) and
                policy: finite outputs, K1 launched once and K5 four times
                per step, success share above 0.3, throughput, the step's
-               split and peak memory; then 50 steps with the shipped conv
-               VAE and its policy (no K5 launch);
+               split and peak memory; the run's depth images encoded by the
+               flown encoder and by its pickle re-tagged "reference" (plain
+               attention), latents within atol 0.05 + rtol 0.05; then 50
+               steps with the shipped conv VAE and its policy (no K5
+               launch);
   6. timing  - each kernel at its main path's shapes against its plain
                version (the ray cast bit for bit, broad phase on == off, on
                every path: obstacle loop, nav, modalities, lidar, train_vae's
                sampling), its least possible time on this card and, for K5
                and K6, torch's scaled_dot_product_attention (forward,
-               backward) on the same tensors: K5 at the serving shape in bf16
-               and at the training shape in f32 (8 and 4 heads: head_dim 32,
+               backward) on the same tensors, kernel and library each the
+               median of alternating windows after an untimed call, with
+               their spread: K5 at the serving shape in bf16 (8 and 4 heads,
+               with the exp floor, B H S^2 exp2 over the special-function
+               units, beside the bound; and the parent's serving kernel
+               with --parent-attention), at S = 900 and 1,600 in bf16, and
+               at the training shape in f32 (8 and 4 heads: head_dim 32,
                64), K6 the same way (8 and 4 heads f32, and bf16 at the
                serving shape), timed as autograd runs it (from the forward's
                output and L) and as a whole direct call; the one-pass wide
@@ -140,8 +152,14 @@ ATTENTION_CASES = [
     ((2, 65, 272, 2), "float32", 1e-4),         # head_dim 136, a short last key tile
     ((1, 225, 512, 1), "float32", 1e-4),        # head_dim 512: the sliced kernel
     ((2, 225, 512, 2), "bfloat16", 0.05),       # head_dim 256 in bf16
+    # past the staged serving kernel's shared-memory limit: the ring kernel
+    ((2, 900, 256, 4), "bfloat16", 0.05),       # the ViT at 270x480 with 4 heads
+    ((1, 1600, 256, 8), "bfloat16", 0.05),
 ]
 ATTENTION_MAIN_SHAPE = (NAV_ENVS, 225, 256, 8)   # the shipped ViT encoder's
+SERVING_HD64_SHAPE = (NAV_ENVS, 225, 256, 4)     # the same width at 4 heads
+LONG_SHAPES = [(2, 900, 256, 4), (1, 1600, 256, 8)]   # bf16: the ring kernel; refused before it
+TIMING_WINDOWS = 5        # alternating windows of each timed attention call
 
 # the training phases
 TRAIN_BATCH = 64
@@ -332,6 +350,36 @@ def event_ms(torch, fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def windows_ms(torch, runs, iters, n=TIMING_WINDOWS):
+    """Each of ``runs`` (name -> fn) after one untimed call, then timed in n
+    windows of ``iters`` calls in turns, the order reversed every other
+    window -> {name: (median ms, [ms of each window])}."""
+    import statistics
+    for fn in runs.values():
+        fn()
+    torch.cuda.synchronize()
+    names, times = list(runs), {k: [] for k in runs}
+    for w in range(n):
+        for name in (names if w % 2 == 0 else names[::-1]):
+            times[name].append(event_ms(torch, runs[name], iters))
+    return {k: (statistics.median(v), v) for k, v in times.items()}
+
+
+def spread_text(each):
+    return f"{min(each):.3f}-{max(each):.3f} over {len(each)} windows"
+
+
+def exp_floor_ms(torch, shape):
+    """Least time for one exp2 per score (B x H x S^2) on the special-function
+    units, 16 a clock on each SM, at the card's highest SM clock."""
+    B, S, _, H = shape
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return B * H * S * S / (16.0 * sms * mhz * 1e6) * 1e3
 
 
 def bound_ms(torch, rc, pose, prims, dirs, counts, n_tri, max_range, name, face=None):
@@ -557,14 +605,15 @@ def nav_phase(torch, port, rc, ac, card):
     ended = succ + crash + timo
     log(f"nav: ViT loop {NAV_STEPS * NAV_ENVS / dt:.1f} env-steps/s "
         f"({dt / NAV_STEPS * 1e3:.2f} ms/step) | {card}")
+    succ_share = succ / max(ended, 1.0)
     log(f"nav: launches {launches}, successes {succ:.0f} crashes {crash:.0f} "
-        f"timeouts {timo:.0f} (success share {succ / max(ended, 1.0):.3f}), curriculum level "
+        f"timeouts {timo:.0f} (success share {succ_share:.3f}), curriculum level "
         f"{float(task.nav_state.curriculum_level):.0f}, peak memory {peak_gb:.2f} GB")
     want = {"raycast_depth": NAV_STEPS, "raycast_seg": 0, "raycast_normals": 0,
             "raycast_rgb": 0, **attention_counts(ac, attention_fwd=4 * NAV_STEPS)}
     if launches != want:
         raise AssertionError(f"nav launches {launches}, expected {want}")
-    if not (succ > 0 and succ / max(ended, 1.0) > NAV_SUCCESS_SHARE):
+    if not (succ > 0 and succ_share > NAV_SUCCESS_SHARE):
         raise AssertionError(f"success share {succ}/{ended} not above {NAV_SUCCESS_SHARE}")
 
     # where the step's time goes: its pieces timed apart on the final state
@@ -585,6 +634,7 @@ def nav_phase(torch, port, rc, ac, card):
     log("nav: split " + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items())
         + f" (task.step = env_step + reset_envs + render + encode + reward, observation "
         f"and curriculum) | {card}")
+    lat_err = encoder_against_plain(torch, ac, task.vae, pixels)
 
     # K1 at this path's shapes against its plain version, on the final state
     sp, sc, st = params.camera, params.scene, ns.sim
@@ -609,13 +659,80 @@ def nav_phase(torch, port, rc, ac, card):
     if conv_launches != want:
         raise AssertionError(f"conv nav launches {conv_launches}, expected {want}")
     conv_task.close()
-    return launches, k1_err
+    return launches, k1_err, {"success_share": succ_share, "latent_err_vs_reference": lat_err}
 
 
-def time_attention(torch, ac, attention_reference, card, shape, dtype_name, tol):
+def encoder_against_plain(torch, ac, vae, pixels):
+    """The nav run's depth images encoded by the flown encoder (bf16, the
+    fused kernel) and by the same pickle re-tagged "reference" (the plain
+    attention, no kernel launch): the latent means within the bf16 bar of
+    tests/test_torch_models.py (atol 0.05 + rtol 0.05)."""
+    import pickle
+    from aerial_gym_simulator_tpu_torch.models.vit import ViTImageEncoder
+    from aerial_gym_simulator_tpu_torch.sim.convert import load_encoder_pickle
+    with open(NETWORKS / "vit_depth_encoder.pkl", "rb") as f:
+        blob = pickle.load(f)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "vit_reference.pkl")
+        with open(path, "wb") as f:
+            pickle.dump(dict(blob, attn_impl="reference"), f)
+        _, enc = load_encoder_pickle(path)
+    plain = ViTImageEncoder(latent_dim=vae.latent_dim, image_res=vae.image_res, encoder=enc,
+                            patch=enc.patch)
+    if enc.blocks[0].attn.impl != "reference" or plain.input_hw != vae.input_hw:
+        raise AssertionError("the reference-tagged encoder does not match the flown one")
+    zero_counts(ac.LAUNCHES)
+    fused = vae.encode_moments(pixels)[0]
+    fused_launches = dict(ac.LAUNCHES)
+    zero_counts(ac.LAUNCHES)
+    ref = plain.encode_moments(pixels)[0]
+    torch.cuda.synchronize()
+    if fused_launches != attention_counts(ac, attention_fwd=4) or any(ac.LAUNCHES.values()):
+        raise AssertionError(f"encoder launches: fused {fused_launches}, plain {ac.LAUNCHES}")
+    diff = (fused - ref).abs()
+    err = diff.max().item()
+    log(f"nav: the flown ViT encoder (fused kernel, 4 launches) against its pickle re-tagged "
+        f"'reference' (plain attention) on the run's {pixels.shape[0]} depth images: latent "
+        f"means within {err:.3g} (bar atol 0.05 + rtol 0.05)")
+    if not (torch.isfinite(fused).all() and bool((diff <= 0.05 + 0.05 * ref.abs()).all())):
+        raise AssertionError(f"fused against plain encoder: latents differ by {err}")
+    return err
+
+
+def parent_forward(torch, lib):
+    """The bf16 serving kernel of another build of ``csrc/attention.cu``
+    (``--parent-attention``: the parent commit's source, for a comparison
+    inside one call) -> fn(q, k, v, heads) -> o; raises where that build's
+    launch fails."""
+    import ctypes
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    so = lib.load()
+    so.attention_fwd_launch.argtypes = [p, p, p, p, p, i, i, i, i, f, i, i, p]
+    so.attention_fwd_launch.restype = i
+    so.attention_error_string.argtypes = [i]
+    so.attention_error_string.restype = ctypes.c_char_p
+
+    def run(q, k, v, H):
+        o = torch.empty_like(q)
+        B, S, D = q.shape
+        code = so.attention_fwd_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                       None, B, S, H, D // H, float((D // H) ** -0.5), 1, 1,
+                                       torch.cuda.current_stream().cuda_stream)
+        if code != 0:
+            raise RuntimeError("parent build: " + so.attention_error_string(code).decode())
+        return o
+    return run
+
+
+def time_attention(torch, ac, attention_reference, card, shape, dtype_name, tol, parent=None):
     """K5 at one path's shape and type: kernel, plain version, the library's
-    fused attention on the same tensors, and the bound. bf16 at head_dim 32
-    runs the bf16 serving kernel, f32 the TF32 kernel (3xTF32)."""
+    fused attention on the same tensors, the bound and the exp floor; kernel
+    and library (and ``parent``, the parent commit's serving kernel, where
+    given and the shape runs a serving kernel, and the ring kernel forced at
+    head_dim 32) as medians of alternating windows after one untimed call
+    each. bf16 at head_dim 32 or 64 runs a bf16 serving kernel (the staged
+    one at head_dim 32 while it holds the sequence, else the ring), f32 the
+    TF32 kernel (3xTF32)."""
     import torch.nn.functional as F
     B, S, D, H = shape
     dtype = getattr(torch, dtype_name)
@@ -625,17 +742,27 @@ def time_attention(torch, ac, attention_reference, card, shape, dtype_name, tol)
     heads = lambda x: x.view(B, S, H, D // H).transpose(1, 2)
     run = lambda: ac.fused_attention(q, k, v, H)
     lib_run = lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v))
-    # kernel, library, library, kernel: both see the same card state
-    ms_a = event_ms(torch, run, 20)
-    lib_a = event_ms(torch, lib_run, 20)
-    lib_b = event_ms(torch, lib_run, 20)
-    ms_b = event_ms(torch, run, 20)
+    runs, extra, other = {"kernel": run, "library": lib_run}, {}, ""
+    serving = dtype_name == "bfloat16" and D // H in ac.MMA_HEAD_DIMS
+    ring = lambda: ac.attention_forward(q, k, v, H, use_mma=True, ring=True)
+    if serving and D // H == 32:
+        runs["ring"] = ring          # where the launcher may pick the staged kernel
+    if serving and parent is not None:
+        try:
+            parent(q, k, v, H)
+        except RuntimeError as e:      # past the parent's shared-memory limit
+            extra["parent"] = f"refused ({e})"
+            other = f"parent kernel refused ({e}), "
+        else:
+            runs["parent"] = lambda: parent(q, k, v, H)
+    t = windows_ms(torch, runs, 20)
+    (ms, each), (lib_ms, lib_each) = t["kernel"], t["library"]
     plain_ms = event_ms(torch, lambda: attention_reference(q, k, v, H), 3)
-    other, sliced_ms = "", None
-    if dtype_name == "bfloat16" and D // H in ac.MMA_HEAD_DIMS:
+    sliced_ms = None
+    if serving:
         # the source's other kernel (TF32 products) on the same tensors
         tf32_ms = event_ms(torch, lambda: ac.attention_forward(q, k, v, H, use_mma=False), 3)
-        other = f"TF32 kernel {tf32_ms:.3f} ms, "
+        other += f"TF32 kernel {tf32_ms:.3f} ms, "
     if ac.kernel_family(D // H) == "_wide":
         # the sliced kernel that the one-pass wide kernel replaced, on the
         # same tensors, held to the same tolerance
@@ -655,16 +782,33 @@ def time_attention(torch, ac, attention_reference, card, shape, dtype_name, tol)
     lib_err = (lib.reshape(B, S, D).float() - ref.float()).abs().max().item()
     if not bool((diff <= tol + tol * ref.float().abs()).all()):
         raise AssertionError(f"attention at {shape} {dtype_name}: max_abs_err {err}")
+    if "ring" in t:
+        ring_diff = (ring().float() - ref.float()).abs()
+        if not bool((ring_diff <= tol + tol * ref.float().abs()).all()):
+            raise AssertionError(f"ring kernel at {shape}: max_abs_err {ring_diff.max().item()}")
+        extra.update(ring_ms=t["ring"][0], ring_ms_windows=t["ring"][1],
+                     ring_max_abs_err=ring_diff.max().item())
+        other = (f"ring kernel {t['ring'][0]:.3f} ms ({spread_text(t['ring'][1])}; max_abs_err "
+                 f"{ring_diff.max().item():.3g}), ") + other
+    if "parent" in t:
+        par_diff = (parent(q, k, v, H).float() - ref.float()).abs()
+        if not bool((par_diff <= tol + tol * ref.float().abs()).all()):
+            raise AssertionError(f"parent kernel at {shape}: max_abs_err {par_diff.max().item()}")
+        extra.update(parent_ms=t["parent"][0], parent_ms_windows=t["parent"][1],
+                     parent_max_abs_err=par_diff.max().item())
+        other = (f"parent kernel {t['parent'][0]:.3f} ms ({spread_text(t['parent'][1])}; "
+                 f"max_abs_err {par_diff.max().item():.3g}), ") + other
     b_ms, b_by, bounds = attention_bound_ms(shape, q.element_size())
-    ms, lib_ms = min(ms_a, ms_b), min(lib_a, lib_b)
-    log(f"timing attention_fwd {shape} {dtype_name}: kernel {ms:.3f} ms ({ms_a:.3f}, "
-        f"{ms_b:.3f}), plain {plain_ms:.2f} ms, {other}"
-        f"scaled_dot_product_attention {lib_ms:.3f} ms "
-        f"({lib_a:.3f}, {lib_b:.3f}; its max_abs_err {lib_err:.3g}), max_abs_err {err:.3g} | "
+    floor = exp_floor_ms(torch, shape)
+    log(f"timing attention_fwd {shape} {dtype_name}: kernel {ms:.3f} ms ({spread_text(each)}), "
+        f"plain {plain_ms:.2f} ms, {other}scaled_dot_product_attention {lib_ms:.3f} ms "
+        f"({spread_text(lib_each)}; its max_abs_err {lib_err:.3g}), max_abs_err {err:.3g} | "
         f"bound {b_ms:.3f} ms by {b_by} ({bounds}); share of the bound {b_ms / ms:.1%}, "
-        f"library's {b_ms / lib_ms:.1%} | {card}")
-    rec = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
-           "bound_by": b_by, "max_abs_err": err}
+        f"library's {b_ms / lib_ms:.1%}; exp floor {floor:.3f} ms (B H S^2 exp2 at 16 a clock "
+        f"per SM) | {card}")
+    rec = {"ms": ms, "ms_windows": each, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "library_ms_windows": lib_each, "bound_ms": b_ms, "bound_by": b_by,
+           "exp_floor_ms": floor, "max_abs_err": err, **extra}
     return rec if sliced_ms is None else dict(rec, sliced_ms=sliced_ms)
 
 
@@ -756,11 +900,8 @@ def time_attention_bwd(torch, ac, attention_backward_reference, card, shape, dty
     run = lambda: ac.attention_backward(q, k, v, do, H, out=out, lse=lse)
     lib = lambda: torch.autograd.grad(lib_out, (lq, lk, lv), lib_do, retain_graph=True)
     iters = 20 if B <= 64 else 5
-    # kernel, library, library, kernel: both see the same card state
-    ms_a = event_ms(torch, run, iters)
-    lib_a = event_ms(torch, lib, iters)
-    lib_b = event_ms(torch, lib, iters)
-    ms_b = event_ms(torch, run, iters)
+    t = windows_ms(torch, {"kernel": run, "library": lib}, iters)
+    (ms, each), (lib_ms, lib_each) = t["kernel"], t["library"]
     direct_ms = event_ms(torch, lambda: ac.attention_backward(q, k, v, do, H), iters)
     plain_ms = event_ms(torch, lambda: attention_backward_reference(q, k, v, do, H), 3)
     split = {}
@@ -780,15 +921,15 @@ def time_attention_bwd(torch, ac, attention_backward_reference, card, shape, dty
                   for a, b in zip(lib_g, want))
     itemsize = 2 if dtype_name == "bfloat16" else 4
     b_ms, b_by, bounds = attention_bwd_bound_ms(shape, itemsize)
-    ms, lib_ms = min(ms_a, ms_b), min(lib_a, lib_b)
     log(f"timing attention_bwd {shape} {dtype_name}: kernels from o and L {ms:.3f} ms "
-        f"({ms_a:.3f}, {ms_b:.3f}){f' {split}' if split else ''}, whole direct call "
-        f"{direct_ms:.3f} ms, plain {plain_ms:.2f} ms, scaled_dot_product_attention backward {lib_ms:.3f} ms "
-        f"({lib_a:.3f}, {lib_b:.3f}; its max_abs_err {lib_err:.3g}), max_abs_err {err:.3g} | "
-        f"bound {b_ms:.3f} ms by {b_by} ({bounds}); share of the bound {b_ms / ms:.1%}, "
-        f"library's {b_ms / lib_ms:.1%} | {card}")
-    return {"ms": ms, "direct_ms": direct_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err, **split}
+        f"({spread_text(each)}){f' {split}' if split else ''}, whole direct call "
+        f"{direct_ms:.3f} ms, plain {plain_ms:.2f} ms, scaled_dot_product_attention backward "
+        f"{lib_ms:.3f} ms ({spread_text(lib_each)}; its max_abs_err {lib_err:.3g}), max_abs_err "
+        f"{err:.3g} | bound {b_ms:.3f} ms by {b_by} ({bounds}); share of the bound "
+        f"{b_ms / ms:.1%}, library's {b_ms / lib_ms:.1%} | {card}")
+    return {"ms": ms, "ms_windows": each, "direct_ms": direct_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "library_ms_windows": lib_each, "bound_ms": b_ms,
+            "bound_by": b_by, "max_abs_err": err, **split}
 
 
 def flash_phase(torch, ac, attention_reference, card):
@@ -1313,7 +1454,13 @@ def build_ab(torch, rc, ab_libs, args, n_tri, card):
     return out
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent-attention", metavar="FILE",
+                    help="another attention.cu (the parent commit's): its bf16 serving kernel "
+                         "is built beside the shipped one and timed with it in turns")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -1335,8 +1482,12 @@ def main() -> int:
     # 1. build: the two sources, and the ray cast's A/B variants beside them
     ab_libs = [KernelLibrary("raycast", flags) for flags in BUILD_AB.values()]
     labels = ["raycast", "attention"] + [f"raycast {k}" for k in BUILD_AB]
+    parent_lib = []
+    if args.parent_attention:
+        parent_lib = [KernelLibrary("attention_parent", source=args.parent_attention)]
+        labels.append("attention (parent)")
     t0 = time.perf_counter()
-    build_logs = build_all([rc.LIBRARY, ac.LIBRARY, *ab_libs])
+    build_logs = build_all([rc.LIBRARY, ac.LIBRARY, *ab_libs, *parent_lib])
     log(f"build: {time.perf_counter() - t0:.2f} s "
         f"({rc.LIBRARY.path().name}, {ac.LIBRARY.path().name}; "
         f"{len(ab_libs)} A/B builds of raycast.cu alongside)")
@@ -1346,6 +1497,8 @@ def main() -> int:
             log(f"  ptxas {label} {name}: {info.get('registers')} registers, spill stores "
                 f"{info.get('spill_stores')} / loads {info.get('spill_loads')} bytes, static "
                 f"shared memory {info.get('static_smem')} bytes")
+
+    parent = parent_forward(torch, parent_lib[0]) if parent_lib else None
 
     # 2. device
     card = card_line()
@@ -1505,7 +1658,7 @@ def main() -> int:
         mode_records.append(record)
 
     # 5. the navigation task flown by the shipped networks
-    nav_launches, nav_k1_err = nav_phase(torch, port, rc, ac, card)
+    nav_launches, nav_k1_err, nav_check = nav_phase(torch, port, rc, ac, card)
     records[0]["max_abs_err"] = max(records[0]["max_abs_err"], nav_k1_err)
     records[0]["launches"] += nav_launches["raycast_depth"]
     records[0]["launches_nav_path"] = nav_launches["raycast_depth"]
@@ -1514,7 +1667,12 @@ def main() -> int:
     #     serving kernel) and at the training path's (f32, the TF32 kernel),
     #     the latter also at 4 heads (head_dim 64)
     k5 = time_attention(torch, ac, attention_reference, card, ATTENTION_MAIN_SHAPE, "bfloat16",
-                        0.05)
+                        0.05, parent)
+    k5_serving_hd64 = time_attention(torch, ac, attention_reference, card, SERVING_HD64_SHAPE,
+                                     "bfloat16", 0.05, parent)
+    # last: where the parent build refuses a launch, its runtime keeps the error
+    k5_long = [time_attention(torch, ac, attention_reference, card, shape, "bfloat16", 0.05,
+                              parent) for shape in LONG_SHAPES]
     k5_train = time_attention(torch, ac, attention_reference, card, ATTENTION_TRAIN_SHAPE,
                               "float32", 1e-4)
     k5_train["max_abs_err"] = max(k5_train["max_abs_err"], k5_train_err)
@@ -1523,12 +1681,16 @@ def main() -> int:
     # the flash path (JAX impl "flash", K7): the f32 kernel on f32 copies of
     # the serving shape's bf16 tensors, and a flash-tagged shipped encoder
     k7 = flash_phase(torch, ac, attention_reference, card)
+    shape_tag = lambda shape: "at_{}x{}x{}_bf16_{}_heads".format(*shape)
     records.append({
         "name": "attention_fwd", "route": "cuda", "source": ATTENTION_SOURCE,
         "replaces": ATTENTION_REPLACES, "launches": nav_launches["attention_fwd"],
-        "max_abs_err": max(errs["attention_fwd"], k5["max_abs_err"]), "ms": k5["ms"],
-        "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
-        "library_ms": k5["library_ms"],
+        **k5, "max_abs_err": max(errs["attention_fwd"], k5["max_abs_err"]),
+        "nav_check": nav_check,
+        "ptxas": {k: v for k, v in ptxas["attention"].items()
+                  if "attention_mma_kernel" in k or "attention_ring_kernel" in k},
+        shape_tag(SERVING_HD64_SHAPE): k5_serving_hd64,
+        **{shape_tag(shape): rec for shape, rec in zip(LONG_SHAPES, k5_long)},
         "at_64x225x256_f32": k5_train,      # the training path; its launches join below
         "at_64x225x256_f32_head_dim_64": k5_hd64,
         "flash_path_at_1024x225x256": k7,

@@ -453,6 +453,10 @@ ATTENTION_CASES = [
     ((64, 225, 256, 8), torch.bfloat16, 0.05),            # bf16 serving kernel, hd 32
     ((2, 100, 256, 4), torch.bfloat16, 0.05),             # bf16 serving kernel, hd 64
     ((2, 65, 96, 4), torch.bfloat16, 0.05),               # hd 24: TF32 kernel
+    # past the staged serving kernel's shared-memory limit (S > 768 at hd 64,
+    # S > 1,408 at hd 32), where its launch failed before the ring kernel
+    ((2, 900, 256, 4), torch.bfloat16, 0.05),             # the ViT at 270x480, 4 heads
+    ((1, 1600, 256, 8), torch.bfloat16, 0.05),            # the ring kernel at hd 32
 ]
 
 
@@ -475,8 +479,12 @@ def test_attention_two_kernels_agree_on_bf16(cuda_device):
     q, k, v = qkv((4, 225, 256, 8), torch.bfloat16, cuda_device, seed=3)
     a = ac.attention_forward(q, k, v, 8, use_mma=True)
     b = ac.attention_forward(q, k, v, 8, use_mma=False)
+    c = ac.attention_forward(q, k, v, 8, use_mma=True, ring=True)
     torch.cuda.synchronize()
     torch.testing.assert_close(a.float(), b.float(), atol=0.05, rtol=0.05)
+    torch.testing.assert_close(c.float(), b.float(), atol=0.05, rtol=0.05)
+    with pytest.raises(ValueError, match="ring"):
+        ac.attention_forward(q.float(), k.float(), v.float(), 8, ring=True)
 
 
 @pytest.mark.cuda
@@ -630,6 +638,31 @@ def test_attention_lse_matches_plain_version(cuda_device, shape, dtype):
     assert lse.shape == (shape[0], shape[3], shape[1]) and lse.dtype == torch.float32
     torch.testing.assert_close(lse, attention_lse_reference(q, k, shape[3]), atol=1e-4, rtol=1e-4)
     assert torch.equal(out, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ring", [False, True], ids=["chosen", "ring"])
+@pytest.mark.parametrize("heads", [8, 4], ids=["hd32", "hd64"])
+@pytest.mark.parametrize("S", [1, 17, 64, 65, 225])
+def test_serving_kernel_sequence_lengths(cuda_device, S, heads, ring):
+    """The bf16 serving kernels (the one the launcher picks, and the ring
+    kernel forced) at sequence lengths around the ring's 32-key chunks and
+    16-row tiles, over more blocks than one wave of the card: with and
+    without L against the plain versions, the same o bits either way and
+    from a second call."""
+    B = 384 // heads                           # 384 (batch row, head) pairs
+    q, k, v = qkv((B, S, 256, heads), torch.bfloat16, cuda_device, seed=8)
+    kw = dict(use_mma=True, ring=True) if ring else {}
+    before = dict(ac.LAUNCHES)
+    out, lse = ac.attention_forward(q, k, v, heads, want_lse=True, **kw)
+    plain = ac.attention_forward(q, k, v, heads, **kw)
+    again = ac.attention_forward(q, k, v, heads, **kw)
+    torch.cuda.synchronize()
+    assert ac.LAUNCHES == dict(before, attention_fwd=before["attention_fwd"] + 3)
+    assert torch.equal(out, plain) and torch.equal(plain, again)
+    torch.testing.assert_close(out.float(), attention_reference(q, k, v, heads).float(),
+                               atol=0.05, rtol=0.05)
+    torch.testing.assert_close(lse, attention_lse_reference(q, k, heads), atol=1e-4, rtol=1e-4)
 
 
 # heads wider than 128 columns: the one-pass wide kernels up to 256 columns,
