@@ -123,11 +123,17 @@
 // wide kernels, attention_wide_fwd_kernel and the backward pair
 // attention_wide_bwd_dq_kernel / attention_wide_bwd_dkdv_kernel: a block
 // holds the whole head of its rows in shared memory and takes each product
-// once (see their section). Wider heads (any width; ViT dim 512 at one head
-// is 512) run three sliced kernels, attention_sliced_fwd_kernel and
-// attention_sliced_bwd_dq_kernel / attention_sliced_bwd_dkdv_kernel: the
-// same products and softmax over 128-column slices of the head, one output
-// slice per block, the logits recomputed for each.
+// once (see their section). Heads of 257 to 2,048 columns (ViT dim 512 at
+// one head is 512) run the cluster kernels, attention_cluster_fwd_kernel and
+// attention_cluster_bwd_dq_kernel / attention_cluster_bwd_dkdv_kernel: a
+// thread-block cluster of one wide block per 256-column slice of the head,
+// whose partial logits are summed across the cluster through distributed
+// shared memory, so every product is taken once per cluster (see their
+// section). Wider heads (any width) run three sliced kernels,
+// attention_sliced_fwd_kernel and attention_sliced_bwd_dq_kernel /
+// attention_sliced_bwd_dkdv_kernel: the same products and softmax over
+// 128-column slices of the head, one output slice per block, the logits
+// recomputed for each.
 // What the TPU kernels did for their own hardware and is not carried over:
 // padding S to a multiple of 128 in device memory with -1e30 on padded keys,
 // casting bf16 operands to f32 before the products, one sequential grid step
@@ -135,6 +141,7 @@
 // the backward. Left for later: wgmma and TMA, bf16 m16n8k16 products for
 // the bf16 backward.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -143,6 +150,8 @@
 #include <type_traits>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -1429,23 +1438,27 @@ __device__ __forceinline__ T zero_of() {
     return __float2bfloat16_rn(0.0f);
 }
 
-// rows row0 .. row0 + n_rows - 1, head columns [0, hd), of one head of a
-// packed (B, S, D) tensor into staged rows ld elements apart, in the input
-// type, by cp.async: 16 bytes a copy where a row is whole 16-byte pieces,
-// else 4 (a bf16 head of odd size cannot be copied in 4-byte pieces and is
-// loaded plainly); rows past S are zero-filled by the copy
+// rows row0 .. row0 + n_rows - 1, columns [0, hd) from base (a head, or a
+// column slice of one), of a packed (B, S, D) tensor into staged rows ld
+// elements apart, in the input type, by cp.async: 16 bytes a copy where
+// every row of the whole head (hd_all columns, from a head's start) is whole
+// 16-byte pieces, else 4 (a bf16 head of odd size cannot be copied in
+// 4-byte pieces and is loaded plainly); rows past S are zero-filled by the
+// copy. A slice starts at a multiple of 256 columns, so hd keeps hd_all's
+// divisibility.
 template <typename T>
-__device__ __forceinline__ void stage_rows(T* dst, int ld, const T* __restrict__ src, size_t base,
-                                           int row0, int n_rows, int S, int D, int hd) {
+__device__ __forceinline__ void stage_cols(T* dst, int ld, const T* __restrict__ src, size_t base,
+                                           int row0, int n_rows, int S, int D, int hd,
+                                           int hd_all) {
   constexpr int kPer16 = 16 / sizeof(T), kPer4 = 4 / sizeof(T);
-  if (hd % kPer16 == 0) {
+  if (hd_all % kPer16 == 0) {
     const int per_row = hd / kPer16;
     for (int i = threadIdx.x; i < n_rows * per_row; i += kWideThreads) {
       const int r = i / per_row, c = (i - r * per_row) * kPer16, row = row0 + r;
       cp_async16(dst + r * ld + c, src + base + (size_t)min(row, S - 1) * D + c,
                  row < S ? 16 : 0);
     }
-  } else if (hd % kPer4 == 0) {
+  } else if (hd_all % kPer4 == 0) {
     const int per_row = hd / kPer4;
     for (int i = threadIdx.x; i < n_rows * per_row; i += kWideThreads) {
       const int r = i / per_row, c = (i - r * per_row) * kPer4, row = row0 + r;
@@ -1457,6 +1470,13 @@ __device__ __forceinline__ void stage_rows(T* dst, int ld, const T* __restrict__
       dst[r * ld + c] = row < S ? src[base + (size_t)row * D + c] : zero_of<T>();
     }
   }
+}
+
+// the whole head of hd columns
+template <typename T>
+__device__ __forceinline__ void stage_rows(T* dst, int ld, const T* __restrict__ src, size_t base,
+                                           int row0, int n_rows, int S, int D, int hd) {
+  stage_cols(dst, ld, src, base, row0, n_rows, S, D, hd, hd);
 }
 
 // n entries of a (B, H, S) row vector from row0 (zero past S), by cp.async
@@ -1673,11 +1693,12 @@ attention_wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // the same two partial sums (IEEE addition is commutative). A operands from
 // the block's own staged rows (A1 for s, A2 for d), B from the tile's (B1,
 // B2); 8-column steps of the half that hold no real column are skipped.
+// half_logits takes the products alone (the cluster kernels exchange them
+// across the cluster instead).
 template <bool kSplit, typename T>
-__device__ __forceinline__ void pair_logits(const T* A1, const T* A2, const T* B1, const T* B2,
-                                            int r0, int c0, int hd, float* X, int slab, int half,
-                                            int g, int t, int lane, float (&s)[2][4],
-                                            float (&d)[2][4]) {
+__device__ __forceinline__ void half_logits(const T* A1, const T* A2, const T* B1, const T* B2,
+                                            int r0, int c0, int hd, int g, int t,
+                                            float (&s)[2][4], float (&d)[2][4]) {
   constexpr int ld = wide_ld<T>();
   const int n_steps = min((hd - c0 + 7) / 8, kWideHead / 16);
 #pragma unroll
@@ -1699,6 +1720,14 @@ __device__ __forceinline__ void pair_logits(const T* A1, const T* A2, const T* B
       mma3<kSplit>(d[nt], gh, gl, bfh, bfl);
     }
   }
+}
+
+template <bool kSplit, typename T>
+__device__ __forceinline__ void pair_logits(const T* A1, const T* A2, const T* B1, const T* B2,
+                                            int r0, int c0, int hd, float* X, int slab, int half,
+                                            int g, int t, int lane, float (&s)[2][4],
+                                            float (&d)[2][4]) {
+  half_logits<kSplit>(A1, A2, B1, B2, r0, c0, hd, g, t, s, d);
   float* mine = X + (slab * 2 + half) * 4 * kFrag;
   const float* other = X + (slab * 2 + (half ^ 1)) * 4 * kFrag;
 #pragma unroll
@@ -1961,12 +1990,15 @@ attention_wide_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// Heads above 256 columns: the same TF32 products over head slices
+// Heads above 2,048 columns: the same TF32 products over head slices
 // ---------------------------------------------------------------------------
 //
-// A head wider than kWideHead columns fits neither the narrow kernels (their
-// register-resident fragments cover the whole head) nor the one-pass wide
-// kernels (their staged tiles do). These kernels walk the
+// A head wider than kClusterHead columns fits neither the narrow kernels
+// (their register-resident fragments cover the whole head), the one-pass
+// wide kernels (their staged tiles do) nor the portable clusters of the
+// cluster kernels (8 blocks of 256 columns; attention_fwd_launch's and
+// attention_bwd_launch's kernel 2 still runs these kernels at any head above
+// 128, to compare them on the same tensors). These kernels walk the
 // head in slices of kSlice columns. Dot products over the head (Q K^T,
 // dO V^T) accumulate slice by slice, the register-side operand read from
 // device memory (L1/L2) one 8-column step at a time and the tile-side
@@ -2071,7 +2103,7 @@ __device__ __forceinline__ void store_slice(T* __restrict__ out, size_t base, in
   }
 }
 
-// Forward, heads above 256: grid (B * H, query tiles, output slices). shared
+// Forward, heads above 2,048: grid (B * H, query tiles, output slices). shared
 // memory: one K slice and one V slice of a key tile
 template <typename T, bool kLse>
 __global__ void __launch_bounds__(kThreads)
@@ -2143,7 +2175,7 @@ attention_sliced_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// Backward, heads above 256, first kernel: delta and one output slice of dQ for
+// Backward, heads above 2,048, first kernel: delta and one output slice of dQ for
 // kTile query rows; grid (B * H, query tiles, output slices). shared
 // memory: one K slice and one V slice of a key tile
 template <typename T>
@@ -2232,7 +2264,7 @@ attention_sliced_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_slice(dq, base, r_lo, out0, S, D, hd, t, dacc, scale);
 }
 
-// Backward, heads above 256, second kernel: one output slice of dV (even
+// Backward, heads above 2,048, second kernel: one output slice of dV (even
 // blockIdx.z) or dK (odd) for kTile keys, after the first kernel has written
 // delta; grid (B * H, key tiles, 2 x output slices). shared memory: one Q
 // slice and one dO slice of a query tile, then L and delta of its queries
@@ -2317,6 +2349,597 @@ attention_sliced_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ 
   }
   if (want_dk) store_slice(dk, base, key0 + g, out0, S, D, hd, t, acc, scale);
   else store_slice(dv, base, key0 + g, out0, S, D, hd, t, acc, 1.0f);
+}
+
+// ---------------------------------------------------------------------------
+// Heads of 257 to 2,048 columns: thread-block clusters over 256-column slices
+// ---------------------------------------------------------------------------
+//
+// The same TPU kernels (attention_pallas.py:153 forward, :169 backward; they
+// take any head size) above the one-pass wide kernels' 256 columns. Bound at
+// (B=64, S=225, D=512, H=1) f32, by operations as 3xTF32: 0.040 ms forward,
+// 0.101 ms backward (bytes 0.035 / 0.062 ms).
+//
+// A head of hd columns runs on a cluster of n = ceil(hd / 256) blocks (2 to
+// 8, the portable cluster size) per (batch row, head, 64 rows), placed by
+// the hardware on neighbouring SMs. Block rank c owns head columns [256c,
+// 256c + 256) and is a one-pass wide block on that slice: it stages its slice
+// of its own 64 rows once, streams its slice of each K/V (or Q/dO) tile in
+// two cp.async stages, and writes its own slice of the output. The logits
+// need the whole head: each block contracts its own columns into a partial
+// tile (Q K^T in the forward; S and dP in dQ; S^T and dP^T in dK/dV), writes
+// it to an exchange buffer in its shared memory and, after a cluster
+// barrier, reads every rank's partial through distributed shared memory
+// (map_shared_rank) and sums them in rank order 0..n-1. So every block holds
+// the same bits of the logits, hence the same row max, l, L and P, and runs
+// its online softmax and its own P V, dQ, dK or dV slice alone. delta =
+// rowsum(dO o) is exchanged the same way once, at the start of the dQ
+// kernel. Rank 0 alone writes L and delta; no float atomic, so two calls on
+// the same inputs give the same bits.
+// What this does about the three limits of the sliced kernels (below, which
+// ran these heads before):
+//  * each logit product is taken once per cluster, where the sliced kernels
+//    took Q K^T (and dO V^T) once per 128-column output slice, 4 times at
+//    head 512, and S^T and dP^T once per dV or dK slice, 8 times;
+//  * a block's own rows are staged once in shared memory, where the sliced
+//    kernels read the register-side operand from device memory 8 columns at
+//    a time inside the key loop;
+//  * tiles stream in two stages behind one block barrier per tile, where the
+//    sliced kernels staged one slice at a time between two barriers, with 4
+//    warps a block; a cluster block has 8.
+// The exchange buffer: the forward adds 64 x 32 f32 (8 KB, one 16 x 16
+// partial a warp) to the wide forward's shared memory; the backward kernels
+// use the wide kernels' pair buffer (16 KB: the partials of both 128-column
+// halves of each 16-row slab), which every rank now reads, adding each
+// rank's two halves (h0 + h1, the sum the wide kernels' pairs take) before
+// adding across ranks. One buffer each: a second would not fit the dK/dV
+// kernel (216,320 + 16,384 > 232,448 bytes). So each tile passes two cluster
+// barriers: one after the writes, and one after the reads, split into an
+// arrive right after them and a wait just before the next tile's writes, so
+// that the tile's softmax and products run in between. Dynamic shared
+// memory, f32: 207,872 / 216,064 / 216,320 bytes (forward, dQ, dK/dV), bf16
+// 109,568 / 117,760 / 118,016; one block per SM. The launcher asks
+// cudaOccupancyMaxActiveClusters whether the card can place one cluster of
+// the kernel before each launch and returns an error where it cannot. At
+// (64, 225, 512, 1) each grid is 256 clusters of 2, 3.9 waves of the 66
+// that an H100 holds. Heads above 2,048 columns (a cluster above 8 blocks,
+// which the card allows only as a non-portable size) keep the sliced
+// kernels.
+
+constexpr int kClusterHead = 2048;                  // the widest head the cluster kernels take
+constexpr int kMaxRanks = kClusterHead / kWideHead; // 8: the largest portable cluster
+
+// the cluster barrier in two halves: arrive (release) and wait (acquire)
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// this block's rank in its cluster, and the cluster's size in blocks
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+__device__ __forceinline__ int cluster_blocks() {
+  uint32_t n;
+  asm("mov.u32 %0, %%cluster_nctarank;" : "=r"(n));
+  return static_cast<int>(n);
+}
+
+// one warp's 16 x 8 accumulator tile as one float4 a lane, in an exchange slot
+__device__ __forceinline__ void put_frag4(float* X, const float (&c)[4], int lane) {
+  reinterpret_cast<float4*>(X)[lane] = make_float4(c[0], c[1], c[2], c[3]);
+}
+
+__device__ __forceinline__ float4 get_frag4(const float* X, int lane) {
+  return reinterpret_cast<const float4*>(X)[lane];
+}
+
+// s[nt] = the sum over ranks 0..n-1, in that order, of the kN 16 x 8 tiles
+// that this warp's counterpart in each rank wrote at X (the same offset in
+// every block's shared memory)
+template <int kN>
+__device__ __forceinline__ void cluster_sum(const float* X, int n_ranks, int lane,
+                                            float (&s)[kN][4]) {
+  cg::cluster_group cluster = cg::this_cluster();
+#pragma unroll
+  for (int nt = 0; nt < kN; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
+#pragma unroll 2
+  for (int r = 0; r < n_ranks; ++r) {
+    const float* R = cluster.map_shared_rank(X, r);
+#pragma unroll
+    for (int nt = 0; nt < kN; ++nt) {
+      const float4 x = get_frag4(R + nt * kFrag, lane);
+      s[nt][0] += x.x;
+      s[nt][1] += x.y;
+      s[nt][2] += x.z;
+      s[nt][3] += x.w;
+    }
+  }
+}
+
+// The backward's logits s and d (dP, or dP^T) of one 16-row slab: at X each
+// rank holds [half][s 0-7, s 8-15, d 0-7, d 8-15][kFrag], the partials of
+// the slab's two warps over their 128 columns; the sum over ranks in order
+// of (half 0 + half 1)
+__device__ __forceinline__ void cluster_sum_halves(const float* X, int n_ranks, int lane,
+                                                   float (&s)[2][4], float (&d)[2][4]) {
+  cg::cluster_group cluster = cg::this_cluster();
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = d[nt][e] = 0.0f;
+#pragma unroll 2
+  for (int r = 0; r < n_ranks; ++r) {
+    const float* R = cluster.map_shared_rank(X, r);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const float4 a = get_frag4(R + nt * kFrag, lane), b = get_frag4(R + (4 + nt) * kFrag, lane);
+      const float4 x = get_frag4(R + (2 + nt) * kFrag, lane);
+      const float4 y = get_frag4(R + (6 + nt) * kFrag, lane);
+      s[nt][0] += a.x + b.x;
+      s[nt][1] += a.y + b.y;
+      s[nt][2] += a.z + b.z;
+      s[nt][3] += a.w + b.w;
+      d[nt][0] += x.x + y.x;
+      d[nt][1] += x.y + y.y;
+      d[nt][2] += x.z + y.z;
+      d[nt][3] += x.w + y.w;
+    }
+  }
+}
+
+template <typename T>
+constexpr size_t cluster_fwd_bytes() {
+  return wide_fwd_bytes<T>() + sizeof(float) * kWideWarps * 2 * kFrag;
+}
+
+static_assert(cluster_fwd_bytes<float>() <= 232448,
+              "the cluster forward exceeds a block's shared memory");
+
+// Forward, heads of 257 to 2,048 columns: grid (clusters of n along x: B * H
+// * n blocks, query tiles of 64). shared memory: the wide forward's (this
+// rank's slice of the block's Q rows, K and V tiles of kFwdKeys keys, two
+// stages each), then the exchange slots [warp][key tile half][kFrag]
+template <typename T, bool kLse>
+__global__ void __launch_bounds__(kWideThreads, 1)
+attention_cluster_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+                             int S, int H, int hd, float scale_log2e) {
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  constexpr int ld = wide_ld<T>(), kSteps = kWideHead / 8, kTileElems = kFwdKeys * ld;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);   // [kWideRows][ld]
+  T* Ks = Qs + kWideRows * ld;              // [2][kFwdKeys][ld]
+  T* Vs = Ks + 2 * kTileElems;              // [2][kFwdKeys][ld]
+  float* Xs = reinterpret_cast<float*>(Vs + 2 * kTileElems);   // [kWideWarps][2][kFrag]
+
+  const int rank = cluster_rank(), n_ranks = cluster_blocks();
+  const int bh = blockIdx.x / n_ranks, b = bh / H, h = bh - b * H;
+  const int D = H * hd, c0 = rank * kWideHead, hd_c = min(kWideHead, hd - c0);
+  const size_t base = (size_t)b * S * D + (size_t)h * hd + c0;   // this rank's slice
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int grp = warp >> 2, slab = warp & 3;   // warpgroup, and the warp's 16 rows in it
+  const int r0 = slab * 16, row0 = blockIdx.y * kWideRows + r0;
+  const int n_tiles = (S + kFwdKeys - 1) / kFwdKeys, n_steps = (hd_c + 7) / 8;
+  float* mine = Xs + warp * 2 * kFrag;
+
+  zero_head_pad(Qs, kWideRows + 4 * kFwdKeys, hd_c);
+  stage_cols(Qs, ld, q, base, blockIdx.y * kWideRows, kWideRows, S, D, hd_c, hd);
+  stage_cols(Ks, ld, k, base, 0, kFwdKeys, S, D, hd_c, hd);
+  stage_cols(Vs, ld, v, base, 0, kFwdKeys, S, D, hd_c, hd);
+  cp_async_commit();
+
+  float oacc[kSteps][4];
+#pragma unroll
+  for (int dt = 0; dt < kSteps; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[dt][e] = 0.0f;
+  float m_lo = -CUDART_INF_F, m_hi = -CUDART_INF_F;   // running row max (log2 units)
+  float l_lo = 0.0f, l_hi = 0.0f;                     // this thread's share of the row sums
+  cluster_arrive();   // the first tile's wait also finds every block of the cluster running
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();   // this tile has landed; every warp is done with the last one
+    if (it + 1 < n_tiles) {   // the next tile loads while this one is multiplied
+      const int nb = (it + 1) & 1;
+      stage_cols(Ks + nb * kTileElems, ld, k, base, (it + 1) * kFwdKeys, kFwdKeys, S, D, hd_c, hd);
+      stage_cols(Vs + nb * kTileElems, ld, v, base, (it + 1) * kFwdKeys, kFwdKeys, S, D, hd_c, hd);
+    }
+    cp_async_commit();
+    // this warpgroup's 16 keys of the tile; the second may have none in the last
+    const T* Kt = Ks + (it & 1) * kTileElems + grp * 16 * ld;
+    const T* Vt = Vs + (it & 1) * kTileElems + grp * 16 * ld;
+    const int keys_left = S - it * kFwdKeys - grp * 16;
+    float s[2][4];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
+    if (keys_left > 0) {   // the partial logits over this rank's columns
+#pragma unroll 4
+      for (int ks = 0; ks < n_steps; ++ks) {
+        uint32_t ah[4], al[4];
+        a_rows<kSplit>(Qs, r0, ks * 8, g, t, ah, al);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          uint32_t bfh[2], bfl[2];
+          b_rows<kSplit>(Kt, ld, nt * 8, ks * 8, g, t, bfh, bfl);
+          mma3<kSplit>(s[nt], ah, al, bfh, bfl);
+        }
+      }
+    }
+    cluster_wait();    // every rank has read the last tile's partials
+    put_frag4(mine, s[0], lane);
+    put_frag4(mine + kFrag, s[1], lane);
+    cluster_arrive();
+    cluster_wait();    // every rank's partials of this tile are written
+    cluster_sum<2>(mine, n_ranks, lane, s);
+    cluster_arrive();  // done reading: the next tile's writes wait for every rank's
+    if (keys_left > 0) {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] *= scale_log2e;   // log2 units, any sign of scale
+      softmax_step<kSteps, 2>(s, keys_left, t, m_lo, m_hi, l_lo, l_hi, oacc);
+      // O += P V over this rank's columns, P straight from the accumulators
+#pragma unroll
+      for (int kt = 0; kt < 2; ++kt) {
+        uint32_t ph[4], pl[4];
+        acc_as_a<kSplit>(s[kt], ph, pl);
+#pragma unroll
+        for (int dt = 0; dt < kSteps; ++dt) {
+          uint32_t bfh[2], bfl[2];
+          b_cols<kSplit>(Vt, ld, kt * 8, dt * 8, g, t, bfh, bfl);
+          mma3<kSplit>(oacc[dt], ph, pl, bfh, bfl);
+        }
+      }
+    }
+  }
+  cluster_wait();   // no rank reads this block's exchange slots any more
+
+  // the two warpgroups' states merged as in the wide forward
+  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
+  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
+  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
+  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
+  __syncthreads();   // every warp is done with the last tile
+  float* Ox = reinterpret_cast<float*>(Ks);
+  float* Mx = Ox + 4 * kSteps * kFrag;
+  if (grp == 1) {
+#pragma unroll
+    for (int dt = 0; dt < kSteps; ++dt) put_frag(Ox + (slab * kSteps + dt) * kFrag, oacc[dt], lane);
+    const float st[4] = {m_lo, m_hi, l_lo, l_hi};
+    put_frag(Mx + slab * kFrag, st, lane);
+  }
+  __syncthreads();
+  if (grp == 1) return;
+  float other[4];
+  get_frag(Mx + slab * kFrag, other, lane);
+  const float n_lo = fmaxf(m_lo, other[0]), n_hi = fmaxf(m_hi, other[1]);
+  const float a_lo = fast_exp2(m_lo - n_lo), a_hi = fast_exp2(m_hi - n_hi);
+  const float b_lo = fast_exp2(other[0] - n_lo), b_hi = fast_exp2(other[1] - n_hi);
+  l_lo = l_lo * a_lo + other[2] * b_lo;
+  l_hi = l_hi * a_hi + other[3] * b_hi;
+  const float i_lo = 1.0f / l_lo, i_hi = 1.0f / l_hi;
+  const int r_lo = row0 + g, r_hi = r_lo + 8;
+#pragma unroll
+  for (int dt = 0; dt < kSteps; ++dt) {
+    float x[4];
+    get_frag(Ox + (slab * kSteps + dt) * kFrag, x, lane);
+    const int col = dt * 8 + 2 * t;
+    if (r_lo < S)
+      store_pair(o + base + (size_t)r_lo * D, col, hd_c, (oacc[dt][0] * a_lo + x[0] * b_lo) * i_lo,
+                 (oacc[dt][1] * a_lo + x[1] * b_lo) * i_lo);
+    if (r_hi < S)
+      store_pair(o + base + (size_t)r_hi * D, col, hd_c, (oacc[dt][2] * a_hi + x[2] * b_hi) * i_hi,
+                 (oacc[dt][3] * a_hi + x[3] * b_hi) * i_hi);
+  }
+  if constexpr (kLse) {
+    if (t == 0 && rank == 0) {
+      float* row_lse = lse + (size_t)bh * S;
+      if (r_lo < S) row_lse[r_lo] = (n_lo + log2f(l_lo)) * kLn2;
+      if (r_hi < S) row_lse[r_hi] = (n_hi + log2f(l_hi)) * kLn2;
+    }
+  }
+}
+
+// Backward, heads of 257 to 2,048 columns, first kernel: delta and this
+// rank's slice of dQ for 64 query rows; grid as the forward's. shared
+// memory: the wide dQ kernel's (this rank's slice of the block's Q and dO
+// rows, K and V tiles of kBwdRows keys, two stages each), then the exchange
+// slots [slab][half][S 0-7, S 8-15, dP 0-7, dP 8-15][kFrag]
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads, 1)
+attention_cluster_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                const T* __restrict__ v, const T* __restrict__ o,
+                                const T* __restrict__ dout, const float* __restrict__ lse,
+                                float* __restrict__ delta, T* __restrict__ dq, int S, int H,
+                                int hd, float scale, float scale_log2e) {
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  constexpr int ld = wide_ld<T>(), kHalfSteps = kWideHead / 16, kTileElems = kBwdRows * ld;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);   // [kWideRows][ld]
+  T* Gs = Qs + kWideRows * ld;              // dO, [kWideRows][ld]
+  T* Ks = Gs + kWideRows * ld;              // [2][kBwdRows][ld]
+  T* Vs = Ks + 2 * kTileElems;              // [2][kBwdRows][ld]
+  float* Xs = reinterpret_cast<float*>(Vs + 2 * kTileElems);   // [4][2][4][kFrag]
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = cluster_rank(), n_ranks = cluster_blocks();
+  const int bh = blockIdx.x / n_ranks, b = bh / H, h = bh - b * H;
+  const int D = H * hd, c0 = rank * kWideHead, hd_c = min(kWideHead, hd - c0);
+  const size_t base = (size_t)b * S * D + (size_t)h * hd + c0;   // this rank's slice
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int slab = warp & 3, half = warp >> 2;   // 16 rows; half of the slice's columns
+  const int r0 = slab * 16, row0 = blockIdx.y * kWideRows + r0, cw = half * (kWideHead / 2);
+  const int n_tiles = (S + kBwdRows - 1) / kBwdRows;
+  float* slot = Xs + slab * 8 * kFrag;   // this slab's [half][4][kFrag]
+
+  zero_head_pad(Qs, 2 * kWideRows + 4 * kBwdRows, hd_c);
+  stage_cols(Qs, ld, q, base, blockIdx.y * kWideRows, kWideRows, S, D, hd_c, hd);
+  stage_cols(Gs, ld, dout, base, blockIdx.y * kWideRows, kWideRows, S, D, hd_c, hd);
+  cp_async_commit();
+  stage_cols(Ks, ld, k, base, 0, kBwdRows, S, D, hd_c, hd);
+  stage_cols(Vs, ld, v, base, 0, kBwdRows, S, D, hd_c, hd);
+  cp_async_commit();
+  cp_async_wait<1>();   // Q and dO have landed; the first K and V tiles may not have
+  __syncthreads();
+
+  // delta = rowsum(dO o): this rank's columns in the wide kernel's order,
+  // then the ranks' partials in rank order
+  const int r_lo = row0 + g, r_hi = r_lo + 8;
+  float del_lo = 0.0f, del_hi = 0.0f;
+  for (int col = 0; col < hd_c; col += 8) {
+    const T* y = Gs + (r0 + g) * ld + col + t;
+    float z[4];
+    a_values(o, base, row0, col, S, D, hd_c, g, t, z);
+    del_lo = fmaf(to_float(y[0]), z[0], fmaf(to_float(y[4]), z[2], del_lo));
+    del_hi = fmaf(to_float(y[8 * ld]), z[1], fmaf(to_float(y[8 * ld + 4]), z[3], del_hi));
+  }
+  del_lo += __shfl_xor_sync(0xffffffffu, del_lo, 1);
+  del_lo += __shfl_xor_sync(0xffffffffu, del_lo, 2);
+  del_hi += __shfl_xor_sync(0xffffffffu, del_hi, 1);
+  del_hi += __shfl_xor_sync(0xffffffffu, del_hi, 2);
+  if (half == 0) reinterpret_cast<float2*>(slot)[lane] = make_float2(del_lo, del_hi);
+  cluster_arrive();
+  cluster_wait();   // every rank's partial delta is written (and every block runs)
+  del_lo = del_hi = 0.0f;
+  for (int r = 0; r < n_ranks; ++r) {
+    const float2 x = reinterpret_cast<const float2*>(cluster.map_shared_rank(slot, r))[lane];
+    del_lo += x.x;
+    del_hi += x.y;
+  }
+  cluster_arrive();   // done reading: the first tile's writes wait for every rank's
+  const float* row_lse = lse + (size_t)bh * S;
+  const float L_lo = r_lo < S ? row_lse[r_lo] * kLog2e : 0.0f;
+  const float L_hi = r_hi < S ? row_lse[r_hi] * kLog2e : 0.0f;
+  if (t == 0 && half == 0 && rank == 0) {
+    if (r_lo < S) delta[(size_t)bh * S + r_lo] = del_lo;
+    if (r_hi < S) delta[(size_t)bh * S + r_hi] = del_hi;
+  }
+
+  float dacc[kHalfSteps][4];
+#pragma unroll
+  for (int dt = 0; dt < kHalfSteps; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dacc[dt][e] = 0.0f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();   // this tile has landed; every warp is done with the last one
+    if (it + 1 < n_tiles) {   // the next tile loads while this one is multiplied
+      const int nb = (it + 1) & 1;
+      stage_cols(Ks + nb * kTileElems, ld, k, base, (it + 1) * kBwdRows, kBwdRows, S, D, hd_c, hd);
+      stage_cols(Vs + nb * kTileElems, ld, v, base, (it + 1) * kBwdRows, kBwdRows, S, D, hd_c, hd);
+    }
+    cp_async_commit();
+    const T* Kt = Ks + (it & 1) * kTileElems;
+    const T* Vt = Vs + (it & 1) * kTileElems;
+    const int keys_left = S - it * kBwdRows;
+
+    // S and dP of the warp's 16 rows and the tile's 16 keys: this warp's 128
+    // columns, then the whole head through the cluster
+    float s[2][4], dp[2][4];
+    half_logits<kSplit>(Qs, Gs, Kt, Vt, r0, cw, hd_c, g, t, s, dp);
+    cluster_wait();    // every rank has read the last tile's partials
+    float* mine = slot + half * 4 * kFrag;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      put_frag4(mine + nt * kFrag, s[nt], lane);
+      put_frag4(mine + (2 + nt) * kFrag, dp[nt], lane);
+    }
+    cluster_arrive();
+    cluster_wait();    // every rank's partials of this tile are written
+    cluster_sum_halves(slot, n_ranks, lane, s, dp);
+    cluster_arrive();  // done reading
+    // dS in place of S; keys past the end: zero rows of K and V, P set to 0
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      float p[4];
+      p[0] = fast_exp2(fmaf(s[nt][0], scale_log2e, -L_lo));
+      p[1] = fast_exp2(fmaf(s[nt][1], scale_log2e, -L_lo));
+      p[2] = fast_exp2(fmaf(s[nt][2], scale_log2e, -L_hi));
+      p[3] = fast_exp2(fmaf(s[nt][3], scale_log2e, -L_hi));
+      const int key = nt * 8 + 2 * t;
+      if (key >= keys_left) p[0] = p[2] = 0.0f;
+      if (key + 1 >= keys_left) p[1] = p[3] = 0.0f;
+      s[nt][0] = p[0] * (dp[nt][0] - del_lo);
+      s[nt][1] = p[1] * (dp[nt][1] - del_lo);
+      s[nt][2] = p[2] * (dp[nt][2] - del_hi);
+      s[nt][3] = p[3] * (dp[nt][3] - del_hi);
+    }
+    // dQ[16 rows, this warp's 128 columns] += dS (16 rows x 16 keys) K
+#pragma unroll
+    for (int kt = 0; kt < 2; ++kt) {
+      uint32_t ah[4], al[4];
+      acc_as_a<kSplit>(s[kt], ah, al);
+#pragma unroll
+      for (int dt = 0; dt < kHalfSteps; ++dt) {
+        uint32_t bfh[2], bfl[2];
+        b_cols<kSplit>(Kt, ld, kt * 8, cw + dt * 8, g, t, bfh, bfl);
+        mma3<kSplit>(dacc[dt], ah, al, bfh, bfl);
+      }
+    }
+  }
+  cluster_wait();   // no rank reads this block's exchange slots any more
+
+#pragma unroll
+  for (int dt = 0; dt < kHalfSteps; ++dt) {
+    const int col = cw + dt * 8 + 2 * t;
+    if (r_lo < S)
+      store_pair(dq + base + (size_t)r_lo * D, col, hd_c, dacc[dt][0] * scale,
+                 dacc[dt][1] * scale);
+    if (r_hi < S)
+      store_pair(dq + base + (size_t)r_hi * D, col, hd_c, dacc[dt][2] * scale,
+                 dacc[dt][3] * scale);
+  }
+}
+
+// Backward, heads of 257 to 2,048 columns, second kernel: this rank's slices
+// of dK and dV for 64 keys, after the first has written delta; grid as the
+// forward's. shared memory: the wide dK/dV kernel's (this rank's slice of the
+// block's K and V rows, Q and dO tiles of kBwdRows queries and their L and
+// delta, two stages each), then the exchange slots [slab][half][S^T 0-7,
+// S^T 8-15, dP^T 0-7, dP^T 8-15][kFrag]
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads, 1)
+attention_cluster_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                  const T* __restrict__ v, const T* __restrict__ dout,
+                                  const float* __restrict__ lse, const float* __restrict__ delta,
+                                  T* __restrict__ dk, T* __restrict__ dv, int S, int H, int hd,
+                                  float scale, float scale_log2e) {
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  constexpr int ld = wide_ld<T>(), kHalfSteps = kWideHead / 16, kTileElems = kBwdRows * ld;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Ks = reinterpret_cast<T*>(smem_raw);   // [kWideRows][ld]
+  T* Vs = Ks + kWideRows * ld;              // [kWideRows][ld]
+  T* Qs = Vs + kWideRows * ld;              // [2][kBwdRows][ld]
+  T* Gs = Qs + 2 * kTileElems;              // dO, [2][kBwdRows][ld]
+  float* Ls = reinterpret_cast<float*>(Gs + 2 * kTileElems);   // [2][kBwdRows]
+  float* Ds = Ls + 2 * kBwdRows;                               // [2][kBwdRows]
+  float* Xs = Ds + 2 * kBwdRows;                               // [4][2][4][kFrag]
+
+  const int rank = cluster_rank(), n_ranks = cluster_blocks();
+  const int bh = blockIdx.x / n_ranks, b = bh / H, h = bh - b * H;
+  const int D = H * hd, c0 = rank * kWideHead, hd_c = min(kWideHead, hd - c0);
+  const size_t base = (size_t)b * S * D + (size_t)h * hd + c0;   // this rank's slice
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int slab = warp & 3, half = warp >> 2;   // 16 keys; half of the slice's columns
+  const int r0 = slab * 16, key0 = blockIdx.y * kWideRows + r0, cw = half * (kWideHead / 2);
+  const int n_tiles = (S + kBwdRows - 1) / kBwdRows;
+  const float* row_lse = lse + (size_t)bh * S;
+  const float* row_delta = delta + (size_t)bh * S;
+  float* slot = Xs + slab * 8 * kFrag;   // this slab's [half][4][kFrag]
+
+  zero_head_pad(Ks, 2 * kWideRows + 4 * kBwdRows, hd_c);
+  stage_cols(Ks, ld, k, base, blockIdx.y * kWideRows, kWideRows, S, D, hd_c, hd);
+  stage_cols(Vs, ld, v, base, blockIdx.y * kWideRows, kWideRows, S, D, hd_c, hd);
+  stage_cols(Qs, ld, q, base, 0, kBwdRows, S, D, hd_c, hd);
+  stage_cols(Gs, ld, dout, base, 0, kBwdRows, S, D, hd_c, hd);
+  stage_entries(Ls, row_lse, 0, kBwdRows, S);
+  stage_entries(Ds, row_delta, 0, kBwdRows, S);
+  cp_async_commit();
+
+  float kacc[kHalfSteps][4], vacc[kHalfSteps][4];
+#pragma unroll
+  for (int dt = 0; dt < kHalfSteps; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) kacc[dt][e] = vacc[dt][e] = 0.0f;
+  cluster_arrive();   // the first tile's wait also finds every block of the cluster running
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();   // this tile has landed; every warp is done with the last one
+    if (it + 1 < n_tiles) {   // the next tile loads while this one is multiplied
+      const int nb = (it + 1) & 1, next = (it + 1) * kBwdRows;
+      stage_cols(Qs + nb * kTileElems, ld, q, base, next, kBwdRows, S, D, hd_c, hd);
+      stage_cols(Gs + nb * kTileElems, ld, dout, base, next, kBwdRows, S, D, hd_c, hd);
+      stage_entries(Ls + nb * kBwdRows, row_lse, next, kBwdRows, S);
+      stage_entries(Ds + nb * kBwdRows, row_delta, next, kBwdRows, S);
+    }
+    cp_async_commit();
+    const T* Qt = Qs + (it & 1) * kTileElems;
+    const T* Gt = Gs + (it & 1) * kTileElems;
+    const float* Lt = Ls + (it & 1) * kBwdRows;
+    const float* Dt = Ds + (it & 1) * kBwdRows;
+
+    // S^T and dP^T of the warp's 16 keys and the tile's 16 queries: this
+    // warp's 128 columns, then the whole head through the cluster; then P^T
+    // in place of S^T and dS^T in place of dP^T. Queries past S are zero
+    // rows with L = delta = 0: P = 1 there, and dO = 0 and dS = 0 keep them
+    // out of both sums.
+    float st[2][4], dpt[2][4];
+    half_logits<kSplit>(Ks, Vs, Qt, Gt, r0, cw, hd_c, g, t, st, dpt);
+    cluster_wait();    // every rank has read the last tile's partials
+    float* mine = slot + half * 4 * kFrag;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      put_frag4(mine + nt * kFrag, st[nt], lane);
+      put_frag4(mine + (2 + nt) * kFrag, dpt[nt], lane);
+    }
+    cluster_arrive();
+    cluster_wait();    // every rank's partials of this tile are written
+    cluster_sum_halves(slot, n_ranks, lane, st, dpt);
+    cluster_arrive();  // done reading
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const int qa = nt * 8 + 2 * t;   // this lane's two queries: columns 0/2 and 1/3
+      const float L0 = Lt[qa] * kLog2e, L1 = Lt[qa + 1] * kLog2e;
+      const float d0 = Dt[qa], d1 = Dt[qa + 1];
+      st[nt][0] = fast_exp2(fmaf(st[nt][0], scale_log2e, -L0));
+      st[nt][1] = fast_exp2(fmaf(st[nt][1], scale_log2e, -L1));
+      st[nt][2] = fast_exp2(fmaf(st[nt][2], scale_log2e, -L0));
+      st[nt][3] = fast_exp2(fmaf(st[nt][3], scale_log2e, -L1));
+      dpt[nt][0] = st[nt][0] * (dpt[nt][0] - d0);
+      dpt[nt][1] = st[nt][1] * (dpt[nt][1] - d1);
+      dpt[nt][2] = st[nt][2] * (dpt[nt][2] - d0);
+      dpt[nt][3] = st[nt][3] * (dpt[nt][3] - d1);
+    }
+    // dV += P^T dO, dK += dS^T Q over the tile's 16 queries, this warp's columns
+#pragma unroll
+    for (int kt = 0; kt < 2; ++kt) {
+      uint32_t ph[4], pl[4], sh[4], sl[4];
+      acc_as_a<kSplit>(st[kt], ph, pl);
+      acc_as_a<kSplit>(dpt[kt], sh, sl);
+#pragma unroll
+      for (int dt = 0; dt < kHalfSteps; ++dt) {
+        uint32_t bfh[2], bfl[2];
+        b_cols<kSplit>(Gt, ld, kt * 8, cw + dt * 8, g, t, bfh, bfl);
+        mma3<kSplit>(vacc[dt], ph, pl, bfh, bfl);
+        b_cols<kSplit>(Qt, ld, kt * 8, cw + dt * 8, g, t, bfh, bfl);
+        mma3<kSplit>(kacc[dt], sh, sl, bfh, bfl);
+      }
+    }
+  }
+  cluster_wait();   // no rank reads this block's exchange slots any more
+
+  const int r_lo = key0 + g, r_hi = r_lo + 8;
+#pragma unroll
+  for (int dt = 0; dt < kHalfSteps; ++dt) {
+    const int col = cw + dt * 8 + 2 * t;
+    if (r_lo < S) {
+      store_pair(dk + base + (size_t)r_lo * D, col, hd_c, kacc[dt][0] * scale,
+                 kacc[dt][1] * scale);
+      store_pair(dv + base + (size_t)r_lo * D, col, hd_c, vacc[dt][0], vacc[dt][1]);
+    }
+    if (r_hi < S) {
+      store_pair(dk + base + (size_t)r_hi * D, col, hd_c, kacc[dt][2] * scale,
+                 kacc[dt][3] * scale);
+      store_pair(dv + base + (size_t)r_hi * D, col, hd_c, vacc[dt][2], vacc[dt][3]);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -2509,11 +3132,123 @@ cudaError_t launch_wide_bwd(const void* q, const void* k, const void* v, const v
   return cudaGetLastError();
 }
 
+// The launch of a cluster kernel: clusters of n blocks along x, kWideThreads
+// threads a block. Not copyable: cfg points at attr.
+struct ClusterLaunch {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  ClusterLaunch(int n, dim3 grid, size_t bytes, cudaStream_t s) : attr{}, cfg{} {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = n;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(kWideThreads, 1, 1);
+    cfg.dynamicSmemBytes = bytes;
+    cfg.stream = s;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  ClusterLaunch(const ClusterLaunch&) = delete;
+  ClusterLaunch& operator=(const ClusterLaunch&) = delete;
+};
+
+// The most clusters of n blocks of kKernel that the current device holds at
+// once (cudaOccupancyMaxActiveClusters), after lifting the kernel's dynamic
+// shared-memory limit to bytes
+template <auto kKernel>
+cudaError_t cluster_capacity(int n, size_t bytes, int* clusters) {
+  cudaError_t err = allow_shared(kKernel, bytes);
+  if (err != cudaSuccess) return err;
+  ClusterLaunch l(n, dim3(n, 1, 1), bytes, nullptr);
+  return cudaOccupancyMaxActiveClusters(clusters, reinterpret_cast<const void*>(kKernel), &l.cfg);
+}
+
+// kKernel on clusters of n blocks, once the device has been found to hold
+// one such cluster; a device that cannot is an error (nothing falls back)
+template <auto kKernel, typename... Args>
+cudaError_t launch_cluster(int n, dim3 grid, size_t bytes, cudaStream_t s, Args... args) {
+  int clusters = 0;
+  cudaError_t err = cluster_capacity<kKernel>(n, bytes, &clusters);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorLaunchOutOfResources;
+  ClusterLaunch l(n, grid, bytes, s);
+  err = cudaLaunchKernelEx(&l.cfg, kKernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// blocks per cluster for a head of hd columns, and the grid: (B * H * n,
+// tiles of 64 rows); a grid too large for x is an error
+cudaError_t cluster_grid(int B, int S, int H, int hd, int* n, dim3* grid) {
+  *n = (hd + kWideHead - 1) / kWideHead;
+  if (hd <= kWideHead || *n > kMaxRanks) return cudaErrorInvalidValue;
+  const long long blocks = (long long)B * H * *n;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  *grid = dim3((unsigned)blocks, (S + kWideRows - 1) / kWideRows, 1);
+  return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t launch_cluster_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
+                               int B, int S, int H, int hd, float scale, cudaStream_t s) {
+  int n = 0;
+  dim3 grid;
+  cudaError_t err = cluster_grid(B, S, H, hd, &n, &grid);
+  if (err != cudaSuccess) return err;
+  const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k),
+          *vt = static_cast<const T*>(v);
+  T* ot = static_cast<T*>(o);
+  if (lse)
+    return launch_cluster<attention_cluster_fwd_kernel<T, true>>(
+        n, grid, cluster_fwd_bytes<T>(), s, qt, kt, vt, ot, lse, S, H, hd, scale * kLog2e);
+  return launch_cluster<attention_cluster_fwd_kernel<T, false>>(
+      n, grid, cluster_fwd_bytes<T>(), s, qt, kt, vt, ot, lse, S, H, hd, scale * kLog2e);
+}
+
+template <typename T>
+cudaError_t launch_cluster_bwd(const void* q, const void* k, const void* v, const void* o,
+                               const void* dout, const float* lse, float* delta, void* dq,
+                               void* dk, void* dv, int B, int S, int H, int hd, float scale,
+                               cudaStream_t s) {
+  int n = 0;
+  dim3 grid;
+  cudaError_t err = cluster_grid(B, S, H, hd, &n, &grid);
+  if (err != cudaSuccess) return err;
+  const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k),
+          *vt = static_cast<const T*>(v), *gt = static_cast<const T*>(dout);
+  err = launch_cluster<attention_cluster_bwd_dq_kernel<T>>(
+      n, grid, wide_dq_bytes<T>(), s, qt, kt, vt, static_cast<const T*>(o), gt, lse, delta,
+      static_cast<T*>(dq), S, H, hd, scale, scale * kLog2e);
+  if (err != cudaSuccess) return err;
+  return launch_cluster<attention_cluster_bwd_dkdv_kernel<T>>(
+      n, grid, wide_dkdv_bytes<T>(), s, qt, kt, vt, gt, lse, static_cast<const float*>(delta),
+      static_cast<T*>(dk), static_cast<T*>(dv), S, H, hd, scale, scale * kLog2e);
+}
+
+// what the device holds of each cluster kernel at n blocks a cluster:
+// clusters[0..3] = forward, forward with L, dQ, dK/dV
+template <typename T>
+cudaError_t cluster_occupancy(int n, int* clusters) {
+  cudaError_t err =
+      cluster_capacity<attention_cluster_fwd_kernel<T, false>>(n, cluster_fwd_bytes<T>(), clusters);
+  if (err == cudaSuccess)
+    err = cluster_capacity<attention_cluster_fwd_kernel<T, true>>(n, cluster_fwd_bytes<T>(),
+                                                                 clusters + 1);
+  if (err == cudaSuccess)
+    err = cluster_capacity<attention_cluster_bwd_dq_kernel<T>>(n, wide_dq_bytes<T>(), clusters + 2);
+  if (err == cudaSuccess)
+    err = cluster_capacity<attention_cluster_bwd_dkdv_kernel<T>>(n, wide_dkdv_bytes<T>(),
+                                                                clusters + 3);
+  return err;
+}
+
 // head_dim -> the instantiated tile width: 32, 64 or 128 (the narrow
-// kernels), kWideHead (the one-pass wide kernels), 0 beyond (the sliced
-// kernels)
+// kernels), kWideHead (the one-pass wide kernels), kClusterHead (the
+// cluster kernels), 0 beyond (the sliced kernels)
 int padded_head(int hd) {
-  return hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128 : hd <= kWideHead ? kWideHead : 0;
+  return hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128 : hd <= kWideHead ? kWideHead
+         : hd <= kClusterHead ? kClusterHead : 0;
 }
 
 template <typename T, int HD>
@@ -2536,6 +3271,9 @@ cudaError_t dispatch(int hd, int is_bf16, F&& launch) {
     case kWideHead:
       return is_bf16 ? launch(Instance<__nv_bfloat16, kWideHead>{})
                      : launch(Instance<float, kWideHead>{});
+    case kClusterHead:
+      return is_bf16 ? launch(Instance<__nv_bfloat16, kClusterHead>{})
+                     : launch(Instance<float, kClusterHead>{});
     default:
       return is_bf16 ? launch(Instance<__nv_bfloat16, 0>{}) : launch(Instance<float, 0>{});
   }
@@ -2545,13 +3283,14 @@ cudaError_t dispatch(int hd, int is_bf16, F&& launch) {
 
 // q, k, v, o: contiguous (B, S, H*hd), 16-byte aligned, f32 (is_bf16 = 0) or
 // bf16. lse: null, or (B, H, S) f32 for the row log-sum-exp. kernel 0: the
-// TF32 kernel, hd up to 128, the one-pass wide kernel up to 256 and the
-// sliced kernel above that; 1: the bf16 serving kernels (hd 32 or 64, scale >
-// 0 only: they take the row maximum before scaling), the staged one at hd 32
-// while the sequence fits its shared memory, else the ring; 2: the sliced
-// kernel at any hd above 128 (what the one-pass wide kernel replaced, for
-// comparison); 3: the ring at hd 32 or 64 and any S (to compare the two
-// serving kernels on the same tensors).
+// TF32 kernel, hd up to 128, the one-pass wide kernel up to 256, the cluster
+// kernel up to 2,048 and the sliced kernel above that; 1: the bf16 serving
+// kernels (hd 32 or 64, scale > 0 only: they take the row maximum before
+// scaling), the staged one at hd 32 while the sequence fits its shared
+// memory, else the ring; 2: the sliced kernel at any hd above 128 (what the
+// one-pass wide and the cluster kernels replaced, for comparison); 3: the
+// ring at hd 32 or 64 and any S (to compare the two serving kernels on the
+// same tensors).
 extern "C" int attention_fwd_launch(const void* q, const void* k, const void* v, void* o,
                                     float* lse, int B, int S, int H, int hd, float scale,
                                     int is_bf16, int kernel, void* stream) {
@@ -2588,6 +3327,8 @@ extern "C" int attention_fwd_launch(const void* q, const void* k, const void* v,
     using I = decltype(inst);
     if constexpr (I::width == 0)
       return launch_sliced_fwd<typename I::type>(q, k, v, o, lse, B, S, H, hd, scale, s);
+    else if constexpr (I::width == kClusterHead)
+      return launch_cluster_fwd<typename I::type>(q, k, v, o, lse, B, S, H, hd, scale, s);
     else if constexpr (I::width == kWideHead)
       return launch_wide_fwd<typename I::type>(q, k, v, o, lse, B, S, H, hd, scale, s);
     else
@@ -2598,16 +3339,30 @@ extern "C" int attention_fwd_launch(const void* q, const void* k, const void* v,
 // q, k, v, o (the forward's output), dout (its gradient): contiguous (B, S,
 // H*hd); lse: (B, H, S) f32 from the forward; delta: (B, H, S) f32 scratch;
 // dq, dk, dv out. Two launches on the stream: delta and dq, then dk and dv.
+// kernel 0: the kernels of the head size's family; 2: the sliced kernels at
+// any hd above 128 (for comparison, as the forward's kernel 2).
 extern "C" int attention_bwd_launch(const void* q, const void* k, const void* v, const void* o,
                                     const void* dout, const float* lse, float* delta, void* dq,
                                     void* dk, void* dv, int B, int S, int H, int hd,
-                                    float scale, int is_bf16, void* stream) {
+                                    float scale, int is_bf16, int kernel, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel == 2) {
+    if (hd <= 128) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(
+        is_bf16 ? launch_sliced_bwd<__nv_bfloat16>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S,
+                                                   H, hd, scale, s)
+                : launch_sliced_bwd<float>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, hd,
+                                           scale, s));
+  }
+  if (kernel != 0) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(dispatch(hd, is_bf16, [&](auto inst) {
     using I = decltype(inst);
     if constexpr (I::width == 0)
       return launch_sliced_bwd<typename I::type>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S,
                                                  H, hd, scale, s);
+    else if constexpr (I::width == kClusterHead)
+      return launch_cluster_bwd<typename I::type>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S,
+                                                  H, hd, scale, s);
     else if constexpr (I::width == kWideHead)
       return launch_wide_bwd<typename I::type>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H,
                                                hd, scale, s);
@@ -2615,6 +3370,16 @@ extern "C" int attention_bwd_launch(const void* q, const void* k, const void* v,
       return launch_bwd<typename I::type, I::width>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
                                                     S, H, hd, scale, s);
   }));
+}
+
+// The most clusters of each cluster kernel the current device holds at once
+// for a head of hd columns (257 to 2,048): clusters[0..3] = the forward
+// without and with L, the dQ kernel, the dK/dV kernel.
+extern "C" int attention_cluster_occupancy(int hd, int is_bf16, int* clusters) {
+  if (hd <= kWideHead || hd > kClusterHead) return static_cast<int>(cudaErrorInvalidValue);
+  const int n = (hd + kWideHead - 1) / kWideHead;
+  return static_cast<int>(is_bf16 ? cluster_occupancy<__nv_bfloat16>(n, clusters)
+                                  : cluster_occupancy<float>(n, clusters));
 }
 
 extern "C" const char* attention_error_string(int code) {

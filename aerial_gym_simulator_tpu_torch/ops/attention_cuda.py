@@ -29,8 +29,12 @@ TF32 tensor-core kernels (delta and dQ over query tiles, then dK and dV
 over key tiles), 3xTF32 for f32, deterministic, any sequence length. The
 TF32 kernels are built for head sizes up to 128. Heads of 129 to 256
 columns (``WIDE_HEAD``) run the one-pass wide kernels, whose blocks hold the
-whole head of their rows in shared memory and take every product once;
-wider heads (the JAX kernel takes any) run the sliced kernels, which walk
+whole head of their rows in shared memory and take every product once.
+Heads of 257 to 2,048 columns (``CLUSTER_HEAD``) run the cluster kernels: a
+thread-block cluster of one wide block per 256-column slice of the head,
+which sum their partial logits through distributed shared memory, so every
+product is taken once per cluster; a launch the card cannot place raises.
+Wider heads (the JAX kernel takes any) run the sliced kernels, which walk
 the head in 128-column slices, so every head size runs on the card. Each
 family counts its launches apart (``LAUNCHES``, keys from
 ``kernel_family``).
@@ -51,7 +55,8 @@ from .attention import (attention_backward_reference, attention_lse_reference,
 LIBRARY = KernelLibrary("attention")
 MMA_HEAD_DIMS = (32, 64)           # head sizes the bf16 serving kernels are built for
 WIDE_HEAD = 256                    # the widest head the one-pass wide kernels take
-FAMILIES = ("", "_wide", "_sliced")
+CLUSTER_HEAD = 2048                # the widest head the cluster kernels take
+FAMILIES = ("", "_wide", "_cluster", "_sliced")
 
 # calls of each kernel's wrapper that launched it, counted where it launches
 # and by the family of kernels that ran (kernel_family): one per forward, one
@@ -64,8 +69,12 @@ _lib = None
 def kernel_family(head_dim: int) -> str:
     """The suffix of the kernels ``csrc/attention.cu`` dispatches a head size
     to: "" (the narrow kernels, up to 128 columns), "_wide" (the one-pass
-    wide kernels, up to ``WIDE_HEAD``) or "_sliced" (wider)."""
-    return "" if head_dim <= 128 else "_wide" if head_dim <= WIDE_HEAD else "_sliced"
+    wide kernels, up to ``WIDE_HEAD``), "_cluster" (the cluster kernels, up
+    to ``CLUSTER_HEAD``) or "_sliced" (wider)."""
+    if head_dim <= 128:
+        return ""
+    return "_wide" if head_dim <= WIDE_HEAD else "_cluster" if head_dim <= CLUSTER_HEAD \
+        else "_sliced"
 
 
 def _load():
@@ -75,8 +84,11 @@ def _load():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.attention_fwd_launch.argtypes = [p, p, p, p, p, i, i, i, i, f, i, i, p]
         lib.attention_fwd_launch.restype = i
-        lib.attention_bwd_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, f, i, p]
+        lib.attention_bwd_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, f, i, i,
+                                             p]
         lib.attention_bwd_launch.restype = i
+        lib.attention_cluster_occupancy.argtypes = [i, i, p]
+        lib.attention_cluster_occupancy.restype = i
         lib.attention_error_string.argtypes = [i]
         lib.attention_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -129,9 +141,10 @@ def attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_hea
     on CPU tensors. ``use_mma`` overrides the choice between the bf16
     serving kernels and the TF32 kernel (a debug switch; None picks by dtype
     and head size). ``sliced`` runs the sliced kernel at a head size of
-    129-256 as well, where the one-pass wide kernel would run, and ``ring``
-    the ring serving kernel where the staged one would (debug switches, to
-    time one kernel against the other on the same tensors)."""
+    129-2,048 as well, where the one-pass wide or the cluster kernel would
+    run, and ``ring`` the ring serving kernel where the staged one would
+    (debug switches, to time one kernel against the other on the same
+    tensors)."""
     hd, sm_scale, on_cpu = _prepare(q, num_heads, sm_scale)
     if on_cpu:
         out = attention_reference(q, k, v, num_heads, sm_scale)
@@ -170,14 +183,18 @@ def attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_hea
 def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        grad_out: torch.Tensor, num_heads: int,
                        sm_scale: Optional[float] = None, out: Optional[torch.Tensor] = None,
-                       lse: Optional[torch.Tensor] = None):
+                       lse: Optional[torch.Tensor] = None, sliced: bool = False):
     """The backward without autograd -> (dq, dk, dv): kernels on CUDA
     tensors, plain version on CPU tensors. ``out`` and ``lse`` are the
     forward's output and row log-sum-exp (``attention_forward(...,
     want_lse=True)``); where either is missing one forward launch makes
     both. ``grad_out`` may arrive with any strides (autograd often hands
-    over a view); it is made contiguous here."""
+    over a view); it is made contiguous here. ``sliced`` runs the sliced
+    kernels at a head size of 129-2,048 as well (a debug switch, as the
+    forward's)."""
     hd, sm_scale, on_cpu = _prepare(q, num_heads, sm_scale)
+    if sliced and hd <= 128:
+        raise ValueError(f"the sliced kernels take head sizes above 128, not {hd}")
     if on_cpu:
         return attention_backward_reference(q, k, v, grad_out, num_heads, sm_scale)
     B, S, _ = q.shape
@@ -199,10 +216,25 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                       grad_out.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                                       dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S,
                                       num_heads, hd, float(sm_scale),
-                                      int(q.dtype == torch.bfloat16), stream)
+                                      int(q.dtype == torch.bfloat16), 2 if sliced else 0, stream)
     _raise_on(rc, lib, "backward")
-    LAUNCHES["attention_bwd" + kernel_family(hd)] += 1
+    LAUNCHES["attention_bwd" + ("_sliced" if sliced else kernel_family(hd))] += 1
     return dq, dk, dv
+
+
+def cluster_occupancy(head_dim: int, dtype: torch.dtype, device=None) -> dict:
+    """The most clusters of each cluster kernel that the card holds at once
+    for a head of ``head_dim`` columns (257 to ``CLUSTER_HEAD``), as
+    ``cudaOccupancyMaxActiveClusters`` finds them: a launcher refuses a
+    kernel with none."""
+    if kernel_family(head_dim) != "_cluster":
+        raise ValueError(f"head size {head_dim} does not run the cluster kernels")
+    lib = _load()
+    found = (ctypes.c_int * 4)()
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        rc = lib.attention_cluster_occupancy(head_dim, int(dtype == torch.bfloat16), found)
+    _raise_on(rc, lib, "cluster occupancy")
+    return dict(zip(("fwd", "fwd_lse", "bwd_dq", "bwd_dkdv"), found))
 
 
 class _FusedAttention(torch.autograd.Function):

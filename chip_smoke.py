@@ -4,8 +4,10 @@
     python3 chip_smoke.py [--parent-attention FILE]
 
 ``--parent-attention`` builds another ``attention.cu`` (the parent commit's,
-unpacked outside the package) beside the shipped one and times its bf16
-serving kernel in turns with the shipped one on the same tensors.
+unpacked outside the package) beside the shipped one, times its bf16
+serving kernel in turns with the shipped one on the same tensors, and holds
+the shipped narrow, staged, ring and wide kernels bit for bit to the
+parent's on the same tensors.
 
 Phases, each printed on its own line:
   1. build   - compile the ray-cast kernel in its four modes (csrc/raycast.cu)
@@ -25,17 +27,19 @@ Phases, each printed on its own line:
                miss, rgb in [0, 1], broad phase on == off; then all four on
                the 128x512 lidar grid at 64 envs.
                The attention forward (K5) against its plain version on
-               numpy-seeded q, k, v: f32 at nine shapes, the ViT training
-               shape (64, 225, 256) at 8 and 4 heads and head sizes 136 and
-               256 (the one-pass wide kernels) and 512 (the sliced kernels)
-               among them, within atol/rtol 1e-4, bf16 within 0.05 (S = 900
-               and 1,600 among them); a non-contiguous input must raise.
+               numpy-seeded q, k, v: f32 at the ViT training shape (64, 225,
+               256) at 8 and 4 heads, head sizes 136 and 256 (the one-pass
+               wide kernels), 257, 512, 768 and 2,048 (the cluster kernels)
+               and 2,049 (the sliced kernels) among others, within atol/rtol
+               1e-4, bf16 within 0.05 (S = 900 and 1,600, and head sizes 512
+               and 1,024 among them); a non-contiguous input must raise.
                The attention backward (K6) against its plain version at the
                ViT training shape f32, at head_dim 64 f32 (ragged, S = 225,
-               and S = 300) and head_dim 136, 256 (also at the one-head
-               training shape (64, 225, 256, 1)) and 512 within 2e-4, at
-               (1024, 225, 256) bf16 and at head_dim 64 and 256 bf16 within
-               0.02, and a second call on the same inputs bit for bit;
+               and S = 300), head_dim 136 and 256 (also at the one-head
+               training shape (64, 225, 256, 1)), 257, 512, 768, 2,048 and
+               2,049 within 2e-4, at (1024, 225, 256) bf16 and at head_dim
+               64, 256, 512 and 1,024 bf16 within 0.02, and a second call on
+               the same inputs bit for bit;
   4. slice   - the obstacle env + depth camera at 16384 envs through the
                user entry points: env_step + render_camera(want_seg=False)
                with zero actions (the bench loop), then EnvManager.step +
@@ -77,9 +81,14 @@ Phases, each printed on its own line:
                forward and backward (each backward kernel's device time by
                torch.profiler), and the wide forward in bf16 at (1024, 225,
                256, 1), each forward beside the sliced kernel it replaced on
-               the same tensors; the sliced kernels at head_dim 512 (64, 225,
-               512, 1) f32. Each attention timing holds its output against
-               the plain version at its tolerance. The
+               the same tensors; the cluster kernels at head_dim 512 (64,
+               225, 512, 1) f32, forward and backward, each beside the sliced
+               kernels on the same tensors (each cluster backward kernel's
+               device time by torch.profiler), the cluster forward in bf16 at
+               (1024, 225, 512, 1) beside the sliced one, and the clusters
+               the card holds of each cluster kernel at head 512. Each
+               attention timing holds its output against the plain version
+               at its tolerance. The
                "flash" path (f32 kernel on f32 copies) at the serving shape
                and the shipped encoder re-tagged "flash"; K3 and K4 at the
                modalities path's shape and K2, K3 at the lidar path's. The
@@ -99,6 +108,13 @@ Phases, each printed on its own line:
                20 steps: finite falling loss, K1 once and the one-pass wide
                forward and backward four times per step each (counted apart
                from the narrow kernels), the step's split and peak memory;
+     train512 - train_vae at the large ViT's width with one head (dim 512,
+               depth 12, head_dim 512) for 60 steps: finite falling loss, K1
+               once and the cluster forward and backward 12 times per step
+               each, no sliced launch; the same 60 steps with the plain
+               attention (--vit_attn xla, no attention kernel): every step's
+               loss within 1e-4 of the kernels' run; the step's split and
+               peak memory;
   8. ppo     - position PPO at PPOConfig's defaults (8192 envs x 32 steps,
                minibatch 8192, 4 epochs) for 3 iterations: finite metrics,
                parameters moved, lr inside its bounds, env-steps/s and the
@@ -150,8 +166,16 @@ ATTENTION_CASES = [
     ((2, 100, 256, 4), "bfloat16", 0.05),       # head_dim 64
     ((2, 225, 256, 1), "float32", 1e-4),        # head_dim 256: the one-pass wide kernel
     ((2, 65, 272, 2), "float32", 1e-4),         # head_dim 136, a short last key tile
-    ((1, 225, 512, 1), "float32", 1e-4),        # head_dim 512: the sliced kernel
     ((2, 225, 512, 2), "bfloat16", 0.05),       # head_dim 256 in bf16
+    # the cluster kernels: head_dim 512 (a cluster of 2), 257 (its second rank
+    # holds one column), 768, 1,024 and 2,048 (8 blocks, the largest)
+    ((1, 225, 512, 1), "float32", 1e-4),
+    ((1, 225, 1024, 2), "bfloat16", 0.05),
+    ((1, 65, 514, 2), "float32", 1e-4),
+    ((1, 100, 768, 1), "float32", 1e-4),
+    ((1, 65, 1024, 1), "bfloat16", 0.05),
+    ((1, 33, 2048, 1), "float32", 1e-4),
+    ((1, 33, 2049, 1), "float32", 1e-4),        # past the clusters' reach: the sliced kernel
     # past the staged serving kernel's shared-memory limit: the ring kernel
     ((2, 900, 256, 4), "bfloat16", 0.05),       # the ViT at 270x480 with 4 heads
     ((1, 1600, 256, 8), "bfloat16", 0.05),
@@ -171,10 +195,20 @@ TRAIN_ARGS = ["--arch", "vit", "--vit_attn", "fused", "--vit_dim", "256", "--vit
 ATTENTION_TRAIN_SHAPE = (TRAIN_BATCH, 225, 256, 8)      # f32: K6's main path
 WIDE_HEAD_SHAPE = (TRAIN_BATCH, 225, 256, 1)            # head_dim 256: the one-pass wide kernels
 WIDE_SERVING_SHAPE = (NAV_ENVS, 225, 256, 1)            # the wide forward in bf16 at the serving batch
-SLICED_SHAPE = (TRAIN_BATCH, 225, 512, 1)               # head_dim 512: the sliced kernels
+CLUSTER_SHAPE = (TRAIN_BATCH, 225, 512, 1)              # head_dim 512: the cluster kernels
+CLUSTER_SERVING_SHAPE = (NAV_ENVS, 225, 512, 1)         # the cluster forward in bf16
 # train_vae at the shipped width with one head: head_dim 256, the wide kernels
 TRAIN_WIDE_STEPS = 20
 TRAIN_WIDE_ARGS = TRAIN_ARGS + ["--vit_heads", "1"]      # argparse keeps the last
+# train_vae at the large ViT's width (dim 512, depth 12: scripts/vit_remat_bench.py)
+# with one head: head_dim 512, the cluster kernels. 60 steps, as the shipped
+# width's phase: at this depth the loss stays on a plateau for about the
+# first 30 steps, with the plain attention as with the kernels
+TRAIN512_STEPS = 60
+TRAIN512_ARGS = TRAIN_ARGS + ["--vit_dim", "512", "--vit_depth", "12", "--vit_heads", "1"]
+# the same run with the plain attention under autograd ("xla"): each step's
+# loss within this of the kernels' run (the f32 attention forward's own bar)
+TRAIN512_PLAIN_TOL = 1e-4
 # (B, S, D, heads), dtype name, atol = rtol
 ATTENTION_BWD_CASES = [
     (ATTENTION_TRAIN_SHAPE, "float32", 2e-4),
@@ -186,8 +220,15 @@ ATTENTION_BWD_CASES = [
     ((2, 225, 256, 1), "float32", 2e-4),        # head_dim 256: the one-pass wide kernels
     (WIDE_HEAD_SHAPE, "float32", 2e-4),         # their one-head training path: 1.94 waves
     ((2, 65, 272, 2), "float32", 2e-4),         # head_dim 136, a short last tile
-    ((1, 225, 512, 1), "float32", 2e-4),        # head_dim 512: the sliced kernels
     ((2, 225, 512, 2), "bfloat16", 0.02),       # head_dim 256 in bf16
+    # the cluster kernels, as in the forward's cases
+    ((1, 225, 512, 1), "float32", 2e-4),
+    ((1, 225, 1024, 2), "bfloat16", 0.02),
+    ((1, 65, 514, 2), "float32", 2e-4),
+    ((1, 100, 768, 1), "float32", 2e-4),
+    ((1, 65, 1024, 1), "bfloat16", 0.02),
+    ((1, 33, 2048, 1), "float32", 2e-4),
+    ((1, 33, 2049, 1), "float32", 2e-4),        # past the clusters' reach: the sliced kernels
 ]
 PPO_ITERATIONS = 3
 STATE_STEP_ENVS = 16384
@@ -515,20 +556,25 @@ def attention_counts(ac, **counts):
     return {k: counts.get(k, 0) for k in ac.LAUNCHES}
 
 
-def wide_record(name, replaces, launches, rec, errs, ptxas, **subs):
-    """The kernels JSON record of a one-pass wide kernel family: its launches
-    on the one-head training path, its timing there (``rec``), its largest
-    error there and in the comparisons (``errs`` by family), ptxas's numbers
-    for its kernels, and sub-records; a sub-record of the sliced kernels (no
-    path launches them) carries their comparison error."""
-    for tag, sub in subs.items():
-        if tag.startswith("sliced"):
-            subs[tag] = dict(sub, launches=0,
-                             max_abs_err=max(sub["max_abs_err"], errs["_sliced"]))
-    kernel = "attention_wide_" + name.split("_")[1]     # fwd or bwd: the source's prefix
+def family_record(name, replaces, launches, rec, errs, ptxas, **subs):
+    """The kernels JSON record of the one-pass wide or the cluster kernel
+    family (``name``: attention_{fwd,bwd}_{wide,cluster}): its launches on
+    its training path, its timing there (``rec``), its largest error there
+    and in the comparisons (``errs`` by family), ptxas's numbers for its
+    kernels, and sub-records. Where ``rec`` timed the sliced kernels beside
+    it on the same tensors (no path launches them), a sub-record of theirs
+    carries that time and their largest comparison error."""
+    direction, family = name.split("_")[1:]
+    if "sliced_ms" in rec:
+        subs["sliced_on_the_same_tensors"] = {
+            "ms": rec["sliced_ms"], "ms_windows": rec["sliced_ms_windows"], "launches": 0,
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            "max_abs_err": max(rec["sliced_max_abs_err"], errs["_sliced"])}
+    kernel = f"attention_{family}_{direction}"          # the source's prefix of its kernels
     return {"name": name, "route": "cuda", "source": ATTENTION_SOURCE, "replaces": replaces,
             "launches": launches[name], **rec,
-            "max_abs_err": max(rec["max_abs_err"], errs["_wide"]), **subs,
+            "max_abs_err": max(rec["max_abs_err"], errs["_" + family]), **subs,
             "ptxas": {k: v for k, v in ptxas.items() if kernel in k}}
 
 
@@ -699,38 +745,129 @@ def encoder_against_plain(torch, ac, vae, pixels):
     return err
 
 
-def parent_forward(torch, lib):
-    """The bf16 serving kernel of another build of ``csrc/attention.cu``
+def parent_launchers(torch, lib, source):
+    """The launchers of another build of ``csrc/attention.cu``
     (``--parent-attention``: the parent commit's source, for a comparison
-    inside one call) -> fn(q, k, v, heads) -> o; raises where that build's
-    launch fails."""
+    inside one call) -> (fwd, bwd). fwd(q, k, v, H, kernel, want_lse) -> o,
+    or (o, L), with ``kernel`` as attention_fwd_launch takes it (1: the bf16
+    serving kernels); bwd(q, k, v, o, L, do, H) -> (dq, dk, dv) through the
+    kernels of the head size's family. Each raises where that build's launch
+    fails. attention_bwd_launch's parameters are read off the source: with 18
+    it takes a kernel choice (0: by head size) before the stream."""
     import ctypes
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     so = lib.load()
     so.attention_fwd_launch.argtypes = [p, p, p, p, p, i, i, i, i, f, i, i, p]
     so.attention_fwd_launch.restype = i
+    params = re.search(r'extern "C" int attention_bwd_launch\(([^)]*)\)',
+                       Path(source).read_text()).group(1).count(",") + 1
+    kernel_arg = [0] if params == 18 else []
+    so.attention_bwd_launch.argtypes = [p] * 10 + [i, i, i, i, f, i] + [i] * len(kernel_arg) + [p]
+    so.attention_bwd_launch.restype = i
     so.attention_error_string.argtypes = [i]
     so.attention_error_string.restype = ctypes.c_char_p
 
-    def run(q, k, v, H):
-        o = torch.empty_like(q)
-        B, S, D = q.shape
-        code = so.attention_fwd_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                                       None, B, S, H, D // H, float((D // H) ** -0.5), 1, 1,
-                                       torch.cuda.current_stream().cuda_stream)
+    def check(code):
         if code != 0:
             raise RuntimeError("parent build: " + so.attention_error_string(code).decode())
-        return o
-    return run
+
+    def fwd(q, k, v, H, kernel=0, want_lse=False):
+        B, S, D = q.shape
+        o = torch.empty_like(q)
+        lse = torch.empty((B, H, S), device=q.device, dtype=torch.float32) if want_lse else None
+        check(so.attention_fwd_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                      lse.data_ptr() if want_lse else None, B, S, H, D // H,
+                                      float((D // H) ** -0.5), int(q.dtype == torch.bfloat16),
+                                      kernel, torch.cuda.current_stream().cuda_stream))
+        return (o, lse) if want_lse else o
+
+    def bwd(q, k, v, o, lse, do, H):
+        B, S, D = q.shape
+        grads = [torch.empty_like(q) for _ in range(3)]
+        delta = torch.empty_like(lse)
+        check(so.attention_bwd_launch(*(x.data_ptr() for x in (q, k, v, o, do, lse, delta, *grads)),
+                                      B, S, H, D // H, float((D // H) ** -0.5),
+                                      int(q.dtype == torch.bfloat16), *kernel_arg,
+                                      torch.cuda.current_stream().cuda_stream))
+        return grads
+    return fwd, bwd
+
+
+# (name, (B, S, D, heads), dtype name, the shipped wrapper's keyword
+# arguments, the parent launcher's kernel, timed): kernels this source keeps
+# as its parent had them, at their main paths' shapes (timed) and at two
+# small ones (bits only: a call of tens of microseconds times the wrapper's
+# host work against the parent's bare launch, not the kernel)
+PARENT_CASES = [
+    ("narrow TF32, head_dim 32", ATTENTION_TRAIN_SHAPE, "float32", {}, 0, True),
+    ("narrow TF32, head_dim 64", (TRAIN_BATCH, 225, 256, 4), "float32", {}, 0, True),
+    ("narrow TF32 in bf16, head_dim 128", (8, 225, 256, 2), "bfloat16", {}, 0, False),
+    ("staged serving, head_dim 32", ATTENTION_MAIN_SHAPE, "bfloat16", {}, 1, True),
+    ("ring serving, head_dim 64", SERVING_HD64_SHAPE, "bfloat16", {}, 1, True),
+    ("ring forced, head_dim 32", ATTENTION_MAIN_SHAPE, "bfloat16", {"use_mma": True, "ring": True},
+     3, True),
+    ("one-pass wide, head_dim 256", WIDE_HEAD_SHAPE, "float32", {}, 0, True),
+    ("one-pass wide, head_dim 256", WIDE_SERVING_SHAPE, "bfloat16", {}, 0, True),
+    ("one-pass wide, head_dim 136", (4, 65, 272, 2), "float32", {}, 0, False),
+]
+
+
+def parent_compare(torch, ac, parent_fwd, parent_bwd, device, card):
+    """The narrow, staged, ring and one-pass wide kernels against the parent
+    build's on the same numpy-seeded tensors: the forward (with L, and for
+    the serving kernels without it too) and the backward from the same o
+    and L, each output bit for bit (torch.equal); then, at the main paths'
+    shapes, the forward as its path calls it (the serving kernels without
+    L) and the backward, each timed in turns with the parent's (medians of
+    alternating windows)."""
+    for name, shape, dtype_name, kw, kernel, timed_here in PARENT_CASES:
+        H = shape[3]
+        q, k, v, do = numpy_tensors(torch, shape, getattr(torch, dtype_name), device, n=4, seed=3)
+        pairs = []
+        if kernel != 0:              # the serving kernels: without L, as the nav path runs them
+            pairs.append(("o", ac.attention_forward(q, k, v, H, **kw),
+                          parent_fwd(q, k, v, H, kernel)))
+        out, lse = ac.attention_forward(q, k, v, H, want_lse=True, **kw)
+        p_out, p_lse = parent_fwd(q, k, v, H, kernel, want_lse=True)
+        pairs += [("o with L", out, p_out), ("L", lse, p_lse)]
+        grads = ac.attention_backward(q, k, v, do, H, out=out, lse=lse)
+        pairs += list(zip(("dq", "dk", "dv"), grads, parent_bwd(q, k, v, out, lse, do, H)))
+        torch.cuda.synchronize()
+        differ = [what for what, a, b in pairs if not torch.equal(a, b)]
+        del pairs, grads, p_out, p_lse
+        times = "not timed (a launch-bound shape)"
+        if timed_here:
+            want_lse = kernel == 0
+            iters = 20 if shape[0] <= TRAIN_BATCH else 5
+            fwd = windows_ms(torch, {
+                "shipped": lambda: ac.attention_forward(q, k, v, H, want_lse=want_lse, **kw),
+                "parent": lambda: parent_fwd(q, k, v, H, kernel, want_lse=want_lse)}, iters)
+            bwd = windows_ms(torch, {
+                "shipped": lambda: ac.attention_backward(q, k, v, do, H, out=out, lse=lse),
+                "parent": lambda: parent_bwd(q, k, v, out, lse, do, H)}, iters)
+            times = "; ".join(
+                f"{what} {t['shipped'][0]:.3f} ms ({spread_text(t['shipped'][1])}), parent "
+                f"{t['parent'][0]:.3f} ({spread_text(t['parent'][1])}), "
+                f"{t['shipped'][0] / t['parent'][0] - 1.0:+.1%}"
+                for what, t in (("forward" + (" with L" if want_lse else ""), fwd),
+                                ("backward from o and L", bwd)))
+        log(f"kernel {name} {shape} {dtype_name} against the parent build: "
+            f"{'DIFFER in ' + ', '.join(differ) if differ else 'o, L, dq, dk, dv bit-equal'}; "
+            f"{times} | {card}")
+        if differ:
+            raise AssertionError(f"{name} {shape} {dtype_name}: {differ} differ from the parent")
+        del q, k, v, do, out, lse
+    torch.cuda.empty_cache()
 
 
 def time_attention(torch, ac, attention_reference, card, shape, dtype_name, tol, parent=None):
     """K5 at one path's shape and type: kernel, plain version, the library's
     fused attention on the same tensors, the bound and the exp floor; kernel
     and library (and ``parent``, the parent commit's serving kernel, where
-    given and the shape runs a serving kernel, and the ring kernel forced at
-    head_dim 32) as medians of alternating windows after one untimed call
-    each. bf16 at head_dim 32 or 64 runs a bf16 serving kernel (the staged
+    given and the shape runs a serving kernel, the ring kernel forced at
+    head_dim 32, and the sliced kernel at the one-pass wide and the cluster
+    kernels' head sizes) as medians of alternating windows after one untimed
+    call each. bf16 at head_dim 32 or 64 runs a bf16 serving kernel (the staged
     one at head_dim 32 while it holds the sequence, else the ring), f32 the
     TF32 kernel (3xTF32)."""
     import torch.nn.functional as F
@@ -755,25 +892,28 @@ def time_attention(torch, ac, attention_reference, card, shape, dtype_name, tol,
             other = f"parent kernel refused ({e}), "
         else:
             runs["parent"] = lambda: parent(q, k, v, H)
+    if ac.kernel_family(D // H) in ("_wide", "_cluster"):
+        # the sliced kernel that the one-pass wide or the cluster kernel
+        # replaced, on the same tensors
+        runs["sliced"] = lambda: ac.attention_forward(q, k, v, H, sliced=True)
     t = windows_ms(torch, runs, 20)
     (ms, each), (lib_ms, lib_each) = t["kernel"], t["library"]
     plain_ms = event_ms(torch, lambda: attention_reference(q, k, v, H), 3)
-    sliced_ms = None
     if serving:
         # the source's other kernel (TF32 products) on the same tensors
         tf32_ms = event_ms(torch, lambda: ac.attention_forward(q, k, v, H, use_mma=False), 3)
         other += f"TF32 kernel {tf32_ms:.3f} ms, "
-    if ac.kernel_family(D // H) == "_wide":
-        # the sliced kernel that the one-pass wide kernel replaced, on the
-        # same tensors, held to the same tolerance
-        sliced = lambda: ac.attention_forward(q, k, v, H, sliced=True)
-        sliced_ms = min(event_ms(torch, sliced, 5), event_ms(torch, sliced, 5))
+    if "sliced" in t:
+        # held to the same tolerance
         ref = attention_reference(q, k, v, H).float()
-        diff = (sliced().float() - ref).abs()
-        if not bool((diff <= tol + tol * ref.abs()).all()):
+        sliced_err = (runs["sliced"]().float() - ref).abs()
+        if not bool((sliced_err <= tol + tol * ref.abs()).all()):
             raise AssertionError(f"sliced attention at {shape} {dtype_name}: max_abs_err "
-                                 f"{diff.max().item()}")
-        other = f"sliced kernel {sliced_ms:.3f} ms (max_abs_err {diff.max().item():.3g}), "
+                                 f"{sliced_err.max().item()}")
+        extra.update(sliced_ms=t["sliced"][0], sliced_ms_windows=t["sliced"][1],
+                     sliced_max_abs_err=sliced_err.max().item())
+        other = (f"sliced kernel {t['sliced'][0]:.3f} ms ({spread_text(t['sliced'][1])}; "
+                 f"max_abs_err {sliced_err.max().item():.3g}), ")
     out, ref = run(), attention_reference(q, k, v, H)
     lib = lib_run().transpose(1, 2)
     torch.cuda.synchronize()
@@ -806,10 +946,9 @@ def time_attention(torch, ac, attention_reference, card, shape, dtype_name, tol,
         f"bound {b_ms:.3f} ms by {b_by} ({bounds}); share of the bound {b_ms / ms:.1%}, "
         f"library's {b_ms / lib_ms:.1%}; exp floor {floor:.3f} ms (B H S^2 exp2 at 16 a clock "
         f"per SM) | {card}")
-    rec = {"ms": ms, "ms_windows": each, "plain_ms": plain_ms, "library_ms": lib_ms,
-           "library_ms_windows": lib_each, "bound_ms": b_ms, "bound_by": b_by,
-           "exp_floor_ms": floor, "max_abs_err": err, **extra}
-    return rec if sliced_ms is None else dict(rec, sliced_ms=sliced_ms)
+    return {"ms": ms, "ms_windows": each, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library_ms_windows": lib_each, "bound_ms": b_ms, "bound_by": b_by,
+            "exp_floor_ms": floor, "max_abs_err": err, **extra}
 
 
 def attention_bwd_bound_ms(shape, itemsize):
@@ -884,8 +1023,9 @@ def time_attention_bwd(torch, ac, attention_backward_reference, card, shape, dty
     whole direct call (a forward launch to make them, then the backward),
     the plain backward, the backward of the library's fused attention on the
     same tensors, and the bound; each gradient held against the plain one
-    at atol = rtol = tol. For the one-pass wide kernels also each kernel's
-    device time."""
+    at atol = rtol = tol. For the one-pass wide and the cluster kernels also
+    each kernel's device time; for the cluster kernels also the sliced
+    kernels from o and L on the same tensors, held to the same tolerance."""
     import torch.nn.functional as F
     B, S, D, H = shape
     dtype = getattr(torch, dtype_name)
@@ -900,23 +1040,36 @@ def time_attention_bwd(torch, ac, attention_backward_reference, card, shape, dty
     run = lambda: ac.attention_backward(q, k, v, do, H, out=out, lse=lse)
     lib = lambda: torch.autograd.grad(lib_out, (lq, lk, lv), lib_do, retain_graph=True)
     iters = 20 if B <= 64 else 5
-    t = windows_ms(torch, {"kernel": run, "library": lib}, iters)
+    runs, family = {"kernel": run, "library": lib}, ac.kernel_family(D // H)
+    if family == "_cluster":
+        # the sliced kernels that the cluster kernels replaced, on the same tensors
+        runs["sliced"] = lambda: ac.attention_backward(q, k, v, do, H, out=out, lse=lse,
+                                                       sliced=True)
+    t = windows_ms(torch, runs, iters)
     (ms, each), (lib_ms, lib_each) = t["kernel"], t["library"]
     direct_ms = event_ms(torch, lambda: ac.attention_backward(q, k, v, do, H), iters)
     plain_ms = event_ms(torch, lambda: attention_backward_reference(q, k, v, do, H), 3)
     split = {}
-    if ac.kernel_family(D // H) == "_wide":
+    if family in ("_wide", "_cluster"):
         split = dict(zip(("dq_kernel_ms", "dkdv_kernel_ms"), device_ms_by_kernel(
-            torch, run, ("wide_bwd_dq", "wide_bwd_dkdv")).values()))
+            torch, run, (f"{family[1:]}_bwd_dq", f"{family[1:]}_bwd_dkdv")).values()))
     got, want, lib_g = run(), attention_backward_reference(q, k, v, do, H), lib()
     torch.cuda.synchronize()
-    err = 0.0
-    for name, a, b in zip(("dq", "dk", "dv"), got, want):
-        diff = (a.float() - b.float()).abs()
-        err = max(err, diff.max().item())
-        if not bool((diff <= tol + tol * b.float().abs()).all()):
-            raise AssertionError(f"attention_bwd at {shape} {dtype_name}: {name} "
-                                 f"max_abs_err {diff.max().item()}")
+
+    def worst_error(grads, what):
+        worst = 0.0
+        for name, a, b in zip(("dq", "dk", "dv"), grads, want):
+            diff = (a.float() - b.float()).abs()
+            worst = max(worst, diff.max().item())
+            if not bool((diff <= tol + tol * b.float().abs()).all()):
+                raise AssertionError(f"{what} at {shape} {dtype_name}: {name} "
+                                     f"max_abs_err {diff.max().item()}")
+        return worst
+
+    err = worst_error(got, "attention_bwd")
+    if "sliced" in t:
+        split.update(sliced_ms=t["sliced"][0], sliced_ms_windows=t["sliced"][1],
+                     sliced_max_abs_err=worst_error(runs["sliced"](), "sliced attention_bwd"))
     lib_err = max((a.transpose(1, 2).reshape(B, S, D).float() - b.float()).abs().max().item()
                   for a, b in zip(lib_g, want))
     itemsize = 2 if dtype_name == "bfloat16" else 4
@@ -1018,7 +1171,7 @@ def train_vit(torch, rc, ac, card, argv, steps, want_attention):
     main calls (build_parser, train) for ``steps`` steps: finite loss that
     falls (the mean of the last 5 below the first), K1 once per step and the
     attention launches ``want_attention`` (family -> launches per step).
-    Returns (model, args, launches)."""
+    Returns (model, args, launches, the loss of every step)."""
     from aerial_gym_simulator_tpu_torch.models import train_vae
     from aerial_gym_simulator_tpu_torch.models.vit import DepthViT
 
@@ -1052,7 +1205,7 @@ def train_vit(torch, rc, ac, card, argv, steps, want_attention):
             **attention_counts(ac, **{k: n * steps for k, n in want_attention.items()})}
     if launches != want:
         raise AssertionError(f"train launches {launches}, expected {want}")
-    return model, args, launches
+    return model, args, launches, losses
 
 
 def step_split(torch, model, args, env, state, card, tag):
@@ -1093,8 +1246,8 @@ def train_phase(torch, rc, ac, card):
     from aerial_gym_simulator_tpu_torch.sensors.raycast_sensor import cast_inputs
     from aerial_gym_simulator_tpu_torch.sim.convert import load_encoder_pickle, save_model_pickle
 
-    model, args, launches = train_vit(torch, rc, ac, card, TRAIN_ARGS, TRAIN_STEPS,
-                                      {"attention_fwd": 4, "attention_bwd": 4})
+    model, args, launches, _ = train_vit(torch, rc, ac, card, TRAIN_ARGS, TRAIN_STEPS,
+                                         {"attention_fwd": 4, "attention_bwd": 4})
 
     # the checkpoint, written and read back through the loader the nav task uses
     env_args = ("base_sim", "env_with_obstacles", "base_quadrotor_with_camera",
@@ -1150,23 +1303,49 @@ def train_phase(torch, rc, ac, card):
     return launches
 
 
-def train_wide_phase(torch, rc, ac, card):
-    """train_vae at the shipped width with one head (head_dim 256): the
-    one-pass wide kernels four times per step each, counted apart from the
-    narrow ones; the step's split and peak memory. Returns the launch
-    counts."""
+def train_one_head_phase(torch, rc, ac, card, argv, steps, tag, plain_tol=None):
+    """train_vae with one head: at the shipped width (head_dim 256, the
+    one-pass wide kernels) or the large ViT's (head_dim 512, the cluster
+    kernels), each family's forward and backward once per block and step,
+    counted apart from the other families (none of which may launch); the
+    step's split and peak memory. With ``plain_tol``, the same steps again
+    with the plain attention (``--vit_attn xla``: the same seeded model,
+    batches and noise, no attention kernel), each step's loss within
+    plain_tol of the kernels' run. Returns the launch counts."""
     import aerial_gym_simulator_tpu_torch as port
     from aerial_gym_simulator_tpu_torch.models import train_vae
 
-    model, args, launches = train_vit(torch, rc, ac, card, TRAIN_WIDE_ARGS, TRAIN_WIDE_STEPS,
-                                      {"attention_fwd_wide": 4, "attention_bwd_wide": 4})
+    args = train_vae.build_parser().parse_args(argv)
+    family = ac.kernel_family(args.vit_dim // args.vit_heads)
+    model, args, launches, fused = train_vit(torch, rc, ac, card, argv, steps,
+                                             {f"attention_fwd{family}": args.vit_depth,
+                                              f"attention_bwd{family}": args.vit_depth})
     if model.encoder.blocks[0].attn.num_heads != 1:
         raise AssertionError("the one-head run did not build a one-head ViT")
+    if plain_tol is not None:
+        zero_counts(ac.LAUNCHES)
+        plain_args = train_vae.build_parser().parse_args(
+            argv + ["--steps", str(steps), "--vit_attn", "xla"])
+        plain = [h["loss"] for h in train_vae.train(plain_args)[1]]
+        torch.cuda.synchronize()
+        diff = max(abs(a - b) for a, b in zip(fused, plain))
+        third = steps // 3
+        mean = lambda xs: sum(xs) / len(xs)
+        log(f"train{tag}: the same {steps} steps with the plain attention (--vit_attn xla): "
+            f"every step's loss within {diff:.3g} of the kernels' run (bar {plain_tol}); mean "
+            f"loss over steps 0-{third - 1} / {third}-{2 * third - 1} / {2 * third}-{steps - 1}: "
+            f"kernels {mean(fused[:third]):.5f} / {mean(fused[third:2 * third]):.5f} / "
+            f"{mean(fused[2 * third:]):.5f}, plain {mean(plain[:third]):.5f} / "
+            f"{mean(plain[third:2 * third]):.5f} / {mean(plain[2 * third:]):.5f}; attention "
+            f"launches in the plain run {sum(ac.LAUNCHES.values())}")
+        if len(plain) != steps or any(ac.LAUNCHES.values()) or not diff <= plain_tol:
+            raise AssertionError(f"train{tag}: the plain-attention run's losses differ by {diff} "
+                                 f"(launches {ac.LAUNCHES})")
     env = port.SimBuilder().build_env("base_sim", "env_with_obstacles",
                                       "base_quadrotor_with_camera", "lee_velocity_control",
                                       num_envs=TRAIN_BATCH, seed=123)
     state, _, _ = train_vae.sample_batch(env.params, env.state, (args.image_h, args.image_w))
-    step_split(torch, model, args, env, state, card, " (one head)")
+    step_split(torch, model, args, env, state, card, tag)
     del model, env
     torch.cuda.empty_cache()
     return launches
@@ -1498,7 +1677,9 @@ def main(argv=None) -> int:
                 f"{info.get('spill_stores')} / loads {info.get('spill_loads')} bytes, static "
                 f"shared memory {info.get('static_smem')} bytes")
 
-    parent = parent_forward(torch, parent_lib[0]) if parent_lib else None
+    parent_fwd, parent_bwd = (parent_launchers(torch, parent_lib[0], args.parent_attention)
+                              if parent_lib else (None, None))
+    parent = (lambda q, k, v, H: parent_fwd(q, k, v, H, 1)) if parent_lib else None
 
     # 2. device
     card = card_line()
@@ -1549,6 +1730,8 @@ def main(argv=None) -> int:
                                                                       attention_reference, dev)
     errs["attention_bwd"], bwd_errs = compare_attention_bwd(torch, ac, attention_backward_reference,
                                                             dev)
+    if parent_lib:
+        parent_compare(torch, ac, parent_fwd, parent_bwd, dev, card)
 
     # 4. the slice at full width
     t0 = time.perf_counter()
@@ -1701,9 +1884,15 @@ def main(argv=None) -> int:
     records[0]["launches"] += train_launches["raycast_depth"]
     records[0]["launches_train_path"] = train_launches["raycast_depth"]
     # 7b. train_vae at one head: the one-pass wide kernels
-    wide_launches = train_wide_phase(torch, rc, ac, card)
+    wide_launches = train_one_head_phase(torch, rc, ac, card, TRAIN_WIDE_ARGS, TRAIN_WIDE_STEPS,
+                                         " (one head)")
     records[0]["launches"] += wide_launches["raycast_depth"]
     records[0]["launches_train_one_head_path"] = wide_launches["raycast_depth"]
+    # 7c. train512: train_vae at dim 512, depth 12, one head: the cluster kernels
+    cluster_launches = train_one_head_phase(torch, rc, ac, card, TRAIN512_ARGS, TRAIN512_STEPS,
+                                            "512 (one head)", TRAIN512_PLAIN_TOL)
+    records[0]["launches"] += cluster_launches["raycast_depth"]
+    records[0]["launches_train512_path"] = cluster_launches["raycast_depth"]
     # each path's launches beside that path's own time and error: the top
     # level of K5's record is the nav path, the sub-record the training path
     records[2]["at_64x225x256_f32"]["launches"] = train_launches["attention_fwd"]
@@ -1729,25 +1918,39 @@ def main(argv=None) -> int:
     })
 
     # 6d. the one-pass wide kernels at the one-head training path's shape
-    #     (head_dim 256, f32), the wide forward in bf16 at the serving batch,
-    #     and the sliced kernels at head_dim 512
+    #     (head_dim 256, f32) and the wide forward in bf16 at the serving
+    #     batch; the cluster kernels at train512's shape (head_dim 512, f32)
+    #     and the cluster forward in bf16 at the serving batch, each beside
+    #     the sliced kernels on the same tensors
     k5_wide = time_attention(torch, ac, attention_reference, card, WIDE_HEAD_SHAPE, "float32",
                              1e-4)
     k5_wide_bf16 = time_attention(torch, ac, attention_reference, card, WIDE_SERVING_SHAPE,
                                   "bfloat16", 0.05)
-    k5_sliced = time_attention(torch, ac, attention_reference, card, SLICED_SHAPE, "float32",
-                               1e-4)
     k6_wide = time_attention_bwd(torch, ac, attention_backward_reference, card, WIDE_HEAD_SHAPE,
                                  "float32", 2e-4)
-    k6_sliced = time_attention_bwd(torch, ac, attention_backward_reference, card, SLICED_SHAPE,
-                                   "float32", 2e-4)
-    sliced_tag = "sliced_at_{}x{}x{}_f32".format(*SLICED_SHAPE[:3])
-    records.append(wide_record("attention_fwd_wide", ATTENTION_REPLACES, wide_launches,
-                               k5_wide, fwd_errs, ptxas["attention"],
-                               **{"at_{}x{}x{}_bf16".format(*WIDE_SERVING_SHAPE[:3]): k5_wide_bf16,
-                                  sliced_tag: k5_sliced}))
-    records.append(wide_record("attention_bwd_wide", ATTENTION_BWD_REPLACES, wide_launches,
-                               k6_wide, bwd_errs, ptxas["attention"], **{sliced_tag: k6_sliced}))
+    bf16_tag = lambda shape: "at_{}x{}x{}_bf16".format(*shape[:3])
+    records.append(family_record("attention_fwd_wide", ATTENTION_REPLACES, wide_launches,
+                                 k5_wide, fwd_errs, ptxas["attention"],
+                                 **{bf16_tag(WIDE_SERVING_SHAPE): k5_wide_bf16}))
+    records.append(family_record("attention_bwd_wide", ATTENTION_BWD_REPLACES, wide_launches,
+                                 k6_wide, bwd_errs, ptxas["attention"]))
+    occupancy = {dt: ac.cluster_occupancy(CLUSTER_SHAPE[2], getattr(torch, dt))
+                 for dt in ("float32", "bfloat16")}
+    log(f"timing cluster kernels at head_dim {CLUSTER_SHAPE[2]}: clusters of "
+        f"{-(-CLUSTER_SHAPE[2] // ac.WIDE_HEAD)} blocks the card holds at once "
+        f"(cudaOccupancyMaxActiveClusters) {occupancy} | {card}")
+    k5_cluster = time_attention(torch, ac, attention_reference, card, CLUSTER_SHAPE, "float32",
+                                1e-4)
+    k5_cluster_bf16 = time_attention(torch, ac, attention_reference, card,
+                                     CLUSTER_SERVING_SHAPE, "bfloat16", 0.05)
+    k6_cluster = time_attention_bwd(torch, ac, attention_backward_reference, card,
+                                    CLUSTER_SHAPE, "float32", 2e-4)
+    records.append(family_record("attention_fwd_cluster", ATTENTION_REPLACES, cluster_launches,
+                                 dict(k5_cluster, clusters_held=occupancy), fwd_errs,
+                                 ptxas["attention"],
+                                 **{bf16_tag(CLUSTER_SERVING_SHAPE): k5_cluster_bf16}))
+    records.append(family_record("attention_bwd_cluster", ATTENTION_BWD_REPLACES,
+                                 cluster_launches, k6_cluster, bwd_errs, ptxas["attention"]))
 
     # 8. position PPO, the state-step line, the shipped position policy
     ppo_phase(torch, port, card)

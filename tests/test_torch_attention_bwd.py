@@ -279,16 +279,91 @@ def _emulated_wide(q, k, v, do, heads):
             _merge_heads(dv))
 
 
-@pytest.mark.parametrize("shape", [pytest.param((1, 225, 256, 1), id="1x225x256-h1"),
-                                   pytest.param((2, 17, 384, 2), id="2x17x384-h2")])
-def test_wide_kernels_order_matches_jax(shape):
+def _slices(a, width):
+    """The head's columns in consecutive slices of ``width``: (start, slice)."""
+    return [(c0, a[..., c0:c0 + width]) for c0 in range(0, a.shape[-1], width)]
+
+
+def _emulated_cluster(q, k, v, do, heads):
+    """The cluster kernels' f32 arithmetic in plain torch -> (o, L, dq, dk,
+    dv). Rank c of a cluster owns head columns [256c, 256c + 256): each
+    logit tile is the sum over ranks, in rank order, of the ranks' 3xTF32
+    partials over their own columns. A forward partial is one product over
+    the rank's 256 columns (a warp's whole slice, as in the wide forward); a
+    backward partial is the sum of the slice's two 128-column halves (the
+    wide kernels' warp pairs). Otherwise the wide kernels' order: two
+    warpgroups on the halves of each 32-key tile merged once, dQ over 16-key
+    tiles, dK and dV over 16-query tiles; delta = rowsum(dO o) summed over
+    the ranks' slices in order."""
+    scale = 1.0 / np.sqrt(q.shape[2] // heads)
+    qh, kh, vh, doh = (_split_heads(x, heads) for x in (q, k, v, do))
+    S = q.shape[1]
+
+    def ranked(parts):
+        total = None
+        for x in parts:
+            total = x if total is None else total + x
+        return total
+
+    fwd_logits = lambda a, b: ranked(_mm3(x, b[..., c0:c0 + 256].transpose(-1, -2))
+                                     for c0, x in _slices(a, 256))
+    # a slice of 128 columns or fewer has an empty second half: a zero partial
+    halves = lambda a, b: (_mm3(a[..., :128], b[..., :128].transpose(-1, -2))
+                           + _mm3(a[..., 128:], b[..., 128:].transpose(-1, -2)))
+    bwd_logits = lambda a, b: ranked(halves(x, b[..., c0:c0 + 256])
+                                     for c0, x in _slices(a, 256))
+    states = []
+    for grp in (0, 1):
+        m = torch.full(qh.shape[:-1], -np.inf)
+        l, o = torch.zeros(qh.shape[:-1]), torch.zeros(qh.shape)
+        for k0 in range(16 * grp, S, 32):
+            kc, vc = kh[..., k0:k0 + 16, :], vh[..., k0:k0 + 16, :]
+            s = fwd_logits(qh, kc) * scale
+            m_new = torch.maximum(m, s.amax(-1))
+            a, p = torch.exp(m - m_new), torch.exp(s - m_new[..., None])
+            l, o, m = l * a + p.sum(-1), o * a[..., None] + _mm3(p, vc), m_new
+        states.append((m, l, o))
+    (m0, l0, o0), (m1, l1, o1) = states
+    n = torch.maximum(m0, m1)
+    a0, a1 = torch.exp(m0 - n), torch.exp(m1 - n)
+    l = l0 * a0 + l1 * a1
+    o = (o0 * a0[..., None] + o1 * a1[..., None]) / l[..., None]
+    lse = n + torch.log(l)
+    delta = ranked((x * o[..., c0:c0 + 256]).sum(-1, keepdim=True)
+                   for c0, x in _slices(doh, 256))
+    dq, dk, dv = torch.zeros(qh.shape), torch.zeros(qh.shape), torch.zeros(qh.shape)
+    for k0 in range(0, S, 16):
+        kc, vc = kh[..., k0:k0 + 16, :], vh[..., k0:k0 + 16, :]
+        p = torch.exp(bwd_logits(qh, kc) * scale - lse[..., None])
+        dq = dq + _mm3(p * (bwd_logits(doh, vc) - delta), kc)
+    for q0 in range(0, S, 16):
+        qc, dc = qh[..., q0:q0 + 16, :], doh[..., q0:q0 + 16, :]
+        pt = torch.exp(bwd_logits(kh, qc) * scale - lse[..., None, q0:q0 + 16])
+        dst = pt * (bwd_logits(vh, dc) - delta[..., q0:q0 + 16, 0][..., None, :])
+        dv, dk = dv + _mm3(pt, dc), dk + _mm3(dst, qc)
+    return (_merge_heads(o), lse, _merge_heads(dq * scale), _merge_heads(dk * scale),
+            _merge_heads(dv))
+
+
+@pytest.mark.parametrize("emulated,shape", [
+    pytest.param(_emulated_wide, (1, 225, 256, 1), id="1x225x256-h1"),
+    pytest.param(_emulated_wide, (2, 17, 384, 2), id="2x17x384-h2"),
+    # the cluster kernels: a cluster of 2; of 3 at a short S; head 257,
+    # whose second rank holds one real column
+    pytest.param(_emulated_cluster, (1, 225, 512, 1), id="cluster-1x225x512-h1"),
+    pytest.param(_emulated_cluster, (2, 17, 768, 1), id="cluster-2x17x768-h1"),
+    pytest.param(_emulated_cluster, (1, 33, 514, 2), id="cluster-1x33x514-h2"),
+])
+def test_wide_kernels_order_matches_jax(emulated, shape):
     """The one-pass wide kernels' order of sums (warpgroup merge, tiled
-    backward) with 3xTF32 products: forward within 1e-4 of the JAX oracle, L
-    within 1e-4 of the plain log-sum-exp, gradients within 2e-4 of jax.vjp
-    through the oracle; S = 17 leaves the second warpgroup one key."""
+    backward) and the cluster kernels' (the same, with the logits summed
+    over the ranks' column slices in rank order), with 3xTF32 products:
+    forward within 1e-4 of the JAX oracle, L within 1e-4 of the plain
+    log-sum-exp, gradients within 2e-4 of jax.vjp through the oracle; S = 17
+    leaves the second warpgroup one key."""
     arrays = _inputs(shape, seed=11)
     q, k, v, do = (torch.from_numpy(a) for a in arrays)
-    o, lse, *grads = _emulated_wide(q, k, v, do, shape[3])
+    o, lse, *grads = emulated(q, k, v, do, shape[3])
     want_o = np.asarray(attention_oracle(*(jnp.asarray(a) for a in arrays[:3]), shape[3]))
     np.testing.assert_allclose(o.numpy(), want_o, atol=1e-4, rtol=1e-4)
     np.testing.assert_allclose(lse.numpy(), attention_lse_reference(q, k, shape[3]).numpy(),

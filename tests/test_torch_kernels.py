@@ -666,12 +666,12 @@ def test_serving_kernel_sequence_lengths(cuda_device, S, heads, ring):
 
 
 # heads wider than 128 columns: the one-pass wide kernels up to 256 columns,
-# the sliced kernels above. (B, S, D, heads)
+# the cluster kernels up to 2,048, the sliced kernels above. (B, S, D, heads)
 WIDE_SHAPES = [
     (2, 225, 256, 1),          # head 256, one head (ViT dim 256 at one head)
     (2, 225, 512, 2),          # head 256, two heads
-    (1, 225, 512, 1),          # head 512, one head (ViT dim 512 at one head): sliced
-    (1, 225, 1024, 2),         # head 512, two heads: sliced
+    (1, 225, 512, 1),          # head 512, one head (ViT dim 512 at one head): a cluster of 2
+    (1, 225, 1024, 2),         # head 512, two heads: clusters of 2
     (2, 65, 268, 2),           # head 134: 4-byte copies
     (3, 1, 256, 1),            # S = 1: the second warpgroup of the forward sees no key
     (2, 17, 256, 1),           # S = 17: one key for the second warpgroup
@@ -681,8 +681,13 @@ WIDE_SHAPES = [
     (2, 225, 384, 2),          # head 192
     (2, 33, 274, 2),           # head 137: odd, bf16 staged by plain loads
     (40, 225, 256, 1),         # 160 blocks a kernel: more than one wave over 132 SMs
-    (2, 65, 264, 1),           # head 264: the sliced kernels' narrowest
-    (1, 65, 514, 2),           # head 257: odd, sliced
+    (2, 65, 264, 1),           # head 264: the second rank holds 8 columns
+    (1, 65, 514, 2),           # head 257: odd, the second rank holds 1 column
+    (1, 100, 768, 1),          # head 768: a cluster of 3
+    (1, 65, 1024, 1),          # head 1,024: a cluster of 4
+    (1, 33, 2048, 1),          # head 2,048: a cluster of 8, the largest
+    (40, 225, 512, 1),         # 320 blocks: clusters of 2 over more than one wave
+    (1, 33, 2049, 1),          # head 2,049, past the clusters' reach: the sliced kernels
 ]
 
 
@@ -699,7 +704,7 @@ def test_attention_wide_heads_match_plain_version(cuda_device, shape, dtype, fwd
     backward calls on the same inputs give the same bits."""
     H = shape[3]
     family = ac.kernel_family(shape[2] // H)
-    assert family in ("_wide", "_sliced")
+    assert family in ("_wide", "_cluster", "_sliced")
     q, k, v, do = qkv(shape, dtype, cuda_device, seed=6, n=4)
     before = dict(ac.LAUNCHES)
     out, lse = ac.attention_forward(q, k, v, H, want_lse=True)
@@ -742,15 +747,80 @@ def test_sliced_switch_runs_the_sliced_forward_at_head_256(cuda_device, dtype, t
 
 def test_kernel_family_follows_the_dispatch():
     """The wrapper's family of a head size (the LAUNCHES key it counts under)
-    is the one csrc/attention.cu dispatches it to: its kWideHead is the
-    wrapper's WIDE_HEAD."""
+    is the one csrc/attention.cu dispatches it to: its kWideHead and
+    kClusterHead are the wrapper's WIDE_HEAD and CLUSTER_HEAD, and the
+    widest cluster is the portable 8 blocks."""
     from pathlib import Path
     src = (Path(ac.__file__).resolve().parent.parent / "csrc" / "attention.cu").read_text()
     assert f"constexpr int kWideHead = {ac.WIDE_HEAD};" in src
-    assert [ac.kernel_family(hd) for hd in (17, 32, 64, 128, 129, 136, 192, 256, 257, 512)] == \
-        ["", "", "", "", "_wide", "_wide", "_wide", "_wide", "_sliced", "_sliced"]
+    assert f"constexpr int kClusterHead = {ac.CLUSTER_HEAD};" in src
+    assert ac.CLUSTER_HEAD // ac.WIDE_HEAD == 8
+    heads = (17, 32, 64, 128, 129, 136, 192, 256, 257, 512, 768, 2048, 2049, 4096)
+    assert [ac.kernel_family(hd) for hd in heads] == \
+        ["", "", "", "", "_wide", "_wide", "_wide", "_wide", "_cluster", "_cluster", "_cluster",
+         "_cluster", "_sliced", "_sliced"]
     assert set(ac.LAUNCHES) == {f"attention_{d}{f}" for d in ("fwd", "bwd")
-                                for f in ("", "_wide", "_sliced")}
+                                for f in ("", "_wide", "_cluster", "_sliced")}
+
+
+def test_sliced_backward_switch_and_cluster_occupancy_refuse_other_heads():
+    """The backward's sliced switch takes heads above 128 only (on any
+    device), and the cluster occupancy query only the cluster kernels'
+    heads, before any library is loaded."""
+    q, k, v, do = qkv((2, 17, 128, 1), torch.float32, "cpu", n=4)
+    with pytest.raises(ValueError, match="sliced"):
+        ac.attention_backward(q, k, v, do, 1, sliced=True)
+    wide = ac.attention_backward(*qkv((1, 9, 512, 1), torch.float32, "cpu", n=4), 1,
+                                 sliced=True)
+    assert [tuple(g.shape) for g in wide] == [(1, 9, 512)] * 3
+    for hd in (256, 2049):
+        with pytest.raises(ValueError, match="cluster"):
+            ac.cluster_occupancy(hd, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_cluster_kernels_repeat_bit_for_bit(cuda_device, dtype):
+    """The cluster kernels at the ViT's sequence, head 512, over more than
+    one wave of clusters: a second forward and a second backward on the same
+    inputs give the same bits (no atomics; every rank sums the partials in
+    one order), each call counted under the cluster family, and the card
+    holds clusters of every cluster kernel."""
+    shape = (16, 225, 512, 1)
+    q, k, v, do = qkv(shape, dtype, cuda_device, seed=9, n=4)
+    before = dict(ac.LAUNCHES)
+    outs = [ac.attention_forward(q, k, v, 1, want_lse=True) for _ in range(2)]
+    grads = [ac.attention_backward(q, k, v, do, 1, out=outs[0][0], lse=outs[0][1])
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    assert ac.LAUNCHES == dict(before, attention_fwd_cluster=before["attention_fwd_cluster"] + 2,
+                               attention_bwd_cluster=before["attention_bwd_cluster"] + 2)
+    for a, b in zip(outs[0] + grads[0], outs[1] + grads[1]):
+        assert torch.equal(a, b)
+    found = ac.cluster_occupancy(512, dtype)
+    assert set(found) == {"fwd", "fwd_lse", "bwd_dq", "bwd_dkdv"} and min(found.values()) >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,fwd_tol,bwd_tol", [(torch.float32, 1e-4, 2e-4),
+                                                   (torch.bfloat16, 0.05, 0.02)],
+                         ids=["float32", "bfloat16"])
+def test_sliced_switch_runs_the_sliced_kernels_at_head_512(cuda_device, dtype, fwd_tol, bwd_tol):
+    """``sliced=True`` runs the sliced forward and backward at a head the
+    cluster kernels would take (the comparison the smoke run times), counted
+    under the sliced family, within the bars of the cluster kernels."""
+    q, k, v, do = qkv((2, 65, 512, 1), dtype, cuda_device, seed=10, n=4)
+    before = dict(ac.LAUNCHES)
+    out, lse = ac.attention_forward(q, k, v, 1, want_lse=True, sliced=True)
+    grads = ac.attention_backward(q, k, v, do, 1, out=out, lse=lse, sliced=True)
+    torch.cuda.synchronize()
+    assert ac.LAUNCHES == dict(before, attention_fwd_sliced=before["attention_fwd_sliced"] + 1,
+                               attention_bwd_sliced=before["attention_bwd_sliced"] + 1)
+    torch.testing.assert_close(out.float(), attention_reference(q, k, v, 1).float(),
+                               atol=fwd_tol, rtol=fwd_tol)
+    for name, a, b in zip(("dq", "dk", "dv"), grads,
+                          attention_backward_reference(q, k, v, do, 1)):
+        torch.testing.assert_close(a.float(), b.float(), atol=bwd_tol, rtol=bwd_tol, msg=name)
 
 
 def test_kernel_library_keeps_nvcc_log_beside_the_build(tmp_path, monkeypatch):

@@ -46,7 +46,8 @@ from aerial_gym_simulator_tpu_torch.sim import convert as cv
 HW = (27, 48)
 VIT_KW = dict(latent_dim=8, out_hw=(36, 48), patch=(9, 16), dim=32, depth=2, num_heads=2)
 VIT_GRAD_KW = dict(VIT_KW, depth=1)            # one block: the JAX side compiles faster
-# the shipped width at one head (head_dim 256, the one-pass wide kernels on the card)
+# one head at the shipped width (head_dim 256, the one-pass wide kernels on the
+# card) and at the large ViT's (head_dim 512, the cluster kernels)
 VIT_WIDE_KW = dict(VIT_KW, dim=256, depth=1, num_heads=1)
 
 
@@ -91,12 +92,12 @@ def vit_params(depth: int):
     return perturbed(model.init(key, x, key), seed=depth)
 
 
-def vit_wide_params():
-    """Perturbed DepthViT parameters at VIT_WIDE_KW, from the port's seeded
+def vit_wide_params(kw):
+    """Perturbed DepthViT parameters at ``kw``, from the port's seeded
     initialisation carried across (flax's eager init at this width costs
     more than the whole comparison)."""
     torch.manual_seed(7)
-    model = DepthViT(**VIT_WIDE_KW)
+    model = DepthViT(**kw)
     return perturbed(cv.depth_vit_to_flax(model), seed=7)
 
 
@@ -241,15 +242,18 @@ def test_vit_vae_loss_and_every_gradient_match_jax(attn_impl, remat):
     _loss_and_grads_match(j_model, params, t_model, cv.depth_vit_to_flax, x, key)
 
 
-def test_vit_one_wide_head_forward_and_every_gradient_match_jax():
-    """dim 256 at one head (head_dim 256) through "fused" attention, depth 1:
-    the forward, vae_loss and the gradient of every parameter against the
+@pytest.mark.parametrize("dim", [256, 512], ids=["dim256", "dim512"])
+def test_vit_one_wide_head_forward_and_every_gradient_match_jax(dim):
+    """dim 256 or 512 at one head (head_dim 256: the one-pass wide kernels
+    on the card; 512: the cluster kernels) through "fused" attention, depth
+    1: the forward, vae_loss and the gradient of every parameter against the
     JAX package (its Pallas kernel interpreted, the JAX side jitted to keep
     the test short) at the bars above."""
+    kw = dict(VIT_WIDE_KW, dim=dim)
     x = images((2, 36, 48), seed=8)
-    j_model = JDepthViT(attn_impl="fused", **VIT_WIDE_KW)
+    j_model = JDepthViT(attn_impl="fused", **kw)
     key = jax.random.PRNGKey(8)
-    params = vit_wide_params()
+    params = vit_wide_params(kw)
     recon_j, mean_j, logvar_j = jax.jit(j_model.apply)(params, jnp.asarray(x), key)
     t_model = cv.depth_vit_from_flax(params, (36, 48), attn_impl="fused")
     assert t_model.encoder.blocks[0].attn.num_heads == 1
