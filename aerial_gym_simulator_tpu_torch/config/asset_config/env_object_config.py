@@ -1,7 +1,8 @@
-"""Environment-object asset types used by ``env_with_obstacles``.
+"""Environment-object asset types used by ``env_with_obstacles`` and
+``env_with_lidar_nav_obstacles``.
 
 Copied from the JAX package's ``config/asset_config/env_object_config.py``
-and cut to the panel, object and wall types. Each type's geometry is a set
+and cut to the panel, object and wall types and the lidar-nav catalog. Each type's geometry is a set
 of procedural URDF variants; one is picked per (env, slot) at build time.
 """
 
@@ -115,3 +116,30 @@ def bottom_wall():
 
 def top_wall():
     return _wall("top_wall", (20.0, 20.0, 0.2), (0.5, 0.5, 1.0), TOP_WALL_SEMANTIC_ID)
+
+
+# the lidar-navigation catalog: a denser scene (15 panels, 70 objects),
+# pose ratios reaching the env faces, and no keep_in_env anywhere, walls
+# included, so that the task's curriculum may cull every slot
+
+
+def lidar_nav_panel_asset_params(num_assets: int = 15) -> AssetTypeConfig:
+    cfg = panel_asset_params(num_assets)
+    cfg.min_state_ratio = _ratio(0.35, 0.0, 0.0, 0.0, 0.0, -_pi / 3.0)
+    cfg.max_state_ratio = _ratio(1.0, 1.0, 1.0, 0.0, 0.0, _pi / 3.0)
+    cfg.keep_in_env = False
+    return cfg
+
+
+def lidar_nav_object_asset_params(num_assets: int = 70) -> AssetTypeConfig:
+    cfg = object_asset_params(num_assets)
+    cfg.min_state_ratio = _ratio(0.30, 0.0, 0.0, -_pi, -_pi, -_pi)
+    cfg.max_state_ratio = _ratio(1.0, 1.0, 1.0, _pi, _pi, _pi)
+    return cfg
+
+
+def lidar_nav_wall(factory) -> AssetTypeConfig:
+    """A wall of the lidar-nav catalog: not kept in the env."""
+    cfg = factory()
+    cfg.keep_in_env = False
+    return cfg

@@ -44,3 +44,19 @@ def lmf2_controller_config(name: str, num_actions: int = 4) -> ControllerConfig:
         K_angvel_tensor_min=[0.4, 0.4, 0.075], K_angvel_tensor_max=[0.5, 0.5, 0.09],
         randomize_params=True,
     )
+
+
+def magpie_controller_config(name: str, num_actions: int = 4) -> ControllerConfig:
+    """Gain ranges of the magpie platform, sampled per env at every reset."""
+    return ControllerConfig(
+        name=name, num_actions=num_actions,
+        K_pos_tensor_min=[2.0, 2.0, 1.0], K_pos_tensor_max=[2.0, 2.0, 1.0],
+        K_vel_tensor_min=[2.7, 2.7, 2.3], K_vel_tensor_max=[3.3, 3.3, 2.6],
+        K_rot_tensor_min=[8.9453125, 8.9453125, 0.32499998807907104],
+        K_rot_tensor_max=[12.9453125, 12.9453125, 0.32499998807907104],
+        K_angvel_tensor_min=[0.65910937666893005, 0.65910937666893005,
+                             0.028818358927965164],
+        K_angvel_tensor_max=[0.8910937666893005, 0.8910937666893005,
+                             0.048818358927965164],
+        randomize_params=True,
+    )

@@ -1,5 +1,6 @@
-"""Obstacle environment config, copied from the JAX package's
-``config/env_config/obstacle_envs.py`` and cut to ``env_with_obstacles``."""
+"""Obstacle environment configs, copied from the JAX package's
+``config/env_config/obstacle_envs.py`` and cut to ``env_with_obstacles``
+and ``env_with_lidar_nav_obstacles``."""
 
 from __future__ import annotations
 
@@ -41,3 +42,29 @@ class EnvWithObstaclesConfig(EnvConfig):
 
     def __post_init__(self):
         self.asset_counts = {t.name: t.num_assets for t in self.asset_types}
+
+
+def _lidar_nav_assets():
+    return [
+        eoc.lidar_nav_panel_asset_params(15),
+        eoc.lidar_nav_object_asset_params(70),
+        eoc.lidar_nav_wall(eoc.left_wall),
+        eoc.lidar_nav_wall(eoc.right_wall),
+        eoc.lidar_nav_wall(eoc.back_wall),
+        eoc.lidar_nav_wall(eoc.front_wall),
+        eoc.lidar_nav_wall(eoc.top_wall),
+        eoc.lidar_nav_wall(eoc.bottom_wall),
+    ]
+
+
+@dataclass
+class LidarNavObstaclesConfig(EnvWithObstaclesConfig):
+    """The lidar-nav catalog (15 panels, 70 objects, cullable walls) in a
+    larger arena with wider random bounds."""
+    name: str = "env_with_lidar_nav_obstacles"
+    collision_force_threshold: float = 0.05
+    lower_bound_min: Tuple[float, float, float] = (-7.5, -7.5, -5.0)
+    lower_bound_max: Tuple[float, float, float] = (-5.0, -5.0, -3.0)
+    upper_bound_min: Tuple[float, float, float] = (5.0, 5.0, 3.0)
+    upper_bound_max: Tuple[float, float, float] = (7.5, 7.5, 5.0)
+    asset_types: List[eoc.AssetTypeConfig] = field(default_factory=_lidar_nav_assets)

@@ -3,9 +3,12 @@
 
 from __future__ import annotations
 
+import math
+
 from .base_quad_config import (
     ControlAllocatorConfig,
     DisturbanceConfig,
+    InitConfig,
     MotorModelConfig,
     RobotConfig,
 )
@@ -61,6 +64,19 @@ _LMF2_DIST = lambda: DisturbanceConfig(
     max_force_and_torque_disturbance=[4.75, 4.75, 4.75, 0.03, 0.03, 0.03])
 
 
+def _init(pos_min, pos_max, rp=0.0, yaw=math.pi, v=0.2, w=0.2,
+          pos_ratio_quad=False) -> InitConfig:
+    """Init-state ranges [ratio_xyz, roll, pitch, yaw, 1, v, w]."""
+    if pos_ratio_quad:
+        lo, hi = [0.1, 0.15, 0.15], [0.2, 0.85, 0.85]
+    else:
+        lo, hi = list(pos_min), list(pos_max)
+    return InitConfig(
+        min_init_state=lo + [-rp, -rp, -yaw, 1.0] + [-v] * 3 + [-w] * 3,
+        max_init_state=hi + [rp, rp, yaw, 1.0] + [v] * 3 + [w] * 3,
+    )
+
+
 def _mass_props(cfg: RobotConfig, mass: float, inertia_diag) -> RobotConfig:
     """Override the URDF's mass properties with the named robot's own."""
     cfg.robot_asset.mass = mass
@@ -103,6 +119,35 @@ def lmf2() -> RobotConfig:
     return _mass_props(cfg, 1.240, [0.0134, 0.0134, 0.0138])
 
 
+def lmf2_radar() -> RobotConfig:
+    """lmf2 with the fake-radar cone in place of the camera."""
+    from ..sensor_config.sensor_configs import FakeRadarConfig
+    cfg = lmf2()
+    cfg.name = "lmf2_radar"
+    cfg.sensor_config.enable_camera = False
+    cfg.sensor_config.enable_lidar = True
+    cfg.sensor_config.lidar_config = FakeRadarConfig()
+    return cfg
+
+
+def magpie() -> RobotConfig:
+    """A quad with the Robosense Airy dome lidar (48x120 world-frame
+    pointcloud), the wrench applied at the root link."""
+    from ..sensor_config.sensor_configs import RSLidarAiryConfig
+    cfg = _quad("magpie",
+                [-0.13, -0.13, 0.13, 0.13], [-0.13, 0.13, 0.13, -0.13],
+                [-0.02, 0.02, -0.02, 0.02], [1, -1, 1, -1],
+                _motors(tau_inc=(0.01, 0.02), tau_dec=(0.005, 0.015),
+                        max_thrust=12.0, min_thrust=0.1,
+                        max_rate=1000000.0, cq=0.02))
+    cfg.control_allocator_config.force_application_level = "root_link"
+    cfg.init_config = _init(None, None, pos_ratio_quad=True, yaw=math.pi)
+    cfg.disturbance = _LMF2_DIST()
+    cfg.sensor_config.enable_lidar = True
+    cfg.sensor_config.lidar_config = RSLidarAiryConfig()
+    return _mass_props(cfg, 1.240, [0.0134, 0.0134, 0.0138])
+
+
 def register_robots(robot_registry):
     robot_registry.register("base_quadrotor", base_quadrotor)
     robot_registry.register("base_quadrotor_with_camera", base_quadrotor_with_camera)
@@ -110,3 +155,5 @@ def register_robots(robot_registry):
     robot_registry.register("base_quadrotor_with_faceid_normal_camera",
                             base_quadrotor_with_faceid_normal_camera)
     robot_registry.register("lmf2", lmf2)
+    robot_registry.register("lmf2_radar", lmf2_radar)
+    robot_registry.register("magpie", magpie)

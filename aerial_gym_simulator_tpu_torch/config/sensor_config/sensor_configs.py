@@ -1,6 +1,7 @@
 """Sensor configs, copied from the JAX package's
 ``config/sensor_config/sensor_configs.py`` and cut to the base depth
-camera, the normal/face-id camera and the base lidar."""
+camera, the normal/face-id camera, the base lidar, the Robosense Airy
+dome lidar and the fake radar."""
 
 from __future__ import annotations
 
@@ -100,3 +101,60 @@ class BaseLidarConfig:
             self.far_out_of_range_value = self.max_range if self.normalize_range else -1.0
         if self.near_out_of_range_value is None:
             self.near_out_of_range_value = -self.max_range if self.normalize_range else -1.0
+
+
+@dataclass
+class RSLidarAiryConfig(BaseLidarConfig):
+    """Robosense Airy dome lidar: a 48x120 world-frame pointcloud (the
+    magpie robot's sensor in the lidar navigation task)."""
+    height: int = 48
+    width: int = 120
+    horizontal_fov_deg_min: float = -180.0
+    horizontal_fov_deg_max: float = 180.0
+    vertical_fov_deg_min: float = 0.0
+    vertical_fov_deg_max: float = 90.0
+    max_range: float = 10.0
+    min_range: float = 0.2
+    return_pointcloud: bool = True
+    pointcloud_in_world_frame: bool = True
+    segmentation_camera: bool = False
+    normalize_range: bool = False
+    # a fixed mount: 5 cm back, pitched -90 degrees (looking up through the dome)
+    min_translation: List[float] = field(default_factory=lambda: [-0.05, 0.0, 0.0])
+    max_translation: List[float] = field(default_factory=lambda: [-0.05, 0.0, 0.0])
+    min_euler_rotation_deg: List[float] = field(default_factory=lambda: [0.0, -90.0, 0.0])
+    max_euler_rotation_deg: List[float] = field(default_factory=lambda: [0.0, -90.0, 0.0])
+    sensor_noise: SensorNoiseConfig = field(
+        default_factory=lambda: SensorNoiseConfig(
+            enable_sensor_noise=False, std_a=0.00038089,
+            std_b=-0.00343351, std_c=0.01553284,
+            mean_offset=-0.025, pixel_dropout_prob=0.0))
+    # the base lidar's sentinels, pinned: the source never recomputes them
+    # for the world-frame pointcloud
+    far_out_of_range_value: Optional[float] = 10.0
+    near_out_of_range_value: Optional[float] = -10.0
+
+
+@dataclass
+class FakeRadarConfig(BaseLidarConfig):
+    """A radar cone rendered like a lidar: 48x120 rays over +-60 degrees,
+    a world-frame pointcloud (the radar navigation task's sensor)."""
+    height: int = 48
+    width: int = 120
+    horizontal_fov_deg_min: float = -60.0
+    horizontal_fov_deg_max: float = 60.0
+    vertical_fov_deg_min: float = -60.0
+    vertical_fov_deg_max: float = 60.0
+    max_range: float = 10.0
+    min_range: float = 0.2
+    return_pointcloud: bool = True
+    pointcloud_in_world_frame: bool = True
+    segmentation_camera: bool = False
+    normalize_range: bool = False
+    min_translation: List[float] = field(default_factory=lambda: [0.07, -0.06, 0.02])
+    max_translation: List[float] = field(default_factory=lambda: [0.12, 0.03, 0.06])
+    sensor_noise: SensorNoiseConfig = field(
+        default_factory=lambda: SensorNoiseConfig(
+            enable_sensor_noise=False, std_a=3.08287454e-06,
+            std_b=-4.07347360e-06, std_c=5.30757302e-03,
+            mean_offset=-0.025, pixel_dropout_prob=0.01))

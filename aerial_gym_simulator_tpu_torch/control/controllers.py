@@ -1,12 +1,14 @@
 """Geometric (Lee SE(3)) controllers on batched torch tensors.
 
 Counterpart of ``aerial_gym_simulator_tpu/control/controllers.py``, cut to
-the position, velocity and attitude variants (they share every helper).
+the position, velocity, attitude and acceleration variants (they share
+every helper).
 
 Controller name -> action semantics:
-  lee_position_control   [x, y, z, yaw]                   world-frame position
-  lee_velocity_control   [vx, vy, vz, yaw_rate]           vehicle-frame velocity
-  lee_attitude_control   [thrust, roll, pitch, yaw_rate]
+  lee_position_control     [x, y, z, yaw]                 world-frame position
+  lee_velocity_control     [vx, vy, vz, yaw_rate]         vehicle-frame velocity
+  lee_attitude_control     [thrust, roll, pitch, yaw_rate]
+  lee_acceleration_control [ax, ay, az, yaw_rate]         world-frame acceleration
 """
 
 from __future__ import annotations
@@ -95,6 +97,17 @@ def compute_body_torque(cp: ControllerParams, rp: RobotParams, obs: RobotObs,
     return -g.K_rot * rot_err - g.K_angvel * angvel_err + feed_forward
 
 
+def desired_quat_from_forces_and_yaw(forces, yaw_setpoint):
+    """Small-angle desired orientation: roll and pitch that tilt the body z
+    axis along the force, at the given yaw."""
+    c_phi_s_theta = forces[..., 0]
+    s_phi = -forces[..., 1]
+    c_phi_c_theta = forces[..., 2]
+    pitch = torch.atan2(c_phi_s_theta, c_phi_c_theta)
+    roll = torch.atan2(s_phi, torch.sqrt(c_phi_c_theta ** 2 + c_phi_s_theta ** 2))
+    return quat_from_euler_xyz(roll, pitch, yaw_setpoint)
+
+
 def desired_quat_from_forces_full(forces, yaw_setpoint):
     """Full-SO(3) desired orientation from the thrust direction."""
     b3 = normalize(forces)
@@ -171,10 +184,20 @@ def lee_attitude_control(cp, rp, gravity, obs, g, action):
     return _wrench(thrust, torque)
 
 
+def lee_acceleration_control(cp, rp, gravity, obs, g, action):
+    forces = rp.mass * (action[..., 0:3] - gravity)
+    thrust = _thrust_along_body_z(obs, forces)
+    quat_des = desired_quat_from_forces_and_yaw(forces, obs.euler[..., 2])
+    body_rates = euler_rates_to_body_rates(obs.euler, _yaw_rate_only(action))
+    torque = compute_body_torque(cp, rp, obs, g, quat_des, body_rates)
+    return _wrench(thrust, torque)
+
+
 _CONTROLLERS = {
     "lee_position_control": lee_position_control,
     "lee_velocity_control": lee_velocity_control,
     "lee_attitude_control": lee_attitude_control,
+    "lee_acceleration_control": lee_acceleration_control,
 }
 
 

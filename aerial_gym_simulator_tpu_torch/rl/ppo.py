@@ -1,11 +1,17 @@
 """PPO learner: rollout and update on the task's device.
 
-Counterpart of ``aerial_gym_simulator_tpu/rl/ppo.py``, feed-forward path:
-clipped PPO, GAE(lambda), advantage normalization per minibatch, entropy
-bonus, bounds loss, value bootstrap at truncations, optional value
-normalization, and the adaptive learning rate that follows the policy's KL
-divergence per minibatch. Defaults follow the reference's
-ppo_aerial_quad.yaml (8192 envs, horizon 32, minibatch 8192, gamma 0.99).
+Counterpart of ``aerial_gym_simulator_tpu/rl/ppo.py``: clipped PPO,
+GAE(lambda), advantage normalization per minibatch, entropy bonus, bounds
+loss, value bootstrap at truncations, optional value normalization, and the
+adaptive learning rate that follows the policy's KL divergence per
+minibatch. Defaults follow the reference's ppo_aerial_quad.yaml (8192 envs,
+horizon 32, minibatch 8192, gamma 0.99).
+
+``rnn="gru"`` trains the recurrent ``ActorCriticGRU``: the env carry becomes
+``(task_carry, hidden, done_prev)`` and the hidden state is zeroed at
+episode boundaries; the update minibatches over envs (whole sequences) and
+replays each from its stored rollout-start hidden with the current
+parameters.
 
 The rollout and the update run eagerly. Nothing in an iteration reads a
 device value back to the host: the learning rate lives in a 0-d tensor that
@@ -26,7 +32,13 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from .networks import ActorCritic, gaussian_entropy, gaussian_logp, sample_action
+from .networks import (
+    ActorCritic,
+    ActorCriticGRU,
+    gaussian_entropy,
+    gaussian_logp,
+    sample_action,
+)
 
 logger = logging.getLogger("ppo")
 
@@ -35,10 +47,10 @@ logger = logging.getLogger("ppo")
 class PPOConfig:
     """Defaults follow rl_training/rl_games/ppo_aerial_quad.yaml.
 
-    ``rnn`` other than None raises ``NotImplementedError`` (the GRU policy
-    comes with the LiDAR/radar tasks). ``matmul_precision`` is kept so that
-    configs carry across, and is without effect: the networks' products run
-    in full f32 here whatever it says."""
+    ``rnn``: None (MLP) or "gru" (a recurrent policy of ``rnn_hidden``
+    units). ``matmul_precision`` is kept so that configs carry across, and
+    is without effect: the networks' products run in full f32 here whatever
+    it says."""
     num_envs: int = 8192
     horizon: int = 32
     minibatch_size: int = 8192
@@ -160,6 +172,28 @@ def ppo_loss(cfg: PPOConfig, network, minibatch):
     advantage, return) -> (total, (pg_loss, v_loss, entropy, kl))."""
     obs, action, old_logp, old_value, adv, ret = minibatch
     mean, log_std, value = network(obs)
+    return _clipped_loss(cfg, mean, log_std, value, action, old_logp, old_value, adv, ret)
+
+
+def ppo_loss_rnn(cfg: PPOConfig, network, minibatch, h0):
+    """The recurrent loss on a minibatch of whole env sequences: fields
+    (E, T, ...) of (obs, action, old_logp, old_value, advantage, return,
+    done_prev), replayed time-major from the rollout-start hidden h0 (E, H)
+    with the current parameters, the hidden zeroed after each episode end."""
+    obs, action, old_logp, old_value, adv, ret, done_prev = (
+        x.transpose(0, 1) for x in minibatch)                      # (T, E, ...)
+    h, means, values = h0, [], []
+    for t in range(obs.shape[0]):
+        h = h * (1.0 - done_prev[t])[:, None]
+        mean, _, value, h = network(obs[t], h)
+        means.append(mean)
+        values.append(value)
+    return _clipped_loss(cfg, torch.stack(means), network.log_std, torch.stack(values),
+                         action, old_logp, old_value, adv, ret)
+
+
+def _clipped_loss(cfg: PPOConfig, mean, log_std, value, action, old_logp, old_value, adv,
+                  ret):
     logp = gaussian_logp(mean, log_std, action)
     d = logp - old_logp
     ratio = torch.exp(d)
@@ -211,6 +245,8 @@ class Rollout:
     rewards: torch.Tensor           # scaled, with the truncation bootstrap
     dones: torch.Tensor
     terms: torch.Tensor
+    done_prev: Optional[torch.Tensor] = None    # recurrent: the mask before each step
+    h0: Optional[torch.Tensor] = None           # recurrent: the rollout-start hidden (N, H)
 
 
 class PPOTrainer:
@@ -218,9 +254,8 @@ class PPOTrainer:
     the task's device."""
 
     def __init__(self, task, cfg: PPOConfig):
-        if cfg.rnn is not None:
-            raise NotImplementedError(
-                f"rnn={cfg.rnn!r}: recurrent policies are not ported yet (see ROADMAP.md)")
+        if cfg.rnn not in (None, "gru"):
+            raise ValueError(f"unknown rnn type {cfg.rnn!r} (None or 'gru')")
         if cfg.lr_schedule not in ("adaptive", "fixed"):
             raise ValueError(f"unknown lr_schedule {cfg.lr_schedule!r} ('adaptive' or 'fixed')")
         self.task, self.cfg = task, cfg
@@ -230,7 +265,12 @@ class PPOTrainer:
 
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(cfg.seed)
-            network = ActorCritic(self.obs_dim, self.action_dim, cfg.hidden, cfg.activation)
+            if cfg.rnn == "gru":
+                network = ActorCriticGRU(self.obs_dim, self.action_dim, cfg.hidden,
+                                         cfg.rnn_hidden, cfg.activation)
+            else:
+                network = ActorCritic(self.obs_dim, self.action_dim, cfg.hidden,
+                                      cfg.activation)
         self.network = network.to(self.device)
         self.optimizer = make_optimizer(self.network, cfg.lr)
         self.norm = RunningMeanStd.init(self.obs_dim, self.device)
@@ -243,18 +283,40 @@ class PPOTrainer:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.seed)
         self._iter = 0
+        self._act_h = None          # the recurrent act()'s hidden state
 
         self.step_fn, self.env_carry, self.obs = task.make_step_fn()
-        batch = cfg.num_envs * cfg.horizon
-        self.mb_size = min(cfg.minibatch_size, batch)
-        self.n_minibatches = batch // self.mb_size
-        if self.mb_size != cfg.minibatch_size:
-            logger.info("minibatch_size %d > rollout batch %d: clamped to one minibatch",
-                        cfg.minibatch_size, batch)
-        if batch % self.mb_size:
-            logger.warning("batch %d is not a multiple of minibatch_size %d: %d samples are "
-                           "dropped from every epoch (a random subset per shuffle)",
-                           batch, self.mb_size, batch - self.n_minibatches * self.mb_size)
+        N, T = cfg.num_envs, cfg.horizon
+        batch = N * T
+        if cfg.rnn == "gru":
+            # the policy's hidden state and the episode-boundary mask ride
+            # in the env carry
+            self.env_carry = (self.env_carry,
+                              torch.zeros((N, cfg.rnn_hidden), device=self.device),
+                              torch.zeros((N,), device=self.device))
+            # minibatches of whole env sequences
+            self.mb_envs = max(min(cfg.minibatch_size // T, N), 1)
+            self.n_minibatches = max(N // self.mb_envs, 1)
+            self.mb_size = self.mb_envs * T
+            if self.mb_size != min(cfg.minibatch_size, batch):
+                logger.info("rnn minibatches are whole env sequences: effective minibatch is "
+                            "%d envs x %d steps = %d samples (requested minibatch_size %d)",
+                            self.mb_envs, T, self.mb_size, cfg.minibatch_size)
+            if N % self.mb_envs:
+                logger.warning("num_envs %d is not a multiple of the %d-env sequence "
+                               "minibatch: %d env sequences are dropped from every epoch "
+                               "(a random subset per shuffle)", N, self.mb_envs,
+                               N - self.n_minibatches * self.mb_envs)
+        else:
+            self.mb_size = min(cfg.minibatch_size, batch)
+            self.n_minibatches = batch // self.mb_size
+            if self.mb_size != cfg.minibatch_size:
+                logger.info("minibatch_size %d > rollout batch %d: clamped to one minibatch",
+                            cfg.minibatch_size, batch)
+            if batch % self.mb_size:
+                logger.warning("batch %d is not a multiple of minibatch_size %d: %d samples "
+                               "are dropped from every epoch (a random subset per shuffle)",
+                               batch, self.mb_size, batch - self.n_minibatches * self.mb_size)
 
     @property
     def lr(self) -> torch.Tensor:
@@ -273,10 +335,20 @@ class PPOTrainer:
     def collect_rollout(self) -> Rollout:
         """Step the task ``horizon`` times with sampled actions."""
         cfg = self.cfg
-        carry, obs, traj = self.env_carry, self.obs, []
+        recurrent = cfg.rnn == "gru"
+        if recurrent:
+            carry, h, done_prev = self.env_carry
+            h0 = h
+        else:
+            carry = self.env_carry
+        obs, traj = self.obs, []
         for _ in range(cfg.horizon):
             norm_obs = self._normalize(obs)
-            mean, log_std, value = self.network(norm_obs)
+            if recurrent:
+                mean, log_std, value, h = self.network(norm_obs,
+                                                       h * (1.0 - done_prev)[:, None])
+            else:
+                mean, log_std, value = self.network(norm_obs)
             if cfg.normalize_value:
                 value = _v_unnormalize(self.norm, value)
             action, logp = sample_action(mean, log_std, self.generator)
@@ -284,10 +356,27 @@ class PPOTrainer:
             shaped = reward * cfg.reward_scale
             if cfg.value_bootstrap:
                 shaped = shaped + cfg.gamma * value * trunc     # a timeout is no terminal
-            traj.append((norm_obs, action, logp, value, shaped, torch.maximum(term, trunc),
-                         term))
-        self.env_carry, self.obs = carry, obs
-        return Rollout(*(torch.stack(x) for x in zip(*traj)))
+            done = torch.maximum(term, trunc)
+            traj.append((norm_obs, action, logp, value, shaped, done, term)
+                        + ((done_prev,) if recurrent else ()))
+            if recurrent:
+                done_prev = done
+        self.obs = obs
+        ro = Rollout(*(torch.stack(x) for x in zip(*traj)))
+        if recurrent:
+            self.env_carry = (carry, h, done_prev)
+            ro.h0 = h0
+        else:
+            self.env_carry = carry
+        return ro
+
+    def _last_value(self):
+        """V of the observation after the rollout."""
+        norm_obs = self._normalize(self.obs)
+        if self.cfg.rnn == "gru":
+            _, h, done_prev = self.env_carry
+            return self.network(norm_obs, h * (1.0 - done_prev)[:, None])[2]
+        return self.network(norm_obs)[2]
 
     def update(self, ro: Rollout) -> Dict[str, torch.Tensor]:
         """GAE, then ``epochs`` passes over shuffled minibatches; returns the
@@ -298,7 +387,7 @@ class PPOTrainer:
         with torch.no_grad():
             if cfg.normalize_obs:
                 self.norm = RunningMeanStd.update(self.norm, ro.norm_obs.reshape(batch, -1))
-            _, _, last_value = self.network(self._normalize(self.obs))
+            last_value = self._last_value()
             if cfg.normalize_value:
                 last_value = _v_unnormalize(self.norm, last_value)
             adv, ret = _gae(cfg.gamma, cfg.gae_lambda, ro.values, ro.rewards, ro.dones,
@@ -310,9 +399,40 @@ class PPOTrainer:
                 values_st = _v_normalize(self.norm, ro.values)
                 self.norm = _vstats_update(self.norm, ret)
                 ret_st = _v_normalize(self.norm, ret)
-            col = lambda x: x.reshape(batch, 1)
-            data = torch.cat([ro.norm_obs.reshape(batch, -1), ro.actions.reshape(batch, -1),
-                              col(ro.logps), col(values_st), col(adv), col(ret_st)], dim=1)
+            if cfg.rnn == "gru":
+                col = lambda x: x[..., None]
+                # whole sequences as per-env rows: (T, N, D) -> (N, T, D)
+                data = torch.cat([ro.norm_obs, ro.actions, col(ro.logps), col(values_st),
+                                  col(adv), col(ret_st), col(ro.done_prev)],
+                                 dim=-1).transpose(0, 1)
+            else:
+                col = lambda x: x.reshape(batch, 1)
+                data = torch.cat([ro.norm_obs.reshape(batch, -1),
+                                  ro.actions.reshape(batch, -1), col(ro.logps),
+                                  col(values_st), col(adv), col(ret_st)], dim=1)
+        aux = (self._update_rnn(data, ro.h0) if cfg.rnn == "gru"
+               else self._update_mlp(data, batch))
+        pg_loss, v_loss, ent, kl = torch.stack(aux).mean(dim=0)
+        return {"reward_mean": ro.rewards.mean() / cfg.reward_scale,
+                "done_rate": ro.dones.mean(), "crash_rate": ro.terms.mean(),
+                "pg_loss": pg_loss, "v_loss": v_loss, "entropy": ent, "approx_kl": kl,
+                "lr": self.lr, "value_mean": ro.values.mean()}
+
+    def _step(self, total, stats):
+        self.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        clip_and_step(self.optimizer, self.cfg.max_grad_norm)
+        self.lr = _adapt_lr(self.cfg, self.lr, stats[3])
+        return torch.stack(stats)
+
+    def _normalized_advantage(self, adv):
+        if not self.cfg.normalize_advantage:
+            return adv
+        return (adv - adv.mean()) / (adv.std(unbiased=False) + 1e-8)
+
+    def _update_mlp(self, data, batch):
+        """Epochs of shuffled sample minibatches; -> per-step loss terms."""
+        cfg = self.cfg
         o, a = self.obs_dim, self.obs_dim + self.action_dim
         aux = []
         for _ in range(cfg.epochs):
@@ -320,21 +440,28 @@ class PPOTrainer:
             shuffled = data[perm]
             for i in range(self.n_minibatches):
                 mb = shuffled[i * self.mb_size:(i + 1) * self.mb_size]
-                adv_mb = mb[:, a + 2]
-                if cfg.normalize_advantage:
-                    adv_mb = (adv_mb - adv_mb.mean()) / (adv_mb.std(unbiased=False) + 1e-8)
-                total, stats = ppo_loss(cfg, self.network, (
-                    mb[:, :o], mb[:, o:a], mb[:, a], mb[:, a + 1], adv_mb, mb[:, a + 3]))
-                self.optimizer.zero_grad(set_to_none=True)
-                total.backward()
-                clip_and_step(self.optimizer, cfg.max_grad_norm)
-                self.lr = _adapt_lr(cfg, self.lr, stats[3])
-                aux.append(torch.stack(stats))
-        pg_loss, v_loss, ent, kl = torch.stack(aux).mean(dim=0)
-        return {"reward_mean": ro.rewards.mean() / cfg.reward_scale,
-                "done_rate": ro.dones.mean(), "crash_rate": ro.terms.mean(),
-                "pg_loss": pg_loss, "v_loss": v_loss, "entropy": ent, "approx_kl": kl,
-                "lr": self.lr, "value_mean": ro.values.mean()}
+                aux.append(self._step(*ppo_loss(cfg, self.network, (
+                    mb[:, :o], mb[:, o:a], mb[:, a], mb[:, a + 1],
+                    self._normalized_advantage(mb[:, a + 2]), mb[:, a + 3]))))
+        return aux
+
+    def _update_rnn(self, rows, h0):
+        """Epochs of minibatches of whole env sequences, the permutation
+        drawn over envs; -> per-step loss terms."""
+        cfg = self.cfg
+        o, a = self.obs_dim, self.obs_dim + self.action_dim
+        aux = []
+        for _ in range(cfg.epochs):
+            perm = torch.randperm(rows.shape[0], generator=self.generator, device=self.device)
+            shuffled, h0_perm = rows[perm], h0[perm]
+            for i in range(self.n_minibatches):
+                sl = slice(i * self.mb_envs, (i + 1) * self.mb_envs)
+                mb = shuffled[sl]
+                aux.append(self._step(*ppo_loss_rnn(cfg, self.network, (
+                    mb[..., :o], mb[..., o:a], mb[..., a], mb[..., a + 1],
+                    self._normalized_advantage(mb[..., a + 2]), mb[..., a + 3], mb[..., a + 4]),
+                    h0_perm[sl])))
+        return aux
 
     def train_iteration(self) -> Dict[str, torch.Tensor]:
         metrics = self.update(self.collect_rollout())
@@ -368,16 +495,40 @@ class PPOTrainer:
                             it, m["env_steps"], m["reward_mean"], m["crash_rate"],
                             m["env_steps_per_s"], m["wall_s"])
         if hasattr(self.task, "set_carry"):
-            self.task.set_carry(self.env_carry)
+            # the recurrent carry holds (task carry, hidden, done_prev)
+            self.task.set_carry(self.env_carry[0] if cfg.rnn else self.env_carry)
         return history
 
     # -- inference and checkpoints -------------------------------------------
 
+    def reset_act_hidden(self, env_ids=None):
+        """Zero the recurrent hidden state that ``act`` carries: of all envs,
+        or of ``env_ids`` (no-op for an MLP policy). A caller whose envs
+        reset themselves can pass the previous step's dones to ``act``
+        instead."""
+        if env_ids is None:
+            self._act_h = None
+        elif self._act_h is not None:
+            self._act_h[torch.as_tensor(env_ids, device=self.device)] = 0.0
+
     @torch.no_grad()
-    def act(self, obs, deterministic: bool = True):
-        """Policy inference: the action mean, or a sample."""
+    def act(self, obs, deterministic: bool = True, done_prev=None):
+        """Policy inference: the action mean, or a sample. ``done_prev``
+        (N,) marks envs whose episode ended on the previous step: the
+        recurrent policy zeroes their hidden state first, as the rollout
+        does."""
         obs = torch.as_tensor(obs, dtype=torch.float32, device=self.device)
-        mean, log_std, _ = self.network(self._normalize(obs))
+        if self.cfg.rnn == "gru":
+            if self._act_h is None or self._act_h.shape[0] != obs.shape[0]:
+                self._act_h = torch.zeros((obs.shape[0], self.cfg.rnn_hidden),
+                                          device=self.device)
+            elif done_prev is not None:
+                keep = 1.0 - torch.as_tensor(done_prev, dtype=torch.float32,
+                                             device=self.device)
+                self._act_h = self._act_h * keep[:, None]
+            mean, log_std, _, self._act_h = self.network(self._normalize(obs), self._act_h)
+        else:
+            mean, log_std, _ = self.network(self._normalize(obs))
         if deterministic:
             return mean
         return sample_action(mean, log_std, self.generator)[0]
@@ -415,4 +566,5 @@ class PPOTrainer:
         self.optimizer.load_state_dict(state)
         self.lr = torch.tensor(blob["lr"], device=self.device)
         self._iter = blob["iter"]
+        self._act_h = None          # a hidden state of the old parameters means nothing
         logger.info("checkpoint loaded from %s", path)

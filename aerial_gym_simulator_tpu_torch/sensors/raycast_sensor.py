@@ -2,9 +2,10 @@
 render, noise, range limits, and the normal/face-id and RGB captures.
 
 Counterpart of ``aerial_gym_simulator_tpu/sensors/raycast_sensor.py``
-for one sensor of each kind per robot (no stereo or pointcloud capture,
-no multi-sensor mount sampling; the captures stack any number of mounts
-they are given). Every capture packs the scene into world-frame tables
+for one sensor of each kind per robot (no stereo capture, no
+multi-sensor mount sampling; the captures stack any number of mounts
+they are given). A sensor whose config asks for a pointcloud returns the
+hit points, in the sensor frame or in the world frame. Every capture packs the scene into world-frame tables
 and calls ``ops/raycast_cuda.raycast`` with the sensor's (H, W) ray grid:
 the ray-cast kernel on the card, which tiles the grid in 2-D, its plain
 version for CPU tensors. Outputs are in row-major ray order.
@@ -21,7 +22,7 @@ from ..ops import raycast, raycast_cuda
 from ..ops.raycast import shade_rgb
 from ..sim.params import f32
 from ..sim.structs import RaySensorParams, SimParams, SimState
-from ..utils.math import quat_from_euler_xyz, quat_mul, tf_apply
+from ..utils.math import quat_from_euler_xyz, quat_mul, quat_rotate, tf_apply
 
 
 def camera_ray_dirs(height: int, width: int, hfov_deg: float):
@@ -137,42 +138,62 @@ def cast_inputs(params: SimParams, state: SimState, sp: RaySensorParams, mount_p
     them: (pose, prims, dirs, mult, n_box, n_cyl, n_sph, max_range), with
     the sensor's ray grid as it is, dirs (H, W, 3) and mult (H, W), so that
     the kernel tiles it in 2-D."""
-    sc = params.scene
     pos_w, quat_w = sensor_world_pose(sp, state, mount_pos, mount_quat)
+    return _pack(params, state, sp, pos_w, quat_w, sp.depth_multiplier)
+
+
+def _pack(params, state, sp, pos_w, quat_w, mult):
+    sc = params.scene
     return (raycast_cuda.pack_pose(pos_w, quat_w),
             raycast_cuda.pack_prims_world(sc, state.obstacle_pos, state.obstacle_quat),
-            sp.dirs, sp.depth_multiplier, sc.n_box, sc.n_cyl, sc.n_sph, sp.max_range)
+            sp.dirs, mult, sc.n_box, sc.n_cyl, sc.n_sph, sp.max_range)
 
 
 def render(params: SimParams, state: SimState, sp: RaySensorParams, mount_pos,
            mount_quat, gen: torch.Generator = None, want_seg=None):
-    """Sensor capture -> (pixels (N, H, W), segmentation (N, H, W) int32 or
-    None). want_seg None follows sp.segmentation_camera; False skips the
-    segmentation work (depth-only consumers). ``gen`` draws the sensor
-    noise when the config enables it."""
-    if sp.return_pointcloud or sp.stereo_baseline > 0.0:
-        raise NotImplementedError("pointcloud and stereo capture are not ported yet")
+    """Sensor capture -> (pixels, segmentation (N, H, W) int32 or None).
+    pixels is the (N, H, W) depth/range image, or the (N, H, W, 3)
+    pointcloud when sp.return_pointcloud: the hit points in the world frame
+    (sp.pointcloud_in_world_frame) or the sensor frame, a miss at the
+    no-hit range along its ray. want_seg None follows
+    sp.segmentation_camera; False skips the segmentation work (depth-only
+    consumers). ``gen`` draws the sensor noise when the config enables it.
+    Noise, then range limits and normalization, except on a world-frame
+    pointcloud, which gets the noise only."""
+    if sp.stereo_baseline > 0.0:
+        raise NotImplementedError("stereo capture is not ported yet")
     if want_seg is None:
         want_seg = bool(sp.segmentation_camera)
     N = state.pos.shape[0]
     H, W = sp.height, sp.width
     R = H * W
     sc = params.scene
-    mult = sp.depth_multiplier.reshape(R)
+    # a pointcloud needs the range along each ray: a unit multiplier
+    mult = torch.ones_like(sp.depth_multiplier) if sp.return_pointcloud else sp.depth_multiplier
+    pos_w, quat_w = sensor_world_pose(sp, state, mount_pos, mount_quat)
     if sc is None or sc.num_env_prims == 0:
-        depth = (raycast.NO_HIT_RAY_VAL * mult).expand(N, R).clone()
+        depth = (raycast.NO_HIT_RAY_VAL * mult.reshape(R)).expand(N, R).clone()
         seg = torch.full((N, R), raycast.NO_HIT_SEGMENTATION_VAL, dtype=torch.int32,
                          device=depth.device) if want_seg else None
     else:
-        depth, seg = raycast_cuda.raycast(
-            *cast_inputs(params, state, sp, mount_pos, mount_quat), want_seg=want_seg,
-            n_tri=sc.n_tri)
-    pixels = depth.reshape(N, H, W)
+        depth, seg = raycast_cuda.raycast(*_pack(params, state, sp, pos_w, quat_w, mult),
+                                          want_seg=want_seg, n_tri=sc.n_tri)
+    if sp.return_pointcloud:
+        dirs = sp.dirs.reshape(R, 3)
+        if sp.pointcloud_in_world_frame:
+            rd_world = quat_rotate(quat_w[:, None, :], dirs[None, :, :])
+            pts = pos_w[:, None, :] + depth[..., None] * rd_world
+        else:
+            pts = depth[..., None] * dirs[None, :, :]
+        pixels = pts.reshape(N, H, W, 3)
+    else:
+        pixels = depth.reshape(N, H, W)
     if sp.enable_noise and gen is not None:
         pixels = apply_noise(sp, pixels, gen)
-    pixels = apply_range_limits(sp, pixels)
-    if sp.normalize_range:
-        pixels = pixels / sp.max_range
+    if not (sp.return_pointcloud and sp.pointcloud_in_world_frame):
+        pixels = apply_range_limits(sp, pixels)
+        if sp.normalize_range:
+            pixels = pixels / sp.max_range
     return pixels, (seg.reshape(N, H, W) if want_seg else None)
 
 
@@ -186,6 +207,14 @@ def apply_noise(sp: RaySensorParams, pixels, gen: torch.Generator):
 
 
 def apply_range_limits(sp: RaySensorParams, pixels):
+    """Out-of-range sentinels; a sensor-frame pointcloud (N, H, W, 3) is
+    limited by each point's norm."""
+    if pixels.dim() == 4:
+        r = torch.linalg.norm(pixels, dim=-1, keepdim=True)
+        pixels = torch.where(r > sp.max_range, torch.full_like(pixels, sp.far_out_value),
+                             pixels)
+        return torch.where(r < sp.min_range, torch.full_like(pixels, sp.near_out_value),
+                           pixels)
     pixels = torch.where(pixels > sp.max_range, torch.full_like(pixels, sp.far_out_value),
                          pixels)
     return torch.where(pixels < sp.min_range, torch.full_like(pixels, sp.near_out_value),

@@ -123,6 +123,17 @@ def nav_state_from_numpy(d: dict, device, seed: int = 0):
         crash_agg=t("crash_agg"), timeout_agg=t("timeout_agg"))
 
 
+def lidar_nav_state_from_numpy(d: dict, device, seed: int = 0):
+    """Nested dict of numpy leaves -> the LiDAR/radar navigation task's
+    LidarNavState on ``device``. The JAX ``key`` leaf is dropped: the task
+    draws from the sim state's generator."""
+    from ..tasks.lidar_navigation_task import LidarNavState
+    t = lambda name: torch.as_tensor(np.array(d[name], np.float32), device=device)
+    fields = [f.name for f in dataclasses.fields(LidarNavState) if f.name != "sim"]
+    return LidarNavState(sim=state_from_numpy(d["sim"], device, seed=seed),
+                         **{name: t(name) for name in fields})
+
+
 # ---------------------------------------------------------------------------
 # encoder checkpoints (flax parameter trees)
 # ---------------------------------------------------------------------------

@@ -1,13 +1,21 @@
 """Deterministic actor inference from an exported ``.npz`` policy archive.
 
 Counterpart of ``NumpyPolicy`` / ``load_policy_npz`` in the JAX package's
-``sim2real/numpy_policy.py``, as an ``nn.Module`` that runs on the task's
-device, so a closed loop has no host round trip. Archive layout:
-``activation``, ``normalize_obs``, ``norm_mean``, ``norm_var``,
-``norm_eps`` (optional, 1e-8), ``W0..Wn`` (in, out), ``b0..bn``,
-``log_std``. ``export_policy_npz`` writes that layout from a ``PPOTrainer``
-or its checkpoint, so a policy trained here flies through this loader and
-the JAX package's alike.
+``sim2real/numpy_policy.py`` and of its ``NumpyRecurrentPolicy``
+(``sim2real/torch_import.py``), as ``nn.Module``s that run on the task's
+device, so a closed loop has no host round trip.
+
+Feed-forward layout: ``activation``, ``normalize_obs``, ``norm_mean``,
+``norm_var``, ``norm_eps`` (optional, 1e-8), ``W0..Wn`` (in, out),
+``b0..bn``, ``log_std``. Recurrent layout (``recurrent`` or ``n_enc``
+present): the normalizer (``norm_eps`` 1e-5 when absent), an encoder MLP
+``enc_W0..`` / ``enc_b0..`` (``n_enc`` layers, ``activation`` elu when
+absent), a GRU in torch's packed layout (``gru_Wih`` (3H, in), ``gru_Whh``
+(3H, H), ``gru_bih``, ``gru_bhh``, gates r, z, n) when ``recurrent``, and a
+head ``head_W`` (H, out) / ``head_b`` whose first ``action_dim`` outputs
+are the action. ``export_policy_npz`` writes these layouts from a
+``PPOTrainer`` or its checkpoint, so a policy trained here flies through
+this loader and the JAX package's alike.
 """
 
 from __future__ import annotations
@@ -65,16 +73,104 @@ class MLPPolicy(nn.Module):
         return self.layers[-1](x)
 
 
-def load_policy_npz(npz_path: str, device=None) -> MLPPolicy:
-    """Open a feed-forward policy archive on ``device`` (CUDA unless the
-    caller passes 'cpu'). Recurrent (GRU) archives are refused."""
+class RecurrentPolicy(nn.Module):
+    """obs -> action mean through encoder MLP, GRU and head, carrying one
+    hidden state per env; ``reset(env_ids)`` zeroes them (all when None)."""
+
+    def __init__(self, archive, num_envs: int = 1, action_dim=None):
+        super().__init__()
+        self.activation = str(archive.get("activation", "elu"))
+        if self.activation not in _ACT:
+            raise ValueError(f"unknown activation {self.activation!r}; known: {sorted(_ACT)}")
+        f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32))
+        self.normalize_obs = bool(archive["normalize_obs"])
+        eps = float(archive["norm_eps"]) if "norm_eps" in archive else 1e-5
+        self.register_buffer("norm_mean", f32(archive["norm_mean"]))
+        self.register_buffer("norm_std", torch.sqrt(f32(archive["norm_var"]) + eps))
+        self.encoder = nn.ModuleList()
+        for i in range(int(archive["n_enc"])):
+            W = f32(archive[f"enc_W{i}"])                  # (in, out)
+            layer = nn.Linear(W.shape[0], W.shape[1])
+            with torch.no_grad():
+                layer.weight.copy_(W.T)
+                layer.bias.copy_(f32(archive[f"enc_b{i}"]))
+            self.encoder.append(layer)
+        self.recurrent = bool(archive.get("recurrent", False))
+        self.hidden_dim = 0
+        if self.recurrent:
+            wih, whh = f32(archive["gru_Wih"]), f32(archive["gru_Whh"])
+            H = whh.shape[1]
+            if wih.shape[0] != 3 * H or whh.shape[0] != 3 * H:
+                raise ValueError(f"recurrent core with gru_Wih {tuple(wih.shape)} and gru_Whh "
+                                 f"{tuple(whh.shape)} is not a GRU of {H} units")
+            self.hidden_dim = H
+            for name, key in (("w_ih", "gru_Wih"), ("w_hh", "gru_Whh"), ("b_ih", "gru_bih"),
+                              ("b_hh", "gru_bhh")):
+                self.register_buffer(name, f32(archive[key]))
+        self.register_buffer("head_w", f32(archive["head_W"]))
+        self.register_buffer("head_b", f32(archive["head_b"]))
+        # the action width: the archive's own key, else the caller's, else
+        # an even head width read as [mu, log_std]
+        out = self.head_b.shape[0]
+        if "action_dim" in archive:
+            self.action_dim = int(archive["action_dim"])
+        elif action_dim is not None:
+            self.action_dim = int(action_dim)
+        else:
+            self.action_dim = out // 2 if out % 2 == 0 else out
+        self.num_envs = num_envs
+        self.register_buffer("hidden", torch.zeros((num_envs, self.hidden_dim)))
+
+    def reset(self, env_ids=None):
+        """Zero the hidden state of ``env_ids`` (indices, or a (num_envs,)
+        bool mask, which needs no read-back to the host), of all when None."""
+        if env_ids is None:
+            self.hidden.zero_()
+        elif isinstance(env_ids, torch.Tensor) and env_ids.dtype == torch.bool:
+            self.hidden = self.hidden * (~env_ids).to(self.hidden.dtype)[:, None]
+        else:
+            self.hidden[torch.as_tensor(env_ids, device=self.hidden.device)] = 0.0
+
+    def gru_step(self, x: torch.Tensor) -> torch.Tensor:
+        """One step of torch.nn.GRU's cell (gates r, z, n) on the carried
+        hidden state, which it updates."""
+        H, h = self.hidden_dim, self.hidden
+        gi = x @ self.w_ih.T + self.b_ih
+        gh = h @ self.w_hh.T + self.b_hh
+        r = torch.sigmoid(gi[:, :H] + gh[:, :H])
+        z = torch.sigmoid(gi[:, H:2 * H] + gh[:, H:2 * H])
+        n = torch.tanh(gi[:, 2 * H:] + r * gh[:, 2 * H:])
+        self.hidden = (1.0 - z) * n + z * h
+        return self.hidden
+
+    @torch.no_grad()
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        x = obs.to(torch.float32)
+        if self.recurrent and x.shape[0] != self.num_envs:
+            raise ValueError(f"obs batch {x.shape[0]} != num_envs {self.num_envs}: a "
+                             "recurrent policy carries one hidden state per env")
+        if self.normalize_obs:
+            x = torch.clamp((x - self.norm_mean) / self.norm_std, -5.0, 5.0)
+        act = _ACT[self.activation]
+        for layer in self.encoder:
+            x = act(layer(x))
+        if self.recurrent:
+            x = self.gru_step(x)
+        return (x @ self.head_w + self.head_b)[:, :self.action_dim]
+
+
+def load_policy_npz(npz_path: str, device=None, num_envs: int = 1, action_dim=None):
+    """Open a policy archive on ``device`` (CUDA unless the caller passes
+    'cpu'): a ``RecurrentPolicy`` for ``num_envs`` envs if the archive is
+    recurrent, an ``MLPPolicy`` otherwise. ``action_dim`` resolves a head
+    without the archive's own key."""
     with np.load(npz_path, allow_pickle=True) as z:
-        if ("recurrent" in z.files and bool(z["recurrent"])) or "n_enc" in z.files:
-            raise NotImplementedError(
-                f"{npz_path} is a recurrent (GRU) policy archive; only feed-forward MLP "
-                "policies are ported so far (GRU policies come with the LiDAR/radar tasks)")
         archive = {k: z[k] for k in z.files}
-    return MLPPolicy(archive).to(resolve_device(device)).eval()
+    if ("recurrent" in archive and bool(archive["recurrent"])) or "n_enc" in archive:
+        policy = RecurrentPolicy(archive, num_envs=num_envs, action_dim=action_dim)
+    else:
+        policy = MLPPolicy(archive)
+    return policy.to(resolve_device(device)).eval()
 
 
 def export_policy_npz(source, npz_path: str) -> str:
@@ -89,20 +185,49 @@ def export_policy_npz(source, npz_path: str) -> str:
                 "norm": {k: v.detach().cpu().numpy() for k, v in source.norm.items()},
                 "cfg": {"activation": source.cfg.activation,
                         "normalize_obs": source.cfg.normalize_obs, "rnn": source.cfg.rnn},
-                "obs_dim": source.obs_dim}
+                "obs_dim": source.obs_dim, "action_dim": source.action_dim}
     cfg, params, norm = blob["cfg"], blob["params"], blob["norm"]
-    if cfg.get("rnn") is not None:
-        raise NotImplementedError("recurrent checkpoints are not ported yet")
+    rnn = cfg.get("rnn")
+    if rnn not in (None, "gru"):
+        raise ValueError(f"cannot export rnn={rnn!r} checkpoints (None or 'gru')")
     flat = {"activation": np.array(cfg.get("activation", "elu")),
             "obs_dim": np.array(int(blob["obs_dim"])),
             "norm_mean": np.asarray(norm["mean"]), "norm_var": np.asarray(norm["var"]),
             "norm_eps": np.array(1e-8, np.float32),       # RunningMeanStd's epsilon
             "normalize_obs": np.array(bool(cfg.get("normalize_obs", True)))}
-    n_hidden = sum(1 for k in params if k.startswith("actor.") and k.endswith(".weight"))
-    layers = [f"actor.{i}" for i in range(n_hidden)] + ["mean_head"]
-    for i, name in enumerate(layers):
-        flat[f"W{i}"] = np.asarray(params[f"{name}.weight"]).T      # (in, out)
-        flat[f"b{i}"] = np.asarray(params[f"{name}.bias"])
-    flat["log_std"] = np.asarray(params["log_std"])
+    if rnn == "gru":
+        _recurrent_layout(flat, params, int(blob["action_dim"]))
+    else:
+        n_hidden = sum(1 for k in params if k.startswith("actor.") and k.endswith(".weight"))
+        layers = [f"actor.{i}" for i in range(n_hidden)] + ["mean_head"]
+        for i, name in enumerate(layers):
+            flat[f"W{i}"] = np.asarray(params[f"{name}.weight"]).T      # (in, out)
+            flat[f"b{i}"] = np.asarray(params[f"{name}.bias"])
+        flat["log_std"] = np.asarray(params["log_std"])
     np.savez(npz_path, **flat)
     return npz_path
+
+
+def _recurrent_layout(flat: dict, params: dict, action_dim: int):
+    """An ``ActorCriticGRU``'s actor in the recurrent archive layout: flax's
+    gates map onto torch's packed GRU with zero hidden-side r and z biases,
+    and the head emits [mu, log_std] (zero rows: log_std does not depend on
+    the state)."""
+    P = lambda name: np.asarray(params[name])
+    n_enc = 0
+    while f"encoder.{n_enc}.weight" in params:
+        flat[f"enc_W{n_enc}"] = P(f"encoder.{n_enc}.weight").T     # (in, out)
+        flat[f"enc_b{n_enc}"] = P(f"encoder.{n_enc}.bias")
+        n_enc += 1
+    flat["n_enc"] = np.array(n_enc)
+    gate = lambda *names: np.concatenate([P(f"gru.{n}") for n in names])
+    flat["gru_Wih"] = gate("ir.weight", "iz.weight", "in_.weight")   # (3H, in)
+    flat["gru_Whh"] = gate("hr.weight", "hz.weight", "hn.weight")    # (3H, H)
+    flat["gru_bih"] = gate("ir.bias", "iz.bias", "in_.bias")
+    zeros = np.zeros_like(P("gru.hn.bias"))
+    flat["gru_bhh"] = np.concatenate([zeros, zeros, P("gru.hn.bias")])
+    flat["recurrent"] = np.array(True)
+    mu_w = P("mean_head.weight").T                                  # (H, A)
+    flat["head_W"] = np.concatenate([mu_w, np.zeros_like(mu_w)], axis=1)
+    flat["head_b"] = np.concatenate([P("mean_head.bias"), P("log_std")])
+    flat["action_dim"] = np.array(action_dim)

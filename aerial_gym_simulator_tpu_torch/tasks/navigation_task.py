@@ -419,3 +419,20 @@ class NavigationTask(BaseTask):
 
     def get_return_tuple(self):
         return (self.task_obs, self.rewards, self.terminations, self.truncations, self.infos)
+
+    def make_step_fn(self):
+        """PPO protocol: (step_fn, init_carry, init_obs) with
+        step_fn(carry, action) -> (carry, obs, reward, term, trunc); the
+        carry is the NavState, which draws from its sim state's generator."""
+        params, cfg, vae = self.params, self.task_config, self.vae
+
+        def step_fn(ns, action):
+            ns, obs, reward, term, trunc, _ = nav_step(params, cfg, vae, ns, action)
+            return ns, obs, reward, term, trunc
+
+        zero_obs = torch.zeros((self.num_envs, cfg.observation_space_dim), device=self.device)
+        return step_fn, self.nav_state, zero_obs
+
+    def set_carry(self, carry: NavState):
+        self.nav_state = carry
+        self.sim_env.state = carry.sim

@@ -53,13 +53,13 @@ Phases, each printed on its own line:
                env.step + render() (K2) + render_normal_faceid_lidar (K3);
                finite outputs, launch counts, env-steps/s, peak memory;
   5. nav     - the navigation task at 1024 envs (lmf2, 135x240 camera)
-               flown closed loop for 300 steps by the shipped ViT encoder
+               flown closed loop for 150 steps by the shipped ViT encoder
                (dim 256, depth 4, 8 heads, bf16, attention through K5) and
                policy: finite outputs, K1 launched once and K5 four times
                per step, success share above 0.3, throughput, the step's
                split and peak memory; the run's depth images encoded by the
                flown encoder and by its pickle re-tagged "reference" (plain
-               attention), latents within atol 0.05 + rtol 0.05; then 50
+               attention), latents within atol 0.05 + rtol 0.05; then 20
                steps with the shipped conv VAE and its policy (no K5
                launch);
   6. timing  - each kernel at its main path's shapes against its plain
@@ -122,6 +122,27 @@ Phases, each printed on its own line:
                task at 16384 envs with zero actions through make_step_fn;
                and the shipped position policy flown for 250 steps (no
                crash, mean distance under 0.5 m over the last 100).
+  9. navppo  - navigation PPO: PPOTrainer on navigation_task at 1024 envs
+               with the shipped ViT encoder (dim 256, 8 heads, bf16) through
+               make_step_fn / set_carry, 3 iterations of 32 steps: finite
+               losses, parameters moved, K1 once and K5 four times per env
+               step, s/iteration, env-steps/s, reward, the rollout / update
+               split, and the encoder against its plain version on the final
+               depth images;
+     lidarnav - lidar_navigation_task (magpie, magpie_acceleration_control,
+               env_with_lidar_nav_obstacles) at 512 envs flown 330 steps
+               (three episodes) by the shipped lidar_navigation_policy.npz:
+               finite actions, at least one success, K1 once per step on the
+               48x120 dome table, success share, env-steps/s and the step's
+               split (env_step, render, pointcloud processing, policy); K1
+               on this scene and table bit-equal to its plain version, timed,
+               with its bound;
+     radarnav - radar_navigation_task (lmf2_radar, lmf2_acceleration_control)
+               at 512 envs flown 450 steps by the shipped GRU policy with
+               per-env hidden resets (at least one success, the JAX
+               package's bar), K1 as for lidarnav on the radar cone; then 2
+               iterations of recurrent PPO (rnn "gru", 128 units, 32 steps):
+               finite losses, the policy moved, s/iteration.
 
 Before the last line it prints one JSON object with a record per kernel;
 the last line is {"ok": true, "device": {...}}. Any failure raises and the
@@ -150,8 +171,9 @@ ATTENTION_REPLACES = "aerial_gym_simulator_tpu/ops/attention_pallas.py:153"
 ATTENTION_BWD_REPLACES = "aerial_gym_simulator_tpu/ops/attention_pallas.py:169"
 
 NAV_ENVS = 1024
-NAV_STEPS = 300
-NAV_CONV_STEPS = 50
+# one and a half 100-step episodes: the outcomes of every env's first one
+NAV_STEPS = 150
+NAV_CONV_STEPS = 20
 NAV_SUCCESS_SHARE = 0.3
 NETWORKS = Path(__file__).resolve().parent / "examples/dce_rl_navigation/selected_network"
 # (B, S, D, heads), dtype name, atol = rtol
@@ -231,6 +253,14 @@ ATTENTION_BWD_CASES = [
     ((1, 33, 2049, 1), "float32", 2e-4),        # past the clusters' reach: the sliced kernels
 ]
 PPO_ITERATIONS = 3
+NAVPPO_ITERATIONS = 3              # navigation PPO at NAV_ENVS x PPOConfig's horizon (32)
+LIDARNAV_ENVS = 512                # the lidar and radar recipes' envs
+LIDARNAV_STEPS = 330               # three 110-step episodes
+RADARNAV_STEPS = 450               # the JAX package's bar for the shipped radar policy
+RADAR_PPO_ITERATIONS = 2
+RADAR_RNN_HIDDEN = 128             # the radar recipe's GRU
+LIDAR_NAV_POLICY = NETWORKS / "lidar_navigation_policy.npz"
+RADAR_NAV_POLICY = NETWORKS / "radar_navigation_policy.npz"
 STATE_STEP_ENVS = 16384
 STATE_STEPS = 100
 POSITION_POLICY = (Path(__file__).resolve().parent
@@ -593,8 +623,9 @@ def wall_ms(torch, fn, iters=3):
     return (time.perf_counter() - t) / iters * 1e3
 
 
-def fly(torch, task, policy, steps):
-    """Closed loop: policy(obs) -> task.step, outcomes summed on the device."""
+def fly(torch, task, policy, steps, recurrent=False):
+    """Closed loop: policy(obs) -> task.step, outcomes summed on the device;
+    a recurrent policy's hidden state is zeroed where an episode ended."""
     obs, *_ = task.reset()
     totals = torch.zeros(3, device=task.device)
     finite = torch.ones((), dtype=torch.bool, device=task.device)
@@ -603,6 +634,8 @@ def fly(torch, task, policy, steps):
     for _ in range(steps):
         act = policy(obs["observations"])
         obs, rew, term, trunc, info = task.step(act)
+        if recurrent:
+            policy.reset((term > 0) | (trunc > 0))
         totals += torch.stack([info["successes"].sum(), info["crashes"].sum(),
                                info["timeouts"].sum()])
         finite &= (torch.isfinite(act).all() & torch.isfinite(rew).all()
@@ -611,7 +644,7 @@ def fly(torch, task, policy, steps):
     dt = time.perf_counter() - t0
     if not bool(finite):
         raise AssertionError("non-finite action, reward or observation in the nav loop")
-    if obs["observations"].shape != (task.num_envs, 81):
+    if obs["observations"].shape != (task.num_envs, task.task_config.observation_space_dim):
         raise AssertionError(f"observation shape {tuple(obs['observations'].shape)}")
     return dt, [float(x) for x in totals]
 
@@ -1015,6 +1048,28 @@ def device_ms_by_kernel(torch, fn, names, iters=10):
     events = prof.key_averages()
     return {name: (sum(e.device_time_total for e in events if name in e.key) / iters / 1e3
                    or None) for name in names}
+
+
+def device_busy(torch, fn, iters):
+    """(wall ms, device-busy ms) per call of an already warmed-up fn: the
+    device time of every kernel and copy in torch.profiler's CUDA activity
+    (one stream: they do not overlap) against the host clock around the
+    calls, which includes the profiler's own host cost."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.device_time_total for e in prof.key_averages()) / 1e3
+    return wall / iters * 1e3, busy / iters
+
+
+def busy_text(wall_ms, busy_ms):
+    return (f"device busy {busy_ms:.2f} of {wall_ms:.2f} ms (idle share "
+            f"{1.0 - busy_ms / wall_ms:.3f}, under torch.profiler)")
 
 
 def time_attention_bwd(torch, ac, attention_backward_reference, card, shape, dtype_name, tol):
@@ -1513,6 +1568,191 @@ def modalities_phase(torch, port, rc, card):
     return launches, args, n_tri
 
 
+def ppo_iterations(torch, trainer, iterations, tag, card):
+    """``iterations`` PPO iterations through PPOTrainer.train: finite
+    metrics, the parameters moved, the lr inside its bounds. Logs seconds
+    and env-steps/s per iteration and the reward; returns the history."""
+    cfg = trainer.cfg
+    flat = lambda: torch.cat([p.detach().reshape(-1) for p in trainer.network.parameters()])
+    before = flat()
+    steps_per_iter = cfg.num_envs * cfg.horizon
+    history = trainer.train(total_env_steps=iterations * steps_per_iter, log_every=1)
+    torch.cuda.synchronize()
+    if len(history) != iterations:
+        raise AssertionError(f"{tag}: PPO ran {len(history)} iterations")
+    for m in history:
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"{tag}: non-finite metric in {m}")
+        if not cfg.min_lr <= m["lr"] <= cfg.max_lr:
+            raise AssertionError(f"{tag}: lr {m['lr']} outside [{cfg.min_lr}, {cfg.max_lr}]")
+    moved = (flat() - before).abs().max().item()
+    if not moved > 0.0:
+        raise AssertionError(f"{tag}: the parameters did not change")
+    walls = [m["wall_s"] for m in history]
+    seconds = [b - a for a, b in zip([0.0] + walls[:-1], walls)]
+    log(f"{tag}: {iterations} iterations of {cfg.num_envs} envs x {cfg.horizon} steps, "
+        f"minibatch {trainer.mb_size}, {cfg.epochs} epochs: s/iteration "
+        + ", ".join(f"{x:.3f}" for x in seconds) + ", env-steps/s "
+        + ", ".join(f"{m['env_steps_per_s']:.1f}" for m in history) + f" | {card}")
+    log(f"{tag}: reward_mean " + ", ".join(f"{m['reward_mean']:.3f}" for m in history)
+        + ", pg_loss " + ", ".join(f"{m['pg_loss']:.4f}" for m in history)
+        + ", v_loss " + ", ".join(f"{m['v_loss']:.4f}" for m in history)
+        + f", lr {history[-1]['lr']:.3g}, largest parameter change {moved:.3g}")
+    return history
+
+
+def navppo_phase(torch, port, rc, ac, card):
+    """Navigation PPO: PPOTrainer on navigation_task at NAV_ENVS envs with
+    the shipped ViT encoder (bf16, K5) through make_step_fn/set_carry, for
+    NAVPPO_ITERATIONS iterations at the JAX recipe's settings
+    (scripts/revalidate_nav_e2e.sh: horizon 32, minibatch 8192). K1 once
+    and K5 four times per env step; then the split of one more iteration
+    and the encoder against its plain version on the final depth images.
+    Returns the launch counts of the training run."""
+    from aerial_gym_simulator_tpu_torch.rl.ppo import PPOConfig, PPOTrainer
+    from aerial_gym_simulator_tpu_torch.sensors.raycast_sensor import render_camera
+    cfg = dataclasses.replace(port.task_registry.get_task_config("navigation_task"),
+                              vae_params_path=str(NETWORKS / "vit_depth_encoder.pkl"))
+    task = port.task_registry.make_task("navigation_task", num_envs=NAV_ENVS, seed=7,
+                                        task_config=cfg)
+    ppo_cfg = PPOConfig(num_envs=NAV_ENVS, minibatch_size=min(8192, NAV_ENVS * 32), seed=7)
+    trainer = PPOTrainer(task, ppo_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(rc.LAUNCHES, ac.LAUNCHES)
+    ppo_iterations(torch, trainer, NAVPPO_ITERATIONS, "navppo", card)
+    launches = {**rc.LAUNCHES, **ac.LAUNCHES}
+    steps = NAVPPO_ITERATIONS * ppo_cfg.horizon
+    want = {"raycast_depth": steps, "raycast_seg": 0, "raycast_normals": 0, "raycast_rgb": 0,
+            **attention_counts(ac, attention_fwd=4 * steps)}
+    log(f"navppo: launches {launches} ({steps} env steps), curriculum level "
+        f"{float(task.nav_state.curriculum_level):.0f}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if launches != want:
+        raise AssertionError(f"navppo launches {launches}, expected {want}")
+    if task.nav_state is not trainer.env_carry:
+        raise AssertionError("navppo: set_carry did not hand the carry back to the task")
+    rollout, t_roll = timed(torch, trainer.collect_rollout)
+    _, t_upd = timed(torch, lambda: trainer.update(rollout))
+    n_mb = ppo_cfg.epochs * trainer.n_minibatches
+    log(f"navppo: split of a fourth iteration: rollout {t_roll:.1f} ms ({t_roll / ppo_cfg.horizon:.2f} "
+        f"ms per env step), update {t_upd:.1f} ms ({n_mb} minibatch steps, {t_upd / n_mb:.2f} "
+        f"ms each) | {card}")
+    # the rollout's env step (the policy's share is under 1%) and an update
+    action = torch.zeros((NAV_ENVS, 4), device=task.device)
+    busy = {"task.step": device_busy(torch, lambda: task.step(action), 3),
+            "update": device_busy(torch, lambda: trainer.update(rollout), 1)}
+    log("navppo: under the profiler: " + "; ".join(
+        f"{k} {busy_text(*v)}" for k, v in busy.items()) + f" | {card}")
+    pixels, _ = render_camera(task.params, trainer.env_carry.sim, want_seg=False)
+    err = encoder_against_plain(torch, ac, task.vae, pixels)
+    task.close()
+    del trainer, rollout, task, pixels
+    torch.cuda.empty_cache()
+    return launches, {"latent_err_vs_reference": err,
+                      "device_idle_share": {k: 1.0 - b / w for k, (w, b) in busy.items()}}
+
+
+def nav_split(torch, task, policy, parts, tag, card):
+    """Each piece of the step timed apart on the final state."""
+    split = {name: wall_ms(torch, fn, 5) for name, fn in parts.items()}
+    log(f"{tag}: split " + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items())
+        + f" | {card}")
+    return split
+
+
+def pointcloud_nav_phase(torch, port, rc, card, task_name, policy_file, steps, tag):
+    """A pointcloud navigation task at LIDARNAV_ENVS envs flown by a shipped
+    policy through the port's loader (per-env hidden resets for a recurrent
+    one): finite actions, at least one success, K1 once per step on the
+    48x120 table; the step's split (env_step, render, pointcloud
+    processing, policy); then K1 on this scene and ray table held bit-equal
+    to its plain version, timed, and its bound. Returns (task, launches,
+    the K1 record)."""
+    from aerial_gym_simulator_tpu_torch.sensors.raycast_sensor import cast_inputs, render_lidar
+    from aerial_gym_simulator_tpu_torch.sim import dynamics
+    from aerial_gym_simulator_tpu_torch.sim2real.policy import load_policy_npz
+    from aerial_gym_simulator_tpu_torch.tasks import lidar_navigation_task as lid
+    t0 = time.perf_counter()
+    task = port.task_registry.make_task(task_name, num_envs=LIDARNAV_ENVS, seed=99)
+    policy = load_policy_npz(str(policy_file), num_envs=LIDARNAV_ENVS)
+    recurrent = getattr(policy, "recurrent", False)
+    params, cfg = task.params, task.task_config
+    sp = params.lidar
+    torch.cuda.synchronize()
+    log(f"{tag}: make_task({LIDARNAV_ENVS} envs, {cfg.robot_name}, {cfg.controller_name}, "
+        f"{cfg.env_name}: {params.scene.num_assets} obstacle slots, curriculum from "
+        f"{cfg.curriculum.min_level}) {time.perf_counter() - t0:.2f} s; "
+        f"{'recurrent' if recurrent else 'MLP'} policy {policy_file.name}")
+    fly(torch, task, policy, 3, recurrent)                          # warm-up
+    if recurrent:
+        policy.reset()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(rc.LAUNCHES)
+    dt, (succ, crash, timo) = fly(torch, task, policy, steps, recurrent)
+    launches = dict(rc.LAUNCHES)
+    ended = succ + crash + timo
+    share = succ / max(ended, 1.0)
+    log(f"{tag}: {steps} steps {steps * LIDARNAV_ENVS / dt:.1f} env-steps/s "
+        f"({dt / steps * 1e3:.2f} ms/step) | {card}")
+    log(f"{tag}: launches {launches}, successes {succ:.0f} crashes {crash:.0f} timeouts "
+        f"{timo:.0f} (success share {share:.3f}), curriculum level "
+        f"{float(task.nav_state.curriculum_level):.0f}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    want = {"raycast_depth": steps, "raycast_seg": 0, "raycast_normals": 0, "raycast_rgb": 0}
+    if launches != want:
+        raise AssertionError(f"{tag} launches {launches}, expected {want}")
+    if not succ > 0:
+        raise AssertionError(f"{tag}: no success in {steps} steps ({succ}/{crash}/{timo})")
+
+    ns = task.nav_state
+    obs = task.task_obs["observations"]
+    action = lid.action_transform(cfg, policy(obs))
+    pts, _ = render_lidar(params, ns.sim, want_seg=False)
+    draws = lid.sample_lidar_nav_draws(ns.rng, LIDARNAV_ENVS, task.device)
+    none_done = torch.zeros(LIDARNAV_ENVS, device=task.device)
+    split = nav_split(torch, task, policy, {
+        "env_step": lambda: dynamics.env_step(params, ns.sim, action),
+        "reset_envs": lambda: dynamics.reset_envs(params, ns.sim, none_done),
+        "render": lambda: render_lidar(params, ns.sim, want_seg=False),
+        "pointcloud": lambda: lid.process_pointcloud(cfg, ns.sim.pos, ns.sim.linvel, pts,
+                                                     draws),
+        "policy": lambda: policy(obs),
+        "task.step": lambda: task.step(action),
+    }, tag, card)
+    wall, busy = device_busy(torch, lambda: task.step(action), 3)
+    log(f"{tag}: task.step under the profiler: {busy_text(wall, busy)} | {card}")
+    st = task.nav_state.sim
+    args = cast_inputs(params, st, sp, st.lidar_mount_pos, st.lidar_mount_quat)
+    rec, _ = time_mode(torch, rc, args, params.scene.n_tri, "raycast_depth", card, tag)
+    rec.update(launches=launches["raycast_depth"], library_ms=None, success_share=share,
+               outcomes=[succ, crash, timo], env_steps_per_s=steps * LIDARNAV_ENVS / dt,
+               split_ms=split, device_idle_share_of_task_step=1.0 - busy / wall)
+    return task, launches, rec
+
+
+def radar_ppo_phase(torch, task, rc, card):
+    """Recurrent PPO on the radar task (the recipe of
+    scripts/train_radar_e2e.sh: GRU of 128, entropy 0.001, horizon 32,
+    minibatch 8192 = 256 env sequences): RADAR_PPO_ITERATIONS iterations,
+    finite losses, the policy moved, K1 once per env step. Returns the
+    launches."""
+    from aerial_gym_simulator_tpu_torch.rl.ppo import PPOConfig, PPOTrainer
+    cfg = PPOConfig(num_envs=LIDARNAV_ENVS, minibatch_size=min(8192, LIDARNAV_ENVS * 32),
+                    entropy_coef=0.001, rnn="gru", rnn_hidden=RADAR_RNN_HIDDEN, seed=7)
+    trainer = PPOTrainer(task, cfg)
+    zero_counts(rc.LAUNCHES)
+    ppo_iterations(torch, trainer, RADAR_PPO_ITERATIONS, "radarnav ppo", card)
+    launches = dict(rc.LAUNCHES)
+    steps = RADAR_PPO_ITERATIONS * cfg.horizon
+    if launches["raycast_depth"] != steps or task.nav_state is not trainer.env_carry[0]:
+        raise AssertionError(f"radarnav ppo: launches {launches} for {steps} env steps, or the "
+                             "task did not get its carry back")
+    log(f"radarnav ppo: launches {launches}, {trainer.n_minibatches} minibatches of "
+        f"{trainer.mb_envs} env sequences an epoch")
+    return launches
+
+
 def lidar_phase(torch, port, rc, card):
     """The obstacle env with the 128x512 lidar through the user entry points:
     env.step + render() (K2) + render_normal_faceid_lidar (K3). Returns the
@@ -1658,6 +1898,7 @@ def main(argv=None) -> int:
     names = ("base_sim", "env_with_obstacles", "base_quadrotor_with_camera",
              "lee_velocity_control")
 
+    t_run = time.perf_counter()
     # 1. build: the two sources, and the ray cast's A/B variants beside them
     ab_libs = [KernelLibrary("raycast", flags) for flags in BUILD_AB.values()]
     labels = ["raycast", "attention"] + [f"raycast {k}" for k in BUILD_AB]
@@ -1685,6 +1926,7 @@ def main(argv=None) -> int:
     card = card_line()
     log(f"device: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
 
+    log(f"elapsed {time.perf_counter() - t_run:.1f} s: phase 3")
     # 3. kernel vs plain version on the card
     errs = {"raycast_depth": 0.0, "raycast_seg": 0.0, "raycast_normals": 0.0, "raycast_rgb": 0.0}
     env = port.SimBuilder().build_env(*names, num_envs=64, seed=0)
@@ -1733,6 +1975,7 @@ def main(argv=None) -> int:
     if parent_lib:
         parent_compare(torch, ac, parent_fwd, parent_bwd, dev, card)
 
+    log(f"elapsed {time.perf_counter() - t_run:.1f} s: phase 4")
     # 4. the slice at full width
     t0 = time.perf_counter()
     env = port.SimBuilder().build_env(*names, num_envs=NUM_ENVS, seed=0)
@@ -1790,6 +2033,7 @@ def main(argv=None) -> int:
     log(f"slice: breakdown env_step {step_ms:.2f} ms "
         f"({params.env.substep_mean} substeps), render_camera(depth) {render_ms:.2f} ms | {card}")
 
+    log(f"elapsed {time.perf_counter() - t_run:.1f} s: phase 6a")
     # 6a. the ray cast at this path's shapes, while its env is in memory
     #     (the attention is timed after the nav phase)
     a, mr = render_args(params, env.state), sp.max_range
@@ -1809,12 +2053,14 @@ def main(argv=None) -> int:
     del a, env, state, params, zeros
     torch.cuda.empty_cache()
 
+    log(f"elapsed {time.perf_counter() - t_run:.1f} s: phase 4b")
     # 4b. the normal/face-id and RGB captures at full width, then K3 and K4
     #     at this path's shapes while its inputs are in memory
     mod_launches, mod_args, mod_tri = modalities_phase(torch, port, rc, card)
     k3, face = time_mode(torch, rc, mod_args, mod_tri, "raycast_normals", card, "modalities")
     k4, _ = time_mode(torch, rc, mod_args, mod_tri, "raycast_rgb", card, "modalities", face)
     del mod_args, face
+    log(f"elapsed {time.perf_counter() - t_run:.1f} s: phase 4c")
     # 4c. the lidar at 1024 envs, then K2 and K3 at its shapes
     lid_launches, lid_args, lid_tri = lidar_phase(torch, port, rc, card)
     k2_lidar, _ = time_mode(torch, rc, lid_args, lid_tri, "raycast_seg", card, "lidar")
@@ -1840,12 +2086,14 @@ def main(argv=None) -> int:
             record["max_abs_err"] = max(record["max_abs_err"], sub["max_abs_err"])
         mode_records.append(record)
 
+    log(f"elapsed {time.perf_counter() - t_run:.1f} s: phase 5")
     # 5. the navigation task flown by the shipped networks
     nav_launches, nav_k1_err, nav_check = nav_phase(torch, port, rc, ac, card)
     records[0]["max_abs_err"] = max(records[0]["max_abs_err"], nav_k1_err)
     records[0]["launches"] += nav_launches["raycast_depth"]
     records[0]["launches_nav_path"] = nav_launches["raycast_depth"]
 
+    log(f"elapsed {time.perf_counter() - t_run:.1f} s: phase 6b")
     # 6b. the attention forward at the nav path's shape and type (bf16, the
     #     serving kernel) and at the training path's (f32, the TF32 kernel),
     #     the latter also at 4 heads (head_dim 64)
@@ -1879,15 +2127,18 @@ def main(argv=None) -> int:
         "flash_path_at_1024x225x256": k7,
     })
 
+    log(f"elapsed {time.perf_counter() - t_run:.1f} s: phase 7")
     # 7. training: train_vae through the ViT with K5 and K6, then the conv VAE
     train_launches = train_phase(torch, rc, ac, card)
     records[0]["launches"] += train_launches["raycast_depth"]
     records[0]["launches_train_path"] = train_launches["raycast_depth"]
+    log(f"elapsed {time.perf_counter() - t_run:.1f} s: phase 7b")
     # 7b. train_vae at one head: the one-pass wide kernels
     wide_launches = train_one_head_phase(torch, rc, ac, card, TRAIN_WIDE_ARGS, TRAIN_WIDE_STEPS,
                                          " (one head)")
     records[0]["launches"] += wide_launches["raycast_depth"]
     records[0]["launches_train_one_head_path"] = wide_launches["raycast_depth"]
+    log(f"elapsed {time.perf_counter() - t_run:.1f} s: phase 7c")
     # 7c. train512: train_vae at dim 512, depth 12, one head: the cluster kernels
     cluster_launches = train_one_head_phase(torch, rc, ac, card, TRAIN512_ARGS, TRAIN512_STEPS,
                                             "512 (one head)", TRAIN512_PLAIN_TOL)
@@ -1897,6 +2148,7 @@ def main(argv=None) -> int:
     # level of K5's record is the nav path, the sub-record the training path
     records[2]["at_64x225x256_f32"]["launches"] = train_launches["attention_fwd"]
 
+    log(f"elapsed {time.perf_counter() - t_run:.1f} s: phase 6c")
     # 6c. the attention backward at the training path's shape, and at the
     #     serving shape in bf16 beside it
     k6 = time_attention_bwd(torch, ac, attention_backward_reference, card,
@@ -1917,6 +2169,7 @@ def main(argv=None) -> int:
         "at_64x225x256_f32_head_dim_64": k6_hd64,
     })
 
+    log(f"elapsed {time.perf_counter() - t_run:.1f} s: phase 6d")
     # 6d. the one-pass wide kernels at the one-head training path's shape
     #     (head_dim 256, f32) and the wide forward in bf16 at the serving
     #     batch; the cluster kernels at train512's shape (head_dim 512, f32)
@@ -1952,9 +2205,47 @@ def main(argv=None) -> int:
     records.append(family_record("attention_bwd_cluster", ATTENTION_BWD_REPLACES,
                                  cluster_launches, k6_cluster, bwd_errs, ptxas["attention"]))
 
+    log(f"elapsed {time.perf_counter() - t_run:.1f} s: phase 8")
     # 8. position PPO, the state-step line, the shipped position policy
     ppo_phase(torch, port, card)
 
+    log(f"elapsed {time.perf_counter() - t_run:.1f} s: phase 9")
+    # 9. navigation RL: navigation PPO with the ViT encoder (K1 + K5), the
+    #    lidar task flown by its shipped MLP policy, the radar task flown by
+    #    its shipped GRU policy and trained by recurrent PPO (K1 on the 48x120
+    #    tables)
+    navppo_launches, navppo_check = navppo_phase(torch, port, rc, ac, card)
+    log(f"elapsed {time.perf_counter() - t_run:.1f} s: phase 9 lidarnav")
+    lidar_task, lidarnav_launches, k1_lidarnav = pointcloud_nav_phase(
+        torch, port, rc, card, "lidar_navigation_task", LIDAR_NAV_POLICY, LIDARNAV_STEPS,
+        "lidarnav")
+    lidar_task.close()
+    del lidar_task
+    log(f"elapsed {time.perf_counter() - t_run:.1f} s: phase 9 radarnav")
+    radar_task, radarnav_launches, k1_radarnav = pointcloud_nav_phase(
+        torch, port, rc, card, "radar_navigation_task", RADAR_NAV_POLICY, RADARNAV_STEPS,
+        "radarnav")
+    log(f"elapsed {time.perf_counter() - t_run:.1f} s: phase 9 radarnav ppo")
+    radar_ppo_launches = radar_ppo_phase(torch, radar_task, rc, card)
+    radar_task.close()
+    del radar_task
+    torch.cuda.empty_cache()
+    k1_radarnav["launches"] += radar_ppo_launches["raycast_depth"]
+    k1_radarnav["launches_ppo"] = radar_ppo_launches["raycast_depth"]
+    records[0]["launches"] += (navppo_launches["raycast_depth"]
+                               + lidarnav_launches["raycast_depth"]
+                               + k1_radarnav["launches"])
+    records[0]["launches_navppo_path"] = navppo_launches["raycast_depth"]
+    tables = f"{LIDARNAV_ENVS}x{48 * 120}"
+    records[0][f"at_{tables}_lidarnav"] = k1_lidarnav
+    records[0][f"at_{tables}_radarnav"] = k1_radarnav
+    records[0]["max_abs_err"] = max(records[0]["max_abs_err"], k1_lidarnav["max_abs_err"],
+                                    k1_radarnav["max_abs_err"])
+    records[2]["launches"] += navppo_launches["attention_fwd"]
+    records[2]["launches_navppo_path"] = navppo_launches["attention_fwd"]
+    records[2]["navppo_check"] = navppo_check
+
+    log(f"elapsed {time.perf_counter() - t_run:.1f} s: all phases")
     log(json.dumps({"kernels": records + mode_records}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

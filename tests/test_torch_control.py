@@ -48,7 +48,8 @@ def _random_state(rs):
 
 
 @pytest.mark.parametrize("controller", ["lee_velocity_control", "lee_position_control",
-                                        "lee_attitude_control"])
+                                        "lee_attitude_control", "lee_acceleration_control",
+                                        "magpie_acceleration_control"])
 def test_controller_wrench_matches_jax(controller):
     jp, tp = _params(controller)
     rs = np.random.RandomState(11)
@@ -56,11 +57,12 @@ def test_controller_wrench_matches_jax(controller):
     action = rs.uniform(-1.5, 1.5, (N, 4)).astype(np.float32)
 
     j_obs = jc.compute_robot_obs(*(jnp.asarray(x) for x in (pos, q, lin, ang)))
-    j_w = jc.controller_update(controller, jp.controller, jp.robot, jp.gravity, j_obs,
+    assert tp.controller.name == jp.controller.name          # the base controller
+    j_w = jc.controller_update(jp.controller.name, jp.controller, jp.robot, jp.gravity, j_obs,
                                jc.Gains(*(jnp.asarray(g) for g in gains)),
                                jnp.asarray(action))
     t_obs = tc.compute_robot_obs(*(torch.from_numpy(x) for x in (pos, q, lin, ang)))
-    t_w = tc.controller_update(controller, tp.controller, tp.robot, tp.gravity, t_obs,
+    t_w = tc.controller_update(tp.controller.name, tp.controller, tp.robot, tp.gravity, t_obs,
                                tc.Gains(*(torch.from_numpy(g) for g in gains)),
                                torch.from_numpy(action))
     for field in ("vehicle_linvel", "body_linvel", "body_angvel", "vehicle_quat"):

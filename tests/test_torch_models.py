@@ -162,9 +162,18 @@ def test_mlp_policy_matches_numpy_policy():
     np.testing.assert_allclose(policy(torch.from_numpy(obs)).numpy(), ref, atol=1e-5, rtol=0)
 
 
-def test_recurrent_archives_are_refused():
-    with pytest.raises(NotImplementedError, match="recurrent"):
-        load_policy_npz(RADAR_NPZ, device="cpu")
+def test_recurrent_archives_are_refused(tmp_path):
+    """A recurrent archive loads (tests/test_torch_ppo_rnn.py holds it to the
+    JAX package's loader); one whose core is not a GRU is refused."""
+    from aerial_gym_simulator_tpu_torch.sim2real.policy import RecurrentPolicy
+    assert isinstance(load_policy_npz(RADAR_NPZ, device="cpu"), RecurrentPolicy)
+    with np.load(RADAR_NPZ) as z:
+        archive = {k: z[k] for k in z.files}
+    archive["gru_Wih"] = np.concatenate([archive["gru_Wih"], archive["gru_Wih"][:128]])
+    path = str(tmp_path / "lstm_like.npz")                 # four gates: an LSTM's layout
+    np.savez(path, **archive)
+    with pytest.raises(ValueError, match="recurrent core"):
+        load_policy_npz(path, device="cpu")
 
 
 def test_unknown_attention_impl_is_refused():

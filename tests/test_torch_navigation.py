@@ -310,4 +310,52 @@ def test_task_without_gpu_raises_and_torch_vae_is_refused():
     with pytest.raises(NotImplementedError, match="torch_vae_path"):
         port.task_registry.make_task("navigation_task", num_envs=2, task_config=cfg,
                                      device="cpu")
-    assert port.task_registry.get_task_names() == ["navigation_task", "position_setpoint_task"]
+    assert port.task_registry.get_task_names() == [
+        "lidar_navigation_task", "navigation_task", "position_setpoint_task",
+        "radar_navigation_task"]
+
+
+# ---------------------------------------------------------------------------
+# the PPO protocol
+# ---------------------------------------------------------------------------
+
+
+def _small_camera_task(n, seed):
+    cfg = dataclasses.replace(port.task_registry.get_task_config("navigation_task"),
+                              vae_params_path=VIT_ENC)
+    task = port.task_registry.make_task("navigation_task", num_envs=n, seed=seed,
+                                        task_config=cfg, device="cpu")
+    task.params = replace(task.params, camera=t_build_camera(TCameraConfig(**CAM), "cpu"))
+    return task
+
+
+def test_make_step_fn_matches_nav_step_and_set_carry_hands_it_back():
+    n = 2
+    task = _small_camera_task(n, seed=5)
+    step_fn, carry, obs0 = task.make_step_fn()
+    assert carry is task.nav_state and obs0.shape == (n, 81) and not obs0.any()
+    action = torch.full((n, 4), 0.2)
+    gen_state = carry.rng.get_state()
+    ns, obs, rew, term, trunc = step_fn(carry, action)
+    carry.rng.set_state(gen_state)
+    want = tnav.nav_step(task.params, task.task_config, task.vae, carry, action)
+    for a, b in zip((ns.sim.pos, ns.latents, obs, rew, term, trunc),
+                    (want[0].sim.pos, want[0].latents, *want[1:5])):
+        assert torch.equal(a, b)
+    task.set_carry(ns)
+    assert task.nav_state is ns and task.state is ns.sim and task.sim_env.state is ns.sim
+
+
+def test_ppo_iteration_on_the_navigation_task():
+    from aerial_gym_simulator_tpu_torch.rl.ppo import PPOConfig, PPOTrainer
+    n = 4
+    task = _small_camera_task(n, seed=6)
+    trainer = PPOTrainer(task, PPOConfig(num_envs=n, horizon=4, minibatch_size=8, epochs=1,
+                                         seed=2))
+    assert trainer.obs_dim == 81
+    before = [p.detach().clone() for p in trainer.network.parameters()]
+    hist = trainer.train(total_env_steps=n * 4, log_every=1)
+    assert len(hist) == 1 and all(np.isfinite(v) for v in hist[0].values())
+    assert any(not torch.equal(b, p) for b, p in zip(before, trainer.network.parameters()))
+    assert task.nav_state is trainer.env_carry and task.sim_env.state is trainer.env_carry.sim
+    assert trainer.obs.shape == (n, 81) and torch.isfinite(trainer.obs).all()

@@ -400,7 +400,7 @@ def test_checkpoint_round_trip_restores_act(position_trainer, tmp_path):
 
 def test_unported_options_raise():
     task = BanditTask(4, [0.0])
-    with pytest.raises(NotImplementedError, match="recurrent"):
-        t_ppo.PPOTrainer(task, t_ppo.PPOConfig(num_envs=4, rnn="gru"))
+    with pytest.raises(ValueError, match="unknown rnn type"):
+        t_ppo.PPOTrainer(task, t_ppo.PPOConfig(num_envs=4, rnn="lstm"))
     with pytest.raises(ValueError, match="lr_schedule"):
         t_ppo.PPOTrainer(task, t_ppo.PPOConfig(num_envs=4, lr_schedule="cosine"))

@@ -145,6 +145,75 @@ def test_robot_params_match_jax(robot):
                                         ("camera", "lidar", "robot", "motor", "env")})
 
 
+@pytest.mark.parametrize("robot,controller", [("magpie", "magpie_acceleration_control"),
+                                              ("lmf2_radar", "lmf2_acceleration_control")])
+def test_pointcloud_robot_params_match_jax(robot, controller):
+    """magpie (the dome lidar) and lmf2_radar (the radar cone), with their
+    acceleration controllers, leaf for leaf."""
+    names = ("base_sim", "env_with_lidar_nav_obstacles", robot, controller)
+    regs = lambda r: (r.sim_config_registry, r.env_config_registry, r.robot_registry,
+                      r.controller_registry)
+    jp = j_build_sim_params(*[reg.make(n) for reg, n in zip(regs(j_reg), names)], num_envs=2)
+    tp = t_build_sim_params(*[reg.make(n) for reg, n in zip(regs(t_reg), names)], "cpu",
+                            num_envs=2)
+    assert tp.camera is None and tp.lidar.return_pointcloud and tp.lidar.height == 48
+    assert tp.controller.name == "lee_acceleration_control"
+    ref = record_to_numpy(jp)
+    _leaves_match(record_to_numpy(tp), {k: v for k, v in ref.items() if k in
+                                        ("lidar", "robot", "motor", "env", "controller")})
+
+
+@pytest.mark.parametrize("cfg_name", ["RSLidarAiryConfig", "FakeRadarConfig"])
+def test_pointcloud_configs_match_jax(cfg_name):
+    t, j = getattr(t_cfgs, cfg_name)(), getattr(j_cfgs, cfg_name)()
+    for f in ("height", "width", "horizontal_fov_deg_min", "horizontal_fov_deg_max",
+              "vertical_fov_deg_min", "vertical_fov_deg_max", "max_range", "min_range",
+              "return_pointcloud", "pointcloud_in_world_frame", "segmentation_camera",
+              "normalize_range", "randomize_placement", "min_translation", "max_translation",
+              "min_euler_rotation_deg", "max_euler_rotation_deg", "far_out_of_range_value",
+              "near_out_of_range_value"):
+        assert getattr(t, f) == getattr(j, f), f
+    assert t.sensor_noise == t_cfgs.SensorNoiseConfig(**vars(j.sensor_noise))
+
+
+@pytest.mark.parametrize("world", [True, False], ids=["world-frame", "sensor-frame"])
+def test_pointcloud_capture_matches_jax(world):
+    """The dome lidar's pointcloud (a 12x40 table; 4 m range in the sensor
+    frame, so that range limits apply) from a state carried across: hits
+    within 2e-3 where both sides hit, more than 99.5% of the rays agreeing
+    on hit or miss, misses at the no-hit range along the ray (world frame)
+    or at the out-of-range sentinels (sensor frame)."""
+    kw = dict(height=12, width=40)
+    if not world:
+        kw.update(pointcloud_in_world_frame=False, max_range=4.0)
+    jenv = JSimBuilder().build_env("base_sim", "env_with_lidar_nav_obstacles", "magpie",
+                                   "magpie_acceleration_control", num_envs=N, seed=8)
+    jp = jenv.params.replace(lidar=j_rs.build_ray_sensor_params(j_cfgs.RSLidarAiryConfig(**kw)))
+    pts_ref = np.asarray(jax.jit(lambda s: j_rs.render_lidar(jp, s)[0])(jenv.state))
+    tp = params_from_numpy(record_to_numpy(jp), "cpu")
+    ts = state_from_numpy(record_to_numpy(jenv.state), "cpu", seed=8)
+    pts, seg = t_rs.render_lidar(tp, ts)
+    assert pts.shape == (N, 12, 40, 3) and seg is None
+    pts = pts.numpy()
+    if world:
+        origin = np.asarray(t_rs.sensor_world_pose(tp.lidar, ts, ts.lidar_mount_pos,
+                                                   ts.lidar_mount_quat)[0])[:, None, None]
+        r, r_ref = (np.linalg.norm(p - origin, axis=-1) for p in (pts, pts_ref))
+        hit, hit_ref = r < 10.0, r_ref < 10.0
+        miss = ~hit & ~hit_ref
+        np.testing.assert_allclose(r[miss], 1000.0, rtol=1e-5)
+    else:
+        sentinel = lambda p: (p == 10.0).all(-1) | (p == -10.0).all(-1)
+        hit, hit_ref = ~sentinel(pts), ~sentinel(pts_ref)
+        miss = ~hit & ~hit_ref
+        np.testing.assert_array_equal(pts[miss], pts_ref[miss])
+        assert (pts[miss] == 10.0).any()                    # the far sentinel, all three
+    assert hit_ref.any() and (~hit_ref).any()
+    assert (hit == hit_ref).mean() > FACE_AGREE
+    both = hit & hit_ref
+    np.testing.assert_allclose(pts[both], pts_ref[both], atol=2e-3, rtol=0)
+
+
 def test_params_carry_across_with_lidar(captured):
     _leaves_match(record_to_numpy(captured["tp"].lidar), record_to_numpy(captured["jp"].lidar))
     assert captured["tp"].lidar.sensor_type == "lidar"

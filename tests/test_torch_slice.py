@@ -145,6 +145,25 @@ def test_scan_covers_the_capture_slice():
     assert (PKG / "csrc" / "raycast.cu").exists()
 
 
+NAVIGATION_RL_MODULES = ("tasks/lidar_navigation_task.py", "tasks/navigation_task.py",
+                         "tasks/__init__.py", "rl/ppo.py", "rl/networks.py",
+                         "sim2real/policy.py", "control/controllers.py",
+                         "config/__init__.py", "config/env_config/obstacle_envs.py",
+                         "config/asset_config/env_object_config.py",
+                         "config/controller_config/lee_controller_config.py")
+
+
+def test_scan_covers_the_navigation_rl_slice():
+    """The scan reads every module of navigation RL: the LiDAR/radar tasks,
+    the recurrent learner and policy archives, the acceleration controller
+    and the lidar-nav scene."""
+    scanned = {str(p.relative_to(PKG)) for p in _sources() if PKG in p.parents}
+    for module in NAVIGATION_RL_MODULES + ("sensors/raycast_sensor.py", "sim/convert.py",
+                                           "config/sensor_config/sensor_configs.py",
+                                           "config/robot_config/catalog.py"):
+        assert module in scanned, module
+
+
 def test_importing_every_module_loads_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -153,8 +172,10 @@ def test_importing_every_module_loads_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'aerial_gym_simulator_tpu'))\n"
-        "print(bad)\n"
-        "sys.exit(1 if bad else 0)\n")
+        "missing = [m for m in ('tasks.lidar_navigation_task', 'rl.ppo', 'rl.networks', "
+        "'sim2real.policy') if p.__name__ + '.' + m not in sys.modules]\n"
+        "print(bad, missing)\n"
+        "sys.exit(1 if bad or missing else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           cwd=str(REPO), env=env, timeout=300)
