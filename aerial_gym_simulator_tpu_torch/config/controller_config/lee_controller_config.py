@@ -60,3 +60,37 @@ def magpie_controller_config(name: str, num_actions: int = 4) -> ControllerConfi
                              0.048818358927965164],
         randomize_params=True,
     )
+
+
+@dataclass
+class NoControlConfig(ControllerConfig):
+    """Pass-through: actions are per-motor thrust references. SimBuilder
+    sets ``num_actions`` to the robot's motor count."""
+    name: str = "no_control"
+    num_actions: int = 4
+
+
+def octarotor_controller_config(name: str, num_actions: int = 4) -> ControllerConfig:
+    """Gain ranges of the octarotor, sampled per env at every reset. K_rot
+    x/y have min 10.8 above max 10.2: that is the source's own data, and
+    ``lo + (hi - lo) * u`` samples the reversed interval all the same."""
+    return ControllerConfig(
+        name=name, num_actions=num_actions,
+        K_pos_tensor_min=[2.0, 2.0, 1.0], K_pos_tensor_max=[3.0, 3.0, 2.0],
+        K_vel_tensor_min=[2.0, 2.0, 2.0], K_vel_tensor_max=[3.0, 3.0, 3.0],
+        K_rot_tensor_min=[10.8, 10.8, 5.4], K_rot_tensor_max=[10.2, 10.2, 5.6],
+        K_angvel_tensor_min=[2.1, 2.1, 2.1], K_angvel_tensor_max=[2.2, 2.2, 2.2],
+        randomize_params=True,
+    )
+
+
+def rov_fully_actuated_controller_config() -> ControllerConfig:
+    """The ROV's 6-DoF pose controller: 7 actions [x, y, z, qx, qy, qz, qw]."""
+    return ControllerConfig(
+        name="fully_actuated_control", num_actions=7,
+        K_pos_tensor_min=[1.0, 1.0, 1.0], K_pos_tensor_max=[1.0, 1.0, 1.0],
+        K_vel_tensor_min=[8.0, 8.0, 8.0], K_vel_tensor_max=[8.0, 8.0, 8.0],
+        K_rot_tensor_min=[2.2, 2.2, 2.6], K_rot_tensor_max=[2.2, 2.2, 2.6],
+        K_angvel_tensor_min=[2.1, 2.1, 2.1], K_angvel_tensor_max=[2.2, 2.2, 2.2],
+        randomize_params=True,
+    )

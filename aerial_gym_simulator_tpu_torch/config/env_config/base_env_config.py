@@ -37,3 +37,12 @@ class EmptyEnvConfig(EnvConfig):
     num_physics_steps_per_env_step_std: float = 0.0
     collision_force_threshold: float = 0.010
     reset_on_collision: bool = True
+
+
+@dataclass
+class EmptyEnv2MsConfig(EmptyEnvConfig):
+    """Five physics substeps per env step: a 10 ms control interval at the
+    2 ms sim dt."""
+    name: str = "empty_env_2ms"
+    num_physics_steps_per_env_step_mean: int = 5
+    num_physics_steps_per_env_step_std: float = 0.0

@@ -7,9 +7,11 @@ import math
 
 from .base_quad_config import (
     ControlAllocatorConfig,
+    DampingConfig,
     DisturbanceConfig,
     InitConfig,
     MotorModelConfig,
+    RobotAssetConfig,
     RobotConfig,
 )
 
@@ -62,6 +64,12 @@ def _motors(use_rps=True, kt_min=0.00000926312, kt_max=0.00001826312,
 _LMF2_DIST = lambda: DisturbanceConfig(
     enable_disturbance=True, prob_apply_disturbance=0.05,
     max_force_and_torque_disturbance=[4.75, 4.75, 4.75, 0.03, 0.03, 0.03])
+_AGGRESSIVE_DIST = lambda: DisturbanceConfig(
+    enable_disturbance=True, prob_apply_disturbance=0.05,
+    max_force_and_torque_disturbance=[1.5, 1.5, 1.5, 0.25, 0.25, 0.25])
+_NO_DIST = lambda: DisturbanceConfig(
+    enable_disturbance=False, prob_apply_disturbance=0.0,
+    max_force_and_torque_disturbance=[0.0] * 6)
 
 
 def _init(pos_min, pos_max, rp=0.0, yaw=math.pi, v=0.2, w=0.2,
@@ -75,6 +83,102 @@ def _init(pos_min, pos_max, rp=0.0, yaw=math.pi, v=0.2, w=0.2,
         min_init_state=lo + [-rp, -rp, -yaw, 1.0] + [-v] * 3 + [-w] * 3,
         max_init_state=hi + [rp, rp, yaw, 1.0] + [v] * 3 + [w] * 3,
     )
+
+
+_FULLBOX_INIT = lambda: _init([0.0, 0.0, 0.0], [1.0, 1.0, 1.0])
+
+
+def base_quadrotor_root_link_control() -> RobotConfig:
+    """The base quad with its wrench applied at the root link and a fixed
+    thrust constant."""
+    cfg = RobotConfig(name="base_quad_root_link_control")
+    cfg.control_allocator_config.force_application_level = "root_link"
+    cfg.control_allocator_config.motor_model_config = _motors(
+        kt_min=1.826312e-05, kt_max=1.826312e-05, tau_inc=(0.01, 0.03),
+        tau_dec=(0.005, 0.005), max_thrust=10.0)
+    return cfg
+
+
+# 8 motors on the corners of a cube, shared by base_octarotor and base_rov:
+# a full-rank 6x8 allocation (fully actuated)
+_CUBE_ALLOCATION = [
+    [-0.78867513, 0.21132487, -0.21132487, 0.78867513,
+     0.78867513, -0.21132487, 0.21132487, -0.78867513],
+    [0.21132487, 0.78867513, -0.78867513, -0.21132487,
+     -0.21132487, -0.78867513, 0.78867513, 0.21132487],
+    [0.57735027, -0.57735027, -0.57735027, 0.57735027,
+     0.57735027, -0.57735027, -0.57735027, 0.57735027],
+    [0.14226497, -0.21547005, 0.25773503, 0.01547005,
+     -0.01547005, -0.25773503, 0.21547005, -0.14226497],
+    [-0.25773503, 0.01547005, 0.14226497, 0.21547005,
+     -0.21547005, -0.14226497, -0.01547005, 0.25773503],
+    [0.11547005, -0.23094010, -0.11547005, 0.23094010,
+     -0.23094010, 0.11547005, 0.23094010, -0.11547005],
+]
+
+
+def _reversible_motors(max_thrust: float) -> MotorModelConfig:
+    """Thrust in [-max, max], commanded as thrust (use_rps=False)."""
+    return _motors(use_rps=False, tau_inc=(0.01, 0.03), tau_dec=(0.005, 0.005),
+                   max_thrust=max_thrust, min_thrust=-max_thrust)
+
+
+def _cube_allocator() -> ControlAllocatorConfig:
+    return ControlAllocatorConfig(
+        num_motors=8,
+        application_mask=[9, 10, 11, 12, 13, 14, 15, 16],
+        motor_directions=[1, -1, 1, -1, 1, -1, 1, -1],
+        allocation_matrix=[row[:] for row in _CUBE_ALLOCATION],
+        motor_model_config=_reversible_motors(6.25),
+    )
+
+
+def base_octarotor() -> RobotConfig:
+    """8 reversible-thrust motors in the cube arrangement (fully actuated)."""
+    cfg = RobotConfig(name="base_octarotor", control_allocator_config=_cube_allocator(),
+                      init_config=_FULLBOX_INIT(), disturbance=_AGGRESSIVE_DIST())
+    return _mass_props(cfg, 1.1, [0.096, 0.096, 0.096])
+
+
+def base_rov() -> RobotConfig:
+    """A fully actuated underwater ROV on the cube allocation. The shipped
+    hydrodynamic damping coefficients are zero, and gravity stays on: the
+    controller's gravity compensation plays the buoyancy's part. The asset
+    names ``rov.urdf`` with no folder, so the URDF is built from the
+    allocation geometry as for every robot without a file on disk."""
+    cfg = RobotConfig(name="base_rov", control_allocator_config=_cube_allocator(),
+                      damping=DampingConfig(),
+                      robot_asset=RobotAssetConfig(name="base_rov", file="rov.urdf"),
+                      init_config=_FULLBOX_INIT(), disturbance=_AGGRESSIVE_DIST())
+    return _mass_props(cfg, 1.1, [0.096, 0.096, 0.096])
+
+
+def base_random() -> RobotConfig:
+    """8 reversible motors on a randomized, non-planar, full-rank allocation."""
+    alloc = [
+        [5.55111512e-17, -0.321393805, -0.454519478, -0.342020143,
+         0.96984631, 0.342020143, 0.866025404, -0.754406507],
+        [1.0, -0.342020143, -0.707106781, 0.0,
+         -0.173648178, 0.939692621, 0.5, -0.173648178],
+        [1.66533454e-16, -0.883022222, 0.54167522, 0.939692621,
+         0.171010072, 1.11022302e-16, 1.11022302e-16, 0.633022222],
+        [0.175, 0.123788742, -0.0569783368, 0.134977168,
+         0.0336959042, -0.266534135, -0.078839746, -0.0206893989],
+        [0.01, 0.278845133, -0.0432852308, -0.272061766,
+         -0.197793856, 0.0863687139, 0.156554446, -0.17126129],
+        [0.282487373, -0.14173549, -0.0858541103, 0.0384858939,
+         -0.333468026, 0.0836741468, 0.00846777988, -0.0874336259],
+    ]
+    ca = ControlAllocatorConfig(
+        num_motors=8,
+        application_mask=[9, 10, 11, 12, 13, 14, 15, 16],
+        motor_directions=[-1, 1, -1, 1, -1, 1, -1, 1],
+        allocation_matrix=alloc,
+        motor_model_config=_reversible_motors(5.0),
+    )
+    cfg = RobotConfig(name="base_random", control_allocator_config=ca,
+                      init_config=_FULLBOX_INIT(), disturbance=_AGGRESSIVE_DIST())
+    return _mass_props(cfg, 0.25, [0.00285, 0.00359, 0.00348])
 
 
 def _mass_props(cfg: RobotConfig, mass: float, inertia_diag) -> RobotConfig:
@@ -102,6 +206,53 @@ def _quad(name, tx, ty, tz, directions, motors: MotorModelConfig,
         motor_model_config=motors,
     )
     return RobotConfig(name=name, control_allocator_config=ca)
+
+
+def lmf1() -> RobotConfig:
+    """A 1.235 kg quad with the continuous motor model."""
+    cfg = _quad("lmf1",
+                [-0.13, 0.13, 0.13, -0.13], [-0.13, 0.13, -0.13, 0.13],
+                [-0.05, 0.05, -0.05, 0.05], [1, 1, -1, -1],
+                _motors(kt_min=5.487e-6, kt_max=5.487e-6,
+                        tau_inc=(0.025, 0.025), tau_dec=(0.025, 0.025),
+                        max_thrust=20.0, cq=0.05, discrete=False),
+                application_mask=[4, 1, 3, 2])
+    cfg.init_config = _init([0.0, 0.0, 0.0], [1.0, 1.0, 1.0],
+                            rp=math.pi / 6.0, v=0.5, w=0.2)
+    cfg.disturbance = _NO_DIST()
+    return _mass_props(cfg, 1.235, [0.0134, 0.0134, 0.0138])
+
+
+def x500() -> RobotConfig:
+    """The PX4 x500 frame, 1.656 kg, with the continuous motor model."""
+    cfg = _quad("x500",
+                [-0.13, 0.13, 0.13, -0.13], [-0.13, 0.13, -0.13, 0.13],
+                [-0.025, 0.025, -0.025, 0.025], [1, 1, -1, -1],
+                _motors(kt_min=8.54858e-6, kt_max=8.54858e-6,
+                        tau_inc=(0.0125, 0.0125), tau_dec=(0.025, 0.025),
+                        max_thrust=20.0, cq=0.025, discrete=False),
+                application_mask=[4, 1, 3, 2])
+    cfg.init_config = _init([0.0, 0.0, 0.0], [1.0, 1.0, 1.0],
+                            rp=math.pi / 6.0, v=0.5, w=0.2)
+    cfg.disturbance = _NO_DIST()
+    return _mass_props(cfg, 1.656, [0.02165, 0.02165, 0.02941])
+
+
+def tinyprop() -> RobotConfig:
+    """A 0.373 kg quad, motor thrust in [0.2, 1.2] N, no disturbance."""
+    cfg = _quad("tinyprop",
+                [-0.16, -0.16, 0.16, 0.16], [-0.16, 0.16, 0.16, -0.16],
+                [-0.01, 0.01, -0.01, 0.01], [1, -1, 1, -1],
+                _motors(kt_min=1.286412e-5, kt_max=1.286412e-5,
+                        tau_inc=(0.047, 0.047), tau_dec=(0.047, 0.047),
+                        max_thrust=1.2, min_thrust=0.2))
+    cfg.init_config = _init([-0.7, -0.7, -0.7], [0.7, 0.7, 0.7],
+                            rp=math.pi / 6.0, v=0.5, w=0.5)
+    cfg.disturbance = DisturbanceConfig(
+        enable_disturbance=False, prob_apply_disturbance=0.02,
+        max_force_and_torque_disturbance=[0.001, 0.001, 0.001,
+                                          4e-05, 4e-05, 4e-05])
+    return _mass_props(cfg, 0.373, [0.00293, 0.00293, 0.00426])
 
 
 def lmf2() -> RobotConfig:
@@ -154,6 +305,13 @@ def register_robots(robot_registry):
     robot_registry.register("base_quadrotor_with_lidar", base_quadrotor_with_lidar)
     robot_registry.register("base_quadrotor_with_faceid_normal_camera",
                             base_quadrotor_with_faceid_normal_camera)
+    robot_registry.register("base_quad_root_link_control", base_quadrotor_root_link_control)
+    robot_registry.register("base_octarotor", base_octarotor)
+    robot_registry.register("base_rov", base_rov)
+    robot_registry.register("base_random", base_random)
+    robot_registry.register("lmf1", lmf1)
     robot_registry.register("lmf2", lmf2)
     robot_registry.register("lmf2_radar", lmf2_radar)
+    robot_registry.register("x500", x500)
+    robot_registry.register("tinyprop", tinyprop)
     robot_registry.register("magpie", magpie)

@@ -1,14 +1,18 @@
 """Geometric (Lee SE(3)) controllers on batched torch tensors.
 
-Counterpart of ``aerial_gym_simulator_tpu/control/controllers.py``, cut to
-the position, velocity, attitude and acceleration variants (they share
-every helper).
+Counterpart of ``aerial_gym_simulator_tpu/control/controllers.py``.
 
 Controller name -> action semantics:
   lee_position_control     [x, y, z, yaw]                 world-frame position
   lee_velocity_control     [vx, vy, vz, yaw_rate]         vehicle-frame velocity
+  lee_velocity_steering_angle_control
+                           [vx, vy, vz, yaw]              velocity, absolute yaw
   lee_attitude_control     [thrust, roll, pitch, yaw_rate]
+  lee_rates_control        [thrust, p, q, r]              body rates
   lee_acceleration_control [ax, ay, az, yaw_rate]         world-frame acceleration
+  fully_actuated_control   [x, y, z, qx, qy, qz, qw]      6-DoF pose, full wrench
+  no_control               per-motor thrusts; the robot step applies them
+                           (``sim/dynamics.compute_robot_wrench``)
 """
 
 from __future__ import annotations
@@ -176,11 +180,29 @@ def lee_velocity_control(cp, rp, gravity, obs, g, action):
     return _wrench(thrust, torque)
 
 
+def lee_velocity_steering_angle_control(cp, rp, gravity, obs, g, action):
+    accel = compute_acceleration(obs, g, obs.pos, action[..., 0:3])
+    forces = (accel - gravity) * rp.mass
+    thrust = _thrust_along_body_z(obs, forces)
+    quat_des = desired_quat_from_forces_full(forces, action[..., 3])
+    torque = compute_body_torque(cp, rp, obs, g, quat_des, _zero3(action))
+    return _wrench(thrust, torque)
+
+
 def lee_attitude_control(cp, rp, gravity, obs, g, action):
     thrust = (action[..., 0] + 1.0) * rp.mass * torch.linalg.norm(gravity)
     body_rates = euler_rates_to_body_rates(obs.euler, _yaw_rate_only(action))
     quat_des = quat_from_euler_xyz(action[..., 1], action[..., 2], obs.euler[..., 2])
     torque = compute_body_torque(cp, rp, obs, g, quat_des, body_rates)
+    return _wrench(thrust, torque)
+
+
+def lee_rates_control(cp, rp, gravity, obs, g, action):
+    # hover-normalised collective thrust, as the attitude controller's: the
+    # reference's line (cmd[:, 0] - gravity) * mass mixes shapes, and the
+    # JAX package implements the intended semantics
+    thrust = (action[..., 0] + 1.0) * rp.mass * torch.linalg.norm(gravity)
+    torque = compute_body_torque(cp, rp, obs, g, obs.quat, action[..., 1:4])
     return _wrench(thrust, torque)
 
 
@@ -193,17 +215,40 @@ def lee_acceleration_control(cp, rp, gravity, obs, g, action):
     return _wrench(thrust, torque)
 
 
+def fully_actuated_control(cp, rp, gravity, obs, g, action):
+    """6-DoF pose control: the world-frame force rotated into the body
+    frame, so the wrench has all six components. It takes 7 actions: the
+    generic name is registered with the default 4, so a 4-wide action
+    raises here (the JAX package clamps the missing quaternion indices)."""
+    if action.shape[-1] != 7:
+        raise ValueError("fully_actuated_control takes 7 actions [x, y, z, qx, qy, qz, qw], "
+                         f"got {action.shape[-1]}")
+    quat_des = normalize(action[..., 3:7])
+    accel = compute_acceleration(obs, g, action[..., 0:3], _zero3(action))
+    forces = rp.mass * (accel - gravity)
+    force_body = quat_rotate_inverse(obs.quat, forces)
+    torque = compute_body_torque(cp, rp, obs, g, quat_des, _zero3(action))
+    return torch.cat([force_body, torque], dim=-1)
+
+
 _CONTROLLERS = {
     "lee_position_control": lee_position_control,
     "lee_velocity_control": lee_velocity_control,
     "lee_attitude_control": lee_attitude_control,
+    "lee_rates_control": lee_rates_control,
     "lee_acceleration_control": lee_acceleration_control,
+    "lee_velocity_steering_angle_control": lee_velocity_steering_angle_control,
+    "fully_actuated_control": fully_actuated_control,
 }
 
 
 def controller_update(name: str, cp: ControllerParams, rp: RobotParams,
                       gravity, obs: RobotObs, gains: Gains, action):
-    """Dispatch on the controller name -> (N, 6) body wrench command."""
+    """Dispatch on the controller name -> (N, 6) body wrench command.
+    'no_control' has no wrench: the robot step takes its actions as motor
+    thrust references."""
+    if name == "no_control":
+        raise ValueError("no_control has no wrench output; handled in robot step")
     try:
         fn = _CONTROLLERS[name]
     except KeyError:

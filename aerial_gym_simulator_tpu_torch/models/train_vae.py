@@ -17,9 +17,9 @@ frozen encoder is cast to bf16 only where it is served.
 Flags are the JAX script's, except: ``--device`` takes the place of
 ``--cpu`` (the default is CUDA), ``--vit_attn flash`` runs the fused
 kernels in f32 (the JAX package's flash path runs its library kernel in
-f32), ``--log_every`` is new, and
-``--collision_targets`` raises until ``utils/collision_image_generator`` is
-ported (see ROADMAP.md).
+f32), and ``--log_every`` is new. ``--collision_targets`` renders the
+targets from the inflated scene (``utils/collision_image_generator``):
+one more launch of the ray-cast kernel's segmentation mode per step.
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ from ..sim import dynamics
 from ..sim.convert import save_model_pickle
 from ..sim.sim_builder import SimBuilder
 from ..sim.structs import SimParams, SimState
+from ..utils.collision_image_generator import render_inflated_depth
 from .vae import Autoencoder, DepthVAE, seeded, vae_loss
 from .vit import DepthViT
 
@@ -47,20 +48,25 @@ def sample_batch(params_sim: SimParams, state: SimState, hw: Tuple[int, int],
                  collision_targets: bool = False):
     """Teleport every robot to a random pose and render fresh depth images
     -> (state, inputs, targets), images (B, H, W, 1) in [0, 1]. Targets are
-    the inputs. All randomness (poses, obstacles, sensor noise) comes from
-    the state's generator."""
-    if collision_targets:
-        raise NotImplementedError(
-            "--collision_targets needs utils/collision_image_generator.render_inflated_depth, "
-            "which is not ported yet (see ROADMAP.md)")
+    the inputs, or with ``collision_targets`` the depth of the scene
+    inflated by the robot's collision radius over the camera's range (the
+    latent then learns where the robot fits). All randomness (poses,
+    obstacles, sensor noise) comes from the state's generator."""
     n = state.num_envs
     state = dynamics.reset_envs(params_sim, state, torch.ones((n,), device=state.device))
     pixels, _ = render_camera(params_sim, state, gen=state.rng, want_seg=False)
-    images = pixels[:, None]
-    if tuple(images.shape[-2:]) != tuple(hw):
-        images = F.interpolate(images, size=tuple(hw), mode="nearest-exact")
-    inputs = torch.clamp(images, 0.0, 1.0).permute(0, 2, 3, 1)
-    return state, inputs, inputs
+
+    def to_img(px):
+        images = px[:, None]
+        if tuple(images.shape[-2:]) != tuple(hw):
+            images = F.interpolate(images, size=tuple(hw), mode="nearest-exact")
+        return torch.clamp(images, 0.0, 1.0).permute(0, 2, 3, 1)
+
+    inputs = to_img(pixels)
+    if not collision_targets:
+        return state, inputs, inputs
+    infl, _ = render_inflated_depth(params_sim, state)
+    return state, inputs, to_img(torch.clamp(infl / params_sim.camera.max_range, 0.0, 1.0))
 
 
 def train_step(model: Autoencoder, optimizer: torch.optim.Optimizer, params_sim: SimParams,
@@ -91,7 +97,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--kld_beta", type=float, default=3.0)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--collision_targets", action="store_true",
-                   help="reconstruct robot-radius-inflated depth (not ported yet: raises)")
+                   help="reconstruct the depth of the scene inflated by the robot's collision "
+                        "radius instead of the input")
     p.add_argument("--out", default="depth_vae_params.pkl")
     p.add_argument("--arch", choices=["conv", "vit"], default="conv",
                    help="the conv VAE or the ViT encoder with the conv decoder")

@@ -41,6 +41,8 @@ def record_to_numpy(obj):
     if dataclasses.is_dataclass(obj):
         return {f.name: record_to_numpy(getattr(obj, f.name))
                 for f in dataclasses.fields(obj)}
+    if hasattr(obj, "_asdict"):                                         # a NamedTuple
+        return {k: record_to_numpy(v) for k, v in obj._asdict().items()}
     if isinstance(obj, torch.Tensor):
         return obj.detach().cpu().numpy()
     if isinstance(obj, torch.Generator):
@@ -132,6 +134,21 @@ def lidar_nav_state_from_numpy(d: dict, device, seed: int = 0):
     fields = [f.name for f in dataclasses.fields(LidarNavState) if f.name != "sim"]
     return LidarNavState(sim=state_from_numpy(d["sim"], device, seed=seed),
                          **{name: t(name) for name in fields})
+
+
+def variant_carry_from_numpy(d: dict, device, seed: int = 0):
+    """Nested dict of numpy leaves -> the position-task variants'
+    VariantCarry on ``device``. The JAX ``key`` leaf is dropped: the sim
+    state gets a generator seeded with ``seed``, and the carry draws its
+    observation noise from another, seeded with ``seed ^ 0x5EED`` as the
+    task's reset seeds it."""
+    from ..tasks.position_setpoint_variants import VariantCarry
+    rng = torch.Generator(device=device)
+    rng.manual_seed(seed ^ 0x5EED)
+    return VariantCarry(
+        sim=state_from_numpy(d["sim"], device, seed=seed),
+        prev_action=torch.as_tensor(np.array(d["prev_action"], np.float32), device=device),
+        rng=rng)
 
 
 # ---------------------------------------------------------------------------

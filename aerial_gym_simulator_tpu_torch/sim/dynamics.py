@@ -47,7 +47,8 @@ def sample_disturbance(params: SimParams, state: SimState):
 def compute_robot_wrench(params: SimParams, state: SimState, action: torch.Tensor,
                          disturbance=None):
     """One control substep -> (force_body, torque_body, new_motor_thrust):
-    controller, allocation with first-order motor lag, aerodynamic drag and,
+    controller and allocation (under ``no_control`` the clipped action is
+    the per-motor thrust reference), first-order motor lag, aerodynamic drag and,
     for robots that enable it, the random wrench disturbance (drawn here
     unless the caller passes its own (force, torque) pair).
 
@@ -59,9 +60,12 @@ def compute_robot_wrench(params: SimParams, state: SimState, action: torch.Tenso
     obs = compute_robot_obs(state.pos, state.quat, state.linvel, state.angvel)
     action = torch.clamp(action, -10.0, 10.0)
 
-    gains = Gains(state.K_pos, state.K_vel, state.K_rot, state.K_angvel)
-    wrench_cmd = controller_update(cp.name, cp, rp, params.gravity, obs, gains, action)
-    ref_thrust = wrench_cmd @ mp.allocation_pinv.T                       # (N, M)
+    if cp.name == "no_control":
+        ref_thrust = action                      # per-motor thrust references
+    else:
+        gains = Gains(state.K_pos, state.K_vel, state.K_rot, state.K_angvel)
+        wrench_cmd = controller_update(cp.name, cp, rp, params.gravity, obs, gains, action)
+        ref_thrust = wrench_cmd @ mp.allocation_pinv.T                   # (N, M)
 
     new_thrust = motor_step(mp, params.dt, ref_thrust, state.motor_thrust,
                             state.motor_tau_inc, state.motor_tau_dec,

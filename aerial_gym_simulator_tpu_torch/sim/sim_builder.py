@@ -29,6 +29,8 @@ class SimBuilder:
         env_cfg = env_config_registry.make(env_name)
         robot_cfg = robot_registry.make(robot_name)
         ctrl_cfg = controller_registry.make(controller_name)
+        if controller_name == "no_control":
+            ctrl_cfg.num_actions = robot_cfg.control_allocator_config.num_motors
         n = num_envs or env_cfg.num_envs
 
         scene = None

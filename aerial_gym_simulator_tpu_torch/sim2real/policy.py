@@ -145,7 +145,12 @@ class RecurrentPolicy(nn.Module):
 
     @torch.no_grad()
     def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        """(num_envs, obs_dim) -> (num_envs, action_dim); a single 1-D
+        observation is a batch of one and gives a 1-D action."""
         x = obs.to(torch.float32)
+        squeeze = x.dim() == 1
+        if squeeze:
+            x = x[None]
         if self.recurrent and x.shape[0] != self.num_envs:
             raise ValueError(f"obs batch {x.shape[0]} != num_envs {self.num_envs}: a "
                              "recurrent policy carries one hidden state per env")
@@ -156,7 +161,8 @@ class RecurrentPolicy(nn.Module):
             x = act(layer(x))
         if self.recurrent:
             x = self.gru_step(x)
-        return (x @ self.head_w + self.head_b)[:, :self.action_dim]
+        mu = (x @ self.head_w + self.head_b)[:, :self.action_dim]
+        return mu[0] if squeeze else mu
 
 
 def load_policy_npz(npz_path: str, device=None, num_envs: int = 1, action_dim=None):

@@ -13,10 +13,28 @@ def register_all():
     )
     from .navigation_task import NavigationTask, NavigationTaskConfig
     from .position_setpoint_task import PositionSetpointTask, PositionSetpointTaskConfig
+    from .position_setpoint_variants import (
+        AccelerationSim2RealConfig,
+        EndToEndConfig,
+        PositionSetpointTaskVariant,
+        Px4Config,
+        Sim2RealConfig,
+    )
 
     task_registry.register_task("navigation_task", NavigationTask, NavigationTaskConfig)
     task_registry.register_task("position_setpoint_task", PositionSetpointTask,
                                 PositionSetpointTaskConfig)
+    task_registry.register_task("position_setpoint_task_sim2real",
+                                PositionSetpointTaskVariant, Sim2RealConfig)
+    task_registry.register_task("position_setpoint_task_acceleration_sim2real",
+                                PositionSetpointTaskVariant, AccelerationSim2RealConfig)
+    task_registry.register_task("position_setpoint_task_sim2real_end_to_end",
+                                PositionSetpointTaskVariant, EndToEndConfig)
+    task_registry.register_task("position_setpoint_task_sim2real_px4",
+                                PositionSetpointTaskVariant, Px4Config)
+    for name in ("position_setpoint_task_reconfigurable", "position_setpoint_task_morphy"):
+        task_registry.register_not_ported(
+            name, "needs the articulated robots, not ported yet: ROADMAP.md §A8")
     task_registry.register_task("lidar_navigation_task", LiDARNavigationTask,
                                 LidarNavigationTaskConfig)
     task_registry.register_task("radar_navigation_task", RadarNavigationTask,

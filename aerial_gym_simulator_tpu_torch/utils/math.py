@@ -120,6 +120,10 @@ def quat_rotate_inverse(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return a - b + c
 
 
+def quat_apply_inverse(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return quat_rotate_inverse(q, v)
+
+
 def quat_axis(q: torch.Tensor, axis: int = 0) -> torch.Tensor:
     """Column ``axis`` of the rotation matrix of q (a rotated basis vector)."""
     e = torch.zeros(q.shape[:-1] + (3,), dtype=q.dtype, device=q.device)
@@ -130,6 +134,11 @@ def quat_axis(q: torch.Tensor, axis: int = 0) -> torch.Tensor:
 def exp_func(x, gain: float, exp: float):
     """gain * exp(-exp * x^2): reward shaping of the setpoint tasks."""
     return gain * torch.exp(-exp * x * x)
+
+
+def exp_penalty_func(x, gain: float, exp: float):
+    """gain * (exp(-exp * x^2) - 1): a penalty that is 0 at x = 0."""
+    return gain * (torch.exp(-exp * x * x) - 1.0)
 
 
 def quat_to_rotation_matrix(q: torch.Tensor) -> torch.Tensor:

@@ -143,6 +143,24 @@ Phases, each printed on its own line:
                package's bar), K1 as for lidarnav on the radar cone; then 2
                iterations of recurrent PPO (rnn "gru", 128 units, 32 steps):
                finite losses, the policy moved, s/iteration.
+ 10. collision - models/train_vae --collision_targets at the JAX CLI's
+               defaults (conv VAE, batch 64, 135x240, Adam 1e-4) for 30
+               steps: finite losses, K1 (the raw render) and K2 (the render
+               of the scene inflated by the robot's collision radius) once
+               per step each, ms/step and its split (sample + render,
+               inflated render, forward, backward, Adam); K2 on the inflated
+               table bit-equal to its plain version, timed, with its bound;
+ 11. variants - the four position-task variants (sim2real and acceleration
+               on lmf2, end-to-end on tinyprop and px4 on x500, the last two
+               under no_control) at their configs' envs (16, 16, 4096, 24),
+               100 steps each from seeded actions: finite observations and
+               rewards of the right shapes, env-steps/s, reward mean,
+               crashes and truncations; 3 iterations of PPO on the
+               end-to-end task at 4096 envs x 32; base_octarotor and
+               base_random (lee_position_control) and base_rov
+               (rov_fully_actuated_control) at 1024 envs for 100 steps,
+               finite poses; the device's idle share of a variant step and
+               of a robot step; no kernel launch on any of these paths.
 
 Before the last line it prints one JSON object with a record per kernel;
 the last line is {"ok": true, "device": {...}}. Any failure raises and the
@@ -261,6 +279,23 @@ RADAR_PPO_ITERATIONS = 2
 RADAR_RNN_HIDDEN = 128             # the radar recipe's GRU
 LIDAR_NAV_POLICY = NETWORKS / "lidar_navigation_policy.npz"
 RADAR_NAV_POLICY = NETWORKS / "radar_navigation_policy.npz"
+COLLISION_STEPS = 30               # train_vae --collision_targets at the JAX CLI's defaults
+COLLISION_ARGS = ["--arch", "conv", "--collision_targets", "--log_every", "1"]
+VARIANT_STEPS = 100
+VARIANT_TASKS = {                  # name -> the observation width; each at its config's envs
+    "position_setpoint_task_sim2real": 17,
+    "position_setpoint_task_acceleration_sim2real": 17,
+    "position_setpoint_task_sim2real_end_to_end": 15,
+    "position_setpoint_task_sim2real_px4": 15,
+}
+VARIANT_PPO_TASK = "position_setpoint_task_sim2real_end_to_end"
+VARIANT_PPO_ENVS = 4096
+VARIANT_PPO_ITERATIONS = 3
+ROBOT_ENVS = 1024
+ROBOT_STEPS = 100
+ROBOT_PAIRS = (("base_octarotor", "lee_position_control"),
+               ("base_random", "lee_position_control"),
+               ("base_rov", "rov_fully_actuated_control"))
 STATE_STEP_ENVS = 16384
 STATE_STEPS = 100
 POSITION_POLICY = (Path(__file__).resolve().parent
@@ -1806,6 +1841,189 @@ def lidar_phase(torch, port, rc, card):
     return launches, args, n_tri
 
 
+def collision_phase(torch, port, rc, ac, card):
+    """train_vae --collision_targets at the JAX CLI's defaults (conv VAE,
+    batch 64, 135x240, Adam 1e-4) for COLLISION_STEPS steps: finite losses,
+    K1 (the noisy raw render) and K2 (the inflated scene's render) once per
+    step each and nothing else; ms per step and its split; K2 on the
+    inflated table bit-equal to its plain version, timed with its bound.
+    Returns (launches, K2's timing record on the inflated table)."""
+    from aerial_gym_simulator_tpu_torch.models import train_vae
+    from aerial_gym_simulator_tpu_torch.models.vae import vae_loss
+    from aerial_gym_simulator_tpu_torch.sensors.raycast_sensor import _pack, sensor_world_pose
+    from aerial_gym_simulator_tpu_torch.sim.structs import replace
+    from aerial_gym_simulator_tpu_torch.utils.collision_image_generator import (
+        inflate_scene, render_inflated_depth)
+
+    args = train_vae.build_parser().parse_args(COLLISION_ARGS
+                                               + ["--steps", str(COLLISION_STEPS)])
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(rc.LAUNCHES, ac.LAUNCHES)
+    t0 = time.perf_counter()
+    model, history = train_vae.train(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**rc.LAUNCHES, **ac.LAUNCHES}
+    losses = [h["loss"] for h in history]
+    steady = (history[-1]["wall_s"] - history[4]["wall_s"]) / (COLLISION_STEPS - 5) * 1e3
+    log(f"collision: train_vae --arch conv --collision_targets, batch {args.batch}, "
+        f"{args.image_h}x{args.image_w}, lr {args.lr}: {COLLISION_STEPS} steps in {wall:.2f} s "
+        f"incl. set-up, {steady:.2f} ms/step after the first 5 | {card}")
+    log(f"collision: loss {losses[0]:.5f} -> {losses[-1]:.5f} (bce {history[-1]['bce']:.5f}, "
+        f"kld {history[-1]['kld']:.4f}), launches {launches}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if not all(math.isfinite(h[k]) for h in history for k in ("loss", "bce", "kld")):
+        raise AssertionError(f"collision: non-finite loss in {losses}")
+    want = {"raycast_depth": COLLISION_STEPS, "raycast_seg": COLLISION_STEPS,
+            "raycast_normals": 0, "raycast_rgb": 0, **attention_counts(ac)}
+    if launches != want:
+        raise AssertionError(f"collision launches {launches}, expected {want}")
+
+    # the split of a step on fresh batches
+    env = port.SimBuilder().build_env("base_sim", "env_with_obstacles",
+                                      "base_quadrotor_with_camera", "lee_velocity_control",
+                                      num_envs=args.batch, seed=123)
+    params, state = env.params, env.state
+    optimizer = torch.optim.Adam(model.parameters(), lr=args.lr, eps=1e-8)
+    gen = torch.Generator(device=env.device).manual_seed(1)
+    hw = (args.image_h, args.image_w)
+    split = {"sample+render": 0.0, "inflated render": 0.0, "forward": 0.0, "backward": 0.0,
+             "Adam": 0.0}
+    reps = 5
+    for rep in range(reps + 1):
+        with torch.no_grad():
+            (state, batch, targets), t_all = timed(
+                torch, lambda: train_vae.sample_batch(params, state, hw, True))
+            _, t_infl = timed(torch, lambda: render_inflated_depth(params, state))
+        optimizer.zero_grad(set_to_none=True)
+        (loss, _), t_f = timed(torch, lambda: vae_loss(model, batch, generator=gen,
+                                                        targets=targets))
+        _, t_b = timed(torch, loss.backward)
+        _, t_o = timed(torch, optimizer.step)
+        if rep:                                            # the first pass warms up
+            for name, t in zip(split, (t_all - t_infl, t_infl, t_f, t_b, t_o)):
+                split[name] += t / reps
+    log("collision: split " + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items())
+        + f" = {sum(split.values()):.2f} ms/step (the inflated render timed alone on the "
+        f"batch's state, the rest of sample_batch the remainder) | {card}")
+    if not (targets.min() >= 0.0 and targets.max() <= 1.0 and not torch.equal(targets, batch)):
+        raise AssertionError("collision: targets outside [0, 1] or equal to the inputs")
+
+    # K2 on the inflated table of the last batch's state
+    cam = params.camera
+    radius = float(params.robot.collision_radius)
+    inflated = replace(params, scene=inflate_scene(params.scene, radius))
+    pos_w, quat_w = sensor_world_pose(cam, state, state.cam_mount_pos, state.cam_mount_quat)
+    k2_args = _pack(inflated, state, cam, pos_w, quat_w, cam.depth_multiplier)
+    tag = f"collision (inflated by {radius:.4f} m)"
+    rec, _ = time_mode(torch, rc, k2_args, params.scene.n_tri, "raycast_seg", card, tag)
+    del model, env, optimizer, k2_args, inflated
+    torch.cuda.empty_cache()
+    return launches, dict(rec, launches=launches["raycast_seg"], library_ms=None,
+                          inflation_radius_m=radius)
+
+
+def variants_phase(torch, port, rc, ac, card):
+    """The position-task variants through task_registry.make_task at their
+    configs' envs, VARIANT_STEPS steps each from seeded actions; PPO on the
+    end-to-end task; the 8-motor robots stepped through SimBuilder; the
+    device's idle share of a variant step and a robot step. No kernel runs
+    on these paths: every launch count stays 0."""
+    from aerial_gym_simulator_tpu_torch.rl.ppo import PPOConfig, PPOTrainer
+
+    zero_counts(rc.LAUNCHES, ac.LAUNCHES)
+    busy = {}
+    for name, obs_dim in VARIANT_TASKS.items():
+        task = port.task_registry.make_task(name)
+        n = task.num_envs
+        gen = torch.Generator(device=task.device).manual_seed(0)
+        actions = torch.rand((VARIANT_STEPS, n, 4), generator=gen, device=task.device) * 2 - 1
+        obs, *_ = task.reset()
+        totals = torch.zeros(3, device=task.device)
+        finite = torch.ones((), dtype=torch.bool, device=task.device)
+        task.step(actions[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for a in actions:
+            obs, rew, term, trunc, _ = task.step(a)
+            totals += torch.stack([rew.mean(), term.sum(), trunc.sum()])
+            finite &= torch.isfinite(obs["observations"]).all() & torch.isfinite(rew).all()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        reward_mean, crashes, truncations = (float(x) for x in totals)
+        cfg = task.task_config
+        log(f"variants: {name} ({cfg.robot_name}, {cfg.controller_name}) {n} envs, "
+            f"{VARIANT_STEPS} steps: {VARIANT_STEPS * n / dt:.1f} env-steps/s "
+            f"({dt / VARIANT_STEPS * 1e3:.2f} ms/step), reward mean "
+            f"{reward_mean / VARIANT_STEPS:.4f}, crashes {crashes:.0f}, truncations "
+            f"{truncations:.0f} | {card}")
+        shape = tuple(obs["observations"].shape)
+        if not bool(finite) or shape != (n, obs_dim) or tuple(rew.shape) != (n,):
+            raise AssertionError(f"variants: {name}: finite {bool(finite)}, obs {shape}")
+        if task.params.controller.num_actions != 4:
+            raise AssertionError(f"variants: {name} takes "
+                                 f"{task.params.controller.num_actions} actions")
+        if name == VARIANT_PPO_TASK:
+            busy[name] = device_busy(torch, lambda: task.step(actions[0]), 10)
+        task.close()
+        del task, actions
+
+    # PPO on the end-to-end task at PPOConfig's other defaults
+    task = port.task_registry.make_task(VARIANT_PPO_TASK, num_envs=VARIANT_PPO_ENVS)
+    ppo_cfg = PPOConfig(num_envs=VARIANT_PPO_ENVS)
+    trainer = PPOTrainer(task, ppo_cfg)
+    torch.cuda.reset_peak_memory_stats()
+    ppo_iterations(torch, trainer, VARIANT_PPO_ITERATIONS, "variants ppo", card)
+    if task._carry is not trainer.env_carry:
+        raise AssertionError("variants ppo: set_carry did not hand the carry back to the task")
+    rollout, t_roll = timed(torch, trainer.collect_rollout)
+    _, t_upd = timed(torch, lambda: trainer.update(rollout))
+    n_mb = ppo_cfg.epochs * trainer.n_minibatches
+    log(f"variants ppo: split of a fourth iteration: rollout {t_roll:.1f} ms "
+        f"({t_roll / ppo_cfg.horizon:.2f} ms per env step), update {t_upd:.1f} ms ({n_mb} "
+        f"minibatch steps, {t_upd / n_mb:.2f} ms each), peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB | {card}")
+    task.close()
+    del trainer, rollout, task
+    torch.cuda.empty_cache()
+
+    # the 8-motor robots: reversible thrust, full-rank allocation
+    for robot, controller in ROBOT_PAIRS:
+        env = port.SimBuilder().build_env("base_sim", "empty_env", robot, controller,
+                                          num_envs=ROBOT_ENVS, seed=0)
+        env.reset()
+        A = env.params.controller.num_actions
+        gen = torch.Generator(device=env.device).manual_seed(1)
+        a = torch.rand((ROBOT_ENVS, A), generator=gen, device=env.device) - 0.5
+        if A == 7:                                   # position + a near-level attitude
+            a[:, 3:7] = 0.1 * a[:, 3:7] + torch.tensor([0.0, 0.0, 0.0, 1.0], device=env.device)
+        env.step(a)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ROBOT_STEPS):
+            env.step(a)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        st = env.state
+        finite = bool(torch.isfinite(st.pos).all() and torch.isfinite(st.quat).all())
+        log(f"variants: {robot} + {controller}, {ROBOT_ENVS} envs, {ROBOT_STEPS} steps: "
+            f"{ROBOT_STEPS * ROBOT_ENVS / dt:.1f} env-steps/s ({dt / ROBOT_STEPS * 1e3:.2f} "
+            f"ms/step), motor thrust in [{float(st.motor_thrust.min()):.3f}, "
+            f"{float(st.motor_thrust.max()):.3f}] N, crashes {int(st.crashes.sum())}, finite "
+            f"poses {finite} | {card}")
+        if not finite:
+            raise AssertionError(f"variants: {robot}: non-finite pose")
+        if robot == "base_octarotor":
+            busy[f"{robot} env.step"] = device_busy(torch, lambda: env.step(a), 10)
+        env.delete_env()
+        del env
+    log("variants: under the profiler: " + "; ".join(
+        f"{k} {busy_text(*v)}" for k, v in busy.items()) + f" | {card}")
+    launches = {**rc.LAUNCHES, **ac.LAUNCHES}
+    if any(launches.values()):
+        raise AssertionError(f"variants: a kernel launched on a state-only path: {launches}")
+
+
 def time_mode(torch, rc, args, n_tri, name, card, tag, face=None):
     """One ray-cast mode at one path's shapes: kernel ms by CUDA events, the
     exact check against the plain version (timed once), and the bound.
@@ -2244,6 +2462,21 @@ def main(argv=None) -> int:
     records[2]["launches"] += navppo_launches["attention_fwd"]
     records[2]["launches_navppo_path"] = navppo_launches["attention_fwd"]
     records[2]["navppo_check"] = navppo_check
+
+    log(f"elapsed {time.perf_counter() - t_run:.1f} s: phase 10 collision")
+    # 10. collision labels: train_vae --collision_targets (K1 + K2 per step)
+    collision_launches, k2_collision = collision_phase(torch, port, rc, ac, card)
+    records[0]["launches"] += collision_launches["raycast_depth"]
+    records[0]["launches_collision_path"] = collision_launches["raycast_depth"]
+    records[1]["launches"] += collision_launches["raycast_seg"]
+    records[1]["launches_collision_path"] = collision_launches["raycast_seg"]
+    records[1][f"at_{TRAIN_BATCH}x{135 * 240}_collision"] = k2_collision
+    records[1]["max_abs_err"] = max(records[1]["max_abs_err"], k2_collision["max_abs_err"])
+
+    log(f"elapsed {time.perf_counter() - t_run:.1f} s: phase 11 variants")
+    # 11. the position-task variants, PPO on the end-to-end task, the
+    #     8-motor robots: state-only paths, no kernel launch
+    variants_phase(torch, port, rc, ac, card)
 
     log(f"elapsed {time.perf_counter() - t_run:.1f} s: all phases")
     log(json.dumps({"kernels": records + mode_records}))

@@ -313,6 +313,32 @@ def test_kernel_matches_plain_version_obstacle_env(cuda_device):
 
 
 @pytest.mark.cuda
+def test_inflated_render_launches_the_seg_kernel_bit_equal(cuda_device):
+    """render_inflated_depth on the card: one K2 launch on the inflated
+    table, its depth and seg bit-equal to the plain version's."""
+    from aerial_gym_simulator_tpu_torch.sensors.raycast_sensor import _pack, sensor_world_pose
+    from aerial_gym_simulator_tpu_torch.sim.structs import replace
+    from aerial_gym_simulator_tpu_torch.utils.collision_image_generator import (
+        inflate_scene, render_inflated_depth)
+    env = port.SimBuilder().build_env("base_sim", "env_with_obstacles",
+                                      "base_quadrotor_with_camera", "lee_velocity_control",
+                                      num_envs=4, seed=2)
+    for _ in range(5):
+        env.step(torch.zeros((4, 4), device=cuda_device))
+    params, st = env.params, env.state
+    before = rc.LAUNCHES["raycast_seg"]
+    depth, seg = render_inflated_depth(params, st)
+    assert rc.LAUNCHES["raycast_seg"] == before + 1
+    sp = params.camera
+    inflated = replace(params, scene=inflate_scene(params.scene, params.robot.collision_radius))
+    pos_w, quat_w = sensor_world_pose(sp, st, st.cam_mount_pos, st.cam_mount_quat)
+    d_r, s_r = rc.raycast_reference(*_pack(inflated, st, sp, pos_w, quat_w, sp.depth_multiplier),
+                                    n_tri=inflated.scene.n_tri)
+    torch.cuda.synchronize()
+    assert torch.equal(depth.reshape(d_r.shape), d_r) and torch.equal(seg.reshape(s_r.shape), s_r)
+
+
+@pytest.mark.cuda
 def test_kernel_wrapper_checks_on_card(cuda_device):
     pose, prims, dirs, mult = synthetic_scene(cuda_device)
     with pytest.raises(ValueError):

@@ -67,6 +67,8 @@ CASES = {
     "rotation_matrix_to_quat": ("q", lambda m, q: m.rotation_matrix_to_quat(
         m.quat_to_rotation_matrix(q))),
     "vehicle_frame_quat_from_quat": ("q", lambda m, q: m.vehicle_frame_quat_from_quat(q)),
+    "quat_apply_inverse": ("qv", lambda m, q, v: m.quat_apply_inverse(q, v)),
+    "exp_penalty_func": ("s", lambda m, x: m.exp_penalty_func(x, 0.3, 4.0)),
 }
 
 

@@ -402,3 +402,48 @@ def test_shipped_radar_archive_acts_the_same_in_both_loaders():
     assert not port_policy.hidden[[1, 4]].any() and port_policy.hidden[0].any()
     with pytest.raises(ValueError, match="num_envs"):
         port_policy(torch.zeros(n + 1, 337))
+
+
+def test_shipped_radar_archive_takes_one_1d_observation():
+    """A single (337,) observation is a batch of one and gives a (4,) action,
+    as in the JAX loader; with num_envs > 1 a 1-D observation still raises."""
+    port_policy = load_policy_npz(RADAR_NPZ, device="cpu", num_envs=1)
+    jax_policy = j_load_policy(RADAR_NPZ, num_envs=1)
+    rs = np.random.RandomState(11)
+    for _ in range(3):
+        obs = (rs.standard_normal(337) * 2).astype(np.float32)
+        got = port_policy(torch.from_numpy(obs)).numpy()
+        want = jax_policy(obs)
+        assert got.shape == want.shape == (4,)
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(port_policy.hidden.numpy(), jax_policy.hidden, atol=1e-5,
+                               rtol=0)
+    with pytest.raises(ValueError, match="num_envs"):
+        load_policy_npz(RADAR_NPZ, device="cpu", num_envs=3)(torch.zeros(337))
+
+
+def test_feed_forward_encoder_archive_takes_one_1d_observation(tmp_path):
+    """An ``n_enc`` archive without a recurrent core: a 1-D observation gives
+    a 1-D action equal to the JAX loader's, and to row 0 of a batch."""
+    rs = np.random.RandomState(12)
+    dims = (OBS, 16, 12)
+    flat = {"activation": np.array("elu"), "normalize_obs": np.array(True),
+            "norm_mean": rs.standard_normal(OBS).astype(np.float32),
+            "norm_var": rs.uniform(0.5, 2.0, OBS).astype(np.float32),
+            "n_enc": np.array(len(dims) - 1), "recurrent": np.array(False),
+            "head_W": rs.standard_normal((dims[-1], 2 * ACT)).astype(np.float32) * 0.3,
+            "head_b": rs.standard_normal(2 * ACT).astype(np.float32) * 0.1}
+    for i in range(len(dims) - 1):
+        flat[f"enc_W{i}"] = rs.standard_normal((dims[i], dims[i + 1])).astype(np.float32) * 0.3
+        flat[f"enc_b{i}"] = rs.standard_normal(dims[i + 1]).astype(np.float32) * 0.1
+    path = str(tmp_path / "ff.npz")
+    np.savez(path, **flat)
+    port_policy = load_policy_npz(path, device="cpu")
+    jax_policy = j_load_policy(path)
+    assert isinstance(port_policy, RecurrentPolicy) and not port_policy.recurrent
+    obs = rs.standard_normal((3, OBS)).astype(np.float32)
+    got = port_policy(torch.from_numpy(obs[0])).numpy()
+    assert got.shape == (ACT,)
+    np.testing.assert_allclose(got, jax_policy(obs[0]), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got, port_policy(torch.from_numpy(obs)).numpy()[0], atol=1e-6,
+                               rtol=0)

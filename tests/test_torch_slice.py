@@ -164,6 +164,23 @@ def test_scan_covers_the_navigation_rl_slice():
         assert module in scanned, module
 
 
+POSITION_VARIANT_MODULES = ("tasks/position_setpoint_variants.py",
+                            "utils/collision_image_generator.py", "models/train_vae.py",
+                            "config/sim_config/base_sim_config.py",
+                            "config/env_config/base_env_config.py",
+                            "registry/registries.py", "sim/sim_builder.py")
+
+
+def test_scan_covers_the_position_variant_slice():
+    """The scan reads every module of the position-task variants, the new
+    controllers and robots, and the collision-label render."""
+    scanned = {str(p.relative_to(PKG)) for p in _sources() if PKG in p.parents}
+    for module in POSITION_VARIANT_MODULES + ("control/controllers.py", "sim/dynamics.py",
+                                              "config/robot_config/catalog.py",
+                                              "config/__init__.py", "utils/math.py"):
+        assert module in scanned, module
+
+
 def test_importing_every_module_loads_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"

@@ -42,6 +42,7 @@ from aerial_gym_simulator_tpu_torch.models.vae import (
     Decoder, SameConvTranspose2d, VAEImageEncoder, resize_bilinear, vae_loss)
 from aerial_gym_simulator_tpu_torch.models.vit import DepthViT, ViTImageEncoder
 from aerial_gym_simulator_tpu_torch.sim import convert as cv
+from aerial_gym_simulator_tpu_torch.sim.structs import replace
 
 HW = (27, 48)
 VIT_KW = dict(latent_dim=8, out_hw=(36, 48), patch=(9, 16), dim=32, depth=2, num_heads=2)
@@ -408,8 +409,13 @@ def test_sample_batch_renders_fresh_images(small_env):
     assert not torch.equal(state.pos, small_env.state.pos)          # teleported
     _, again, _ = train_vae.sample_batch(small_env.params, state, (36, 48))
     assert not torch.equal(again, inputs)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_vae.sample_batch(small_env.params, state, (36, 48), collision_targets=True)
+    # collision targets: the inflated scene's depth, not the inputs, in [0, 1]
+    # (from a generator of its own: the module's env keeps its stream)
+    own = replace(state, rng=torch.Generator().manual_seed(3))
+    _, inputs, targets = train_vae.sample_batch(small_env.params, own, (36, 48),
+                                                collision_targets=True)
+    assert tuple(targets.shape) == tuple(inputs.shape) and not torch.equal(targets, inputs)
+    assert float(targets.min()) >= 0.0 and float(targets.max()) <= 1.0
 
 
 def test_train_step_lowers_the_loss_on_cpu(small_env):
