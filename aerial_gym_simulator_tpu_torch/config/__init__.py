@@ -44,9 +44,12 @@ def register_all():
     robot_catalog.register_robots(robot_registry)
     for name in ("lee_position_control", "lee_velocity_control", "lee_attitude_control",
                  "lee_rates_control", "lee_acceleration_control",
-                 "lee_velocity_steering_angle_control", "fully_actuated_control"):
+                 "lee_velocity_steering_angle_control"):
         controller_registry.register(
             name, (lambda n: (lambda: lee_controller_config(n)))(name))
+    # the 6-DoF pose controller takes 7 actions [x, y, z, qx, qy, qz, qw]
+    controller_registry.register(
+        "fully_actuated_control", lambda: lee_controller_config("fully_actuated_control", 7))
     controller_registry.register("no_control", NoControlConfig)
 
     # robot-specific gain sets, "{robot}_{mode}_control" on the Lee base

@@ -45,16 +45,10 @@ class TaskRegistry:
 
     def __init__(self):
         self._tasks: Dict[str, Tuple[type, Callable[[], Any]]] = {}
-        # names the JAX package registers and the port does not have yet
-        self._not_ported: Dict[str, str] = {}
 
     def register_task(self, name: str, task_class: type,
                       config_factory: Callable[[], Any]):
         self._tasks[name] = (task_class, config_factory)
-
-    def register_not_ported(self, name: str, reason: str):
-        """``name`` stays unknown; asking for it raises with ``reason``."""
-        self._not_ported[name] = reason
 
     def get_task_names(self):
         return sorted(self._tasks)
@@ -68,10 +62,9 @@ class TaskRegistry:
         modified copy from get_task_config() for one-off customization);
         ``device="cpu"`` in kwargs runs the task on the CPU."""
         if task_name not in self._tasks:
-            why = (f" ({self._not_ported[task_name]})" if task_name in self._not_ported
-                   else "")
             raise KeyError(
-                f"unknown task '{task_name}'{why}; registered: {sorted(self._tasks)}")
+                f"unknown task '{task_name}' (ROADMAP.md §A lists the tasks not "
+                f"ported yet); registered: {sorted(self._tasks)}")
         task_class, config_factory = self._tasks[task_name]
         config = task_config if task_config is not None else config_factory()
         return task_class(config, seed=seed, num_envs=num_envs,

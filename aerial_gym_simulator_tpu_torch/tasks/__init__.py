@@ -32,9 +32,6 @@ def register_all():
                                 PositionSetpointTaskVariant, EndToEndConfig)
     task_registry.register_task("position_setpoint_task_sim2real_px4",
                                 PositionSetpointTaskVariant, Px4Config)
-    for name in ("position_setpoint_task_reconfigurable", "position_setpoint_task_morphy"):
-        task_registry.register_not_ported(
-            name, "needs the articulated robots, not ported yet: ROADMAP.md §A8")
     task_registry.register_task("lidar_navigation_task", LiDARNavigationTask,
                                 LidarNavigationTaskConfig)
     task_registry.register_task("radar_navigation_task", RadarNavigationTask,

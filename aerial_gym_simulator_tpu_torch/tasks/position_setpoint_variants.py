@@ -89,9 +89,6 @@ class VariantTaskConfig:
     # (motor-command variants); empty: the action is used as it is
     action_limit_min: Tuple[float, ...] = ()
     action_limit_max: Tuple[float, ...] = ()
-    num_motors: int = 4
-    num_joints: int = 0
-    reward_parameters: dict = field(default_factory=dict)
 
 
 def Sim2RealConfig() -> VariantTaskConfig:

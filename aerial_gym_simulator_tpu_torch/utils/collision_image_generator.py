@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import raycast_cuda
-from ..sensors.raycast_sensor import _pack, sensor_world_pose
+from ..sensors.raycast_sensor import cast_inputs
 from ..sim.structs import SimParams, SimState, replace
 
 
@@ -35,12 +35,12 @@ def inflate_scene(scene, radius: float):
     return replace(scene, env_prim_size=new_size)
 
 
-def render_inflated_depth(params: SimParams, state: SimState, inflation_radius: float = None,
-                          use_camera: bool = True):
-    """Depth and segmentation of the inflated scene from the camera (or the
-    lidar) -> (depth (N, H, W) f32, seg (N, H, W) int32): the hit distance
-    times the sensor's depth multiplier, with no noise and no range limits.
-    The radius defaults to the robot's collision radius."""
+def inflated_cast_inputs(params: SimParams, state: SimState, inflation_radius: float = None,
+                         use_camera: bool = True):
+    """The ray-cast kernel's inputs for the inflated scene from the camera
+    (or the lidar), packed as ``raycast_sensor.cast_inputs`` packs every
+    capture, with the robot's collision radius as the default radius ->
+    (the inputs of ``raycast_cuda.raycast``, the scene's n_tri)."""
     sp = params.camera if use_camera else params.lidar
     if sp is None:
         raise ValueError("no sensor configured on this robot")
@@ -51,9 +51,17 @@ def render_inflated_depth(params: SimParams, state: SimState, inflation_radius: 
     inflated = replace(params, scene=inflate_scene(params.scene, inflation_radius))
     mount_pos = state.cam_mount_pos if use_camera else state.lidar_mount_pos
     mount_quat = state.cam_mount_quat if use_camera else state.lidar_mount_quat
-    pos_w, quat_w = sensor_world_pose(sp, state, mount_pos, mount_quat)
-    depth, seg = raycast_cuda.raycast(
-        *_pack(inflated, state, sp, pos_w, quat_w, sp.depth_multiplier), want_seg=True,
-        n_tri=inflated.scene.n_tri)
+    return cast_inputs(inflated, state, sp, mount_pos, mount_quat), inflated.scene.n_tri
+
+
+def render_inflated_depth(params: SimParams, state: SimState, inflation_radius: float = None,
+                          use_camera: bool = True):
+    """Depth and segmentation of the inflated scene from the camera (or the
+    lidar) -> (depth (N, H, W) f32, seg (N, H, W) int32): the hit distance
+    times the sensor's depth multiplier, with no noise and no range limits.
+    The radius defaults to the robot's collision radius."""
+    inputs, n_tri = inflated_cast_inputs(params, state, inflation_radius, use_camera)
+    depth, seg = raycast_cuda.raycast(*inputs, want_seg=True, n_tri=n_tri)
+    sp = params.camera if use_camera else params.lidar
     N = state.pos.shape[0]
     return depth.reshape(N, sp.height, sp.width), seg.reshape(N, sp.height, sp.width)

@@ -1850,10 +1850,8 @@ def collision_phase(torch, port, rc, ac, card):
     Returns (launches, K2's timing record on the inflated table)."""
     from aerial_gym_simulator_tpu_torch.models import train_vae
     from aerial_gym_simulator_tpu_torch.models.vae import vae_loss
-    from aerial_gym_simulator_tpu_torch.sensors.raycast_sensor import _pack, sensor_world_pose
-    from aerial_gym_simulator_tpu_torch.sim.structs import replace
     from aerial_gym_simulator_tpu_torch.utils.collision_image_generator import (
-        inflate_scene, render_inflated_depth)
+        inflated_cast_inputs, render_inflated_depth)
 
     args = train_vae.build_parser().parse_args(COLLISION_ARGS
                                                + ["--steps", str(COLLISION_STEPS)])
@@ -1909,15 +1907,12 @@ def collision_phase(torch, port, rc, ac, card):
     if not (targets.min() >= 0.0 and targets.max() <= 1.0 and not torch.equal(targets, batch)):
         raise AssertionError("collision: targets outside [0, 1] or equal to the inputs")
 
-    # K2 on the inflated table of the last batch's state
-    cam = params.camera
+    # K2 on the inflated table of the last batch's state, as render_inflated_depth packs it
     radius = float(params.robot.collision_radius)
-    inflated = replace(params, scene=inflate_scene(params.scene, radius))
-    pos_w, quat_w = sensor_world_pose(cam, state, state.cam_mount_pos, state.cam_mount_quat)
-    k2_args = _pack(inflated, state, cam, pos_w, quat_w, cam.depth_multiplier)
+    k2_args, n_tri = inflated_cast_inputs(params, state, radius)
     tag = f"collision (inflated by {radius:.4f} m)"
-    rec, _ = time_mode(torch, rc, k2_args, params.scene.n_tri, "raycast_seg", card, tag)
-    del model, env, optimizer, k2_args, inflated
+    rec, _ = time_mode(torch, rc, k2_args, n_tri, "raycast_seg", card, tag)
+    del model, env, optimizer, k2_args
     torch.cuda.empty_cache()
     return launches, dict(rec, launches=launches["raycast_seg"], library_ms=None,
                           inflation_radius_m=radius)

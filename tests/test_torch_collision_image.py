@@ -100,6 +100,22 @@ def test_render_inflated_depth_matches_jax(carried, radius):
     assert (got[0] <= raw + 1e-4).all() and (got[0] < raw - 1e-3).any()
 
 
+def test_inflated_cast_inputs_are_what_render_inflated_depth_casts(carried):
+    """The packed inflated table: the raw scene's table with the grown
+    sizes, and its plain ray cast is render_inflated_depth's output."""
+    from aerial_gym_simulator_tpu_torch.ops import raycast_cuda as rc
+    from aerial_gym_simulator_tpu_torch.sensors.raycast_sensor import cast_inputs
+    jp, js, tp, ts = carried
+    inputs, n_tri = t_cig.inflated_cast_inputs(tp, ts, 0.25)
+    raw = cast_inputs(tp, ts, tp.camera, ts.cam_mount_pos, ts.cam_mount_quat)
+    assert n_tri == tp.scene.n_tri and len(inputs) == len(raw)
+    assert torch.equal(inputs[0], raw[0]) and inputs[4:] == raw[4:]
+    assert not torch.equal(inputs[1], raw[1])
+    d, s = rc.raycast_reference(*inputs, n_tri=n_tri)
+    depth, seg = t_cig.render_inflated_depth(tp, ts, 0.25)
+    assert torch.equal(depth.reshape(d.shape), d) and torch.equal(seg.reshape(s.shape), s)
+
+
 def test_collision_targets_match_jax(carried):
     """sample_batch teleports the robots from the port's generator; the JAX
     function renders the same teleported state, and its targets (depth over

@@ -316,7 +316,7 @@ def test_kernel_matches_plain_version_obstacle_env(cuda_device):
 def test_inflated_render_launches_the_seg_kernel_bit_equal(cuda_device):
     """render_inflated_depth on the card: one K2 launch on the inflated
     table, its depth and seg bit-equal to the plain version's."""
-    from aerial_gym_simulator_tpu_torch.sensors.raycast_sensor import _pack, sensor_world_pose
+    from aerial_gym_simulator_tpu_torch.sensors.raycast_sensor import cast_inputs
     from aerial_gym_simulator_tpu_torch.sim.structs import replace
     from aerial_gym_simulator_tpu_torch.utils.collision_image_generator import (
         inflate_scene, render_inflated_depth)
@@ -331,8 +331,8 @@ def test_inflated_render_launches_the_seg_kernel_bit_equal(cuda_device):
     assert rc.LAUNCHES["raycast_seg"] == before + 1
     sp = params.camera
     inflated = replace(params, scene=inflate_scene(params.scene, params.robot.collision_radius))
-    pos_w, quat_w = sensor_world_pose(sp, st, st.cam_mount_pos, st.cam_mount_quat)
-    d_r, s_r = rc.raycast_reference(*_pack(inflated, st, sp, pos_w, quat_w, sp.depth_multiplier),
+    d_r, s_r = rc.raycast_reference(*cast_inputs(inflated, st, sp, st.cam_mount_pos,
+                                                 st.cam_mount_quat),
                                     n_tri=inflated.scene.n_tri)
     torch.cuda.synchronize()
     assert torch.equal(depth.reshape(d_r.shape), d_r) and torch.equal(seg.reshape(s_r.shape), s_r)

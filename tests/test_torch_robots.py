@@ -230,6 +230,10 @@ def test_sim_env_and_controller_registrations_match_jax():
                   "K_pos_tensor_max", "K_vel_tensor_min", "K_vel_tensor_max",
                   "K_rot_tensor_min", "K_rot_tensor_max", "K_angvel_tensor_min",
                   "K_angvel_tensor_max", "randomize_params", "max_yaw_rate"):
+            if (name, f) == ("fully_actuated_control", "num_actions"):
+                # the JAX package registers 4, a width its controller cannot read
+                assert (t.num_actions, j.num_actions) == (7, 4)
+                continue
             assert getattr(t, f) == getattr(j, f), (name, f)
     assert set(NEW_ROBOTS) <= set(t_robot.get_names())
 
@@ -282,6 +286,21 @@ def test_eight_motor_robots_step_like_jax(robot, controller):
                                    atol=atol, rtol=0, err_msg=f)
     np.testing.assert_array_equal(ts.crashes.numpy(), np.asarray(js.crashes))
     assert torch.isfinite(ts.pos).all()
+
+
+@pytest.mark.parametrize("controller", ["fully_actuated_control",
+                                        "rov_fully_actuated_control"])
+def test_fully_actuated_names_build_an_rov_that_steps(controller):
+    n = 4
+    env = port.SimBuilder().build_env("base_sim", "empty_env", "base_rov", controller,
+                                      device="cpu", num_envs=n)
+    env.reset()
+    assert env.params.controller.num_actions == 7
+    hold = torch.tensor([0.5, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0]).expand(n, 7)
+    s = env.state
+    for _ in range(5):
+        s = td.env_step(env.params, s, hold)
+    assert torch.isfinite(s.pos).all() and torch.isfinite(s.motor_thrust).all()
 
 
 def test_rov_damping_is_zero_and_the_controller_compensates_gravity():
