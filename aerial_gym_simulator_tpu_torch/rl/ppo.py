@@ -18,13 +18,24 @@ device value back to the host: the learning rate lives in a 0-d tensor that
 ``_adapt_lr`` moves with ``torch.where``, ``torch.optim.Adam`` takes it as a
 tensor (the fused implementation on a GPU), the clip by the global norm
 scales by a device value, and metrics stay on the device until a log point.
+
+A run is resumable: ``train(ckpt_dir=..., save_every=..., resume=True)``
+saves and restores the whole training state (``save_training_state``),
+every random stream included, so a resumed run continues the straight run
+bit for bit. ``python -m aerial_gym_simulator_tpu_torch.rl.ppo`` is the
+command line (``main``).
 """
 
 from __future__ import annotations
 
+import argparse
+import ast
 import dataclasses
 import logging
+import os
 import pickle
+import re
+import sys
 import time
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
@@ -32,6 +43,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import checkpoint
+from ..utils.metrics import MetricsWriter
 from .networks import (
     ActorCritic,
     ActorCriticGRU,
@@ -470,34 +483,152 @@ class PPOTrainer:
 
     # -- the loop -------------------------------------------------------------
 
-    def train(self, total_env_steps: Optional[int] = None, log_every: int = 10):
+    def train(self, total_env_steps: Optional[int] = None, log_every: int = 10,
+              logdir: Optional[str] = None, track: Optional[str] = None,
+              ckpt_dir: Optional[str] = None, save_every: int = 0, resume: bool = False):
         """Run ``total_env_steps // (num_envs * horizon)`` iterations (at
         least one) -> history, one dict of floats per log point. Metrics are
-        read back from the device at the log points only."""
+        read back from the device at the log points only.
+
+        ``logdir`` / ``track``: the log points also go to a
+        ``utils/metrics.MetricsWriter`` (``metrics.jsonl``, TensorBoard,
+        wandb). ``ckpt_dir`` / ``save_every``: the whole training state is
+        saved every ``save_every`` iterations and at the end;
+        ``resume=True`` first restores the newest state under ``ckpt_dir``
+        and continues from its iteration (nothing to train, and ``[]``
+        returned, when it is already at or past the requested ones).
+
+        ``env_steps_per_s`` is the steady rate from the end of the first
+        iteration of this call (the device is synchronized once there);
+        ``env_steps_per_s_cumulative`` counts this call's wall time from
+        its start."""
         cfg = self.cfg
         steps_per_iter = cfg.num_envs * cfg.horizon
         iters = max((total_env_steps or cfg.total_env_steps) // steps_per_iter, 1)
+        start_iter = 0
+        if resume and ckpt_dir and os.path.isdir(ckpt_dir):
+            start_iter = self.restore_training_state(ckpt_dir)
+        if start_iter >= iters:
+            logger.info("resume: checkpoint already at iter %d >= %d requested; nothing to "
+                        "train", start_iter, iters)
+            return []
+        last_saved = start_iter if start_iter else None
+        writer = MetricsWriter(logdir, track=track)
         history, t_start = [], time.perf_counter()
-        t_last, it_last = t_start, 0
-        for it in range(iters):
+        t_steady, steps_steady = None, 0
+        for it in range(start_iter, iters):
             metrics = self.train_iteration()
+            if t_steady is None:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                t_steady, steps_steady = time.perf_counter(), (it + 1) * steps_per_iter
+            if ckpt_dir and save_every and (it + 1) % save_every == 0:
+                self.save_training_state(ckpt_dir)
+                last_saved = it + 1
             if it % log_every == 0 or it == iters - 1:
                 names = sorted(metrics)
                 values = torch.stack([metrics[k].float() for k in names]).tolist()  # one sync
                 now = time.perf_counter()
                 m = dict(zip(names, values))
-                m.update(iter=it, env_steps=(it + 1) * steps_per_iter, wall_s=now - t_start,
-                         env_steps_per_s=(it + 1 - it_last) * steps_per_iter
-                         / max(now - t_last, 1e-9))
-                t_last, it_last = now, it + 1
+                m.update(iter=it, env_steps=(it + 1) * steps_per_iter, wall_s=now - t_start)
+                run_steps = m["env_steps"] - start_iter * steps_per_iter
+                m["env_steps_per_s_cumulative"] = run_steps / max(m["wall_s"], 1e-9)
+                dt, dsteps = now - t_steady, m["env_steps"] - steps_steady
+                m["env_steps_per_s"] = (dsteps / dt if dsteps > 0 and dt > 0
+                                        else m["env_steps_per_s_cumulative"])
                 history.append(m)
+                writer.write(m["env_steps"], m)
                 logger.info("it %4d steps %.2e reward %7.3f crash %.3f sps %.0f wall %.1fs",
                             it, m["env_steps"], m["reward_mean"], m["crash_rate"],
                             m["env_steps_per_s"], m["wall_s"])
+        writer.close()
+        if ckpt_dir and save_every and last_saved != iters:
+            self.save_training_state(ckpt_dir)
         if hasattr(self.task, "set_carry"):
             # the recurrent carry holds (task carry, hidden, done_prev)
             self.task.set_carry(self.env_carry[0] if cfg.rnn else self.env_carry)
         return history
+
+    # -- resumable training state ---------------------------------------------
+    # The bundle holds everything an iteration reads or draws from: the
+    # network, Adam's moments and step counts with the current lr, the
+    # normalizer, the env carry (with its generators) and observation, the
+    # trainer's generator (actions, shuffles), the task's host RNG where it
+    # has one, and the iteration count. Files are iter_<n>.pt under the
+    # directory, written atomically; the older of two is deleted only after
+    # the new one is in place.
+
+    def _adam_state(self):
+        """Adam's per-parameter state, with a fresh Adam's zeros for a
+        parameter it has not stepped yet, so the layout never depends on
+        whether an update ran."""
+        out = {}
+        for i, p in enumerate(self.network.parameters()):
+            st = self.optimizer.state.get(p, {})
+            out[i] = {"step": st.get("step", torch.zeros((), device=p.device)),
+                      "exp_avg": st.get("exp_avg", torch.zeros_like(p)),
+                      "exp_avg_sq": st.get("exp_avg_sq", torch.zeros_like(p))}
+        return out
+
+    def _task_py_rng(self):
+        sim_env = getattr(self.task, "sim_env", None)
+        return getattr(sim_env, "_py_rng", None)
+
+    def _training_bundle(self):
+        py_rng = self._task_py_rng()
+        return {"network": dict(self.network.state_dict()), "optimizer": self._adam_state(),
+                "lr": self.lr, "norm": dict(self.norm), "env_carry": self.env_carry,
+                "obs": self.obs, "generator": self.generator,
+                "task_py_rng": None if py_rng is None else py_rng.getstate(),
+                "iter": self._iter}
+
+    @staticmethod
+    def _checkpoints(dir_path: str):
+        """{iteration: path} of the training states under ``dir_path``."""
+        found = {}
+        for name in os.listdir(dir_path):
+            m = re.fullmatch(r"iter_(\d+)\.pt", name)
+            if m:
+                found[int(m.group(1))] = os.path.join(dir_path, name)
+        return found
+
+    def save_training_state(self, dir_path: str) -> str:
+        """Write the whole training state to ``<dir_path>/iter_<n>.pt``
+        (atomic); keep it and the newest earlier one, delete the rest."""
+        os.makedirs(dir_path, exist_ok=True)
+        path = os.path.join(dir_path, f"iter_{self._iter}.pt")
+        checkpoint.save_state(path, self._training_bundle())
+        older = sorted(n for n in self._checkpoints(dir_path) if n != self._iter)
+        for n in older[:-1]:
+            os.unlink(os.path.join(dir_path, f"iter_{n}.pt"))
+        logger.info("training state saved to %s (iter %d)", path, self._iter)
+        return path
+
+    def restore_training_state(self, dir_path: str) -> int:
+        """Restore the newest training state under ``dir_path`` -> the
+        iteration to resume from (0, with a warning, when there is none).
+        This trainer is the template: the file must come from the same
+        configuration, on the same device type."""
+        found = self._checkpoints(dir_path) if os.path.isdir(dir_path) else {}
+        if not found:
+            logger.warning("no training state under %s; starting fresh", dir_path)
+            return 0
+        path = found[max(found)]
+        saved = checkpoint.load_state(path, like=self._training_bundle())
+        self.network.load_state_dict(saved["network"])
+        state = self.optimizer.state_dict()
+        state["state"] = saved["optimizer"]
+        self.optimizer.load_state_dict(state)
+        self.lr = saved["lr"]
+        self.norm = saved["norm"]
+        self.env_carry, self.obs = saved["env_carry"], saved["obs"]
+        self.generator = saved["generator"]
+        if saved["task_py_rng"] is not None:
+            self._task_py_rng().setstate(saved["task_py_rng"])
+        self._iter = int(saved["iter"])
+        self._act_h = None          # a hidden state of the old parameters means nothing
+        logger.info("training state restored from %s (resuming at iter %d)", path, self._iter)
+        return self._iter
 
     # -- inference and checkpoints -------------------------------------------
 
@@ -568,3 +699,124 @@ class PPOTrainer:
         self._iter = blob["iter"]
         self._act_h = None          # a hidden state of the old parameters means nothing
         logger.info("checkpoint loaded from %s", path)
+
+
+# -- the command line ---------------------------------------------------------
+
+NOT_PORTED_MULTI = ("--multichip / --multihost (training across devices or hosts) are not "
+                    "ported yet: ROADMAP.md §A item 9")
+
+
+def _parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m aerial_gym_simulator_tpu_torch.rl.ppo",
+        description="Train a PPO policy on a registered task (on CUDA unless --cpu).")
+    p.add_argument("--task", default="position_setpoint_task")
+    p.add_argument("--num_envs", type=int, default=8192)
+    p.add_argument("--total_steps", type=int, default=50_000_000)
+    p.add_argument("--horizon", type=int, default=32)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--multichip", action="store_true",
+                   help="shard the env axis over all visible devices (not ported yet)")
+    p.add_argument("--multihost", action="store_true",
+                   help="initialize multi-host training first (not ported yet)")
+    p.add_argument("--logdir", default=None, help="write TensorBoard + metrics.jsonl here")
+    p.add_argument("--vae_params", default=None,
+                   help="frozen depth-encoder parameters (.pkl from models/train_vae) for "
+                        "the navigation task")
+    p.add_argument("--torch_vae", default=None,
+                   help="the reference framework's torch VAE .pth for the navigation task "
+                        "(models/torch_vae_import)")
+    p.add_argument("--track", default=None, choices=[None, "wandb"],
+                   help="also stream the metrics to wandb")
+    p.add_argument("--ckpt_dir", default=None,
+                   help="directory of the resumable training state")
+    p.add_argument("--save_every", type=int, default=50,
+                   help="save the training state every N iterations (with --ckpt_dir)")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the newest training state under --ckpt_dir")
+    p.add_argument("--entropy_coef", type=float, default=0.0,
+                   help="entropy bonus (the reference's sample-factory lidar/radar configs "
+                        "use exploration_loss_coeff 0.001)")
+    p.add_argument("--rnn", default=None, choices=[None, "gru"],
+                   help="recurrent policy core (GRU actor-critic)")
+    p.add_argument("--rnn_hidden", type=int, default=256)
+    p.add_argument("--save", default=None,
+                   help="write the final learner checkpoint here (the pickle that "
+                        "load_checkpoint and sim2real.policy.export_policy_npz read)")
+    p.add_argument("--task_kv", action="append", default=[], metavar="K=V",
+                   help="override a task-config attribute (the value parsed as a Python "
+                        "literal, else kept as a string), e.g. --task_kv "
+                        "radar_invalid_anneal_env_steps=150000000; repeatable")
+    p.add_argument("--cpu", action="store_true",
+                   help="run on the CPU (the default is CUDA, which must be available)")
+    return p
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    """The command line -> arguments; ``args.task_overrides`` holds the
+    parsed ``--task_kv`` pairs. An unknown task-config attribute,
+    ``--multichip`` and ``--multihost`` are parser errors."""
+    p = _parser()
+    args = p.parse_args(argv)
+    if args.multichip or args.multihost:
+        p.error(NOT_PORTED_MULTI)
+    from ..registry.registries import task_registry
+    if args.task not in task_registry.get_task_names():
+        p.error(f"unknown task {args.task!r}; registered: {task_registry.get_task_names()}")
+    template = task_registry.get_task_config(args.task)
+    args.task_overrides = {}
+    for kv in args.task_kv:
+        k, _, v = kv.partition("=")
+        if not hasattr(template, k):
+            p.error(f"--task_kv: task config has no attribute {k!r}")
+        try:
+            args.task_overrides[k] = ast.literal_eval(v)
+        except (ValueError, SyntaxError):
+            args.task_overrides[k] = v          # a plain string (e.g. a robot name)
+    return args
+
+
+def build_trainer(args: argparse.Namespace):
+    """The task and the trainer the command line describes -> (task,
+    trainer); nothing has trained yet."""
+    from ..registry.registries import task_registry
+    task_config = task_registry.get_task_config(args.task)
+    if args.vae_params or args.torch_vae:
+        task_config = dataclasses.replace(task_config, vae_params_path=args.vae_params,
+                                          torch_vae_path=args.torch_vae)
+    for k, v in args.task_overrides.items():
+        setattr(task_config, k, v)
+    task = task_registry.make_task(args.task, num_envs=args.num_envs, seed=args.seed,
+                                   task_config=task_config,
+                                   device="cpu" if args.cpu else None)
+    cfg = PPOConfig(num_envs=args.num_envs, horizon=args.horizon,
+                    minibatch_size=min(8192, args.num_envs * args.horizon),
+                    total_env_steps=args.total_steps, seed=args.seed,
+                    entropy_coef=args.entropy_coef, rnn=args.rnn, rnn_hidden=args.rnn_hidden)
+    return task, PPOTrainer(task, cfg)
+
+
+def main(argv=None):
+    """``python -m aerial_gym_simulator_tpu_torch.rl.ppo [flags]``: train,
+    optionally save, print the final reward -> the history."""
+    args = parse_args(argv)
+    if not logging.getLogger().handlers:
+        logging.basicConfig(level=logging.INFO, stream=sys.stdout,
+                            format="[%(asctime)s] %(name)s %(levelname)s: %(message)s",
+                            datefmt="%H:%M:%S")
+    task, trainer = build_trainer(args)
+    history = trainer.train(logdir=args.logdir, track=args.track, ckpt_dir=args.ckpt_dir,
+                            save_every=args.save_every, resume=args.resume)
+    if args.save:
+        trainer.save_checkpoint(args.save)
+    task.close()
+    if not history:
+        print("nothing to train (resumed checkpoint already complete)")
+        return history
+    print(f"final reward: {history[-1]['reward_mean']:.3f} ({history[-1]['wall_s']:.1f}s wall)")
+    return history
+
+
+if __name__ == "__main__":
+    main()

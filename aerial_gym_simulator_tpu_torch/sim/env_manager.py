@@ -17,6 +17,7 @@ from typing import Dict
 import torch
 
 from ..control.controllers import compute_robot_obs
+from ..utils import checkpoint
 from . import dynamics
 from .params import initial_state
 from .structs import SimParams, SimState, replace
@@ -173,3 +174,35 @@ class EnvManager:
 
     def delete_env(self):
         self.state = None
+
+    # -- saved sim state ---------------------------------------------------
+    # Everything the continuation draws from is in the file: the state with
+    # its generator (dynamics, resets, sensor noise), the step counter and
+    # the host RNG of the substep count, so a reloaded sim continues the
+    # same trajectory and renders the same noisy frames.
+
+    def _saved(self):
+        return {"state": self.state, "step_counter": self.step_counter,
+                "py_rng": self._py_rng.getstate()}
+
+    def save_state(self, path: str):
+        """Write the complete simulator state to ``path``
+        (``utils/checkpoint.save_state``, atomic)."""
+        checkpoint.save_state(path, self._saved())
+
+    def load_state(self, path: str):
+        """Restore a state written by ``save_state``. The current state is
+        the template: the file must come from the same configuration (its
+        structure and every tensor's shape are checked)."""
+        saved = checkpoint.load_state(path, like=self._saved())
+        self.state = saved["state"]
+        self.step_counter = int(saved["step_counter"])
+        self._py_rng.setstate(saved["py_rng"])
+        # frames captured on the abandoned trajectory: the next render()
+        # captures anew
+        self._sensor_frames = None
+        self._sensor_seg = None
+        self._lidar_frames = None
+        self._lidar_seg = None
+        self._rgb_frames = None
+        logger.info("sim state loaded from %s", path)

@@ -81,7 +81,9 @@ class NavigationTaskConfig:
     # pickled encoder parameters: the conv VAE's raw tree, or a dict tagged
     # {"arch": "vit", ...} for the ViT encoder
     vae_params_path: Optional[str] = None
-    # a .pth of the reference framework's torch VAE: not ported yet
+    # a .pth of the reference framework's torch VAE (utils/vae/VAE.py),
+    # imported by models/torch_vae_import; takes precedence over
+    # vae_params_path
     torch_vae_path: Optional[str] = None
     curriculum: CurriculumConfig = field(default_factory=CurriculumConfig)
     reward_parameters: dict = field(default_factory=lambda: {
@@ -357,9 +359,11 @@ class NavigationTask(BaseTask):
 
     def _build_encoder(self, cfg: NavigationTaskConfig):
         if cfg.torch_vae_path:
-            raise NotImplementedError(
-                "torch_vae_path (the reference framework's .pth VAE) is not ported yet; "
-                "pass vae_params_path")
+            # weights trained in the reference framework; takes precedence
+            # over vae_params_path
+            from ..models.torch_vae_import import TorchVAEImageEncoder
+            return TorchVAEImageEncoder(cfg.torch_vae_path, latent_dim=cfg.latent_dim,
+                                        device=self.device)
         from ..models.vae import VAEImageEncoder
         from ..models.vit import ViTImageEncoder
         image_res = (self.params.camera.height, self.params.camera.width)

@@ -122,13 +122,15 @@ Phases, each printed on its own line:
                task at 16384 envs with zero actions through make_step_fn;
                and the shipped position policy flown for 250 steps (no
                crash, mean distance under 0.5 m over the last 100).
-  9. navppo  - navigation PPO: PPOTrainer on navigation_task at 1024 envs
-               with the shipped ViT encoder (dim 256, 8 heads, bf16) through
-               make_step_fn / set_carry, 3 iterations of 32 steps: finite
+  9. navppo  - navigation PPO: the rl.ppo command line's trainer
+               (build_trainer) on navigation_task at 1024 envs with the
+               shipped ViT encoder (dim 256, 8 heads, bf16) through
+               make_step_fn / set_carry, 4 iterations of 32 steps: finite
                losses, parameters moved, K1 once and K5 four times per env
                step, s/iteration, env-steps/s, reward, the rollout / update
                split, and the encoder against its plain version on the final
-               depth images;
+               depth images; the trained state is the straight run that
+               phase 12 resumes to;
      lidarnav - lidar_navigation_task (magpie, magpie_acceleration_control,
                env_with_lidar_nav_obstacles) at 512 envs flown 330 steps
                (three episodes) by the shipped lidar_navigation_policy.npz:
@@ -161,6 +163,28 @@ Phases, each printed on its own line:
                (rov_fully_actuated_control) at 1024 envs for 100 steps,
                finite poses; the device's idle share of a variant step and
                of a robot step; no kernel launch on any of these paths.
+ 12. plumbing - the training plumbing: a. `python -m
+               aerial_gym_simulator_tpu_torch.rl.ppo` as a subprocess
+               (position task, 8192 envs x 32, 3 iterations, --logdir,
+               --save): rc 0, the final line, metrics.jsonl with the JAX
+               package's keys, the saved policy exported and flown on the
+               card; b. exact resume: navigation PPO at 1024 envs (the
+               command line's trainer, the shipped ViT) for 2 iterations
+               saved to a training-state directory and thrown away, a fresh
+               trainer resumed to 4: parameters, Adam state, normalizer, lr,
+               observation, generator states and env_carry.pos bit-equal to
+               navppo's straight run, K1 once and K5 four times per env
+               step, the checkpoint's MB and save / restore ms; c. saved sim
+               state: the obstacle env at 1024 envs with a noisy
+               segmentation camera, save_state after 5 steps, 3 steps with
+               render() (K2), load_state, the 3 again: poses and frames
+               bit-equal; d. AerialGymVecEnv over navigation_task (1024
+               envs, conv VAE) with CUDA torch actions (numpy out, bool
+               dones, K1 10), CustomTask at 16384 envs for 20 steps, and
+               navigation_task with a seeded reference-layout .pth VAE
+               (models/torch_vae_import) for 20 steps (K1 20), its latents on
+               the card within 1e-4 of the same module on the CPU; each
+               part's seconds.
 
 Before the last line it prints one JSON object with a record per kernel;
 the last line is {"ok": true, "device": {...}}. Any failure raises and the
@@ -271,7 +295,15 @@ ATTENTION_BWD_CASES = [
     ((1, 33, 2049, 1), "float32", 2e-4),        # past the clusters' reach: the sliced kernels
 ]
 PPO_ITERATIONS = 3
-NAVPPO_ITERATIONS = 3              # navigation PPO at NAV_ENVS x PPOConfig's horizon (32)
+NAVPPO_ITERATIONS = 4              # navigation PPO at NAV_ENVS x PPOConfig's horizon (32)
+NAVPPO_ARGS = ["--task", "navigation_task", "--num_envs", str(NAV_ENVS), "--horizon", "32",
+               "--seed", "7", "--vae_params", str(NETWORKS / "vit_depth_encoder.pkl")]
+RESUME_AT = 2                      # plumbing: the victim run's iterations
+CLI_ARGS = ["--task", "position_setpoint_task", "--num_envs", "8192", "--horizon", "32",
+            "--total_steps", str(3 * 8192 * 32)]      # 3 iterations at ppo_aerial_quad.yaml's width
+SIM_STATE_ENVS = 1024
+CUSTOM_ENVS = 16384
+VAE_CPU_IMAGES = 16                # images encoded on the card and on the CPU
 LIDARNAV_ENVS = 512                # the lidar and radar recipes' envs
 LIDARNAV_STEPS = 330               # three 110-step episodes
 RADARNAV_STEPS = 450               # the JAX package's bar for the shipped radar policy
@@ -1636,22 +1668,35 @@ def ppo_iterations(torch, trainer, iterations, tag, card):
     return history
 
 
+def training_snapshot(torch, trainer):
+    """Clones of everything training evolves: the parameters, Adam's state,
+    the normalizer, the lr, the observation, the trainer's and the carry's
+    generator states and the carry's poses."""
+    carry = trainer.env_carry[0] if trainer.cfg.rnn else trainer.env_carry
+    sim = getattr(carry, "sim", carry)
+    out = {f"param.{k}": v for k, v in trainer.network.state_dict().items()}
+    for i, prm in enumerate(trainer.network.parameters()):
+        out.update({f"adam.{i}.{k}": v for k, v in trainer.optimizer.state[prm].items()})
+    out.update({f"norm.{k}": v for k, v in trainer.norm.items()})
+    out.update(lr=trainer.lr, obs=trainer.obs, pos=sim.pos,
+               generator=trainer.generator.get_state(), sim_rng=carry.rng.get_state())
+    return {k: v.detach().clone() for k, v in out.items()}
+
+
 def navppo_phase(torch, port, rc, ac, card):
-    """Navigation PPO: PPOTrainer on navigation_task at NAV_ENVS envs with
-    the shipped ViT encoder (bf16, K5) through make_step_fn/set_carry, for
-    NAVPPO_ITERATIONS iterations at the JAX recipe's settings
+    """Navigation PPO: the rl.ppo command line's trainer (build_trainer) on
+    navigation_task at NAV_ENVS envs with the shipped ViT encoder (bf16,
+    K5), NAVPPO_ITERATIONS iterations at the JAX recipe's settings
     (scripts/revalidate_nav_e2e.sh: horizon 32, minibatch 8192). K1 once
     and K5 four times per env step; then the split of one more iteration
     and the encoder against its plain version on the final depth images.
-    Returns the launch counts of the training run."""
-    from aerial_gym_simulator_tpu_torch.rl.ppo import PPOConfig, PPOTrainer
+    Returns the launch counts of the training run, the checks, and a
+    snapshot of the trained state (the straight run the plumbing phase
+    resumes to)."""
+    from aerial_gym_simulator_tpu_torch.rl.ppo import build_trainer, parse_args
     from aerial_gym_simulator_tpu_torch.sensors.raycast_sensor import render_camera
-    cfg = dataclasses.replace(port.task_registry.get_task_config("navigation_task"),
-                              vae_params_path=str(NETWORKS / "vit_depth_encoder.pkl"))
-    task = port.task_registry.make_task("navigation_task", num_envs=NAV_ENVS, seed=7,
-                                        task_config=cfg)
-    ppo_cfg = PPOConfig(num_envs=NAV_ENVS, minibatch_size=min(8192, NAV_ENVS * 32), seed=7)
-    trainer = PPOTrainer(task, ppo_cfg)
+    task, trainer = build_trainer(parse_args(NAVPPO_ARGS))
+    ppo_cfg = trainer.cfg
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts(rc.LAUNCHES, ac.LAUNCHES)
@@ -1667,10 +1712,11 @@ def navppo_phase(torch, port, rc, ac, card):
         raise AssertionError(f"navppo launches {launches}, expected {want}")
     if task.nav_state is not trainer.env_carry:
         raise AssertionError("navppo: set_carry did not hand the carry back to the task")
+    straight = training_snapshot(torch, trainer)
     rollout, t_roll = timed(torch, trainer.collect_rollout)
     _, t_upd = timed(torch, lambda: trainer.update(rollout))
     n_mb = ppo_cfg.epochs * trainer.n_minibatches
-    log(f"navppo: split of a fourth iteration: rollout {t_roll:.1f} ms ({t_roll / ppo_cfg.horizon:.2f} "
+    log(f"navppo: split of a fifth iteration: rollout {t_roll:.1f} ms ({t_roll / ppo_cfg.horizon:.2f} "
         f"ms per env step), update {t_upd:.1f} ms ({n_mb} minibatch steps, {t_upd / n_mb:.2f} "
         f"ms each) | {card}")
     # the rollout's env step (the policy's share is under 1%) and an update
@@ -1685,7 +1731,7 @@ def navppo_phase(torch, port, rc, ac, card):
     del trainer, rollout, task, pixels
     torch.cuda.empty_cache()
     return launches, {"latent_err_vs_reference": err,
-                      "device_idle_share": {k: 1.0 - b / w for k, (w, b) in busy.items()}}
+                      "device_idle_share": {k: 1.0 - b / w for k, (w, b) in busy.items()}}, straight
 
 
 def nav_split(torch, task, policy, parts, tag, card):
@@ -2017,6 +2063,268 @@ def variants_phase(torch, port, rc, ac, card):
     launches = {**rc.LAUNCHES, **ac.LAUNCHES}
     if any(launches.values()):
         raise AssertionError(f"variants: a kernel launched on a state-only path: {launches}")
+
+
+JAX_HISTORY_KEYS = {"reward_mean", "done_rate", "crash_rate", "pg_loss", "v_loss", "entropy",
+                    "approx_kl", "lr", "value_mean", "iter", "env_steps", "wall_s",
+                    "env_steps_per_s_cumulative", "env_steps_per_s"}
+
+
+def cli_subphase(torch, work, card):
+    """12a. ``python -m aerial_gym_simulator_tpu_torch.rl.ppo`` as a user
+    runs it: position PPO at ppo_aerial_quad.yaml's width, 3 iterations,
+    with --logdir and --save; rc 0, the final line, metrics.jsonl, and the
+    saved policy exported and flown on the card. No kernel on this path."""
+    from aerial_gym_simulator_tpu_torch.sim2real.policy import (export_policy_npz,
+                                                                load_policy_npz)
+    logdir, save = os.path.join(work, "cli_logs"), os.path.join(work, "cli_policy.ckpt")
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [x for x in os.environ.get("PYTHONPATH", "").split(os.pathsep) if x]))
+    cmd = [sys.executable, "-m", "aerial_gym_simulator_tpu_torch.rl.ppo", *CLI_ARGS,
+           "--logdir", logdir, "--save", save]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines or not lines[-1].startswith("final reward:"):
+        raise AssertionError(f"plumbing cli: rc {proc.returncode}\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        points = [json.loads(line) for line in f]
+    if [m["iter"] for m in points] != [0, 2] or any(
+            set(m) != JAX_HISTORY_KEYS | {"step"} for m in points):
+        raise AssertionError(f"plumbing cli: metrics.jsonl {points}")
+    policy = load_policy_npz(export_policy_npz(save, os.path.join(work, "cli_policy.npz")))
+    dev = policy.norm_mean.device
+    obs = torch.randn((8192, 13), device=dev, generator=torch.Generator(device=dev).manual_seed(1))
+    if not torch.isfinite(policy(obs)).all():
+        raise AssertionError("plumbing cli: the exported policy acts non-finite")
+    log(f"plumbing cli: {' '.join(cmd[1:])}: rc 0, {wall:.1f} s wall, "
+        f"{points[-1]['wall_s'] / 3:.3f} s/iteration in the run, env-steps/s "
+        + ", ".join(f"{m['env_steps_per_s']:.1f}" for m in points)
+        + f"; {lines[-1]}; metrics.jsonl {len(points)} lines; the saved policy exported and "
+        f"flown on the card | {card}")
+    return wall
+
+
+def resume_subphase(torch, rc, ac, work, straight, card):
+    """12b. Exact resume of navigation PPO at full width: a victim run of
+    RESUME_AT iterations saves its training state and is thrown away, a
+    fresh trainer resumes to NAVPPO_ITERATIONS; its state against the
+    navppo phase's straight run, bit for bit. Returns the launches of the
+    two runs."""
+    from aerial_gym_simulator_tpu_torch.rl.ppo import build_trainer, parse_args
+    ckpt, spare = os.path.join(work, "nav_ckpt"), os.path.join(work, "nav_ckpt_timing")
+    task, victim = build_trainer(parse_args(NAVPPO_ARGS))
+    spi = victim.cfg.num_envs * victim.cfg.horizon
+    zero_counts(rc.LAUNCHES, ac.LAUNCHES)
+    victim.train(total_env_steps=RESUME_AT * spi, log_every=1, ckpt_dir=ckpt,
+                 save_every=RESUME_AT)
+    torch.cuda.synchronize()
+    launches = {"victim": {**rc.LAUNCHES, **ac.LAUNCHES}}
+    path = os.path.join(ckpt, f"iter_{RESUME_AT}.pt")
+    size_mb = os.path.getsize(path) / 1e6
+    _, save_ms = timed(torch, lambda: victim.save_training_state(spare))
+    _, restore_ms = timed(torch, lambda: victim.restore_training_state(ckpt))
+    task.close()
+    del task, victim
+    torch.cuda.empty_cache()
+
+    task, resumed = build_trainer(parse_args(NAVPPO_ARGS))
+    zero_counts(rc.LAUNCHES, ac.LAUNCHES)
+    history = resumed.train(total_env_steps=NAVPPO_ITERATIONS * spi, log_every=1,
+                            ckpt_dir=ckpt, save_every=NAVPPO_ITERATIONS, resume=True)
+    torch.cuda.synchronize()
+    launches["resumed"] = {**rc.LAUNCHES, **ac.LAUNCHES}
+    steps = (NAVPPO_ITERATIONS - RESUME_AT) * resumed.cfg.horizon
+    for run, n in (("victim", RESUME_AT * resumed.cfg.horizon), ("resumed", steps)):
+        got = launches[run]
+        if got["raycast_depth"] != n or got["attention_fwd"] != 4 * n:
+            raise AssertionError(f"plumbing resume: {run} launches {got} for {n} env steps")
+    if [m["iter"] for m in history] != list(range(RESUME_AT, NAVPPO_ITERATIONS)):
+        raise AssertionError(f"plumbing resume: iterations {[m['iter'] for m in history]}")
+    got = training_snapshot(torch, resumed)
+    differ = {k: (straight[k].double() - got[k].double()).abs().max().item()
+              for k in straight if not torch.equal(straight[k], got[k])}
+    walls = [m["wall_s"] for m in history]
+    log(f"plumbing resume: navigation PPO {resumed.cfg.num_envs} envs x {resumed.cfg.horizon}, "
+        f"{RESUME_AT} iterations saved, resumed to {NAVPPO_ITERATIONS}: checkpoint "
+        f"{size_mb:.3f} MB, save {save_ms:.1f} ms, restore {restore_ms:.1f} ms; resumed "
+        f"s/iteration " + ", ".join(f"{b - a:.3f}" for a, b in zip([0.0] + walls[:-1], walls))
+        + f"; launches victim {launches['victim']['raycast_depth']} K1 / "
+        f"{launches['victim']['attention_fwd']} K5, resumed "
+        f"{launches['resumed']['raycast_depth']} K1 / {launches['resumed']['attention_fwd']} K5 "
+        f"| {card}")
+    log(f"plumbing resume: against the straight run, {len(straight)} tensors (parameters, Adam "
+        f"state, normalizer, lr, obs, generator states, env_carry.pos): "
+        + ("all bit-equal" if not differ else f"{len(differ)} differ: {differ}"))
+    if differ:
+        raise AssertionError(f"plumbing resume: not bit-equal to the straight run: {differ}")
+    task.close()
+    del task, resumed
+    torch.cuda.empty_cache()
+    return launches, {"checkpoint_mb": size_mb, "save_ms": save_ms, "restore_ms": restore_ms}
+
+
+def sim_state_subphase(torch, port, rc, work, card):
+    """12c. Saved sim state on the card: the obstacle env with a noisy
+    segmentation camera at SIM_STATE_ENVS envs, 5 steps, save_state, 3
+    steps with render() (K2), load_state, the same 3 again: poses and
+    frames bit-equal. Returns the K2 launches."""
+    from aerial_gym_simulator_tpu_torch.sim.structs import replace
+    names = ("base_sim", "env_with_obstacles", "base_quadrotor_with_camera",
+             "lee_velocity_control")
+    env = port.SimBuilder().build_env(*names, num_envs=SIM_STATE_ENVS, seed=3)
+    env.params = replace(env.params, camera=replace(env.params.camera, enable_noise=True))
+    actions = torch.full((SIM_STATE_ENVS, 4), 0.1, device=env.device)
+    for _ in range(5):
+        env.step(actions)
+    path = os.path.join(work, "sim_state.pt")
+    _, save_ms = timed(torch, lambda: env.save_state(path))
+    zero_counts(rc.LAUNCHES)
+    runs = []
+    for i in range(2):
+        if i:
+            _, load_ms = timed(torch, lambda: env.load_state(path))
+        run = []
+        for _ in range(3):
+            env.step(actions)
+            env.render()
+            obs = env.get_obs()
+            run.append((env.state.pos.clone(), obs["depth_range_pixels"].clone(),
+                        obs["segmentation_pixels"].clone()))
+        runs.append(run)
+    torch.cuda.synchronize()
+    launches = dict(rc.LAUNCHES)
+    equal = all(torch.equal(a, b) for r1, r2 in zip(*runs) for a, b in zip(r1, r2))
+    moved = not torch.equal(runs[0][0][1], runs[0][1][1])
+    log(f"plumbing sim state: {SIM_STATE_ENVS} envs, noisy segmentation camera: "
+        f"{os.path.getsize(path) / 1e6:.3f} MB, save {save_ms:.1f} ms, load {load_ms:.1f} ms; "
+        f"3 steps + render() replayed: poses and frames "
+        f"{'bit-equal' if equal else 'DIFFER'}; launches {launches} | {card}")
+    if not (equal and moved) or launches["raycast_seg"] != 6 or launches["raycast_depth"]:
+        raise AssertionError(f"plumbing sim state: equal {equal}, frames moved {moved}, "
+                             f"launches {launches}")
+    del env, runs
+    torch.cuda.empty_cache()
+    return launches
+
+
+def wrappers_subphase(torch, port, rc, ac, work, card):
+    """12d. AerialGymVecEnv on the navigation task (conv VAE) with CUDA
+    torch actions, CustomTask at CUSTOM_ENVS envs, and the navigation task
+    with a seeded reference-layout .pth VAE (models/torch_vae_import),
+    whose latents on the card are held against the same module on the CPU.
+    Returns the launches of the two navigation runs."""
+    import numpy as np
+    from aerial_gym_simulator_tpu_torch.models import torch_vae_import as tvi
+    from aerial_gym_simulator_tpu_torch.rl_training.vec_env import AerialGymVecEnv
+    from aerial_gym_simulator_tpu_torch.sensors.raycast_sensor import render_camera
+    from aerial_gym_simulator_tpu_torch.tasks.custom_task import CustomTask, CustomTaskConfig
+    launches = {}
+    venv = AerialGymVecEnv(port.task_registry.make_task("navigation_task", num_envs=NAV_ENVS,
+                                                        seed=11))
+    dev = venv.task.device
+    gen = torch.Generator(device=dev).manual_seed(5)
+    venv.reset(seed=0)
+    zero_counts(rc.LAUNCHES, ac.LAUNCHES)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        obs, rew, term, trunc, _ = venv.step(torch.rand((NAV_ENVS, 4), device=dev,
+                                                        generator=gen) * 2 - 1)
+    dt = time.perf_counter() - t0
+    launches["vec_env"] = {**rc.LAUNCHES, **ac.LAUNCHES}
+    ok = (isinstance(obs["obs"], np.ndarray) and obs["obs"].shape == (NAV_ENVS, 81)
+          and np.isfinite(obs["obs"]).all() and np.isfinite(rew).all()
+          and term.dtype == np.bool_ and trunc.dtype == np.bool_)
+    if not ok or launches["vec_env"]["raycast_depth"] != 10:
+        raise AssertionError(f"plumbing vec env: outputs ok {ok}, launches {launches['vec_env']}")
+    log(f"plumbing vec env: AerialGymVecEnv(navigation_task, {NAV_ENVS} envs), 10 steps of CUDA "
+        f"actions: numpy obs {obs['obs'].shape} {obs['obs'].dtype}, bool dones, "
+        f"{dt / 10 * 1e3:.1f} ms per step; launches {launches['vec_env']} | {card}")
+    venv.close()
+    del venv
+
+    task = CustomTask(CustomTaskConfig(num_envs=CUSTOM_ENVS))
+    task.reset()
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        obs, rew, *_ = task.step(torch.rand((CUSTOM_ENVS, 4), device=dev, generator=gen))
+        finite &= torch.isfinite(obs["observations"]).all() & torch.isfinite(rew).all()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if not bool(finite):
+        raise AssertionError("plumbing custom task: non-finite observation or reward")
+    log(f"plumbing custom task: CustomTask {CUSTOM_ENVS} envs, 20 steps finite, "
+        f"{dt / 20 * 1e3:.2f} ms per step ({20 * CUSTOM_ENVS / dt:.1f} env-steps/s) | {card}")
+    task.close()
+    del task
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        enc, dec = tvi.ImgEncoder(), tvi.ImgDecoder()
+    sd = {f"encoder.{k}": v for k, v in enc.state_dict().items()}
+    sd.update({f"img_decoder.{k}": v for k, v in dec.state_dict().items()})
+    pth = os.path.join(work, "reference_vae.pth")
+    torch.save(sd, pth)
+    cfg = dataclasses.replace(port.task_registry.get_task_config("navigation_task"),
+                              torch_vae_path=pth)
+    task = port.task_registry.make_task("navigation_task", num_envs=NAV_ENVS, seed=13,
+                                        task_config=cfg)
+    obs, *_ = task.reset()
+    zero_counts(rc.LAUNCHES, ac.LAUNCHES)
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        obs, rew, *_ = task.step(torch.rand((NAV_ENVS, 4), device=dev, generator=gen) * 2 - 1)
+        finite &= torch.isfinite(obs["observations"]).all() & torch.isfinite(rew).all()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches["torch_vae"] = {**rc.LAUNCHES, **ac.LAUNCHES}
+    pixels, _ = render_camera(task.params, task.nav_state.sim, want_seg=False)
+    pixels = pixels[:VAE_CPU_IMAGES]
+    card_mean = task.vae.encode_moments(pixels)[0]
+    cpu_mean = tvi.TorchVAEImageEncoder(pth, device="cpu").encode_moments(pixels.cpu())[0]
+    err = (card_mean.cpu() - cpu_mean).abs().max().item()
+    log(f"plumbing torch vae: navigation_task {NAV_ENVS} envs with a seeded reference-layout "
+        f".pth VAE (270x480 input), 20 steps: finite {bool(finite)}, {dt / 20 * 1e3:.1f} ms per "
+        f"step, launches {launches['torch_vae']}; latents of {VAE_CPU_IMAGES} images on the card "
+        f"against the CPU max abs err {err:.3g} (bar 1e-4) | {card}")
+    if not bool(finite) or launches["torch_vae"]["raycast_depth"] != 20 or not err <= 1e-4:
+        raise AssertionError(f"plumbing torch vae: finite {bool(finite)}, launches "
+                             f"{launches['torch_vae']}, latent err {err}")
+    task.close()
+    del task, pixels
+    torch.cuda.empty_cache()
+    return launches, err
+
+
+def plumbing_phase(torch, port, rc, ac, card, straight):
+    """12. The training plumbing: the CLI as a process, exact resume of
+    navigation PPO, saved sim state, the wrappers, the custom task and the
+    reference-VAE importer. Returns the launches and the checks."""
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_plumbing_") as work:
+        t0 = time.perf_counter()
+        cli_subphase(torch, work, card)
+        t1 = time.perf_counter()
+        resume_launches, out["resume"] = resume_subphase(torch, rc, ac, work, straight, card)
+        t2 = time.perf_counter()
+        out["sim_state_launches"] = sim_state_subphase(torch, port, rc, work, card)
+        t3 = time.perf_counter()
+        wrapper_launches, out["torch_vae_latent_err_vs_cpu"] = wrappers_subphase(
+            torch, port, rc, ac, work, card)
+        t4 = time.perf_counter()
+    log(f"plumbing: seconds a {t1 - t0:.1f}, b {t2 - t1:.1f}, c {t3 - t2:.1f}, "
+        f"d {t4 - t3:.1f} (total {t4 - t0:.1f})")
+    out["launches"] = {**resume_launches, "sim_state": out.pop("sim_state_launches"),
+                       **wrapper_launches}
+    return out
 
 
 def time_mode(torch, rc, args, n_tri, name, card, tag, face=None):
@@ -2427,7 +2735,7 @@ def main(argv=None) -> int:
     #    lidar task flown by its shipped MLP policy, the radar task flown by
     #    its shipped GRU policy and trained by recurrent PPO (K1 on the 48x120
     #    tables)
-    navppo_launches, navppo_check = navppo_phase(torch, port, rc, ac, card)
+    navppo_launches, navppo_check, navppo_straight = navppo_phase(torch, port, rc, ac, card)
     log(f"elapsed {time.perf_counter() - t_run:.1f} s: phase 9 lidarnav")
     lidar_task, lidarnav_launches, k1_lidarnav = pointcloud_nav_phase(
         torch, port, rc, card, "lidar_navigation_task", LIDAR_NAV_POLICY, LIDARNAV_STEPS,
@@ -2472,6 +2780,24 @@ def main(argv=None) -> int:
     # 11. the position-task variants, PPO on the end-to-end task, the
     #     8-motor robots: state-only paths, no kernel launch
     variants_phase(torch, port, rc, ac, card)
+
+    log(f"elapsed {time.perf_counter() - t_run:.1f} s: phase 12 plumbing")
+    # 12. the training plumbing: the rl.ppo command line, exact resume of
+    #     navigation PPO (K1 + K5), saved sim state (K2), the wrappers, the
+    #     custom task and the reference-VAE importer (K1)
+    plumbing = plumbing_phase(torch, port, rc, ac, card, navppo_straight)
+    pl = plumbing["launches"]
+    k1_plumbing = sum(pl[k]["raycast_depth"] for k in ("victim", "resumed", "vec_env",
+                                                       "torch_vae"))
+    records[0]["launches"] += k1_plumbing
+    records[0]["launches_plumbing_path"] = k1_plumbing
+    records[1]["launches"] += pl["sim_state"]["raycast_seg"]
+    records[1]["launches_plumbing_path"] = pl["sim_state"]["raycast_seg"]
+    k5_plumbing = pl["victim"]["attention_fwd"] + pl["resumed"]["attention_fwd"]
+    records[2]["launches"] += k5_plumbing
+    records[2]["launches_plumbing_path"] = k5_plumbing
+    records[2]["plumbing_resume"] = plumbing["resume"]
+    records[0]["plumbing_torch_vae_latent_err_vs_cpu"] = plumbing["torch_vae_latent_err_vs_cpu"]
 
     log(f"elapsed {time.perf_counter() - t_run:.1f} s: all phases")
     log(json.dumps({"kernels": records + mode_records}))

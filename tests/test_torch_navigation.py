@@ -305,9 +305,12 @@ def test_task_without_gpu_raises_and_torch_vae_is_refused():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             port.task_registry.make_task("navigation_task", num_envs=2)
+    # the reference's .pth VAE is read when the task is built
+    # (models/torch_vae_import; tests/test_torch_training_plumbing.py flies
+    # one): a missing file is refused there
     cfg = dataclasses.replace(port.task_registry.get_task_config("navigation_task"),
                               torch_vae_path="reference_vae.pth")
-    with pytest.raises(NotImplementedError, match="torch_vae_path"):
+    with pytest.raises(FileNotFoundError, match="reference_vae.pth"):
         port.task_registry.make_task("navigation_task", num_envs=2, task_config=cfg,
                                      device="cpu")
     assert port.task_registry.get_task_names() == [
