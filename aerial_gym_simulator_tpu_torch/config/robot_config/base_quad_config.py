@@ -1,9 +1,9 @@
-"""Rigid quadrotor config: init-state ranges, damping, disturbance,
-motor model and allocation.
+"""Robot config: init-state ranges, damping, disturbance, motor model and
+allocation, the joint (DOF) config of the reconfigurable robots and the
+sensors a robot carries.
 
-Copied from the JAX package's ``config/robot_config/base_quad_config.py``
-and cut to the rigid multirotor fields. Mass and inertia come from the
-robot URDF at build time unless overridden.
+Copied from the JAX package's ``config/robot_config/base_quad_config.py``.
+Mass and inertia come from the robot URDF at build time unless overridden.
 """
 
 from dataclasses import dataclass, field
@@ -86,6 +86,32 @@ class InitConfig:
 
 
 @dataclass
+class ReconfigurationConfig:
+    """Joint (DOF) config of the reconfigurable robots (snakey, morphy)."""
+    dof_mode: str = "position"           # "position" | "velocity" | "effort"
+    arm_response: str = "pd"             # "pd" | "morphy"
+    # rows: [position state, velocity state] per DOF
+    init_state_min: List[List[float]] = field(default_factory=lambda: [[], []])
+    init_state_max: List[List[float]] = field(default_factory=lambda: [[], []])
+    stiffness: List[float] = field(default_factory=list)
+    damping: List[float] = field(default_factory=list)
+    # morphy's nonlinear arm spring and damper
+    custom_nonlinear_stiffness: float = 0.0
+    custom_linear_damping: float = 0.0
+    # the decoupled joint path's parameters (robots without an articulation
+    # URDF); a URDF's limits override lower/upper_limit and the clamps
+    dof_inertia: List[float] = field(default_factory=list)   # default 1e-3 each
+    lower_limit: List[float] = field(default_factory=list)   # default -pi
+    upper_limit: List[float] = field(default_factory=list)   # default +pi
+    max_velocity: float = 20.0
+    max_effort: float = 50.0
+
+    @property
+    def num_dofs(self) -> int:
+        return len(self.init_state_min[0])
+
+
+@dataclass
 class RobotAssetConfig:
     asset_folder: str = ""
     file: str = "quad.urdf"
@@ -104,6 +130,8 @@ class RobotAssetConfig:
     # overrides for mass properties; None => computed from the URDF
     mass: Optional[float] = None
     inertia: Optional[List[List[float]]] = None
+    # joint armature added to the joint-space inertia's diagonal
+    armature: float = 0.001
     # bounding-sphere contact radius; None => computed from the URDF
     collision_radius: Optional[float] = None
 
@@ -114,6 +142,8 @@ class SensorEnableConfig:
     camera_config: object = None
     enable_lidar: bool = False
     lidar_config: object = None
+    enable_imu: bool = False
+    imu_config: object = None
 
 
 @dataclass
@@ -126,3 +156,8 @@ class RobotConfig:
     damping: DampingConfig = field(default_factory=DampingConfig)
     control_allocator_config: ControlAllocatorConfig = field(
         default_factory=ControlAllocatorConfig)
+    # joint config of a reconfigurable robot (None for a rigid multirotor)
+    dof_config: object = None
+    # URDF text of the joint tree: the robot then steps on the coupled
+    # articulated solver (sim/articulated.py), else on decoupled joints
+    articulation_urdf: Optional[str] = None

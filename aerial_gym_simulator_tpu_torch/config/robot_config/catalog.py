@@ -11,6 +11,7 @@ from .base_quad_config import (
     DisturbanceConfig,
     InitConfig,
     MotorModelConfig,
+    ReconfigurationConfig,
     RobotAssetConfig,
     RobotConfig,
 )
@@ -20,9 +21,22 @@ def base_quadrotor() -> RobotConfig:
     return RobotConfig(name="base_quadrotor")
 
 
+def base_quadrotor_with_imu() -> RobotConfig:
+    cfg = RobotConfig(name="base_quadrotor_with_imu")
+    cfg.sensor_config.enable_imu = True
+    return cfg
+
+
 def base_quadrotor_with_camera() -> RobotConfig:
     cfg = RobotConfig(name="base_quadrotor_with_camera")
     cfg.sensor_config.enable_camera = True
+    return cfg
+
+
+def base_quadrotor_with_camera_imu() -> RobotConfig:
+    cfg = RobotConfig(name="base_quadrotor_with_camera_imu")
+    cfg.sensor_config.enable_camera = True
+    cfg.sensor_config.enable_imu = True
     return cfg
 
 
@@ -299,9 +313,134 @@ def magpie() -> RobotConfig:
     return _mass_props(cfg, 1.240, [0.0134, 0.0134, 0.0138])
 
 
+# ---------------------------------------------------------------------------
+# reconfigurable robots: joints, each with an articulation URDF
+# ---------------------------------------------------------------------------
+
+
+def _snakey_dofs(num_segments: int) -> ReconfigurationConfig:
+    """Two DOFs (a yaw bend and a pitch bend) per inter-segment joint,
+    velocity drives."""
+    d = 2 * num_segments
+    return ReconfigurationConfig(
+        dof_mode="velocity",
+        init_state_min=[[-math.pi / 2.0, -0.3] * num_segments, [-0.1] * d],
+        init_state_max=[[math.pi / 2.0, 0.3] * num_segments, [0.1] * d],
+        stiffness=[0.0] * d,
+        damping=[10.0] * d,
+        dof_inertia=[1e-3] * d,
+        lower_limit=[-math.pi / 2.0, -0.5] * num_segments,
+        upper_limit=[math.pi / 2.0, 0.5] * num_segments,
+    )
+
+
+def snakey() -> RobotConfig:
+    """A 4-motor articulated serpent: 3 joint pairs (6 DOFs), velocity drives."""
+    from .reconfigurable_urdf import snakey_urdf
+    cfg = _quad("snakey",
+                [-0.13, -0.13, 0.13, 0.13], [-0.13, 0.13, 0.13, -0.13],
+                [0.01, -0.01, 0.01, -0.01], [-1, 1, -1, 1],
+                _motors(use_rps=False, tau_inc=(0.005, 0.005),
+                        tau_dec=(0.005, 0.005), max_thrust=15.0),
+                application_mask=[14, 13, 12, 11])
+    cfg.dof_config = _snakey_dofs(3)
+    cfg.disturbance.enable_disturbance = True
+    cfg.init_config = _FULLBOX_INIT()
+    cfg.articulation_urdf = snakey_urdf(4)
+    return _mass_props(cfg, 1.225, [0.00169, 1.533, 1.533])
+
+
+def _snakey_n(name: str, num_motors: int) -> RobotConfig:
+    """snakey5 / snakey6: one z-thrust motor per segment. The allocation is
+    the source's all-ones placeholder: the thrusts act on the motor links."""
+    from .reconfigurable_urdf import snakey_urdf
+    ca = ControlAllocatorConfig(
+        num_motors=num_motors,
+        application_mask=list(range(14, 14 + num_motors))[::-1],
+        motor_directions=[(-1) ** (i + 1) for i in range(num_motors)],
+        allocation_matrix=[[1.0] * num_motors for _ in range(6)],
+        motor_model_config=_motors(use_rps=False, tau_inc=(0.005, 0.005),
+                                   tau_dec=(0.005, 0.005), max_thrust=15.0),
+    )
+    cfg = RobotConfig(name=name, control_allocator_config=ca, init_config=_FULLBOX_INIT())
+    cfg.dof_config = _snakey_dofs(num_motors - 1)
+    cfg.disturbance.enable_disturbance = True
+    cfg.articulation_urdf = snakey_urdf(num_motors)
+    mass = {5: (1.531, [0.00211, 3.065, 3.065]),
+            6: (1.8375, [0.00253, 5.362, 5.362])}[num_motors]
+    return _mass_props(cfg, mass[0], mass[1])
+
+
+def snakey5() -> RobotConfig:
+    return _snakey_n("snakey5", 5)
+
+
+def snakey6() -> RobotConfig:
+    return _snakey_n("snakey6", 6)
+
+
+def _morphy_base(name: str, directions=(-1, 1, -1, 1)) -> RobotConfig:
+    # yaw moment row: -0.01 * direction
+    tz = [-0.01 * d for d in directions]
+    cfg = _quad(name,
+                [-0.0785, -0.0785, 0.0785, 0.0785],
+                [-0.0785, 0.0785, 0.0785, -0.0785],
+                tz, list(directions),
+                _motors(use_rps=False, tau_inc=(0.01, 0.03),
+                        tau_dec=(0.005, 0.005), max_thrust=2.0),
+                application_mask=[3, 6, 9, 12])
+    cfg.init_config = _init([0.0, 0.0, 0.0], [1.0, 1.0, 1.0], yaw=math.pi / 6.0)
+    return _mass_props(cfg, 0.29, [0.00074, 0.00077, 0.00059])
+
+
+def morphy() -> RobotConfig:
+    """A quadrotor with 4 passive flexible arms (2 DOFs each) and a
+    nonlinear spring-damper arm response."""
+    from .reconfigurable_urdf import morphy_urdf
+    cfg = _morphy_base("morphy")
+    cfg.dof_config = ReconfigurationConfig(
+        dof_mode="effort",
+        arm_response="morphy",
+        init_state_min=[[-0.1] * 8, [-0.05] * 8],
+        init_state_max=[[0.1] * 8, [0.05] * 8],
+        stiffness=[0.2, 1.0] * 4,
+        damping=[0.025, 0.02] * 4,
+        custom_nonlinear_stiffness=-5834.0,
+        custom_linear_damping=-230.0,
+        # the 16.25 g arm mass at 7 cm
+        dof_inertia=[0.01625 * 0.07 * 0.07] * 8,
+        lower_limit=[-math.pi / 4] * 8,
+        upper_limit=[math.pi / 4] * 8,
+    )
+    cfg.disturbance.enable_disturbance = False
+    cfg.articulation_urdf = morphy_urdf()
+    return cfg
+
+
+def morphy_stiff() -> RobotConfig:
+    """morphy with rigid arms, flipped motor directions and the disturbance on."""
+    cfg = _morphy_base("morphy_stiff", directions=(1, -1, 1, -1))
+    cfg.disturbance.enable_disturbance = True
+    return cfg
+
+
+def morphy_fixed_base() -> RobotConfig:
+    """morphy with its root clamped and the arms started at 0.29 rad: the
+    arm system-identification rig."""
+    cfg = morphy()
+    cfg.name = "morphy_fixed_base"
+    cfg.robot_asset.fix_base_link = True
+    pinned = [0.29, 0.0] * 4
+    cfg.dof_config.init_state_min = [list(pinned), [0.0] * 8]
+    cfg.dof_config.init_state_max = [list(pinned), [0.0] * 8]
+    return cfg
+
+
 def register_robots(robot_registry):
     robot_registry.register("base_quadrotor", base_quadrotor)
+    robot_registry.register("base_quadrotor_with_imu", base_quadrotor_with_imu)
     robot_registry.register("base_quadrotor_with_camera", base_quadrotor_with_camera)
+    robot_registry.register("base_quadrotor_with_camera_imu", base_quadrotor_with_camera_imu)
     robot_registry.register("base_quadrotor_with_lidar", base_quadrotor_with_lidar)
     robot_registry.register("base_quadrotor_with_faceid_normal_camera",
                             base_quadrotor_with_faceid_normal_camera)
@@ -315,3 +454,9 @@ def register_robots(robot_registry):
     robot_registry.register("x500", x500)
     robot_registry.register("tinyprop", tinyprop)
     robot_registry.register("magpie", magpie)
+    robot_registry.register("snakey", snakey)
+    robot_registry.register("snakey5", snakey5)
+    robot_registry.register("snakey6", snakey6)
+    robot_registry.register("morphy", morphy)
+    robot_registry.register("morphy_stiff", morphy_stiff)
+    robot_registry.register("morphy_fixed_base", morphy_fixed_base)

@@ -20,8 +20,11 @@ import numpy as np
 import torch
 
 from .structs import (
+    ArtParams,
     ControllerParams,
+    DofParams,
     EnvParams,
+    ImuParams,
     MotorParams,
     RaySensorParams,
     RobotParams,
@@ -67,17 +70,18 @@ def _record(cls, d: dict, device):
             kw[f.name] = float(np.float32(v))
         elif f.type in ("int", "bool"):
             kw[f.name] = {"int": int, "bool": bool}[f.type](v)
+        elif f.type.startswith("Tuple[int"):
+            kw[f.name] = tuple(int(x) for x in np.asarray(v).reshape(-1))
         else:
             kw[f.name] = v
     return cls(**kw)
 
 
 def params_from_numpy(d: dict, device) -> SimParams:
-    """Nested dict of numpy leaves -> SimParams on ``device`` (rigid robots,
-    optional obstacle scene, camera and lidar)."""
-    for unported in ("dof", "art", "imu"):
-        if d.get(unported) is not None:
-            raise NotImplementedError(f"SimParams.{unported} is not ported yet")
+    """Nested dict of numpy leaves -> SimParams on ``device``: the robot,
+    motors, controller and env, and where present the joints, the
+    articulation (its tree structure as Python data), the obstacle scene,
+    the camera, the lidar and the IMU."""
     opt = lambda cls, key: None if d.get(key) is None else _record(cls, d[key], device)
     return SimParams(
         dt=float(np.float32(d["dt"])),
@@ -86,9 +90,12 @@ def params_from_numpy(d: dict, device) -> SimParams:
         motor=_record(MotorParams, d["motor"], device),
         controller=_record(ControllerParams, d["controller"], device),
         env=_record(EnvParams, d["env"], device),
+        dof=opt(DofParams, "dof"),
+        art=opt(ArtParams, "art"),
         scene=opt(SceneParams, "scene"),
         camera=opt(RaySensorParams, "camera"),
         lidar=opt(RaySensorParams, "lidar"),
+        imu=opt(ImuParams, "imu"),
     )
 
 

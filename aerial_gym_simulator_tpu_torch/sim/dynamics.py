@@ -1,17 +1,20 @@
-"""Simulation core for rigid multirotors: substep physics, env step, masked
-reset.
+"""Simulation core: substep physics, env step, masked reset.
 
-Counterpart of ``aerial_gym_simulator_tpu/sim/dynamics.py`` (quad path).
-Functions take a state and return a new one (``replace`` shallow-copies
-the record); nothing reads a device value back to the host.
+Counterpart of ``aerial_gym_simulator_tpu/sim/dynamics.py``. Functions take
+a state and return a new one (``replace`` shallow-copies the record);
+nothing reads a device value back to the host.
 
 Frames: root state is world-frame (pos, xyzw quat, linvel, angvel);
-applied forces/torques are body-frame; per-motor thrusts map to a body
-wrench through the allocation matrix.
+applied forces/torques are body-frame. A rigid robot's motor thrusts map
+to a body wrench through the allocation matrix; a robot with an
+articulation URDF steps on the coupled solver (sim/articulated.py), its
+thrusts applied on their own links; joints without a URDF take the
+decoupled path (``integrate_dofs``).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -45,7 +48,7 @@ def sample_disturbance(params: SimParams, state: SimState):
 
 
 def compute_robot_wrench(params: SimParams, state: SimState, action: torch.Tensor,
-                         disturbance=None):
+                         disturbance=None, include_motor_wrench: bool = True):
     """One control substep -> (force_body, torque_body, new_motor_thrust):
     controller and allocation (under ``no_control`` the clipped action is
     the per-motor thrust reference), first-order motor lag, aerodynamic drag and,
@@ -55,7 +58,9 @@ def compute_robot_wrench(params: SimParams, state: SimState, action: torch.Tenso
     The motors' net wrench is ``allocation @ thrusts`` for both
     ``force_application_level`` settings: forces applied at the motor links
     and the wrench re-assembled at the root link are the same rigid-body
-    wrench."""
+    wrench. ``include_motor_wrench=False`` (articulated robots) leaves it
+    out: the coupled solver applies each thrust on its own link, so the
+    returned wrench is drag and disturbance only."""
     rp, mp, cp = params.robot, params.motor, params.controller
     obs = compute_robot_obs(state.pos, state.quat, state.linvel, state.angvel)
     action = torch.clamp(action, -10.0, 10.0)
@@ -71,10 +76,14 @@ def compute_robot_wrench(params: SimParams, state: SimState, action: torch.Tenso
                             state.motor_tau_inc, state.motor_tau_dec,
                             state.motor_thrust_constant)
 
-    # net wrench of the per-motor forces == allocation @ thrusts
-    wrench = new_thrust @ mp.allocation_matrix.T                          # (N, 6)
-    force_b = wrench[..., 0:3]
-    torque_b = wrench[..., 3:6]
+    if include_motor_wrench:
+        # net wrench of the per-motor forces == allocation @ thrusts
+        wrench = new_thrust @ mp.allocation_matrix.T                      # (N, 6)
+        force_b = wrench[..., 0:3]
+        torque_b = wrench[..., 3:6]
+    else:
+        force_b = torch.zeros_like(state.pos)
+        torque_b = torch.zeros_like(state.pos)
 
     v_b, w_b = obs.body_linvel, obs.body_angvel
     drag_f = (-rp.drag_lin_linear * v_b
@@ -123,6 +132,52 @@ def integrate_rigid_body(params: SimParams, state: SimState,
     return replace(state, pos=pos, quat=quat, linvel=linvel, angvel=angvel)
 
 
+def joint_drive(dp, q, qd, q_target, qd_target):
+    """(explicit spring torque, implicit damping coefficient, velocity
+    reference) of the joint drives, tau = spring + damp (vel_ref - qd):
+      position:  Kp (q_target - q) - Kd qd
+      velocity:  Kd (qd_target - qd)
+      effort:    Kp (q_target - q) + Kd (qd_target - qd), or morphy's arm
+                 (nonlinear spring about 7.2 degrees for 16.25 g at 7 cm,
+                 the gravity feed-forward of its command, negative linear
+                 damping)
+    The spring is clamped to the joints' effort limit."""
+    if dp.dof_mode in ("position", "velocity") or dp.arm_response != "morphy":
+        spring = dp.stiffness * (q_target - q)
+        vel_ref = torch.zeros_like(qd) if dp.dof_mode == "position" else qd_target
+        damp = dp.damping * torch.ones_like(q)
+    else:
+        e = q - 7.2 * math.pi / 180.0
+        A = 0.01625 * (0.07 * 0.07)
+        spring = (A * dp.nonlinear_stiffness * torch.sign(e) * e * e
+                  - 9.81 * 0.01625 * 0.07 * torch.cos(q))
+        vel_ref = torch.zeros_like(qd)
+        damp = -A * dp.linear_damping * torch.ones_like(q)
+    spring = torch.minimum(torch.maximum(spring, -dp.max_effort), dp.max_effort)
+    return spring, damp, vel_ref
+
+
+def integrate_dofs(params: SimParams, state: SimState) -> SimState:
+    """One substep of decoupled joint dynamics J qdd = tau, the path of a
+    robot with joints but no articulation URDF. The drive's damping is
+    integrated implicitly (an engine drive is solved implicitly; explicit
+    damping is unstable once dt Kd / J > 2)."""
+    dp = params.dof
+    q, qd = state.dof_pos, state.dof_vel
+    spring, damp, vel_ref = joint_drive(dp, q, qd, state.dof_pos_target, state.dof_vel_target)
+    dt = params.dt
+    J = dp.dof_inertia
+    qd = (qd + dt * (spring + damp * vel_ref) / J) / (1.0 + dt * damp / J)
+    qd = torch.minimum(torch.maximum(qd, -dp.max_velocity), dp.max_velocity)
+    q = q + dt * qd
+    # inelastic joint stops
+    zero = torch.zeros_like(qd)
+    qd = torch.where((q < dp.lower_limit) & (qd < 0.0), zero, qd)
+    qd = torch.where((q > dp.upper_limit) & (qd > 0.0), zero, qd)
+    q = torch.minimum(torch.maximum(q, dp.lower_limit), dp.upper_limit)
+    return replace(state, dof_pos=q, dof_vel=qd)
+
+
 def contact_force_magnitude(params: SimParams, state: SimState) -> torch.Tensor:
     """Penetration-depth force proxy against ground plane and obstacles."""
     total = torch.zeros_like(state.collisions)
@@ -136,10 +191,19 @@ def contact_force_magnitude(params: SimParams, state: SimState) -> torch.Tensor:
 
 
 def _substep(params: SimParams, state: SimState, action: torch.Tensor) -> SimState:
-    force_b, torque_b, new_thrust = compute_robot_wrench(params, state, action)
+    force_b, torque_b, new_thrust = compute_robot_wrench(
+        params, state, action, include_motor_wrench=params.art is None)
     state = replace(state, motor_thrust=new_thrust,
                     applied_force_b=force_b, applied_torque_b=torque_b)
-    state = integrate_rigid_body(params, state, force_b, torque_b)
+    if params.art is not None:
+        # the coupled base + joints: motors push on their own links, the
+        # joints react on the base
+        from .articulated import articulated_substep
+        state = articulated_substep(params, state, force_b, torque_b, new_thrust)
+    else:
+        state = integrate_rigid_body(params, state, force_b, torque_b)
+        if params.dof is not None and params.dof.num_dofs > 0:
+            state = integrate_dofs(params, state)
     if params.scene is not None and params.scene.num_assets > 0:
         from ..envs.scene import integrate_obstacles
         state = integrate_obstacles(params, state)
@@ -204,6 +268,13 @@ def sample_reset_states(params: SimParams, state: SimState) -> dict:
         motor_thrust=uniform(mp.min_thrust, mp.max_thrust, M),
         motor_thrust_constant=uniform(mp.thrust_constant_min, mp.thrust_constant_max, M),
     )
+    dp = params.dof
+    if dp is not None and dp.num_dofs > 0:
+        D = dp.num_dofs
+        fresh.update(dof_pos=uniform(dp.init_pos_min, dp.init_pos_max, D),
+                     dof_vel=uniform(dp.init_vel_min, dp.init_vel_max, D),
+                     dof_pos_target=torch.zeros((N, D), device=dev),
+                     dof_vel_target=torch.zeros((N, D), device=dev))
     return fresh
 
 
@@ -234,6 +305,14 @@ def reset_envs(params: SimParams, state: SimState, mask: torch.Tensor) -> SimSta
         state = replace(state, **{
             pos_name: torch.where(mb[:, None], mpos, getattr(state, pos_name)),
             quat_name: torch.where(mb[:, None], mquat, getattr(state, quat_name))})
+    if params.imu is not None:
+        from ..sensors.imu import sample_imu_reset
+        ab, gb, mq = sample_imu_reset(params.imu, state.rng, state.num_envs)
+        m = mb[:, None]
+        state = replace(state,
+                        imu_accel_bias=torch.where(m, ab, state.imu_accel_bias),
+                        imu_gyro_bias=torch.where(m, gb, state.imu_gyro_bias),
+                        imu_mount_quat=torch.where(m, mq, state.imu_mount_quat))
     return state
 
 

@@ -2,7 +2,9 @@
 
 Counterpart of ``aerial_gym_simulator_tpu/sim/env_manager.py``:
 ``step(actions)``, ``reset()``, ``reset_idx(env_ids)``, ``get_obs()``,
-``post_reward_calculation_step()`` and ``render()``. The steps run eagerly
+``post_reward_calculation_step()``, ``render()`` and, for reconfigurable
+robots, ``robot_manager.robot.set_dof_position_targets`` /
+``set_dof_velocity_targets``. The steps run eagerly
 on the params' device; nothing in ``step`` or ``render`` reads a device
 value back to the host.
 """
@@ -25,6 +27,36 @@ from .structs import SimParams, SimState, replace
 logger = logging.getLogger(__name__)
 
 
+class _RobotHandle:
+    """``env_manager.robot_manager.robot``: the joint targets of a
+    reconfigurable robot. They live in the state, so the setters replace
+    the state's tensors (a value broadcast to (N, D))."""
+
+    def __init__(self, env_manager: "EnvManager"):
+        self._em = env_manager
+
+    def _targets(self, targets, like: torch.Tensor) -> torch.Tensor:
+        t = torch.as_tensor(targets, dtype=torch.float32, device=like.device)
+        return t.expand(like.shape).clone()
+
+    def set_dof_position_targets(self, targets):
+        em = self._em
+        em.state = replace(em.state, dof_pos_target=self._targets(targets,
+                                                                  em.state.dof_pos_target))
+
+    def set_dof_velocity_targets(self, targets):
+        em = self._em
+        em.state = replace(em.state, dof_vel_target=self._targets(targets,
+                                                                  em.state.dof_vel_target))
+
+
+class _RobotManagerHandle:
+    """The attribute chain ``env_manager.robot_manager.robot``."""
+
+    def __init__(self, env_manager: "EnvManager"):
+        self.robot = _RobotHandle(env_manager)
+
+
 class EnvManager:
     """Owns (params, state) and steps them."""
 
@@ -42,6 +74,7 @@ class EnvManager:
         self.state: SimState = initial_state(params, seed=seed)
         self.step_counter = 0
         self._py_rng = pyrandom.Random(seed)
+        self.robot_manager = _RobotManagerHandle(self)
         # latest sensor captures (filled by render())
         self._sensor_frames = None
         self._sensor_seg = None

@@ -1,5 +1,6 @@
-"""Build SimParams / the initial SimState from the config tree (rigid
-multirotors). Counterpart of ``aerial_gym_simulator_tpu/sim/params.py``."""
+"""Build SimParams / the initial SimState from the config tree: rigid
+multirotors, and the reconfigurable robots' joints and articulation.
+Counterpart of ``aerial_gym_simulator_tpu/sim/params.py``."""
 
 from __future__ import annotations
 
@@ -12,7 +13,9 @@ import torch
 
 from ..assets import procedural, urdf
 from .structs import (
+    ArtParams,
     ControllerParams,
+    DofParams,
     EnvParams,
     MotorParams,
     RobotParams,
@@ -130,6 +133,76 @@ def build_controller_params(ctrl_cfg, device) -> ControllerParams:
     )
 
 
+def build_art_params(robot_cfg, device) -> Optional[ArtParams]:
+    """ArtParams from the robot's articulation URDF; None for a rigid robot
+    or one without a URDF (its joints, if any, take the decoupled path)."""
+    text = getattr(robot_cfg, "articulation_urdf", None)
+    if not text:
+        return None
+    from ..assets.articulation import parse_articulation
+    model = parse_articulation(text)
+    if model is None:
+        return None
+    rc = robot_cfg.dof_config
+    if rc is not None and rc.num_dofs != model.nb:
+        raise ValueError(
+            f"articulation URDF has {model.nb} revolute joints but "
+            f"dof_config declares {rc.num_dofs} DOFs ({robot_cfg.name})")
+    asset = robot_cfg.robot_asset
+    if asset.mass is not None and abs(model.total_mass - asset.mass) > 1e-3:
+        logger.warning("%s: articulation total mass %.4f != configured %s (the "
+                       "articulated path uses the URDF)", robot_cfg.name,
+                       model.total_mass, asset.mass)
+    M = robot_cfg.control_allocator_config.num_motors
+    if len(model.motor_body) != M:
+        raise ValueError(
+            f"articulation URDF has {len(model.motor_body)} motor links, "
+            f"config expects {M} ({robot_cfg.name})")
+    t = lambda x: tensor(x, device)
+    return ArtParams(
+        R_tree=t(model.R_tree), t_tree=t(model.t_tree), axis=t(model.axis),
+        mass=t(model.mass), com=t(model.com), inertia=t(model.inertia),
+        base_mass=f32(model.base_mass), base_com=t(model.base_com),
+        base_inertia=t(model.base_inertia),
+        motor_pos=t(model.motor_pos), motor_dir=t(model.motor_dir),
+        armature=f32(getattr(asset, "armature", 0.001)),
+        parent=tuple(model.parent), motor_body=tuple(model.motor_body), nb=model.nb,
+    )
+
+
+def build_dof_params(robot_cfg, device) -> Optional[DofParams]:
+    """DofParams from the robot's ReconfigurationConfig (None when rigid).
+    A robot with an articulation URDF takes its joint limits and its
+    effort and velocity clamps from the URDF, over the config's."""
+    rc = robot_cfg.dof_config
+    if rc is None or rc.num_dofs == 0:
+        return None
+    D = rc.num_dofs
+    inertia = rc.dof_inertia if rc.dof_inertia else [1e-3] * D
+    lower = rc.lower_limit if rc.lower_limit else [-np.pi] * D
+    upper = rc.upper_limit if rc.upper_limit else [np.pi] * D
+    max_velocity = [rc.max_velocity] * D
+    max_effort = [rc.max_effort] * D
+    text = getattr(robot_cfg, "articulation_urdf", None)
+    if text:
+        from ..assets.articulation import parse_articulation
+        model = parse_articulation(text)
+        if model is not None and model.nb == D:
+            lower, upper = model.lower, model.upper
+            max_effort, max_velocity = model.effort, model.velocity
+    t = lambda x: tensor(x, device)
+    return DofParams(
+        stiffness=t(rc.stiffness), damping=t(rc.damping),
+        init_pos_min=t(rc.init_state_min[0]), init_pos_max=t(rc.init_state_max[0]),
+        init_vel_min=t(rc.init_state_min[1]), init_vel_max=t(rc.init_state_max[1]),
+        dof_inertia=t(inertia), lower_limit=t(lower), upper_limit=t(upper),
+        max_velocity=t(max_velocity), max_effort=t(max_effort),
+        nonlinear_stiffness=f32(rc.custom_nonlinear_stiffness),
+        linear_damping=f32(rc.custom_linear_damping),
+        dof_mode=rc.dof_mode, arm_response=rc.arm_response, num_dofs=D,
+    )
+
+
 def build_env_params(env_cfg, device, num_envs: Optional[int] = None) -> EnvParams:
     t = lambda x: tensor(x, device)
     return EnvParams(
@@ -150,7 +223,9 @@ def build_env_params(env_cfg, device, num_envs: Optional[int] = None) -> EnvPara
 def build_sim_params(sim_cfg, env_cfg, robot_cfg, ctrl_cfg, device,
                      num_envs: Optional[int] = None,
                      scene: Optional[SceneParams] = None) -> SimParams:
-    from ..config.sensor_config.sensor_configs import BaseDepthCameraConfig, BaseLidarConfig
+    from ..config.sensor_config.sensor_configs import (
+        BaseDepthCameraConfig, BaseImuConfig, BaseLidarConfig)
+    from ..sensors.imu import build_imu_params
     from ..sensors.raycast_sensor import build_ray_sensor_params
 
     def ray_sensor(enabled, cfg, default):
@@ -162,6 +237,10 @@ def build_sim_params(sim_cfg, env_cfg, robot_cfg, ctrl_cfg, device,
     sens = robot_cfg.sensor_config
     camera = ray_sensor(sens.enable_camera, sens.camera_config, BaseDepthCameraConfig)
     lidar = ray_sensor(sens.enable_lidar, sens.lidar_config, BaseLidarConfig)
+    imu = None
+    if sens.enable_imu:
+        imu_cfg = sens.imu_config or BaseImuConfig
+        imu = build_imu_params(imu_cfg() if isinstance(imu_cfg, type) else imu_cfg, device)
     return SimParams(
         dt=f32(sim_cfg.dt),
         gravity=tensor(sim_cfg.gravity, device),
@@ -169,9 +248,12 @@ def build_sim_params(sim_cfg, env_cfg, robot_cfg, ctrl_cfg, device,
         motor=build_motor_params(robot_cfg, device),
         controller=build_controller_params(ctrl_cfg, device),
         env=build_env_params(env_cfg, device, num_envs),
+        dof=build_dof_params(robot_cfg, device),
+        art=build_art_params(robot_cfg, device),
         scene=scene,
         camera=camera,
         lidar=lidar,
+        imu=imu,
     )
 
 
@@ -182,6 +264,7 @@ def initial_state(params: SimParams, seed: int = 0) -> SimState:
     N = params.env.num_envs
     M = params.motor.num_motors
     A = params.scene.num_assets if params.scene is not None else 0
+    D = params.dof.num_dofs if params.dof is not None else 0
     z = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=dev)
     unit_q = torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev)
     quat0 = lambda *lead: unit_q.expand(*lead, 4).clone()
@@ -215,5 +298,5 @@ def initial_state(params: SimParams, seed: int = 0) -> SimState:
         lidar_mount_pos=z(N, 3), lidar_mount_quat=quat0(N),
         imu_accel_bias=z(N, 3), imu_gyro_bias=z(N, 3), imu_mount_quat=quat0(N),
         num_obstacles=torch.full((N,), A, dtype=torch.int32, device=dev),
-        dof_pos=z(N, 0), dof_vel=z(N, 0), dof_pos_target=z(N, 0), dof_vel_target=z(N, 0),
+        dof_pos=z(N, D), dof_vel=z(N, D), dof_pos_target=z(N, D), dof_vel_target=z(N, D),
     )

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -89,6 +89,74 @@ class RobotParams:
     force_application_level: str = "motor_link"
     disable_gravity: bool = False
     fix_base_link: bool = False
+
+
+@dataclass
+class DofParams:
+    """Joint (DOF) dynamics of a reconfigurable robot: its drive (position,
+    velocity or effort PD, or morphy's nonlinear arm spring), init ranges,
+    limits and clamps. ``dof_inertia`` is the joint inertia of the decoupled
+    path that robots without an articulation URDF take."""
+    stiffness: Tensor                    # (D,) Kp
+    damping: Tensor                      # (D,) Kd
+    init_pos_min: Tensor                 # (D,)
+    init_pos_max: Tensor
+    init_vel_min: Tensor
+    init_vel_max: Tensor
+    dof_inertia: Tensor                  # (D,)
+    lower_limit: Tensor                  # (D,)
+    upper_limit: Tensor
+    max_velocity: Tensor                 # (D,)
+    max_effort: Tensor
+    nonlinear_stiffness: float           # morphy's arm response
+    linear_damping: float
+    dof_mode: str = "position"
+    arm_response: str = "pd"             # or "morphy"
+    num_dofs: int = 0
+
+
+@dataclass
+class ArtParams:
+    """Floating-base articulation built from the robot's URDF joint tree
+    (assets/articulation.py); one moving body per revolute DOF, fixed
+    subtrees merged, indices in URDF joint order. The tree structure stays
+    Python data: the solver loops over it on the host."""
+    R_tree: Tensor                       # (NB, 3, 3) child->parent at q=0
+    t_tree: Tensor                       # (NB, 3) joint origin in the parent frame
+    axis: Tensor                         # (NB, 3) joint axis, child frame
+    mass: Tensor                         # (NB,)
+    com: Tensor                          # (NB, 3) body frame
+    inertia: Tensor                      # (NB, 3, 3) about the com, body frame
+    base_mass: float
+    base_com: Tensor                     # (3,)
+    base_inertia: Tensor                 # (3, 3) about the base com
+    motor_pos: Tensor                    # (M, 3) in the owning body's frame
+    motor_dir: Tensor                    # (M, 3) thrust direction, body frame
+    armature: float                      # added to H's joint diagonal
+    parent: Tuple[int, ...] = ()         # per body; -1 = base
+    motor_body: Tuple[int, ...] = ()     # per motor; -1 = base
+    nb: int = 0
+
+
+@dataclass
+class ImuParams:
+    """IMU noise model: white noise, bias random walk, bias re-init range,
+    mount perturbation, measurement clamps."""
+    accel_noise_std: Tensor              # (3,)
+    gyro_noise_std: Tensor               # (3,)
+    accel_bias_std: Tensor               # (3,) random-walk increment std
+    gyro_bias_std: Tensor
+    max_accel: float
+    max_gyro: float
+    accel_bias_init: Tensor              # (3,) bias reset uniform in +-this
+    gyro_bias_init: Tensor               # (3,)
+    min_mount_euler_rad: Tensor          # (3,)
+    max_mount_euler_rad: Tensor          # (3,)
+    world_frame: bool = False
+    gravity_compensation: bool = False
+    enable_noise: bool = True
+    enable_bias: bool = True
+    randomize_placement: bool = False
 
 
 @dataclass
@@ -180,12 +248,12 @@ class SimParams:
     motor: MotorParams
     controller: ControllerParams
     env: EnvParams
-    dof: None = None                     # articulated robots: later slice
-    art: None = None
+    dof: Optional[DofParams] = None
+    art: Optional[ArtParams] = None
     scene: Optional[SceneParams] = None
     camera: Optional[RaySensorParams] = None
     lidar: Optional[RaySensorParams] = None
-    imu: None = None
+    imu: Optional[ImuParams] = None
 
     @property
     def device(self) -> torch.device:
@@ -228,7 +296,7 @@ class SimState:
     imu_gyro_bias: Tensor                # (N, 3)
     imu_mount_quat: Tensor               # (N, 4)
     num_obstacles: Tensor                # (N,) int32
-    dof_pos: Tensor                      # (N, 0)
+    dof_pos: Tensor                      # (N, D); D = 0 for a rigid robot
     dof_vel: Tensor
     dof_pos_target: Tensor
     dof_vel_target: Tensor

@@ -16,8 +16,10 @@ def register_all():
     from .position_setpoint_variants import (
         AccelerationSim2RealConfig,
         EndToEndConfig,
+        MorphyConfig,
         PositionSetpointTaskVariant,
         Px4Config,
+        ReconfigurableConfig,
         Sim2RealConfig,
     )
 
@@ -32,6 +34,10 @@ def register_all():
                                 PositionSetpointTaskVariant, EndToEndConfig)
     task_registry.register_task("position_setpoint_task_sim2real_px4",
                                 PositionSetpointTaskVariant, Px4Config)
+    task_registry.register_task("position_setpoint_task_reconfigurable",
+                                PositionSetpointTaskVariant, ReconfigurableConfig)
+    task_registry.register_task("position_setpoint_task_morphy",
+                                PositionSetpointTaskVariant, MorphyConfig)
     task_registry.register_task("lidar_navigation_task", LiDARNavigationTask,
                                 LidarNavigationTaskConfig)
     task_registry.register_task("radar_navigation_task", RadarNavigationTask,

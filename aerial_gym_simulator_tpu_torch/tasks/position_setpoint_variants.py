@@ -1,4 +1,5 @@
-"""Position-setpoint task variants: sim2real, acceleration, end-to-end, px4.
+"""Position-setpoint task variants: sim2real, acceleration, end-to-end, px4,
+reconfigurable, morphy.
 
 Counterpart of ``aerial_gym_simulator_tpu/tasks/position_setpoint_variants.py``:
 
@@ -11,15 +12,17 @@ Counterpart of ``aerial_gym_simulator_tpu/tasks/position_setpoint_variants.py``:
                                            tinyprop, motor thrust commands,
                                            15-d rot6d obs, progress reward
   position_setpoint_task_sim2real_px4      x500, motor thrust commands
-
-The reconfigurable and morphy variants need the articulated robots, which
-the port has not got yet (ROADMAP.md §A8): asking for either raises.
+  position_setpoint_task_reconfigurable    snakey6, motor thrusts + joint
+                                           velocity targets, joint-state obs
+  position_setpoint_task_morphy            morphy, motor thrusts, passive
+                                           arm joint-state obs and penalties
 
 ``variant_task_step`` composes the whole RL step (action scaling, sim,
 reward, masked reset, noisy observation) from tensor code on the sim's
 device and reads nothing back to the host. The observation noise is four
 standard-normal (N, 3) draws per step from the carry's own generator
 (``sample_variant_draws``); a caller may pass its own ``VariantDraws``.
+The reconfigurable and morphy observations are exact and draw nothing.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from ..utils.math import (
     exp_func,
     exp_penalty_func,
     get_euler_xyz_tensor,
+    interpolate_ratio,
     quat_apply_inverse,
     quat_axis,
     quat_from_euler_xyz_tensor,
@@ -48,7 +52,8 @@ from ..utils.math import (
 )
 from .base_task import BaseTask
 
-VARIANTS = ("sim2real", "acceleration_sim2real", "end_to_end", "px4")
+VARIANTS = ("sim2real", "acceleration_sim2real", "end_to_end", "px4", "reconfigurable",
+            "morphy")
 
 
 def abs_exp_func(x, gain, exp):
@@ -85,10 +90,14 @@ class VariantTaskConfig:
     episode_len_steps: int = 800
     return_state_before_reset: bool = False
     crash_dist: float = 10.0
-    # symmetric [-1, 1] policy range mapped onto these per-motor limits
-    # (motor-command variants); empty: the action is used as it is
+    # per-action limits (motor-command variants); empty: the action is
+    # used as it is. The end-to-end and px4 variants map the policy's
+    # [-1, 1] onto them, the reconfigurable and morphy variants a [0, 1]
+    # ratio
     action_limit_min: Tuple[float, ...] = ()
     action_limit_max: Tuple[float, ...] = ()
+    num_motors: int = 4
+    num_joints: int = 0
 
 
 def Sim2RealConfig() -> VariantTaskConfig:
@@ -123,6 +132,32 @@ def Px4Config() -> VariantTaskConfig:
         num_envs=24, observation_space_dim=15, action_space_dim=4,
         episode_len_steps=500, crash_dist=6.5,
         action_limit_min=(0.0,) * 4, action_limit_max=(8.0,) * 4)
+
+
+def ReconfigurableConfig() -> VariantTaskConfig:
+    # the joint range's limits run from +1 down to -1: a ratio of 0 is a
+    # +1 rad/s target (the source's order, kept)
+    nm, nj = 6, 10
+    return VariantTaskConfig(
+        variant="reconfigurable", sim_name="base_sim_2ms",
+        env_name="empty_env_2ms", robot_name="snakey6",
+        controller_name="no_control", num_envs=1024,
+        observation_space_dim=13 + (nm + nj) + 2 * nj,
+        action_space_dim=nm + nj, episode_len_steps=500, crash_dist=3.0,
+        action_limit_min=tuple([0.0] * nm + [1.0] * nj),
+        action_limit_max=tuple([15.0] * nm + [-1.0] * nj),
+        num_motors=nm, num_joints=nj)
+
+
+def MorphyConfig() -> VariantTaskConfig:
+    # morphy at the 2 ms sim dt, 5 substeps per env step
+    return VariantTaskConfig(
+        variant="morphy", sim_name="base_sim_2ms", env_name="empty_env_2ms",
+        robot_name="morphy", controller_name="no_control",
+        num_envs=1024, observation_space_dim=13 + 4 + 16, action_space_dim=4,
+        episode_len_steps=500, crash_dist=3.0,
+        action_limit_min=(0.0,) * 4, action_limit_max=(2.0,) * 4,
+        num_motors=4, num_joints=8)
 
 
 # ---------------------------------------------------------------------------
@@ -211,6 +246,51 @@ def _motor_command_reward(pos_error, prev_pos_error, quat, linvel, angvel_b,
     return reward, crashes
 
 
+def _reconfigurable_reward(pos_error, quat, angvel_b, crashes):
+    dist = safe_norm(pos_error, dim=-1)
+    pos_reward = exp_func(dist, 3.0, 8.0) + exp_func(dist, 0.5, 1.0)
+    dist_reward = (20.0 - dist) / 40.0
+    euler = ssa(get_euler_xyz_tensor(quat))
+    roll, pitch = euler[..., 0], euler[..., 1]
+    up_reward = exp_func(roll, 3.0, 5.0) + exp_func(pitch, 3.0, 5.0)
+    spinnage = safe_norm(angvel_b, dim=-1)
+    ang_vel_reward = exp_func(spinnage, 3.0, 10.5)
+    yaw_rate_special = exp_func(torch.abs(angvel_b[..., 2]), 5.0, 20.5)
+    total = (pos_reward + dist_reward + yaw_rate_special
+             + pos_reward * (up_reward + ang_vel_reward + yaw_rate_special))
+    return _upset_crashes(total, crashes, dist, roll, pitch)
+
+
+def _morphy_reward(pos_error, quat, angvel_b, joint_vels, crashes, action, prev_action):
+    dist = safe_norm(pos_error, dim=-1)
+    pos_reward = exp_func(dist, 4.0, 12.0) + exp_func(dist, 1.0, 3.0)
+    dist_reward = (20.0 - dist) / 40.0
+    ups = quat_axis(quat, 2)
+    tiltage = torch.abs(1.0 - ups[..., 2])
+    euler = ssa(get_euler_xyz_tensor(quat))
+    roll, pitch = euler[..., 0], euler[..., 1]
+    up_reward = exp_func(tiltage, 5.0, 25.0)
+    spinnage = safe_norm(angvel_b, dim=-1)
+    ang_vel_reward = exp_func(spinnage, 3.0, 10.5)
+    action_difference = prev_action - action
+    absolute_action_reward = -0.15 * torch.sum((action[..., :4] - 0.711225) ** 2, dim=-1)
+    action_difference_reward = torch.sum(exp_penalty_func(action_difference, 0.2, 5.0), dim=-1)
+    joint_vel_reward = torch.sum(exp_penalty_func(joint_vels, 0.30, 30.0), dim=-1)
+    total = ((pos_reward + dist_reward + pos_reward * (up_reward + ang_vel_reward))
+             + action_difference_reward + action_difference_reward * pos_reward
+             + absolute_action_reward + joint_vel_reward)
+    return _upset_crashes(total, crashes, dist, roll, pitch)
+
+
+def _upset_crashes(total, crashes, dist, roll, pitch):
+    """The articulated variants' crash rule (beyond 3 m, or rolled or
+    pitched past 1 rad) and its -20 reward."""
+    crashes = torch.where((dist > 3.0) | (torch.abs(roll) > 1.0) | (torch.abs(pitch) > 1.0),
+                          torch.ones_like(crashes), crashes)
+    total = torch.where(crashes > 0.0, torch.full_like(total, -20.0), total)
+    return total, crashes
+
+
 # per-variant constants of _motor_command_reward
 _MOTOR_REWARD = {
     "end_to_end": dict(z_scale=11.0, hover_thrust=9.81 * 0.372 / 4.0,
@@ -251,21 +331,21 @@ def sample_variant_draws(gen: torch.Generator, num_envs: int, device) -> Variant
 
 
 def _check_variant(variant: str):
-    if variant in ("reconfigurable", "morphy"):
-        raise NotImplementedError(
-            f"the {variant} variant needs the articulated robots, which are not ported "
-            "yet (ROADMAP.md §A8)")
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; known: {VARIANTS}")
 
 
 def _scale_actions(cfg: VariantTaskConfig, raw):
     """Motor-command variants: the policy's [-1, 1] range mapped onto the
-    motor limits, action 0 at mid-range; the others use the action as it is."""
+    motor limits, action 0 at mid-range (end-to-end, px4), or a [0, 1]
+    ratio interpolated between the limits (reconfigurable, morphy); the
+    others use the action as it is."""
     if not cfg.action_limit_min:
         return raw
     lo = torch.as_tensor(cfg.action_limit_min, dtype=torch.float32, device=raw.device)
     hi = torch.as_tensor(cfg.action_limit_max, dtype=torch.float32, device=raw.device)
+    if cfg.variant in ("reconfigurable", "morphy"):
+        return interpolate_ratio(lo, hi, torch.clamp(raw, 0.0, 1.0))
     a = torch.clamp(raw, -1.0, 1.0)
     return a * (hi - lo) / 2.0 + (hi + lo) / 2.0
 
@@ -285,14 +365,18 @@ def variant_task_step(params: SimParams, cfg: VariantTaskConfig, carry: VariantC
     v = cfg.variant
     _check_variant(v)
     state = carry.sim
-    if draws is None:
+    if draws is None and v not in ("reconfigurable", "morphy"):    # their obs is exact
         draws = sample_variant_draws(carry.rng, state.num_envs, state.device)
 
     action = _scale_actions(cfg, raw_actions)
     prev_pos_error = target_position - state.pos
     prev_dist = safe_norm(prev_pos_error, dim=-1)
 
-    state = dynamics.env_step(params, state, action, n_substeps)
+    # the reconfigurable variant's action ends in joint velocity targets
+    motor_cmd = action[..., :cfg.num_motors] if cfg.num_joints > 0 else action
+    if v == "reconfigurable":
+        state = replace(state, dof_vel_target=action[..., cfg.num_motors:])
+    state = dynamics.env_step(params, state, motor_cmd, n_substeps)
 
     obs = compute_robot_obs(state.pos, state.quat, state.linvel, state.angvel)
     crashes = state.crashes
@@ -309,6 +393,13 @@ def variant_task_step(params: SimParams, cfg: VariantTaskConfig, carry: VariantC
             pos_err_b, prev_dist, yaw_error, obs.body_linvel, obs.body_angvel,
             crashes, _vf_action(obs.vehicle_quat, action),
             _vf_action(obs.vehicle_quat, carry.prev_action))
+    elif v == "reconfigurable":
+        pos_err_vf = quat_apply_inverse(obs.vehicle_quat, target_position - obs.pos)
+        reward, crashes = _reconfigurable_reward(pos_err_vf, obs.quat, obs.body_angvel, crashes)
+    elif v == "morphy":
+        pos_err_vf = quat_apply_inverse(obs.vehicle_quat, target_position - obs.pos)
+        reward, crashes = _morphy_reward(pos_err_vf, obs.quat, obs.body_angvel, state.dof_vel,
+                                         crashes, action, carry.prev_action)
     else:
         reward, crashes = _motor_command_reward(
             target_position - obs.pos, prev_pos_error, obs.quat, obs.linvel,
@@ -331,9 +422,16 @@ def variant_task_step(params: SimParams, cfg: VariantTaskConfig, carry: VariantC
 
 
 def _pack_obs(cfg: VariantTaskConfig, state: SimState, action, target, draws: VariantDraws):
-    """The variant's observation with its sensor-style noise."""
+    """The variant's observation with its sensor-style noise; the
+    reconfigurable and morphy variants' is exact: the 13-d state, the
+    action and the joint states."""
     obs = compute_robot_obs(state.pos, state.quat, state.linvel, state.angvel)
     pos_error = target - obs.pos
+    if cfg.variant in ("reconfigurable", "morphy"):
+        parts = [pos_error, obs.quat, obs.body_linvel, obs.body_angvel, action]
+        if cfg.num_joints > 0:
+            parts += [state.dof_pos, state.dof_vel]
+        return torch.cat(parts, dim=-1)
     if cfg.variant in ("sim2real", "acceleration_sim2real"):
         q = obs.quat * torch.sign(obs.quat[..., 3:4])            # canonical sign
         euler = ssa(get_euler_xyz_tensor(q))
@@ -357,7 +455,7 @@ def _pack_obs(cfg: VariantTaskConfig, state: SimState, action, target, draws: Va
 
 
 class PositionSetpointTaskVariant(BaseTask):
-    """The gym-style task shared by the four variants. Runs on CUDA unless
+    """The gym-style task shared by the six variants. Runs on CUDA unless
     ``device="cpu"`` (argument or config) asks for the CPU."""
 
     CONFIG = VariantTaskConfig

@@ -186,6 +186,28 @@ Phases, each printed on its own line:
                the card within 1e-4 of the same module on the CPU; each
                part's seconds.
 
+ 13. articulated - the articulated robots, the IMU and the sensor catalog:
+               a. position_setpoint_task_reconfigurable (snakey6, 2 ms dt, 5
+               substeps) and position_setpoint_task_morphy at their configs'
+               1,024 envs, 100 steps each from seeded actions: observations
+               (1024, 49) and (1024, 33), finite rewards, joints inside the
+               URDF limits, ms/step, env-steps/s and the device's idle share;
+               3 PPO iterations on the reconfigurable task at 1,024 x 32;
+               morphy_fixed_base at 1,024 envs, 300 zero-thrust steps: the
+               arms settle (|qd| < 0.2, |q| <= 0.25 + 1e-5, base velocity 0);
+               b. one articulated_substep on the card and on the CPU from the
+               same state, snakey6 and morphy at 1,024 envs, within
+               SOLVER_TOL; c. base_quadrotor_with_imu hovering at 16,384 envs
+               for 200 steps with imu_measurement every step (the bias walk's
+               std within 15% of bias_std sqrt(T dt), mean z specific force
+               about +9.81), base_quadrotor_with_camera_imu at 1,024 envs in
+               the obstacle env for 20 steps of render() (K2 once a step); d.
+               every new catalog camera and lidar on the camera / lidar quad
+               in the obstacle env at 256 envs: render() once (K2; K1 for the
+               four sensors without segmentation), K2 (and K1 there) on the
+               capture's inputs bit-equal to the plain version, broad phase
+               on and off, timed with its bound; each part's seconds.
+
 Before the last line it prints one JSON object with a record per kernel;
 the last line is {"ok": true, "device": {...}}. Any failure raises and the
 script exits non-zero without that line. Without CUDA it exits 1 at once.
@@ -328,6 +350,32 @@ ROBOT_STEPS = 100
 ROBOT_PAIRS = (("base_octarotor", "lee_position_control"),
                ("base_random", "lee_position_control"),
                ("base_rov", "rov_fully_actuated_control"))
+ART_TASKS = {                      # name -> the observation width; each at its config's 1,024 envs
+    "position_setpoint_task_reconfigurable": 49,
+    "position_setpoint_task_morphy": 33,
+}
+ART_STEPS = 100
+ART_PPO_TASK = "position_setpoint_task_reconfigurable"
+ART_PPO_ENVS = 1024
+ART_PPO_ITERATIONS = 3
+FIXED_BASE_ENVS = 1024
+FIXED_BASE_STEPS = 300             # tests/test_articulated.py:289-307's settling run
+SOLVER_ENVS = 1024
+SOLVER_ROBOTS = (("snakey6", "base_sim_2ms"), ("morphy", "base_sim_2ms"))
+# one substep on the card against the CPU, the bars of the CPU tests' twenty
+# steps (tests/test_torch_articulated.py): the solve's rounding differs
+SOLVER_TOL = {"pos": 1e-4, "quat": 1e-4, "dof_pos": 1e-4, "linvel": 1e-3, "angvel": 1e-3,
+              "dof_vel": 1e-3}
+IMU_ENVS = 16384
+IMU_STEPS = 200
+CAMERA_IMU_ENVS = 1024
+CAMERA_IMU_STEPS = 20
+CATALOG_ENVS = 256
+CATALOG_CAMERAS = ("NavDepthCameraConfig", "RsD455Config", "TofCameraConfig",
+                   "LuxonisOakDConfig", "LuxonisOakDProWConfig")
+CATALOG_LIDARS = ("LidarNavConfig", "OS0_64Config", "OS0_128Config", "OS1_64Config",
+                  "OS2_64Config", "OS2_128Config", "PmdFlexx2Config", "StVL53L5CXConfig",
+                  "OSDome_64Config", "Lidar2DConfig")
 STATE_STEP_ENVS = 16384
 STATE_STEPS = 100
 POSITION_POLICY = (Path(__file__).resolve().parent
@@ -2065,6 +2113,279 @@ def variants_phase(torch, port, rc, ac, card):
         raise AssertionError(f"variants: a kernel launched on a state-only path: {launches}")
 
 
+def articulated_tasks_subphase(torch, port, card):
+    """13a: the reconfigurable and morphy tasks at their configs' envs from
+    seeded actions, PPO on the reconfigurable task, morphy_fixed_base's arms
+    settling. Returns the device-busy readings."""
+    from aerial_gym_simulator_tpu_torch.rl.ppo import PPOConfig, PPOTrainer
+    busy = {}
+    for name, obs_dim in ART_TASKS.items():
+        task = port.task_registry.make_task(name)
+        n, A, dp = task.num_envs, task.action_space_dim, task.params.dof
+        gen = torch.Generator(device=task.device).manual_seed(0)
+        actions = torch.rand((ART_STEPS, n, A), generator=gen, device=task.device)
+        obs, *_ = task.reset()
+        totals = torch.zeros(3, device=task.device)
+        ok = torch.ones((), dtype=torch.bool, device=task.device)
+        task.step(actions[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for a in actions:
+            obs, rew, term, trunc, _ = task.step(a)
+            q = task.state.dof_pos
+            totals += torch.stack([rew.mean(), term.sum(), trunc.sum()])
+            ok &= (torch.isfinite(obs["observations"]).all() & torch.isfinite(rew).all()
+                   & ((q >= dp.lower_limit - 1e-5) & (q <= dp.upper_limit + 1e-5)).all())
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        busy[name] = device_busy(torch, lambda: task.step(actions[0]), 5)
+        reward_mean, crashes, truncations = (float(x) for x in totals)
+        cfg = task.task_config
+        log(f"articulated: {name} ({cfg.robot_name}, {cfg.sim_name}, {cfg.controller_name}) "
+            f"{n} envs, {ART_STEPS} steps: {ART_STEPS * n / dt:.1f} env-steps/s "
+            f"({dt / ART_STEPS * 1e3:.2f} ms/step, {task.params.env.substep_mean} substeps of "
+            f"{task.params.art.nb} bodies), reward mean {reward_mean / ART_STEPS:.4f}, crashes "
+            f"{crashes:.0f}, truncations {truncations:.0f}, finite and inside the joint limits "
+            f"{bool(ok)} | {busy_text(*busy[name])} | {card}")
+        shape = tuple(obs["observations"].shape)
+        if not bool(ok) or shape != (n, obs_dim) or tuple(rew.shape) != (n,):
+            raise AssertionError(f"articulated: {name}: finite and inside {bool(ok)}, "
+                                 f"obs {shape}")
+        task.close()
+        del task, actions
+
+    task = port.task_registry.make_task(ART_PPO_TASK, num_envs=ART_PPO_ENVS)
+    trainer = PPOTrainer(task, PPOConfig(num_envs=ART_PPO_ENVS))
+    ppo_iterations(torch, trainer, ART_PPO_ITERATIONS, "articulated ppo", card)
+    if task._carry is not trainer.env_carry:
+        raise AssertionError("articulated ppo: set_carry did not hand the carry back")
+    task.close()
+    del trainer, task
+
+    env = port.SimBuilder().build_env("base_sim", "empty_env", "morphy_fixed_base",
+                                      "no_control", num_envs=FIXED_BASE_ENVS, seed=0)
+    zeros = torch.zeros((FIXED_BASE_ENVS, 4), device=env.device)
+    q0 = env.state.dof_pos.clone()
+    t0 = time.perf_counter()
+    for _ in range(FIXED_BASE_STEPS):
+        env.step(zeros)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    st = env.state
+    qd_max, q_max = float(st.dof_vel.abs().max()), float(st.dof_pos.abs().max())
+    base = float(st.linvel.abs().max()) + float(st.angvel.abs().max())
+    log(f"articulated: morphy_fixed_base {FIXED_BASE_ENVS} envs, {FIXED_BASE_STEPS} steps of "
+        f"zero thrust from q0 in [{float(q0.min()):.2f}, {float(q0.max()):.2f}]: max |qd| "
+        f"{qd_max:.4g} (bar 0.2), max |q| {q_max:.6f} (bar 0.25 + 1e-5), base velocity "
+        f"{base} (bar 0), {dt / FIXED_BASE_STEPS * 1e3:.2f} ms/step | {card}")
+    if not (qd_max < 0.2 and q_max <= 0.25 + 1e-5 and base == 0.0):
+        raise AssertionError("articulated: morphy_fixed_base's arms did not settle")
+    del env
+    return busy
+
+
+def solver_subphase(torch, port, card):
+    """13b: one articulated_substep on the card and on the CPU from the same
+    state (joints in motion, targets, a spinning base, thrusts and a base
+    wrench), each robot at SOLVER_ENVS envs: every field within SOLVER_TOL,
+    the IMU's specific force within 1e-3 of its largest magnitude."""
+    from aerial_gym_simulator_tpu_torch.sim.articulated import articulated_substep
+    from aerial_gym_simulator_tpu_torch.sim.convert import (
+        params_from_numpy, record_to_numpy, state_from_numpy)
+    from aerial_gym_simulator_tpu_torch.sim.structs import replace
+    for robot, sim in SOLVER_ROBOTS:
+        env = port.SimBuilder().build_env(sim, "empty_env", robot, "no_control",
+                                          num_envs=SOLVER_ENVS, seed=1)
+        p, n, dev = env.params, SOLVER_ENVS, env.device
+        D, M = p.dof.num_dofs, p.motor.num_motors
+        g = torch.Generator(device=dev).manual_seed(2)
+        u = lambda *shape: torch.rand(shape, generator=g, device=dev)
+        lo, hi = p.dof.lower_limit, p.dof.upper_limit
+        st = replace(env.state, dof_pos=0.8 * (lo + (hi - lo) * u(n, D)),
+                     dof_vel=2 * u(n, D) - 1, dof_vel_target=2 * u(n, D) - 1,
+                     dof_pos_target=0.4 * u(n, D) - 0.2, angvel=2 * u(n, 3) - 1,
+                     linvel=2 * u(n, 3) - 1)
+        wrench = (u(n, 3) - 0.5, 0.04 * u(n, 3) - 0.02, 3.0 * u(n, M))
+        card_out = articulated_substep(p, st, *wrench)
+        cpu_out = articulated_substep(params_from_numpy(record_to_numpy(p), "cpu"),
+                                      state_from_numpy(record_to_numpy(st), "cpu"),
+                                      *(w.cpu() for w in wrench))
+        errs = {f: (getattr(card_out, f).cpu() - getattr(cpu_out, f)).abs().max().item()
+                for f in list(SOLVER_TOL) + ["applied_force_b"]}
+        spec_scale = cpu_out.applied_force_b.abs().max().item()
+        ms = wall_ms(torch, lambda: articulated_substep(p, st, *wrench), iters=10)
+        busy = device_busy(torch, lambda: articulated_substep(p, st, *wrench), 10)
+        moved = (card_out.dof_vel - st.dof_vel).abs().max().item()
+        log(f"articulated: solver {robot} ({p.art.nb} bodies, H {6 + D}x{6 + D}) at {n} envs, "
+            f"card against CPU: " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+            + f" (specific force up to {spec_scale:.3g}); joint rates moved {moved:.3g}; "
+            f"{ms:.3f} ms per substep on the card, {busy_text(*busy)} | {card}")
+        bad = [k for k, tol in SOLVER_TOL.items() if not errs[k] <= tol]
+        if bad or not errs["applied_force_b"] <= 1e-3 * spec_scale or not moved > 1e-3:
+            raise AssertionError(f"articulated: solver {robot}: {bad} beyond {SOLVER_TOL}, "
+                                 f"errors {errs}")
+        del env
+
+
+def imu_subphase(torch, port, rc, card):
+    """13c: base_quadrotor_with_imu holding a hover at IMU_ENVS envs with an
+    IMU reading every step (bias walk from zero: its std within 15% of
+    bias_std sqrt(T dt), the mean z specific force about +9.81 m/s^2), then
+    base_quadrotor_with_camera_imu at CAMERA_IMU_ENVS envs in the obstacle
+    env with render() and the IMU every step. Returns the second run's
+    ray-cast launches."""
+    from aerial_gym_simulator_tpu_torch.sensors.imu import imu_measurement
+    from aerial_gym_simulator_tpu_torch.sim.structs import replace
+    env = port.SimBuilder().build_env("base_sim", "empty_env", "base_quadrotor_with_imu",
+                                      "lee_position_control", num_envs=IMU_ENVS, seed=3)
+    n, dev = IMU_ENVS, env.device
+    z3 = torch.zeros((n, 3), device=dev)
+    env.state = replace(env.state, pos=z3, linvel=z3, angvel=z3, imu_accel_bias=z3,
+                        imu_gyro_bias=z3,
+                        quat=torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev).expand(n, 4).clone())
+    zeros = torch.zeros((n, 4), device=dev)
+    acc_z = torch.zeros((), device=dev)
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(IMU_STEPS):
+        env.step(zeros)
+        accel, gyro, ab, gb = imu_measurement(env.params, env.state)
+        env.state = replace(env.state, imu_accel_bias=ab, imu_gyro_bias=gb)
+        finite &= torch.isfinite(accel).all() & torch.isfinite(gyro).all()
+        if k >= IMU_STEPS // 2:
+            acc_z += accel[:, 2].mean()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    ip = env.params.imu
+    expected = float(ip.accel_bias_std.mean()) * math.sqrt(IMU_STEPS * env.params.dt)
+    measured = float(env.state.imu_accel_bias.std())
+    mean_z = float(acc_z) / (IMU_STEPS - IMU_STEPS // 2)
+    log(f"articulated: imu hover, base_quadrotor_with_imu + lee_position_control, {n} envs, "
+        f"{IMU_STEPS} steps of env.step + imu_measurement: {IMU_STEPS * n / dt:.1f} env-steps/s "
+        f"({dt / IMU_STEPS * 1e3:.2f} ms/step); accel bias std {measured:.4g} against "
+        f"{expected:.4g} ({measured / expected - 1.0:+.1%}, bar 15%), mean z specific force "
+        f"{mean_z:.4f} m/s^2 over the last {IMU_STEPS - IMU_STEPS // 2} steps, finite "
+        f"{bool(finite)} | {card}")
+    if not (bool(finite) and 0.85 * expected < measured < 1.15 * expected
+            and abs(mean_z - 9.81) < 0.2):
+        raise AssertionError("articulated: the IMU's bias walk or specific force is off")
+    del env
+
+    env = port.SimBuilder().build_env("base_sim", "env_with_obstacles",
+                                      "base_quadrotor_with_camera_imu", "lee_velocity_control",
+                                      num_envs=CAMERA_IMU_ENVS, seed=4)
+    zeros = torch.zeros((CAMERA_IMU_ENVS, 4), device=dev)
+    zero_counts(rc.LAUNCHES)
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(CAMERA_IMU_STEPS):
+        env.step(zeros)
+        env.render()
+        accel, gyro, ab, gb = imu_measurement(env.params, env.state)
+        env.state = replace(env.state, imu_accel_bias=ab, imu_gyro_bias=gb)
+        finite &= (torch.isfinite(env.get_obs()["depth_range_pixels"]).all()
+                   & torch.isfinite(accel).all())
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(rc.LAUNCHES)
+    log(f"articulated: base_quadrotor_with_camera_imu, {CAMERA_IMU_ENVS} envs, "
+        f"{CAMERA_IMU_STEPS} steps of env.step + render() + imu_measurement: "
+        f"{dt / CAMERA_IMU_STEPS * 1e3:.2f} ms/step, launches {launches}, finite "
+        f"{bool(finite)} | {card}")
+    want = {"raycast_depth": 0, "raycast_seg": CAMERA_IMU_STEPS, "raycast_normals": 0,
+            "raycast_rgb": 0}
+    if launches != want or not bool(finite):
+        raise AssertionError(f"articulated: camera_imu launches {launches}, expected {want}")
+    del env
+    return launches
+
+
+def catalog_subphase(torch, port, rc, card):
+    """13d: each catalog camera mounted on base_quadrotor_with_camera and each
+    catalog lidar on base_quadrotor_with_lidar, env_with_obstacles at
+    CATALOG_ENVS envs: render() (K2, or K1 for a sensor without
+    segmentation) once, finite output of the table's shape; K2 on the
+    capture's inputs bit-equal to its plain version, broad phase on and
+    off, timed with its bound (time_mode), and K1 the same where render()
+    ran it. Returns (render launches by mode, {config: K2 record}, {config:
+    K1 record})."""
+    from aerial_gym_simulator_tpu_torch.config.sensor_config import sensor_configs
+    from aerial_gym_simulator_tpu_torch.sensors.raycast_sensor import (
+        build_ray_sensor_params, cast_inputs)
+    from aerial_gym_simulator_tpu_torch.sim.structs import replace
+    launches = {k: 0 for k in rc.LAUNCHES}
+    k2, k1 = {}, {}
+    for robot, kind, names in (("base_quadrotor_with_camera", "camera", CATALOG_CAMERAS),
+                               ("base_quadrotor_with_lidar", "lidar", CATALOG_LIDARS)):
+        env = port.SimBuilder().build_env("base_sim", "env_with_obstacles", robot,
+                                          "lee_velocity_control", num_envs=CATALOG_ENVS,
+                                          seed=5)
+        prefix = "cam" if kind == "camera" else "lidar"
+        for name in names:
+            sp = build_ray_sensor_params(getattr(sensor_configs, name)(), env.device)
+            env.params = replace(env.params, **{kind: sp})
+            env.reset()                                    # draws this sensor's mount
+            zero_counts(rc.LAUNCHES)
+            env.render()
+            torch.cuda.synchronize()
+            got = dict(rc.LAUNCHES)
+            mode = "raycast_seg" if sp.segmentation_camera else "raycast_depth"
+            want = {k: int(k == mode) for k in rc.LAUNCHES}
+            pixels = env.get_obs()["depth_range_pixels"]
+            if got != want or tuple(pixels.shape) != (CATALOG_ENVS, sp.height, sp.width) \
+                    or not bool(torch.isfinite(pixels).all()):
+                raise AssertionError(f"catalog {name}: launches {got} (expected {want}), "
+                                     f"pixels {tuple(pixels.shape)}")
+            for k, v in got.items():
+                launches[k] += v
+            args = cast_inputs(env.params, env.state, sp, getattr(env.state, prefix + "_mount_pos"),
+                               getattr(env.state, prefix + "_mount_quat"))
+            n_tri = env.params.scene.n_tri
+            table = f"{sp.height}x{sp.width}"
+            rec, _ = time_mode(torch, rc, args, n_tri, "raycast_seg", card,
+                               f"catalog {name} ({table}, {sp.max_range:g} m)")
+            k2[name] = dict(rec, table=table, launches=got["raycast_seg"], library_ms=None)
+            if mode == "raycast_depth":
+                rec, _ = time_mode(torch, rc, args, n_tri, "raycast_depth", card,
+                                   f"catalog {name} ({table}, {sp.max_range:g} m)")
+                k1[name] = dict(rec, table=table, launches=got["raycast_depth"], library_ms=None)
+            del args
+        del env
+        torch.cuda.empty_cache()
+    return launches, k2, k1
+
+
+def articulated_phase(torch, port, rc, ac, card):
+    """Phase 13: the articulated robots, their tasks, the IMU and the sensor
+    catalog; each part's seconds. Returns (the ray-cast launches of its
+    render() calls, the catalog's K2 and K1 records)."""
+    seconds = {}
+    t0 = time.perf_counter()
+    zero_counts(rc.LAUNCHES, ac.LAUNCHES)
+    busy = articulated_tasks_subphase(torch, port, card)
+    if any({**rc.LAUNCHES, **ac.LAUNCHES}.values()):
+        raise AssertionError(f"articulated: a kernel launched on a state-only path: "
+                             f"{rc.LAUNCHES} {ac.LAUNCHES}")
+    seconds["a tasks"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    solver_subphase(torch, port, card)
+    seconds["b solver"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    camera_imu = imu_subphase(torch, port, rc, card)
+    seconds["c imu"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    catalog, k2, k1 = catalog_subphase(torch, port, rc, card)
+    seconds["d catalog"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    launches = {k: camera_imu[k] + catalog[k] for k in catalog}
+    log("articulated: seconds " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+        + f" = {sum(seconds.values()):.1f} | under the profiler: "
+        + "; ".join(f"{k} {busy_text(*v)}" for k, v in busy.items()) + f" | {card}")
+    return launches, k2, k1
+
+
 JAX_HISTORY_KEYS = {"reward_mean", "done_rate", "crash_rate", "pg_loss", "v_loss", "entropy",
                     "approx_kl", "lr", "value_mean", "iter", "env_steps", "wall_s",
                     "env_steps_per_s_cumulative", "env_steps_per_s"}
@@ -2798,6 +3119,18 @@ def main(argv=None) -> int:
     records[2]["launches_plumbing_path"] = k5_plumbing
     records[2]["plumbing_resume"] = plumbing["resume"]
     records[0]["plumbing_torch_vae_latent_err_vs_cpu"] = plumbing["torch_vae_latent_err_vs_cpu"]
+
+    log(f"elapsed {time.perf_counter() - t_run:.1f} s: phase 13 articulated")
+    # 13. the articulated robots and their tasks (no kernel), the solver on
+    #     the card against the CPU, the IMU (K2 in the camera run), the
+    #     sensor catalog (K2, and K1 for the sensors without segmentation)
+    art_launches, k2_catalog, k1_catalog = articulated_phase(torch, port, rc, ac, card)
+    for rec, name, sub in ((records[0], "raycast_depth", k1_catalog),
+                           (records[1], "raycast_seg", k2_catalog)):
+        rec["launches"] += art_launches[name]
+        rec["launches_articulated_path"] = art_launches[name]
+        rec[f"catalog_at_{CATALOG_ENVS}_envs"] = sub
+        rec["max_abs_err"] = max([rec["max_abs_err"]] + [r["max_abs_err"] for r in sub.values()])
 
     log(f"elapsed {time.perf_counter() - t_run:.1f} s: all phases")
     log(json.dumps({"kernels": records + mode_records}))

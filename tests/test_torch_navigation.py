@@ -315,7 +315,8 @@ def test_task_without_gpu_raises_and_torch_vae_is_refused():
                                      device="cpu")
     assert port.task_registry.get_task_names() == [
         "lidar_navigation_task", "navigation_task", "position_setpoint_task",
-        "position_setpoint_task_acceleration_sim2real", "position_setpoint_task_sim2real",
+        "position_setpoint_task_acceleration_sim2real", "position_setpoint_task_morphy",
+        "position_setpoint_task_reconfigurable", "position_setpoint_task_sim2real",
         "position_setpoint_task_sim2real_end_to_end", "position_setpoint_task_sim2real_px4",
         "radar_navigation_task"]
 

@@ -1,7 +1,8 @@
-"""Port parity for the robots and controllers of the position-task variants
-and the 8-motor family: the rates, steering-angle and fully-actuated
-controllers, ``no_control`` through the robot wrench, each new robot's
-parameters, the sim/env/controller registrations, five steps of the
+"""Port parity for the robots and controllers of the position-task variants,
+the 8-motor family, the articulated robots and the IMU quads: the rates,
+steering-angle and fully-actuated controllers, ``no_control`` through the
+robot wrench (an articulated robot's without the motors' net wrench), each
+new robot's parameters (joints, articulation and IMU included), the sim/env/controller registrations, five steps of the
 octarotor, ROV and random 8-motor robots from a carried-across state, the
 reversible motors, and the ROV's zero damping and gravity compensation.
 
@@ -44,7 +45,9 @@ from aerial_gym_simulator_tpu_torch.sim.structs import replace
 N = 16
 ATOL = 1e-5
 NEW_ROBOTS = ("tinyprop", "x500", "lmf1", "base_octarotor", "base_rov", "base_random",
-              "base_quad_root_link_control")
+              "base_quad_root_link_control", "snakey", "snakey5", "snakey6", "morphy",
+              "morphy_stiff", "morphy_fixed_base", "base_quadrotor_with_imu",
+              "base_quadrotor_with_camera_imu")
 T = torch.from_numpy
 
 
@@ -132,10 +135,12 @@ def test_new_controllers_match_jax(robot, controller, num_actions):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("robot", ["tinyprop", "x500", "base_octarotor"])
+@pytest.mark.parametrize("robot", ["tinyprop", "x500", "base_octarotor", "snakey6"])
 def test_no_control_wrench_matches_jax(robot):
     """Actions are the motor thrust references: the clipped action goes
-    through the motor model, not the controller and the allocation pinv."""
+    through the motor model, not the controller and the allocation pinv.
+    An articulated robot's wrench leaves the motors out (the coupled solver
+    applies each thrust on its link): drag only."""
     jenv = JSimBuilder().build_env("base_sim", "empty_env", robot, "no_control", num_envs=N,
                                    seed=2)
     jenv.reset()
@@ -147,9 +152,10 @@ def test_no_control_wrench_matches_jax(robot):
     rs = np.random.RandomState(32)
     lo, hi = tp.motor.min_thrust, tp.motor.max_thrust
     action = rs.uniform(lo - 1.0, hi + 1.0, (N, M)).astype(np.float32)   # some clamped
+    art = tp.art is not None
     jf, jt, jth = jd.compute_robot_wrench(jp, jenv.state, jnp.asarray(action),
-                                          jax.random.PRNGKey(0))
-    tf, tt, tth = td.compute_robot_wrench(tp, ts, T(action))
+                                          jax.random.PRNGKey(0), include_motor_wrench=not art)
+    tf, tt, tth = td.compute_robot_wrench(tp, ts, T(action), include_motor_wrench=not art)
     for got, want in ((tf, jf), (tt, jt), (tth, jth)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
     assert torch.isfinite(tth).all()
@@ -194,9 +200,12 @@ def test_new_robot_params_match_jax(robot):
                             j_robot.make(robot), j_ctrl.make(ctrl), num_envs=4)
     tp = t_build_sim_params(t_sim.make("base_sim"), t_env.make("empty_env"),
                             t_robot.make(robot), t_ctrl.make(ctrl), "cpu", num_envs=4)
-    for part in ("robot", "motor"):
+    for part in ("robot", "motor", "dof", "art", "imu"):
         _leaves_match(record_to_numpy(getattr(tp, part)), record_to_numpy(getattr(jp, part)),
                       part)
+    assert (tp.imu is not None) == robot.endswith("_imu")
+    assert (tp.art is not None) == (robot.startswith(("snakey", "morphy"))
+                                    and robot != "morphy_stiff")
     M = tp.motor.num_motors
     assert tp.motor.allocation_matrix.shape == (6, M)
     if M == 8:

@@ -4,7 +4,8 @@ render_normal_faceid_camera, render_rgb_camera, render_normal_faceid_lidar
 and render_lidar (noise off) from a state carried across from the JAX
 package (sim/convert.py), against the JAX package's functions; then the
 port's own plumbing: stacked mounts, the empty scene, mount sampling at
-reset and EnvManager.render's keys.
+reset and EnvManager.render's keys; and every config of the sensor catalog
+with its ray table.
 
 Tolerances, as in tests/test_torch_raycast_normals.py: depth atol 2e-3 (the
 lidar image is normalized by its max range, so 2e-3 of it); face and seg
@@ -12,6 +13,7 @@ agree on more than 99.5% of the rays, normals atol 5e-3 and rgb atol 5e-3
 where they do, misses exact, sky 1e-6; ray tables within 1e-6.
 """
 
+import dataclasses
 import logging
 
 import jax
@@ -174,6 +176,32 @@ def test_pointcloud_configs_match_jax(cfg_name):
               "near_out_of_range_value"):
         assert getattr(t, f) == getattr(j, f), f
     assert t.sensor_noise == t_cfgs.SensorNoiseConfig(**vars(j.sensor_noise))
+
+
+CATALOG = ("NavDepthCameraConfig", "RsD455Config", "IntelRealSenseD455Config",
+           "TofCameraConfig", "LuxonisOakDConfig", "LuxonisOakDProWConfig", "LidarNavConfig",
+           "OS0_64Config", "OS0_128Config", "OS1_64Config", "OS2_64Config", "OS2_128Config",
+           "PmdFlexx2Config", "StVL53L5CXConfig", "OSDome_64Config", "Lidar2DConfig")
+
+
+@pytest.mark.parametrize("cfg_name", CATALOG)
+def test_sensor_catalog_matches_jax(cfg_name):
+    """Every catalog config: its fields (the inherited stale sentinels of
+    OS1-64, OS2-64 and the dome kept), and its built params with the ray
+    table (dirs, depth multiplier, sentinels) leaf for leaf."""
+    t, j = getattr(t_cfgs, cfg_name)(), getattr(j_cfgs, cfg_name)()
+    for f in dataclasses.fields(j):
+        want = getattr(j, f.name)
+        got = getattr(t, f.name)
+        if dataclasses.is_dataclass(want):
+            want, got = vars(want), vars(got)
+        assert got == want, f.name
+    assert (t.far_out_of_range_value, t.near_out_of_range_value) == \
+        (j.far_out_of_range_value, j.near_out_of_range_value)
+    tp = t_rs.build_ray_sensor_params(t, "cpu")
+    jp = j_rs.build_ray_sensor_params(j)
+    assert tp.dirs.shape == (t.height, t.width, 3)
+    _leaves_match(record_to_numpy(tp), record_to_numpy(jp))
 
 
 @pytest.mark.parametrize("world", [True, False], ids=["world-frame", "sensor-frame"])

@@ -202,13 +202,42 @@ def test_scan_covers_the_training_plumbing_slice():
         assert (PKG / "rl_training" / "rl_games" / name).exists(), name
 
 
+ARTICULATED_MODULES = ("sim/articulated.py", "assets/articulation.py", "sensors/imu.py",
+                       "config/robot_config/reconfigurable_urdf.py")
+
+
+def test_scan_covers_the_articulated_slice():
+    """The scan reads every module of the articulated robots, the IMU and
+    the sensor catalog, with the modules they changed."""
+    scanned = {str(p.relative_to(PKG)) for p in _sources() if PKG in p.parents}
+    for module in ARTICULATED_MODULES + ("sim/dynamics.py", "sim/params.py", "sim/structs.py",
+                                         "sim/convert.py", "sim/env_manager.py",
+                                         "config/robot_config/base_quad_config.py",
+                                         "config/robot_config/catalog.py",
+                                         "config/sensor_config/sensor_configs.py",
+                                         "tasks/position_setpoint_variants.py"):
+        assert module in scanned, module
+
+
+@pytest.mark.parametrize("module", ["sim/articulated.py", "sensors/imu.py", "sim/dynamics.py"])
+def test_solver_and_imu_read_nothing_back(module):
+    """No host read-back on the step: no .item(), .tolist(), nonzero, .cpu()
+    or .numpy(), and no torch.linalg.cholesky (it checks its info on the
+    host; the solver takes cholesky_ex)."""
+    tree = ast.parse((PKG / module).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Attribute):
+            assert node.attr not in ("item", "tolist", "nonzero", "cpu", "numpy", "cholesky"), \
+                (module, node.attr, node.lineno)
+
+
 def _module_name(path: str) -> str:
     return path[:-3].replace("/", ".").replace(".__init__", "")
 
 
 def test_importing_every_module_loads_no_jax():
     wanted = ("tasks.lidar_navigation_task", "rl.ppo", "rl.networks", "sim2real.policy") + tuple(
-        _module_name(m) for m in PLUMBING_MODULES)
+        _module_name(m) for m in PLUMBING_MODULES + ARTICULATED_MODULES)
     code = (
         "import importlib, pkgutil, sys\n"
         "import aerial_gym_simulator_tpu_torch as p\n"

@@ -1,8 +1,9 @@
 """Port parity for the position-task variants (sim2real, acceleration
-sim2real, end-to-end, px4): the four rewards, the action scaling and the
-rotation encoding at random inputs, ten task steps of each variant from a
-carry carried across from the JAX package with JAX's own observation noise,
-the registration, and one PPO iteration on the end-to-end task.
+sim2real, end-to-end, px4, reconfigurable, morphy): the six rewards, the
+action scaling and the rotation encoding at random inputs, ten task steps
+of each variant from a carry carried across from the JAX package with
+JAX's own observation noise, the registration, and one PPO iteration on
+the end-to-end task.
 
 Tolerances:
   * rewards, action scaling and rot6d on the same inputs: atol 1e-5 (f32,
@@ -18,7 +19,10 @@ Tolerances:
     1e-6; crash and truncation flags exactly. The reward is held to 2e-3:
     it multiplies the change of the distance to the target by up to 1,200
     (``closer_reward``), so one f32 rounding of a ~1 m distance shows as
-    ~1e-4 in it (4e-4 measured on the acceleration variant). Envs reset inside a step draw their fresh state
+    ~1e-4 in it (4e-4 measured on the acceleration variant). The
+    reconfigurable and morphy variants' observations end in the joint
+    states: joint angles 1e-4, joint rates 1e-3 (the coupled solver's
+    rounding, tests/test_torch_articulated.py). Envs reset inside a step draw their fresh state
     from a torch generator here and a JAX key there; from then on only
     their flags are compared.
 """
@@ -46,7 +50,10 @@ NAMES = {
     "acceleration_sim2real": "position_setpoint_task_acceleration_sim2real",
     "end_to_end": "position_setpoint_task_sim2real_end_to_end",
     "px4": "position_setpoint_task_sim2real_px4",
+    "reconfigurable": "position_setpoint_task_reconfigurable",
+    "morphy": "position_setpoint_task_morphy",
 }
+ARTICULATED = ("reconfigurable", "morphy")
 T = lambda a: torch.from_numpy(np.array(a, np.float32))
 
 
@@ -73,8 +80,11 @@ def _unit_quats(rs, n):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("which", ["sim2real", "acceleration"])
+@pytest.mark.parametrize("which", ["sim2real", "acceleration", "reconfigurable", "morphy"])
 def test_sim2real_rewards_match_jax(which):
+    if which in ARTICULATED:
+        _articulated_reward_matches_jax(which)
+        return
     rs = np.random.RandomState(1 if which == "sim2real" else 2)
     n = 64
     pos_error = _rand(rs, n, 3, scale=4.0)
@@ -92,6 +102,35 @@ def test_sim2real_rewards_match_jax(which):
     np.testing.assert_allclose(tr.numpy(), np.asarray(jr), atol=1e-5, rtol=1e-6)
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
     assert (tc.numpy() > 0).sum() > (crashes > 0).sum()            # the 10 m rule fired
+
+
+def _articulated_reward_matches_jax(which):
+    """The reconfigurable and morphy rewards and their crash rule (beyond
+    3 m, or rolled or pitched past 1 rad)."""
+    rs = np.random.RandomState(12 if which == "reconfigurable" else 13)
+    n = 64
+    pos_error = _rand(rs, n, 3, scale=1.5)
+    pos_error[:4] *= 4.0                          # beyond the 3 m crash distance
+    quat = _unit_quats(rs, n)
+    quat[4:32, 3] += 4.0                          # most near level, some upset
+    quat /= np.linalg.norm(quat, axis=-1, keepdims=True)
+    angvel = _rand(rs, n, 3)
+    crashes = (rs.uniform(size=n) < 0.1).astype(np.float32)
+    if which == "reconfigurable":
+        args = (pos_error, quat, angvel, crashes)
+        jf, tf = jv._reconfigurable_reward, tv._reconfigurable_reward
+    else:
+        joint_vels = _rand(rs, n, 8, scale=0.5)
+        action, prev = rs.uniform(0, 2, (n, 4)).astype(np.float32), rs.uniform(0, 2, (n, 4)).astype(np.float32)
+        args = (pos_error, quat, angvel, joint_vels, crashes, action, prev)
+        jf, tf = jv._morphy_reward, tv._morphy_reward
+    jr, jc = jf(*(jnp.asarray(a) for a in args))
+    tr, tc = tf(*(T(a) for a in args))
+    np.testing.assert_allclose(tr.numpy(), np.asarray(jr), atol=1e-5, rtol=1e-6)
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    crashed = tc.numpy() > 0
+    assert crashed[:4].all() and (tr.numpy()[crashed] == -20.0).all()
+    assert 4 < crashed.sum() < n - 16             # the upset rule fired, level envs kept
 
 
 @pytest.mark.parametrize("variant", ["end_to_end", "px4"])
@@ -133,16 +172,22 @@ def test_motor_command_rewards_match_jax(variant):
 @pytest.mark.parametrize("variant", list(NAMES))
 def test_scale_actions_matches_jax(variant):
     rs = np.random.RandomState(5)
-    raw = _rand(rs, 32, 4, scale=1.5)                # some beyond [-1, 1]
     jcfg = ag.task_registry.get_task_config(NAMES[variant])
     tcfg = port.task_registry.get_task_config(NAMES[variant])
+    raw = _rand(rs, 32, tcfg.action_space_dim, scale=1.5)   # some beyond [-1, 1]
     got = tv._scale_actions(tcfg, T(raw)).numpy()
     np.testing.assert_allclose(got, np.asarray(jv._scale_actions(jcfg, jnp.asarray(raw))),
                                atol=1e-5, rtol=0)
     if tcfg.action_limit_min:
-        assert got.min() >= tcfg.action_limit_min[0] and got.max() <= tcfg.action_limit_max[0]
+        lo = np.array(tcfg.action_limit_min, np.float32)
+        hi = np.array(tcfg.action_limit_max, np.float32)
+        assert (got >= np.minimum(lo, hi)).all() and (got <= np.maximum(lo, hi)).all()
     else:
         assert np.array_equal(got, raw)
+    if variant == "reconfigurable":
+        # the joint limits run from +1 down to -1: ratio 0 is +1 rad/s
+        zero = tv._scale_actions(tcfg, torch.zeros(1, 16))[0]
+        assert torch.equal(zero[6:], torch.ones(10)) and torch.equal(zero[:6], torch.zeros(6))
 
 
 def test_matrix_to_rotation_6d_matches_jax():
@@ -176,7 +221,11 @@ def _jax_draws(key):
 
 def _obs_slices(variant):
     """(slice, atol) of the observation: pose and velocity 1e-4, body rates
-    5e-3, the scaled action 1e-6."""
+    5e-3, the scaled action 1e-6, joint angles 1e-4 and rates 1e-3."""
+    if variant in ARTICULATED:
+        A, D = (16, 10) if variant == "reconfigurable" else (4, 8)
+        return ((slice(0, 10), 1e-4), (slice(10, 13), 5e-3), (slice(13, 13 + A), 1e-6),
+                (slice(13 + A, 13 + A + D), 1e-4), (slice(13 + A + D, 13 + A + 2 * D), 1e-3))
     if variant in ("sim2real", "acceleration_sim2real"):
         return ((slice(0, 10), 1e-4), (slice(10, 13), 5e-3), (slice(13, 17), 1e-6))
     return ((slice(0, 12), 1e-4), (slice(12, 15), 5e-3))
@@ -191,7 +240,8 @@ def test_ten_variant_steps_match_jax(variant):
     jparams = jtask.params.replace(robot=jtask.params.robot.replace(enable_disturbance=False))
     tcfg = port.task_registry.get_task_config(name)
     tparams = params_from_numpy(record_to_numpy(jparams), "cpu")
-    assert tparams.controller.num_actions == tcfg.action_space_dim == 4
+    assert tparams.controller.num_actions == tcfg.num_motors
+    A = tcfg.action_space_dim
     # one env one step short of its episode end: it truncates in step 2;
     # envs 0-5 start within 0.5 m of the target, envs 6-7 where the reset
     # put them (the end-to-end task's 1.5 m crash distance is within its
@@ -209,9 +259,12 @@ def test_ten_variant_steps_match_jax(variant):
 
     fresh = np.zeros(N, bool)                       # envs whose state was redrawn
     for step in range(10):
-        raw = rs.uniform(-1.0, 1.0, (N, 4)).astype(np.float32)
+        raw = rs.uniform(-1.0, 1.0, (N, A)).astype(np.float32)
         if variant == "sim2real":
             raw *= 0.5                              # velocity commands of a cruise
+        elif variant in ARTICULATED:                # near hover: thrust ratios about 0.2 / 0.35
+            raw[:, :tcfg.num_motors] = 0.05 * raw[:, :tcfg.num_motors] + (
+                0.2 if variant == "reconfigurable" else 0.36)
         draws = _jax_draws(jc.key)
         jc, jobs, jrew, jterm, jtrunc = jstep(jc, jnp.asarray(raw))
         tc, tobs, trew, tterm, ttrunc = tv.variant_task_step(
@@ -230,7 +283,7 @@ def test_ten_variant_steps_match_jax(variant):
             np.testing.assert_allclose(o_t[:, sl], o_j[:, sl], atol=atol, rtol=0,
                                        err_msg=f"step {step} obs {sl}")
         for f, atol in (("pos", 1e-4), ("quat", 1e-4), ("linvel", 1e-4), ("angvel", 5e-3),
-                        ("motor_thrust", 5e-3)):
+                        ("motor_thrust", 5e-3), ("dof_pos", 1e-4), ("dof_vel", 1e-3)):
             np.testing.assert_allclose(getattr(tc.sim, f).numpy()[same],
                                        np.asarray(getattr(jc.sim, f))[same], atol=atol,
                                        rtol=0, err_msg=f"step {step} {f}")
@@ -244,7 +297,7 @@ def test_ten_variant_steps_match_jax(variant):
     assert torch.isfinite(tobs).all() and tobs.shape == (N, tcfg.observation_space_dim)
 
 
-@pytest.mark.parametrize("variant", ["sim2real", "end_to_end"])
+@pytest.mark.parametrize("variant", ["sim2real", "end_to_end", "reconfigurable", "morphy"])
 def test_observation_before_reset_matches_jax(variant):
     """return_state_before_reset: the observation of a truncated env shows
     its pre-reset state, and its prev_action is zeroed all the same."""
@@ -260,10 +313,11 @@ def test_observation_before_reset_matches_jax(variant):
     jc = jc._replace(sim=jc.sim.replace(
         sim_steps=jc.sim.sim_steps.at[2].set(jcfg.episode_len_steps)))
     tc = variant_carry_from_numpy(record_to_numpy(jc), "cpu", seed=4)
-    raw = np.random.RandomState(9).uniform(-0.5, 0.5, (N, 4)).astype(np.float32)
+    raw = np.random.RandomState(9).uniform(-0.5, 0.5, (N, tcfg.action_space_dim))
+    raw = raw.astype(np.float32) + (0.5 if variant in ARTICULATED else 0.0)
     draws = _jax_draws(jc.key)
-    jc, jobs, jrew, jterm, jtrunc = jv.variant_task_step(
-        jparams, jcfg, jc, jnp.asarray(raw), jnp.zeros((N, 3)), None)
+    jc, jobs, jrew, jterm, jtrunc = jax.jit(lambda c, a: jv.variant_task_step(
+        jparams, jcfg, c, a, jnp.zeros((N, 3)), None))(jc, jnp.asarray(raw))
     tc, tobs, trew, tterm, ttrunc = tv.variant_task_step(
         tparams, tcfg, tc, T(raw), torch.zeros(N, 3), None, draws)
     assert float(ttrunc[2]) == float(jtrunc[2]) == 1.0
@@ -285,20 +339,20 @@ def test_variants_are_registered_with_the_jax_configs():
         for f in ("variant", "seed", "sim_name", "env_name", "robot_name", "controller_name",
                   "num_envs", "observation_space_dim", "action_space_dim",
                   "episode_len_steps", "crash_dist", "action_limit_min", "action_limit_max",
-                  "return_state_before_reset"):
+                  "return_state_before_reset", "num_motors", "num_joints"):
             assert getattr(tcfg, f) == getattr(jcfg, f), (name, f)
         task = port.task_registry.make_task(name, num_envs=4, device="cpu")
-        assert task.params.controller.num_actions == 4 and task.num_envs == 4
+        assert task.params.controller.num_actions == tcfg.num_motors and task.num_envs == 4
         obs, rew, term, trunc, _ = task.reset()
         assert obs["observations"].shape == (4, tcfg.observation_space_dim)
-        obs, rew, term, trunc, _ = task.step(torch.zeros(4, 4))
+        obs, rew, term, trunc, _ = task.step(torch.zeros(4, tcfg.action_space_dim))
         assert torch.isfinite(obs["observations"]).all() and torch.isfinite(rew).all()
-    for name in ("position_setpoint_task_reconfigurable", "position_setpoint_task_morphy"):
-        assert name in ag.task_registry.get_task_names()
-        with pytest.raises(KeyError, match="ROADMAP.md"):
-            port.task_registry.make_task(name, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tv.variant_task_step(None, tv.VariantTaskConfig(variant="morphy"), None, None, None)
+    assert set(NAMES.values()) <= set(port.task_registry.get_task_names())
+    assert port.task_registry.get_task_config(NAMES["reconfigurable"]).action_space_dim == 16
+    with pytest.raises(KeyError, match="ROADMAP.md"):
+        port.task_registry.make_task("position_setpoint_task_unknown", device="cpu")
+    with pytest.raises(ValueError, match="unknown variant"):
+        tv.variant_task_step(None, tv.VariantTaskConfig(variant="stiff"), None, None, None)
 
 
 def test_no_control_sets_the_action_width_to_the_motor_count():
