@@ -1,12 +1,13 @@
 """Procedural robot/obstacle URDF generation.
 
-Copied from the JAX package's ``assets/procedural.py`` and cut to what the
-slice uses: multirotor frames from an arm layout, and box/cylinder
-obstacles from shape parameters.
+Copied from the JAX package's ``assets/procedural.py``: multirotor frames
+from an arm layout, box/cylinder obstacles from shape parameters, and
+trees (trunk, crown, branches).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -108,4 +109,42 @@ def cylinder_urdf(name: str, radius: float, length: float, mass: float = 0.0) ->
     <inertial><mass value="{m}"/>{_inertia_xml(ixx, ixx, izz)}</inertial>
     <collision><origin xyz="0 0 {length/2}"/><geometry><cylinder radius="{radius}" length="{length}"/></geometry></collision>
   </link>
+</robot>"""
+
+
+def tree_urdf(name: str, trunk_radius: float = 0.08, trunk_height: float = 2.5,
+              crown_radius: float = 0.8, seed: int = 0) -> str:
+    """A tree: trunk cylinder, crown sphere and three branch boxes whose
+    angle, height and length are drawn from ``np.random.RandomState(seed)``;
+    the same text as the JAX package's, byte for byte."""
+    rng = np.random.RandomState(seed)
+    branches = []
+    joints = []
+    for i in range(3):
+        ang = float(rng.uniform(0, 2 * math.pi))
+        h = float(rng.uniform(0.4, 0.9)) * trunk_height
+        L = float(rng.uniform(0.3, 0.8))
+        branches.append(f"""
+  <link name="branch_{i}">
+    <inertial><mass value="1e-6"/>{_inertia_xml(0, 0, 0)}</inertial>
+    <collision><geometry><box size="{L} 0.04 0.04"/></geometry></collision>
+  </link>""")
+        joints.append(f"""
+  <joint name="trunk_to_branch_{i}" type="fixed">
+    <parent link="trunk"/><child link="branch_{i}"/>
+    <origin xyz="{0.5*L*math.cos(ang)} {0.5*L*math.sin(ang)} {h}" rpy="0 0 {ang}"/>
+  </joint>""")
+    return f"""<robot name="{name}">
+  <link name="trunk">
+    <inertial><mass value="1e-6"/>{_inertia_xml(0, 0, 0)}</inertial>
+    <collision><origin xyz="0 0 {trunk_height/2}"/><geometry><cylinder radius="{trunk_radius}" length="{trunk_height}"/></geometry></collision>
+  </link>
+  <link name="crown">
+    <inertial><mass value="1e-6"/>{_inertia_xml(0, 0, 0)}</inertial>
+    <collision><geometry><sphere radius="{crown_radius}"/></geometry></collision>
+  </link>
+  <joint name="trunk_to_crown" type="fixed">
+    <parent link="trunk"/><child link="crown"/>
+    <origin xyz="0 0 {trunk_height}"/>
+  </joint>{"".join(branches)}{"".join(joints)}
 </robot>"""

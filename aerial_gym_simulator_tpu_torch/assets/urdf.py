@@ -1,16 +1,21 @@
 """Host-side URDF parsing: mass/inertia aggregation + primitive extraction.
 
-Copied from the JAX package's ``assets/urdf.py`` (its pure-Python parser)
-and cut to box/cylinder/sphere geometry, which is all the slice's robots
-and obstacles use. Load-time only; runs once per robot/asset variant.
+Copied from the JAX package's ``assets/urdf.py``: box, cylinder and sphere
+geometry become primitives, and ``<mesh>`` geometry becomes one triangle
+primitive per face (``assets/mesh.py``), or a box of 0.1 x scale when the
+mesh file cannot be resolved. Primitive-only URDFs go through the native
+compiler (``assets/native_loader.py``) where the JAX package sends them
+there; ``AERIAL_GYM_TPU_NATIVE_LOADER=0`` chooses this module's parser.
+Load-time only; runs once per robot/asset variant.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import xml.etree.ElementTree as ET
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -45,12 +50,30 @@ def _parse_origin(elem) -> Tuple[np.ndarray, np.ndarray]:
 @dataclass
 class Primitive:
     """One collision/visual primitive in link-local frame."""
-    kind: str                   # "box" | "cylinder" | "sphere"
-    size: np.ndarray            # box: (sx,sy,sz); cyl: (r, len, 0); sph: (r,0,0)
-    xyz: np.ndarray
-    rot: np.ndarray             # 3x3
+    kind: str                   # "box" | "cylinder" | "sphere" | "triangle"
+    # box: (sx,sy,sz); cyl: (r, len, 0); sph: (r,0,0);
+    # triangle: (a, b, c) with local verts (0,0),(a,0),(b,c) in the z=0 plane
+    size: np.ndarray
+    xyz: np.ndarray             # triangle: v0
+    rot: np.ndarray             # 3x3; triangle: columns [x along e1, y, normal]
     link: str
     semantic_id: int = 0
+
+
+def _resolve_mesh_path(fname: str, urdf_path: str) -> Optional[str]:
+    """Resolve a URDF mesh filename as it is, or relative to the URDF's
+    directory; a ``package://pkg/`` prefix is dropped. None when no file is
+    found."""
+    if not fname:
+        return None
+    if fname.startswith("package://"):
+        fname = fname.split("package://", 1)[1].split("/", 1)[-1]
+    base = os.path.dirname(urdf_path) if urdf_path and os.path.sep in urdf_path \
+        else (os.path.dirname(urdf_path) or ".")
+    for c in (fname, os.path.join(base, fname), os.path.join(base, os.path.basename(fname))):
+        if os.path.isfile(c):
+            return c
+    return None
 
 
 @dataclass
@@ -91,10 +114,50 @@ def _link_world_transforms(root) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
     return tfs
 
 
+def _native_enabled(semantic_masked_links) -> bool:
+    return not semantic_masked_links and os.environ.get(
+        "AERIAL_GYM_TPU_NATIVE_LOADER", "1") != "0"
+
+
+def load_urdf(path: str, semantic_id: int = 0, per_link_semantic: bool = False,
+              semantic_masked_links: Optional[Dict[str, int]] = None) -> UrdfModel:
+    """Parse a URDF file. One that references a mesh takes this module's
+    parser (the triangle path); a primitive-only one takes the native
+    compiler, unless ``semantic_masked_links`` is given or the compiler
+    declines the file."""
+    try:
+        with open(path) as f:
+            has_mesh = "<mesh" in f.read()
+    except OSError:
+        has_mesh = False
+    if not has_mesh and _native_enabled(semantic_masked_links):
+        from . import native_loader
+        model = native_loader.load_urdf_native(path, semantic_id, per_link_semantic)
+        if model is not None:
+            return model
+    return _parse_urdf_tree(ET.parse(path).getroot(), path, semantic_id, per_link_semantic,
+                            semantic_masked_links)
+
+
 def load_urdf_string(text: str, name: str = "<string>", semantic_id: int = 0,
-                     per_link_semantic: bool = False) -> UrdfModel:
-    root = ET.fromstring(text)
+                     per_link_semantic: bool = False,
+                     semantic_masked_links: Optional[Dict[str, int]] = None) -> UrdfModel:
+    """Parse URDF text, by the same routing as load_urdf (a mesh filename
+    resolves as it is, or relative to ``name``'s directory)."""
+    if "<mesh" not in text and _native_enabled(semantic_masked_links):
+        from . import native_loader
+        model = native_loader.load_urdf_string_native(text, name, semantic_id,
+                                                      per_link_semantic)
+        if model is not None:
+            return model
+    return _parse_urdf_tree(ET.fromstring(text), name, semantic_id, per_link_semantic,
+                            semantic_masked_links)
+
+
+def _parse_urdf_tree(root, name: str, semantic_id: int = 0, per_link_semantic: bool = False,
+                     semantic_masked_links: Optional[Dict[str, int]] = None) -> UrdfModel:
     tfs = _link_world_transforms(root)
+    semantic_masked_links = semantic_masked_links or {}
 
     total_mass = 0.0
     com_acc = np.zeros(3)
@@ -124,7 +187,7 @@ def load_urdf_string(text: str, name: str = "<string>", semantic_id: int = 0,
 
         # collision primitives (fall back to visual if no collision geometry)
         geoms = link.findall("collision") or link.findall("visual")
-        sem = link_ctr if per_link_semantic else semantic_id
+        sem = semantic_masked_links.get(lname, link_ctr) if per_link_semantic else semantic_id
         for g in geoms:
             geom = g.find("geometry")
             if geom is None:
@@ -133,6 +196,7 @@ def load_urdf_string(text: str, name: str = "<string>", semantic_id: int = 0,
             p_xyz = l_xyz + l_R @ g_xyz
             p_R = l_R @ g_R
             box, cyl, sph = geom.find("box"), geom.find("cylinder"), geom.find("sphere")
+            mesh = geom.find("mesh")
             if box is not None:
                 size = np.array([float(v) for v in box.get("size").split()])
                 primitives.append(Primitive("box", size, p_xyz, p_R, lname, sem))
@@ -144,9 +208,19 @@ def load_urdf_string(text: str, name: str = "<string>", semantic_id: int = 0,
                 r = float(sph.get("radius"))
                 primitives.append(
                     Primitive("sphere", np.array([r, 0.0, 0.0]), p_xyz, p_R, lname, sem))
-            elif geom.find("mesh") is not None:
-                raise NotImplementedError(
-                    f"{name}: mesh geometry is not supported by this parser")
+            elif mesh is not None:
+                # one triangle primitive per face of the (decimated) mesh; a
+                # box of 0.1 x scale when the file cannot be resolved
+                scale = np.array([float(v) for v in (mesh.get("scale") or "1 1 1").split()])
+                resolved = _resolve_mesh_path(mesh.get("filename", ""), name)
+                if resolved:
+                    from .mesh import mesh_to_triangle_prims
+                    tv0, trot, tsize = mesh_to_triangle_prims(resolved, scale=scale)
+                    for k in range(len(tv0)):
+                        primitives.append(Primitive("triangle", tsize[k], p_xyz + p_R @ tv0[k],
+                                                    p_R @ trot[k], lname, sem))
+                else:
+                    primitives.append(Primitive("box", 0.1 * scale, p_xyz, p_R, lname, sem))
 
     com = com_acc / total_mass if total_mass > 0 else np.zeros(3)
     # parallel-axis aggregation about the robot COM
@@ -155,10 +229,12 @@ def load_urdf_string(text: str, name: str = "<string>", semantic_id: int = 0,
         d = c - com
         I_total += I_w + m * (np.dot(d, d) * np.eye(3) - np.outer(d, d))
 
-    # bounding sphere: furthest primitive extent from COM
+    # bounding sphere: furthest primitive extent from COM; a triangle's
+    # extent is its edge data from v0, not halved
     radius = 0.05
     for p in primitives:
-        ext = float(np.max(np.abs(p.size))) * 0.5 + float(np.linalg.norm(p.xyz - com))
+        half = 1.0 if p.kind == "triangle" else 0.5
+        ext = float(np.max(np.abs(p.size))) * half + float(np.linalg.norm(p.xyz - com))
         radius = max(radius, ext)
 
     return UrdfModel(

@@ -22,7 +22,12 @@ def register_all():
         rov_fully_actuated_controller_config,
     )
     from .env_config.base_env_config import EmptyEnv2MsConfig, EmptyEnvConfig
-    from .env_config.obstacle_envs import EnvWithObstaclesConfig, LidarNavObstaclesConfig
+    from .env_config.obstacle_envs import (
+        DynamicEnvironmentConfig,
+        EnvWithObstaclesConfig,
+        ForestEnvConfig,
+        LidarNavObstaclesConfig,
+    )
     from .robot_config import catalog as robot_catalog
     from .sim_config.base_sim_config import (
         BaseSimConfig,
@@ -41,6 +46,8 @@ def register_all():
     env_config_registry.register("empty_env_2ms", EmptyEnv2MsConfig)
     env_config_registry.register("env_with_obstacles", EnvWithObstaclesConfig)
     env_config_registry.register("env_with_lidar_nav_obstacles", LidarNavObstaclesConfig)
+    env_config_registry.register("forest_env", ForestEnvConfig)
+    env_config_registry.register("dynamic_env", DynamicEnvironmentConfig)
     robot_catalog.register_robots(robot_registry)
     for name in ("lee_position_control", "lee_velocity_control", "lee_attitude_control",
                  "lee_rates_control", "lee_acceleration_control",

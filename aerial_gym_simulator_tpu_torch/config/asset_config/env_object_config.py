@@ -1,9 +1,10 @@
-"""Environment-object asset types used by ``env_with_obstacles`` and
-``env_with_lidar_nav_obstacles``.
+"""Environment-object asset types: panels, objects, walls, thin rods,
+tiles, trees, the dynamic objects and the lidar-nav catalog.
 
-Copied from the JAX package's ``config/asset_config/env_object_config.py``
-and cut to the panel, object and wall types and the lidar-nav catalog. Each type's geometry is a set
-of procedural URDF variants; one is picked per (env, slot) at build time.
+Copied from the JAX package's ``config/asset_config/env_object_config.py``.
+Each type's geometry is a set of procedural URDF variants, plus every
+``*.urdf`` of ``asset_folder`` when one is set; one variant is picked per
+(env, slot) at build time.
 """
 
 from __future__ import annotations
@@ -32,6 +33,9 @@ class AssetTypeConfig:
     urdf_variants: List[str]             # candidate URDF strings
     min_state_ratio: List[float]
     max_state_ratio: List[float]
+    # on-disk variants: every *.urdf in this folder is a candidate too,
+    # compiled by the native batch loader (assets/native_loader.py)
+    asset_folder: str = ""
     keep_in_env: bool = False
     semantic_id: int = -1                # -1 => per-variant incremental id
     per_link_semantic: bool = False
@@ -79,6 +83,50 @@ def object_asset_params(num_assets: int = 35) -> AssetTypeConfig:
         max_state_ratio=_ratio(0.85, 0.90, 0.90, _pi, _pi, _pi),
         keep_in_env=False,
         semantic_id=-1,
+    )
+
+
+def thin_asset_params(num_assets: int = 0) -> AssetTypeConfig:
+    return AssetTypeConfig(
+        name="thin",
+        num_assets=num_assets,
+        urdf_variants=[procedural.box_urdf("thin_rod", (0.05, 0.05, 2.0))],
+        min_state_ratio=_ratio(0.3, 0.05, 0.05, -_pi, -_pi, -_pi),
+        max_state_ratio=_ratio(0.85, 0.95, 0.95, _pi, _pi, _pi),
+        semantic_id=-1,
+    )
+
+
+def tile_asset_params(num_assets: int = 1) -> AssetTypeConfig:
+    """Flat tile panels at a fixed, centred pose."""
+    return AssetTypeConfig(
+        name="tiles",
+        num_assets=num_assets,
+        urdf_variants=[procedural.box_urdf("tile", (1.0, 1.0, 0.05))],
+        min_state_ratio=_ratio(0.5, 0.5, 0.5),
+        max_state_ratio=_ratio(0.5, 0.5, 0.5),
+        keep_in_env=True,
+        semantic_id=-1,
+    )
+
+
+def tree_asset_params(num_assets: int = 1) -> AssetTypeConfig:
+    """Eight procedural trees. ``per_link_semantic`` is set, but the scene
+    builder loads variants with one id each (as the JAX package does)."""
+    return AssetTypeConfig(
+        name="trees",
+        num_assets=num_assets,
+        urdf_variants=[
+            procedural.tree_urdf(f"tree_{i}", trunk_radius=0.05 + 0.02 * (i % 4),
+                                 trunk_height=2.0 + 0.5 * (i % 3),
+                                 crown_radius=0.5 + 0.15 * (i % 3), seed=i)
+            for i in range(8)
+        ],
+        min_state_ratio=_ratio(0.1, 0.1, 0.0, 0.0, -_pi / 6.0, -_pi),
+        max_state_ratio=_ratio(0.9, 0.9, 0.0, 0.0, _pi / 6.0, _pi),
+        keep_in_env=True,
+        semantic_id=-1,
+        per_link_semantic=True,
     )
 
 
@@ -143,3 +191,9 @@ def lidar_nav_wall(factory) -> AssetTypeConfig:
     cfg = factory()
     cfg.keep_in_env = False
     return cfg
+
+
+def dynamic_object_asset_params(num_assets: int = 40) -> AssetTypeConfig:
+    """The dynamic env's objects: the object catalog, moved by the twists
+    of the env actions."""
+    return object_asset_params(num_assets)

@@ -1,6 +1,6 @@
 """Obstacle environment configs, copied from the JAX package's
-``config/env_config/obstacle_envs.py`` and cut to ``env_with_obstacles``
-and ``env_with_lidar_nav_obstacles``."""
+``config/env_config/obstacle_envs.py``: ``env_with_obstacles``,
+``env_with_lidar_nav_obstacles``, ``forest_env`` and ``dynamic_env``."""
 
 from __future__ import annotations
 
@@ -25,7 +25,12 @@ def _obstacle_assets():
 
 
 @dataclass
-class EnvWithObstaclesConfig(EnvConfig):
+class ObstacleEnvConfig(EnvConfig):
+    asset_types: List[eoc.AssetTypeConfig] = field(default_factory=list)
+
+
+@dataclass
+class EnvWithObstaclesConfig(ObstacleEnvConfig):
     name: str = "env_with_obstacles"
     num_envs: int = 64
     num_env_actions: int = 4
@@ -68,3 +73,44 @@ class LidarNavObstaclesConfig(EnvWithObstaclesConfig):
     upper_bound_min: Tuple[float, float, float] = (5.0, 5.0, 3.0)
     upper_bound_max: Tuple[float, float, float] = (7.5, 7.5, 5.0)
     asset_types: List[eoc.AssetTypeConfig] = field(default_factory=_lidar_nav_assets)
+
+
+@dataclass
+class ForestEnvConfig(ObstacleEnvConfig):
+    """A tree, 35 objects and the floor in a 10 m arena; the 4-wide env
+    actions give the obstacles linear velocities only."""
+    name: str = "forest_env"
+    num_envs: int = 64
+    num_env_actions: int = 4
+    env_spacing: float = 5.0
+    num_physics_steps_per_env_step_mean: int = 10
+    num_physics_steps_per_env_step_std: float = 0.0
+    collision_force_threshold: float = 0.005
+    lower_bound_min: Tuple[float, float, float] = (-5.0, -5.0, -1.0)
+    lower_bound_max: Tuple[float, float, float] = (-5.0, -5.0, -1.0)
+    upper_bound_min: Tuple[float, float, float] = (5.0, 5.0, 3.0)
+    upper_bound_max: Tuple[float, float, float] = (5.0, 5.0, 3.0)
+    asset_types: List[eoc.AssetTypeConfig] = field(
+        default_factory=lambda: [
+            eoc.tree_asset_params(1),
+            eoc.object_asset_params(35),
+            eoc.bottom_wall(),
+        ])
+
+    def __post_init__(self):
+        self.asset_counts = {t.name: t.num_assets for t in self.asset_types}
+
+
+@dataclass
+class DynamicEnvironmentConfig(EnvWithObstaclesConfig):
+    """40 free objects (no panels or walls) over a ground plane, moved by
+    6-wide twist env actions [vx vy vz wx wy wz]."""
+    name: str = "dynamic_env"
+    num_env_actions: int = 6
+    create_ground_plane: bool = True
+    lower_bound_min: Tuple[float, float, float] = (-2.0, -4.0, 0.0)
+    lower_bound_max: Tuple[float, float, float] = (-1.0, -2.5, 0.0)
+    upper_bound_min: Tuple[float, float, float] = (9.0, 2.5, 4.0)
+    upper_bound_max: Tuple[float, float, float] = (10.0, 4.0, 5.0)
+    asset_types: List[eoc.AssetTypeConfig] = field(
+        default_factory=lambda: [eoc.dynamic_object_asset_params(40)])

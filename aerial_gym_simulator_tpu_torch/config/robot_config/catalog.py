@@ -46,6 +46,14 @@ def base_quadrotor_with_lidar() -> RobotConfig:
     return cfg
 
 
+def base_quadrotor_with_stereo_camera() -> RobotConfig:
+    from ..sensor_config.sensor_configs import StereoCameraConfig
+    cfg = RobotConfig(name="base_quadrotor_with_stereo_camera")
+    cfg.sensor_config.enable_camera = True
+    cfg.sensor_config.camera_config = StereoCameraConfig()
+    return cfg
+
+
 def base_quadrotor_with_faceid_normal_camera() -> RobotConfig:
     """The base quad with the normal + face-id dataset camera."""
     from ..sensor_config.sensor_configs import BaseNormalFaceIDCameraConfig
@@ -442,6 +450,8 @@ def register_robots(robot_registry):
     robot_registry.register("base_quadrotor_with_camera", base_quadrotor_with_camera)
     robot_registry.register("base_quadrotor_with_camera_imu", base_quadrotor_with_camera_imu)
     robot_registry.register("base_quadrotor_with_lidar", base_quadrotor_with_lidar)
+    robot_registry.register("base_quadrotor_with_stereo_camera",
+                            base_quadrotor_with_stereo_camera)
     robot_registry.register("base_quadrotor_with_faceid_normal_camera",
                             base_quadrotor_with_faceid_normal_camera)
     robot_registry.register("base_quad_root_link_control", base_quadrotor_root_link_control)

@@ -1,10 +1,10 @@
 """Sensor configs, copied from the JAX package's
 ``config/sensor_config/sensor_configs.py``: the depth cameras (base, the
 navigation camera, RealSense D455, ToF 8x8, Luxonis OAK-D and OAK-D Pro W,
-the normal/face-id camera), the lidars (base, the lidar-nav table, Ouster
-OS0/OS1/OS2/OSDome, pmd flexx2, ST VL53L5CX, Robosense Airy, the fake radar,
-the 2-D scanner) and the IMUs (base, Bosch BMI088, VectorNav VN-100). The
-stereo camera waits for stereo capture."""
+the stereo pair, the normal/face-id camera), the lidars (base, the
+lidar-nav table, Ouster OS0/OS1/OS2/OSDome, pmd flexx2, ST VL53L5CX,
+Robosense Airy, the fake radar, the 2-D scanner) and the IMUs (base, Bosch
+BMI088, VectorNav VN-100)."""
 
 from __future__ import annotations
 
@@ -115,6 +115,16 @@ class LuxonisOakDProWConfig(BaseDepthCameraConfig):
     sensor_noise: SensorNoiseConfig = field(
         default_factory=lambda: SensorNoiseConfig(
             enable_sensor_noise=False, pixel_dropout_prob=0.01))
+
+
+@dataclass
+class StereoCameraConfig(BaseDepthCameraConfig):
+    """A stereo pair: the right eye sits ``stereo_baseline`` along the
+    sensor frame's -x of the left one (the data-frame rotation included),
+    and each pixel keeps the farther of the two eyes' depths."""
+    height: int = 270
+    width: int = 480
+    stereo_baseline: float = 0.095
 
 
 @dataclass

@@ -8,6 +8,8 @@ directly.
 
 from __future__ import annotations
 
+import glob
+import os
 from typing import List
 
 import numpy as np
@@ -29,14 +31,30 @@ def build_scene_params(env_cfg, num_envs: int, device, max_prims: int = 16,
 
     Takes the same random draws, in the same order, as the JAX builder and
     gives the same tables; the per-env primitive soup is assembled with
-    numpy instead of a Python loop over envs x slots x prims.
+    numpy instead of a Python loop over envs x slots x prims. An asset
+    type's ``asset_folder`` adds every ``*.urdf`` in it, sorted, as a
+    variant, compiled by the native batch loader (each variant keeps its
+    first ``max_prims`` primitives: pass a larger ``max_prims`` for a whole
+    mesh).
     """
     asset_types = getattr(env_cfg, "asset_types", [])
-    variants_urdf: List[str] = []
+    variants_urdf: List[str] = []        # URDF text, or None for a file's model
+    variant_models: dict = {}            # variant index -> model loaded from a file
     variant_type_index: List[int] = []
     type_variant_ranges = []
     for t_idx, at in enumerate(asset_types):
         start = len(variants_urdf)
+        folder = getattr(at, "asset_folder", "")
+        if folder:
+            files = sorted(glob.glob(os.path.join(folder, "*.urdf")))
+            from ..assets import native_loader
+            models = native_loader.load_urdf_batch(files) if files else None
+            if models is None:
+                models = [urdflib.load_urdf(f) for f in files]
+            for m in models:
+                variant_models[len(variants_urdf)] = m
+                variants_urdf.append(None)
+                variant_type_index.append(t_idx)
         for v in at.urdf_variants:
             variants_urdf.append(v)
             variant_type_index.append(t_idx)
@@ -54,7 +72,8 @@ def build_scene_params(env_cfg, num_envs: int, device, max_prims: int = 16,
     sem_counter = 100  # incremental ids for semantic_id == -1 assets
     for v_idx, text in enumerate(variants_urdf):
         at = asset_types[variant_type_index[v_idx]]
-        model = urdflib.load_urdf_string(text, name=f"variant_{v_idx}")
+        model = (variant_models[v_idx] if text is None else
+                 urdflib.load_urdf_string(text, name=f"variant_{v_idx}"))
         for p_idx, pr in enumerate(model.primitives[:P]):
             prim_kind[v_idx, p_idx] = _KIND[pr.kind]
             prim_size[v_idx, p_idx] = pr.size
@@ -198,6 +217,21 @@ def reset_obstacles(params: SimParams, state: SimState, mask: torch.Tensor) -> S
         obstacle_linvel=torch.where(m, zeros, state.obstacle_linvel),
         obstacle_angvel=torch.where(m, zeros, state.obstacle_angvel),
     )
+
+
+def apply_env_actions(params: SimParams, state: SimState,
+                      env_actions: torch.Tensor) -> SimState:
+    """Dynamic obstacles: env actions -> obstacle twists. (N, W) applies to
+    every slot, (N, A, W) per slot; [..., 0:3] is the linear velocity,
+    [..., 3:6] the angular one (zero when W < 6). The twists stay until the
+    next env actions or the env's reset."""
+    if env_actions.dim() == 2:
+        env_actions = env_actions[:, None, :].expand(
+            state.obstacle_linvel.shape[:2] + (env_actions.shape[-1],))
+    linvel = env_actions[..., 0:3]
+    angvel = env_actions[..., 3:6] if env_actions.shape[-1] >= 6 else torch.zeros_like(linvel)
+    return replace(state, obstacle_linvel=linvel.contiguous(),
+                   obstacle_angvel=angvel.contiguous())
 
 
 def integrate_obstacles(params: SimParams, state: SimState) -> SimState:

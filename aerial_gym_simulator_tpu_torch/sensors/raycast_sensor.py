@@ -1,11 +1,13 @@
 """Ray-cast sensor pipeline: camera and lidar ray tables, mount pose,
 render, noise, range limits, and the normal/face-id and RGB captures.
 
-Counterpart of ``aerial_gym_simulator_tpu/sensors/raycast_sensor.py``
-for one sensor of each kind per robot (no stereo capture, no
-multi-sensor mount sampling; the captures stack any number of mounts
-they are given). A sensor whose config asks for a pointcloud returns the
-hit points, in the sensor frame or in the world frame. Every capture packs the scene into world-frame tables
+Counterpart of ``aerial_gym_simulator_tpu/sensors/raycast_sensor.py``. A
+sensor config with ``num_sensors`` S > 1 gets S mounts per robot, each
+drawn on its own, and every capture stacks the S images on axis 1. A stereo
+camera (``stereo_baseline`` > 0) casts a second, depth-only eye and keeps
+the farther hit of the two. A sensor whose config asks for a pointcloud
+returns the hit points, in the sensor frame or in the world frame. Every
+capture packs the scene into world-frame tables
 and calls ``ops/raycast_cuda.raycast`` with the sensor's (H, W) ray grid:
 the ray-cast kernel on the card, which tiles the grid in 2-D, its plain
 version for CPU tensors. Outputs are in row-major ray order.
@@ -111,9 +113,16 @@ def build_ray_sensor_params(cfg, device) -> RaySensorParams:
 
 def sample_mount_pose(sp: RaySensorParams, gen: torch.Generator, num_envs: int):
     """Per-env local mount pose (N, 3), (N, 4): uniform in the configured
-    ranges, or the nominal pose when placement is not randomized."""
-    if sp.num_sensors != 1:
-        raise NotImplementedError("multi-sensor mounts are not ported yet")
+    ranges, or the nominal pose when placement is not randomized. With
+    ``num_sensors`` S > 1, (N, S, 3), (N, S, 4): one mount per copy, drawn
+    copy after copy."""
+    if sp.num_sensors > 1:
+        poses, quats = zip(*(_one_mount(sp, gen, num_envs) for _ in range(sp.num_sensors)))
+        return torch.stack(poses, dim=1), torch.stack(quats, dim=1)
+    return _one_mount(sp, gen, num_envs)
+
+
+def _one_mount(sp: RaySensorParams, gen: torch.Generator, num_envs: int):
     dev = sp.dirs.device
     if sp.randomize_placement:
         u = torch.rand((num_envs, 6), generator=gen, device=dev)
@@ -149,6 +158,14 @@ def _pack(params, state, sp, pos_w, quat_w, mult):
             sp.dirs, mult, sc.n_box, sc.n_cyl, sc.n_sph, sp.max_range)
 
 
+def right_eye_origin(sp: RaySensorParams, pos_w, quat_w):
+    """A stereo sensor's right eye: the left eye's world origin moved by
+    ``stereo_baseline`` along the sensor frame's -x, rotated by the world
+    quaternion (its data-frame part included), as in the JAX package."""
+    baseline = torch.tensor([-sp.stereo_baseline, 0.0, 0.0], device=pos_w.device)
+    return pos_w + quat_rotate(quat_w, baseline.expand(pos_w.shape[0], 3))
+
+
 def render(params: SimParams, state: SimState, sp: RaySensorParams, mount_pos,
            mount_quat, gen: torch.Generator = None, want_seg=None):
     """Sensor capture -> (pixels, segmentation (N, H, W) int32 or None).
@@ -159,9 +176,20 @@ def render(params: SimParams, state: SimState, sp: RaySensorParams, mount_pos,
     sp.segmentation_camera; False skips the segmentation work (depth-only
     consumers). ``gen`` draws the sensor noise when the config enables it.
     Noise, then range limits and normalization, except on a world-frame
-    pointcloud, which gets the noise only."""
-    if sp.stereo_baseline > 0.0:
-        raise NotImplementedError("stereo capture is not ported yet")
+    pointcloud, which gets the noise only.
+
+    Mounts (N, S, 3)/(N, S, 4) capture each of the S sensors and stack the
+    outputs on axis 1: (N, S, H, W[, 3]). A stereo sensor's right eye sits
+    ``stereo_baseline`` along the sensor frame's -x of the left eye (the
+    world quaternion rotates the offset, its data-frame part included); it
+    is cast in depth-only mode and each pixel keeps the farther of the two
+    eyes' hits. The segmentation is the left eye's."""
+    if mount_pos.dim() == 3:
+        pixels, segs = zip(*(render(params, state, sp, mount_pos[:, k], mount_quat[:, k], gen,
+                                    want_seg=want_seg)
+                             for k in range(mount_pos.shape[1])))
+        return (torch.stack(pixels, dim=1),
+                torch.stack(segs, dim=1) if segs[0] is not None else None)
     if want_seg is None:
         want_seg = bool(sp.segmentation_camera)
     N = state.pos.shape[0]
@@ -176,8 +204,16 @@ def render(params: SimParams, state: SimState, sp: RaySensorParams, mount_pos,
         seg = torch.full((N, R), raycast.NO_HIT_SEGMENTATION_VAL, dtype=torch.int32,
                          device=depth.device) if want_seg else None
     else:
-        depth, seg = raycast_cuda.raycast(*_pack(params, state, sp, pos_w, quat_w, mult),
-                                          want_seg=want_seg, n_tri=sc.n_tri)
+        args = _pack(params, state, sp, pos_w, quat_w, mult)
+        depth, seg = raycast_cuda.raycast(*args, want_seg=want_seg, n_tri=sc.n_tri)
+        if sp.stereo_baseline > 0.0:
+            right = raycast_cuda.pack_pose(right_eye_origin(sp, pos_w, quat_w), quat_w)
+            depth_r, _ = raycast_cuda.raycast(right, *args[1:], want_seg=False, n_tri=sc.n_tri)
+            # each eye's depth is t * mult, the multiplier applied per eye
+            # (in the kernel); the JAX package multiplies after the max. The
+            # multiplier is positive and f32 rounding monotonic, so
+            # max(m t_l, m t_r) == m max(t_l, t_r) bit for bit
+            depth = torch.maximum(depth, depth_r)
     if sp.return_pointcloud:
         dirs = sp.dirs.reshape(R, 3)
         if sp.pointcloud_in_world_frame:

@@ -303,8 +303,8 @@ def reset_envs(params: SimParams, state: SimState, mask: torch.Tensor) -> SimSta
         mpos, mquat = sample_mount_pose(sp, state.rng, state.num_envs)
         pos_name, quat_name = f"{prefix}_mount_pos", f"{prefix}_mount_quat"
         state = replace(state, **{
-            pos_name: torch.where(mb[:, None], mpos, getattr(state, pos_name)),
-            quat_name: torch.where(mb[:, None], mquat, getattr(state, quat_name))})
+            pos_name: sel(mpos, getattr(state, pos_name)),
+            quat_name: sel(mquat, getattr(state, quat_name))})
     if params.imu is not None:
         from ..sensors.imu import sample_imu_reset
         ab, gb, mq = sample_imu_reset(params.imu, state.rng, state.num_envs)

@@ -1,7 +1,7 @@
 """Stateful facade over the simulation functions.
 
 Counterpart of ``aerial_gym_simulator_tpu/sim/env_manager.py``:
-``step(actions)``, ``reset()``, ``reset_idx(env_ids)``, ``get_obs()``,
+``step(actions, env_actions)``, ``reset()``, ``reset_idx(env_ids)``, ``get_obs()``,
 ``post_reward_calculation_step()``, ``render()`` and, for reconfigurable
 robots, ``robot_manager.robot.set_dof_position_targets`` /
 ``set_dof_velocity_targets``. The steps run eagerly
@@ -74,6 +74,8 @@ class EnvManager:
         self.state: SimState = initial_state(params, seed=seed)
         self.step_counter = 0
         self._py_rng = pyrandom.Random(seed)
+        # the latest env actions (dynamic-obstacle twists)
+        self.env_actions = None
         self.robot_manager = _RobotManagerHandle(self)
         # latest sensor captures (filled by render())
         self._sensor_frames = None
@@ -96,8 +98,15 @@ class EnvManager:
         return torch.as_tensor(actions, dtype=torch.float32, device=self.device)
 
     def step(self, actions, env_actions=None):
+        """One env step. ``env_actions`` (N, W) or (N, A, W) sets the
+        obstacles' twists (envs/scene.apply_env_actions) when the scene has
+        obstacles; the obstacles keep those twists until the next env
+        actions or their env's reset."""
         if env_actions is not None:
-            raise NotImplementedError("env actions (dynamic obstacles) are not ported yet")
+            self.env_actions = self._as_actions(env_actions)
+            if self.params.scene is not None and self.params.scene.num_assets > 0:
+                from ..envs.scene import apply_env_actions
+                self.state = apply_env_actions(self.params, self.state, self.env_actions)
         self.state = dynamics.env_step(self.params, self.state, self._as_actions(actions),
                                        self._sample_substeps())
         self.step_counter += 1
@@ -126,6 +135,8 @@ class EnvManager:
     # -- observation access ------------------------------------------------
 
     def get_obs(self) -> Dict[str, torch.Tensor]:
+        """The observation dict; a camera or lidar with ``num_sensors`` S > 1
+        fills its pixel keys with (N, S, H, W) captures."""
         s = self.state
         obs = compute_robot_obs(s.pos, s.quat, s.linvel, s.angvel)
         out = {
@@ -210,9 +221,10 @@ class EnvManager:
 
     # -- saved sim state ---------------------------------------------------
     # Everything the continuation draws from is in the file: the state with
-    # its generator (dynamics, resets, sensor noise), the step counter and
-    # the host RNG of the substep count, so a reloaded sim continues the
-    # same trajectory and renders the same noisy frames.
+    # its generator (dynamics, resets, sensor noise), the obstacles' twists
+    # and the sensors' mounts, (N, S, .) for S > 1, the step counter and the
+    # host RNG of the substep count, so a reloaded sim continues the same
+    # trajectory and renders the same noisy frames.
 
     def _saved(self):
         return {"state": self.state, "step_counter": self.step_counter,

@@ -41,10 +41,8 @@ def resolve_robot_model(robot_cfg) -> urdf.UrdfModel:
     asset = robot_cfg.robot_asset
     path = os.path.join(asset.asset_folder, asset.file) if asset.asset_folder else ""
     if path and os.path.exists(path):
-        with open(path) as f:
-            return urdf.load_urdf_string(f.read(), name=path,
-                                         semantic_id=asset.semantic_id,
-                                         per_link_semantic=asset.per_link_semantic)
+        return urdf.load_urdf(path, semantic_id=asset.semantic_id,
+                              per_link_semantic=asset.per_link_semantic)
     alloc = robot_cfg.control_allocator_config.allocation_matrix
     positions = procedural.motor_layout_from_allocation(alloc)
     text = procedural.multirotor_urdf(name=robot_cfg.name, motor_positions=positions)
@@ -270,6 +268,8 @@ def initial_state(params: SimParams, seed: int = 0) -> SimState:
     quat0 = lambda *lead: unit_q.expand(*lead, 4).clone()
     cp, mp = params.controller, params.motor
     mid = lambda lo, hi: ((lo + hi) / 2.0).expand(N, 3).clone()
+    # a sensor's mount buffers: (N, .), or (N, S, .) for S > 1 copies
+    mount = lambda sp: (N,) if sp is None or sp.num_sensors == 1 else (N, sp.num_sensors)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     return SimState(
@@ -294,8 +294,8 @@ def initial_state(params: SimParams, seed: int = 0) -> SimState:
         obstacle_quat=quat0(N, A),
         obstacle_linvel=z(N, A, 3),
         obstacle_angvel=z(N, A, 3),
-        cam_mount_pos=z(N, 3), cam_mount_quat=quat0(N),
-        lidar_mount_pos=z(N, 3), lidar_mount_quat=quat0(N),
+        cam_mount_pos=z(*mount(params.camera), 3), cam_mount_quat=quat0(*mount(params.camera)),
+        lidar_mount_pos=z(*mount(params.lidar), 3), lidar_mount_quat=quat0(*mount(params.lidar)),
         imu_accel_bias=z(N, 3), imu_gyro_bias=z(N, 3), imu_mount_quat=quat0(N),
         num_obstacles=torch.full((N,), A, dtype=torch.int32, device=dev),
         dof_pos=z(N, D), dof_vel=z(N, D), dof_pos_target=z(N, D), dof_vel_target=z(N, D),

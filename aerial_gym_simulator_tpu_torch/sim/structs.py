@@ -288,10 +288,10 @@ class SimState:
     obstacle_quat: Tensor                # (N, A, 4)
     obstacle_linvel: Tensor              # (N, A, 3)
     obstacle_angvel: Tensor              # (N, A, 3)
-    cam_mount_pos: Tensor                # (N, 3)
-    cam_mount_quat: Tensor               # (N, 4)
-    lidar_mount_pos: Tensor              # (N, 3)
-    lidar_mount_quat: Tensor             # (N, 4)
+    cam_mount_pos: Tensor                # (N, 3), or (N, S, 3) for S > 1 sensors
+    cam_mount_quat: Tensor               # (N, 4), or (N, S, 4)
+    lidar_mount_pos: Tensor              # (N, 3), or (N, S, 3)
+    lidar_mount_quat: Tensor             # (N, 4), or (N, S, 4)
     imu_accel_bias: Tensor               # (N, 3)
     imu_gyro_bias: Tensor                # (N, 3)
     imu_mount_quat: Tensor               # (N, 4)

@@ -208,6 +208,33 @@ Phases, each printed on its own line:
                capture's inputs bit-equal to the plain version, broad phase
                on and off, timed with its bound; each part's seconds.
 
+14. scenes - the forest and dynamic scenes, stereo and multi-sensor capture,
+               triangle meshes and the native URDF compiler: a. forest_env
+               with the camera quad at 16,384 envs, 10 steps of env.step +
+               render() (K2 once a step), K2 and K1 on its table timed with
+               their bounds and bit-equal to the plain version on 64 envs; b.
+               dynamic_env at 16,384 envs with the twist [0.1, 0.05, 0, 0, 0,
+               0.2] on every slot for 20 steps with render() (K2): obstacles
+               in the arena moved by steps x substeps x dt x v within 1e-4 m,
+               one step on the card and on the CPU from the same state within
+               tests/test_torch_dynamics.py's bars, K2 and K1 as in a; c.
+               base_quadrotor_with_stereo_camera at 4,096 envs (270x480 per
+               eye): env.step + render() (left eye K2, right eye K1), the
+               capture equal to the range-limited max of the two eyes, each
+               eye timed and bit-equal on 16 envs; two fixed cameras and the
+               lidar on one quad at 1,024 envs: render() (K2 three times),
+               each camera slice equal to the single-sensor render; d. a
+               subdivision-4 icosphere STL (5,120 faces) decimated to 2,048
+               triangles as two assets of env_with_obstacles with max_prims
+               2,048 at 1,024 envs: env.step + render() + render("rgb") +
+               the normal/face-id and the depth-only captures (K1-K4), each
+               mode timed with its bound and bit-equal on 8 envs, the
+               collision SDF 0.1 m outside the sphere within the
+               tessellation's error; the forest's and the obstacle env's
+               procedural URDFs as 1,024 files through the native batch
+               loader and the Python parser, models equal, both timed; each
+               part's seconds.
+
 Before the last line it prints one JSON object with a record per kernel;
 the last line is {"ok": true, "device": {...}}. Any failure raises and the
 script exits non-zero without that line. Without CUDA it exits 1 at once.
@@ -376,6 +403,19 @@ CATALOG_CAMERAS = ("NavDepthCameraConfig", "RsD455Config", "TofCameraConfig",
 CATALOG_LIDARS = ("LidarNavConfig", "OS0_64Config", "OS0_128Config", "OS1_64Config",
                   "OS2_64Config", "OS2_128Config", "PmdFlexx2Config", "StVL53L5CXConfig",
                   "OSDome_64Config", "Lidar2DConfig")
+SCENE_ENVS = 16384                 # forest and dynamic scenes: the obstacle loop's width
+SCENE_STEPS = 10
+DYNAMIC_STEPS = 20
+DYNAMIC_TWIST = [0.1, 0.05, 0.0, 0.0, 0.0, 0.2]   # examples/dynamic_env_example.py's
+STEREO_ENVS = 4096                 # x 270 x 480 rays per eye: the obstacle loop's ray count
+STEREO_STEPS = 3
+TWIN_ENVS = 1024
+MESH_ENVS = 1024
+MESH_STEPS = 3
+MESH_SUBDIV = 4                    # 5,120 faces
+MESH_RADIUS = 0.8
+MESH_BUDGET = 2048                 # the triangle budget and max_prims of the mesh scene
+LOADER_FILES = 1024
 STATE_STEP_ENVS = 16384
 STATE_STEPS = 100
 POSITION_POLICY = (Path(__file__).resolve().parent
@@ -568,20 +608,12 @@ def exp_floor_ms(torch, shape):
     return B * H * S * S / (16.0 * sms * mhz * 1e6) * 1e3
 
 
-def bound_ms(torch, rc, pose, prims, dirs, counts, n_tri, max_range, name, face=None):
-    """Least time for this call's work on the card: the larger of the bytes
-    it must move (inputs once, outputs once) over 3.35 TB/s and the f32
-    operations over 67 TFLOP/s: each ray's own, the (ray, primitive) tests
-    that a broad phase on the primitives' bounding spheres could not skip
-    (the ray's half-line meets the sphere within max_range:
-    rc.bounding_sphere_hits), whatever the tiling, and the staged constants
-    of each (env, primitive) pair among them; for the normal and RGB modes,
-    plus the winner's normal (and shade) on each ray that ``face`` says hit.
-
-    Returns (ms, "bytes" or "operations", operations, tests per ray): the
-    tests per ray that bound counts ("needed"), and those the kernel's
-    broad phase keeps with its 8 x 8 warp patches ("patches") and with the
-    256-ray strips of the kernel before them ("strips")."""
+def sweep_counts(torch, rc, pose, prims, dirs, counts, max_range, env_chunk=512):
+    """The mode-independent part of ``bound_ms``: (f32 operations of the
+    rays and of the tests a bounding-sphere broad phase cannot skip, with
+    their staged constants; {"needed", "patches", "strips": tests}).
+    ``env_chunk`` envs are counted at a time (fewer for a table of
+    thousands of primitives)."""
     N, P = pose.shape[0], prims.shape[1]
     R = dirs.numel() // 3
     kinds = torch.tensor([rc._kind_of(p, *counts) for p in range(P)], device=dirs.device)
@@ -594,19 +626,44 @@ def bound_ms(torch, rc, pose, prims, dirs, counts, n_tri, max_range, name, face=
     sizes = {k: torch.bincount(g).float() for k, g in groups.items()}
     ops = float(FLOPS_PER_RAY) * N * R
     tests = {"needed": 0.0, "patches": 0.0, "strips": 0.0}
-    for lo in range(0, N, 512):
-        ps, pr = pose[lo:lo + 512], prims[lo:lo + 512]
+    for lo in range(0, N, env_chunk):
+        ps, pr = pose[lo:lo + env_chunk], prims[lo:lo + env_chunk]
         need = rc.bounding_sphere_hits(ps, pr, dirs, *counts, max_range)        # (n, P)
         ops += float((need * flops_per_prim).sum() + ((need > 0) * stage_per_prim).sum())
         tests["needed"] += float(need.sum())
         for k, g in groups.items():
             vis = rc.tile_visibility(ps, pr, dirs, *counts, max_range, g)      # (n, G, P)
             tests[k] += float((vis.float() * sizes[k][None, :, None]).sum())
+    return ops, tests
+
+
+def bound_ms(torch, rc, pose, prims, dirs, counts, n_tri, max_range, name, face=None,
+             env_chunk=512, sweep=None):
+    """Least time for this call's work on the card: the larger of the bytes
+    it must move (inputs once, outputs once) over 3.35 TB/s and the f32
+    operations over 67 TFLOP/s: each ray's own, the (ray, primitive) tests
+    that a broad phase on the primitives' bounding spheres could not skip
+    (the ray's half-line meets the sphere within max_range:
+    rc.bounding_sphere_hits), whatever the tiling, and the staged constants
+    of each (env, primitive) pair among them; for the normal and RGB modes,
+    plus the winner's normal (and shade) on each ray that ``face`` says hit.
+    ``sweep`` is sweep_counts' result on these inputs, when the caller has
+    it from another mode.
+
+    Returns (ms, "bytes" or "operations", operations, tests per ray): the
+    tests per ray that bound counts ("needed"), and those the kernel's
+    broad phase keeps with its 8 x 8 warp patches ("patches") and with the
+    256-ray strips of the kernel before them ("strips")."""
+    N, P = pose.shape[0], prims.shape[1]
+    R = dirs.numel() // 3
+    ops, tests = sweep or sweep_counts(torch, rc, pose, prims, dirs, counts, max_range,
+                                       env_chunk)
     if name in ("raycast_normals", "raycast_rgb"):
-        per_prim = torch.tensor([float(NORMAL_FLOPS[int(k)]) for k in kinds], device=dirs.device)
+        kinds = [rc._kind_of(p, *counts) for p in range(P)]
+        per_prim = torch.tensor([float(NORMAL_FLOPS[k]) for k in kinds], device=dirs.device)
         per_prim += SHADE_FLOPS if name == "raycast_rgb" else 0.0
-        for lo in range(0, N, 512):
-            f = face[lo:lo + 512]
+        for lo in range(0, N, env_chunk):
+            f = face[lo:lo + env_chunk]
             ops += float((torch.bincount(f[f >= 0].long(), minlength=P).float()
                           * per_prim).sum())
     n_bytes = 4 * (pose.numel() + prims.numel() + dirs.numel() + R) + N * R * OUT_BYTES_PER_RAY[name]
@@ -2386,6 +2443,481 @@ def articulated_phase(torch, port, rc, ac, card):
     return launches, k2, k1
 
 
+def sliced(args, n):
+    """The ray cast's inputs (pose, prims, dirs, mult, counts..., range)
+    cut to their first n envs."""
+    return (args[0][:n].contiguous(), args[1][:n].contiguous()) + tuple(args[2:])
+
+
+def scene_mode(torch, rc, args, n_tri, name, card, tag, check_envs, face=None, env_chunk=512,
+               sweep=None):
+    """One ray-cast mode on a scene table: the kernel timed by CUDA events
+    at the path's full width, bit-equal to the plain version (broad phase on
+    and off) on the first ``check_envs`` envs (exact_check; the plain
+    version timed there), and the bound at full width. ``face`` (the
+    normal mode's at full width) counts the RGB mode's per-hit work;
+    ``sweep`` is the table's sweep_counts, counted once for its modes.
+    Returns (the record's numbers, the normal mode's face ids)."""
+    check_envs = min(check_envs, args[0].shape[0])
+    ms = event_ms(torch, lambda: rc.raycast(*args, n_tri=n_tri, **MODE_KW[name]), 5)
+    err, plain_ms, _ = exact_check(torch, rc, sliced(args, check_envs), n_tri,
+                                   f"{tag} ({check_envs} envs)", name)
+    out = rc.raycast(*args, n_tri=n_tri, **MODE_KW[name])
+    if name == "raycast_normals":
+        face = out[3]
+    hit = ("" if out[1] is None else
+           f", hit share {(out[1] != rc.oracle.NO_HIT_SEGMENTATION_VAL).float().mean().item():.4f}")
+    del out
+    pose, prims, dirs = args[:3]
+    b_ms, b_by, ops, tests = bound_ms(torch, rc, pose, prims, dirs, args[4:7], n_tri, args[7],
+                                      name, face, env_chunk, sweep)
+    log(f"timing {name} {tag} ({pose.shape[0]}x{tuple(dirs.shape[:-1])} rays, "
+        f"{prims.shape[1]} prims{hit}): kernel {ms:.3f} ms, plain {plain_ms:.1f} ms on "
+        f"{check_envs} envs | {bound_text(b_ms, b_by, ops, tests, ms)} | {card}")
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "plain_envs": check_envs, "bound_ms": b_ms,
+            "bound_by": b_by, "max_abs_err": err, "tests_per_ray": tests,
+            "library_ms": None}, face
+
+
+def camera_args(rc, env, state=None):
+    """The camera's ray-cast inputs exactly as render_camera builds them."""
+    from aerial_gym_simulator_tpu_torch.sensors.raycast_sensor import cast_inputs
+    st = env.state if state is None else state
+    return cast_inputs(env.params, st, env.params.camera, st.cam_mount_pos, st.cam_mount_quat)
+
+
+def drive(torch, rc, env, steps, step_kw=None, render=("sensors",)):
+    """``steps`` of env.step (zero actions, ``step_kw`` passed on) and the
+    render() calls named in ``render``, after one untimed step; the kernels'
+    launches counted from zero over the timed steps only -> (ms per step,
+    launches)."""
+    zeros = torch.zeros((env.num_envs, env.num_robot_actions), device=env.device)
+    env.step(zeros, **(step_kw or {}))
+    for r in render:
+        env.render(r)
+    torch.cuda.synchronize()
+    zero_counts(rc.LAUNCHES)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        env.step(zeros, **(step_kw or {}))
+        for r in render:
+            env.render(r)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3, dict(rc.LAUNCHES)
+
+
+def want_launches(rc, got, **want):
+    """Fail unless the path launched exactly ``want`` (the other modes 0)."""
+    full = {k: want.get(k, 0) for k in rc.LAUNCHES}
+    if got != full:
+        raise AssertionError(f"launches {got}, expected {full}")
+
+
+def forest_subphase(torch, port, rc, card):
+    """14a: forest_env with the camera quad at SCENE_ENVS envs: env.step +
+    render() (K2) for SCENE_STEPS steps; K2 and K1 on the capture's inputs
+    timed at full width, bit-equal to the plain version on 64 envs."""
+    env = port.SimBuilder().build_env("base_sim", "forest_env", "base_quadrotor_with_camera",
+                                      "lee_velocity_control", num_envs=SCENE_ENVS, seed=0)
+    sc = env.params.scene
+    ms, launches = drive(torch, rc, env, SCENE_STEPS)
+    want_launches(rc, launches, raycast_seg=SCENE_STEPS)
+    obs = env.get_obs()
+    if not bool(torch.isfinite(obs["depth_range_pixels"]).all()):
+        raise AssertionError("forest: non-finite depth")
+    log(f"scenes: forest_env + base_quadrotor_with_camera, {SCENE_ENVS} envs, {sc.num_env_prims} "
+        f"prims/env (box {sc.n_box}, cylinder {sc.n_cyl}, sphere {sc.n_sph}), {SCENE_STEPS} "
+        f"steps of env.step + render(): {ms:.2f} ms/step, "
+        f"{SCENE_ENVS / ms * 1e3:.1f} env-steps/s, launches {launches} | {card}")
+    args = camera_args(rc, env)
+    sweep = sweep_counts(torch, rc, args[0], args[1], args[2], args[4:7], args[7])
+    recs = {}
+    for name in ("raycast_seg", "raycast_depth"):
+        recs[name], _ = scene_mode(torch, rc, args, sc.n_tri, name, card, "forest", 64,
+                                   sweep=sweep)
+        recs[name]["launches"] = launches[name]
+    del args, env
+    torch.cuda.empty_cache()
+    return launches, recs
+
+
+def dynamic_subphase(torch, port, rc, card):
+    """14b: dynamic_env with the camera quad at SCENE_ENVS envs, every slot
+    given DYNAMIC_TWIST by env actions: DYNAMIC_STEPS steps of env.step +
+    render() (K2); the obstacles in the arena moved by steps x substeps x
+    dt x v within 1e-4 m; one step from the reached state on the card and on
+    the CPU within tests/test_torch_dynamics.py's bars; K2 and K1 on the
+    moved table bit-equal to the plain version on 64 envs, K2 timed."""
+    from aerial_gym_simulator_tpu_torch.envs.scene import apply_env_actions
+    from aerial_gym_simulator_tpu_torch.sim import dynamics
+    from aerial_gym_simulator_tpu_torch.sim.convert import (
+        params_from_numpy, record_to_numpy, state_from_numpy)
+    env = port.SimBuilder().build_env("base_sim", "dynamic_env", "base_quadrotor_with_camera",
+                                      "lee_velocity_control", num_envs=SCENE_ENVS, seed=1)
+    p, n, dev = env.params, SCENE_ENVS, env.device
+    A = p.scene.num_assets
+    v = torch.tensor(DYNAMIC_TWIST, device=dev)
+    twist = v.expand(n, A, 6)
+    p0 = env.state.obstacle_pos.clone()
+    ms, launches = drive(torch, rc, env, DYNAMIC_STEPS, {"env_actions": twist})
+    want_launches(rc, launches, raycast_seg=DYNAMIC_STEPS)
+    steps = DYNAMIC_STEPS + 1                          # drive's untimed step included
+    moved = env.state.obstacle_pos - p0
+    expect = steps * p.env.substep_mean * p.dt * v[:3]
+    arena = p0[..., 0] > -500.0                        # culled slots sit at -1000
+    err = (moved - expect).abs().amax(dim=-1)[arena].max().item()
+    log(f"scenes: dynamic_env + base_quadrotor_with_camera, {n} envs, {A} moving obstacles, "
+        f"{DYNAMIC_STEPS} steps of env.step(env_actions) + render(): {ms:.2f} ms/step, "
+        f"{n / ms * 1e3:.1f} env-steps/s, launches {launches}; obstacle travel against "
+        f"{steps} x {p.env.substep_mean} x dt x v: max error {err:.3g} m over "
+        f"{int(arena.sum())} obstacles in the arena (bar 1e-4) | {card}")
+    if not err <= 1e-4:
+        raise AssertionError(f"dynamic: obstacles moved {err} m off steps x substeps x dt x v")
+    # one step on the card and on the CPU from the same carried-across state
+    act = torch.rand((n, 4), generator=torch.Generator(device=dev).manual_seed(3),
+                     device=dev) - 0.5
+    st = apply_env_actions(p, env.state, twist)
+    card_out = dynamics.env_step(p, st, act)
+    cpu_out = dynamics.env_step(params_from_numpy(record_to_numpy(p), "cpu"),
+                                state_from_numpy(record_to_numpy(st), "cpu"), act.cpu())
+    tol = {"pos": 1e-4, "quat": 1e-4, "linvel": 1e-4, "angvel": 5e-3,
+           "motor_thrust": 5e-3, "obstacle_pos": 1e-5, "obstacle_quat": 1e-5}
+    errs = {f: (getattr(card_out, f).cpu() - getattr(cpu_out, f)).abs().max().item()
+            for f in tol}
+    log(f"scenes: dynamic one step card against CPU from a carried-across state: "
+        + ", ".join(f"{k} {v:.3g} (bar {tol[k]:g})" for k, v in errs.items()) + f" | {card}")
+    bad = [k for k in tol if not errs[k] <= tol[k]]
+    if bad:
+        raise AssertionError(f"dynamic: card and CPU steps differ in {bad}: {errs}")
+    args = camera_args(rc, env)
+    sweep = sweep_counts(torch, rc, args[0], args[1], args[2], args[4:7], args[7])
+    recs = {}
+    for name in ("raycast_seg", "raycast_depth"):
+        recs[name], _ = scene_mode(torch, rc, args, p.scene.n_tri, name, card, "dynamic", 64,
+                                   sweep=sweep)
+        recs[name]["launches"] = launches[name]
+    del args, env, card_out, cpu_out, st
+    torch.cuda.empty_cache()
+    return launches, recs
+
+
+def stereo_subphase(torch, port, rc, card):
+    """14c: base_quadrotor_with_stereo_camera in env_with_obstacles at
+    STEREO_ENVS envs (270x480 per eye): env.step + render() (left K2, right
+    K1); each eye bit-equal to the plain version on 16 envs, the capture
+    equal to the range-limited max of the two eyes, each eye timed at full
+    width. Then the twin-camera robot (two fixed cameras and the lidar) at
+    TWIN_ENVS envs: render() (K2 three times), each camera slice equal to
+    the single-sensor render bit for bit."""
+    from aerial_gym_simulator_tpu_torch.config.robot_config import catalog
+    from aerial_gym_simulator_tpu_torch.config.sensor_config.sensor_configs import (
+        BaseDepthCameraConfig)
+    from aerial_gym_simulator_tpu_torch.registry.registries import robot_registry
+    from aerial_gym_simulator_tpu_torch.sensors.raycast_sensor import (
+        apply_range_limits, render, right_eye_origin, sensor_world_pose)
+    from aerial_gym_simulator_tpu_torch.sim.structs import replace
+    env = port.SimBuilder().build_env("base_sim", "env_with_obstacles",
+                                      "base_quadrotor_with_stereo_camera", "lee_velocity_control",
+                                      num_envs=STEREO_ENVS, seed=2)
+    sp, sc, st = env.params.camera, env.params.scene, None
+    ms, launches = drive(torch, rc, env, STEREO_STEPS)
+    want_launches(rc, launches, raycast_seg=STEREO_STEPS, raycast_depth=STEREO_STEPS)
+    capture_ms = wall_ms(torch, lambda: env.render())
+    st = env.state
+    left = camera_args(rc, env)
+    pos_w, quat_w = sensor_world_pose(sp, st, st.cam_mount_pos, st.cam_mount_quat)
+    right = (rc.pack_pose(right_eye_origin(sp, pos_w, quat_w), quat_w),) + left[1:]
+    d_l, _ = rc.raycast(*left, n_tri=sc.n_tri)
+    d_r, _ = rc.raycast(*right, n_tri=sc.n_tri, want_seg=False)
+    fused = apply_range_limits(sp, torch.maximum(d_l, d_r).reshape(env.get_obs()[
+        "depth_range_pixels"].shape)) / sp.max_range
+    env.render()
+    same = torch.equal(fused, env.get_obs()["depth_range_pixels"])
+    log(f"scenes: stereo base_quadrotor_with_stereo_camera, {STEREO_ENVS} envs x 2 eyes x "
+        f"{sp.height}x{sp.width}: {ms:.2f} ms/step (env.step + render()), {capture_ms:.2f} ms "
+        f"per capture, launches {launches}; capture equal to the max of the two eyes {same} "
+        f"| {card}")
+    if not same:
+        raise AssertionError("stereo: the capture is not the max of the two eyes")
+    del d_l, d_r, fused
+    recs = {}
+    recs["left"], _ = scene_mode(torch, rc, left, sc.n_tri, "raycast_seg", card,
+                                 "stereo left eye", 16)
+    recs["right"], _ = scene_mode(torch, rc, right, sc.n_tri, "raycast_depth", card,
+                                  "stereo right eye", 16)
+    recs["left"]["launches"] = launches["raycast_seg"]
+    recs["right"]["launches"] = launches["raycast_depth"]
+    recs["capture_ms"] = capture_ms
+    del left, right, env
+    torch.cuda.empty_cache()
+
+    def twin():
+        cfg = catalog.base_quadrotor()
+        cfg.name = "twin_camera_quad"
+        cfg.sensor_config.enable_camera = True
+        cfg.sensor_config.enable_lidar = True
+        cam = BaseDepthCameraConfig()
+        cam.num_sensors = 2
+        cam.randomize_placement = False
+        cfg.sensor_config.camera_config = cam
+        return cfg
+
+    robot_registry.register("twin_camera_quad", twin)
+    env = port.SimBuilder().build_env("base_sim", "env_with_obstacles", "twin_camera_quad",
+                                      "lee_velocity_control", num_envs=TWIN_ENVS, seed=3)
+    ms, twin_launches = drive(torch, rc, env, 3)
+    want_launches(rc, twin_launches, raycast_seg=3 * 3)
+    obs, st, sp = env.get_obs(), env.state, env.params.camera
+    frames = obs["depth_range_pixels"]
+    single = replace(sp, num_sensors=1)
+    equal = [torch.equal(frames[:, k], render(env.params, st, single, st.cam_mount_pos[:, k],
+                                              st.cam_mount_quat[:, k])[0]) for k in range(2)]
+    log(f"scenes: twin cameras + lidar, {TWIN_ENVS} envs: {ms:.2f} ms/step (env.step + "
+        f"render()), camera frames {tuple(frames.shape)}, lidar "
+        f"{tuple(obs['lidar_range_pixels'].shape)}, launches {twin_launches}; each camera "
+        f"slice equal to the single-sensor render {equal} | {card}")
+    if tuple(frames.shape) != (TWIN_ENVS, 2, sp.height, sp.width) or not all(equal):
+        raise AssertionError("twin cameras: a slice differs from the single-sensor render")
+    del env, obs, frames
+    torch.cuda.empty_cache()
+    launches["raycast_seg"] += twin_launches["raycast_seg"]
+    return launches, twin_launches, recs
+
+
+def write_icosphere_stl(path, subdiv, radius):
+    """A subdivided icosahedron as a binary STL: 20 x 4^subdiv faces."""
+    import struct
+    import numpy as np
+    t = (1.0 + math.sqrt(5.0)) / 2.0
+    v = np.array([[-1, t, 0], [1, t, 0], [-1, -t, 0], [1, -t, 0], [0, -1, t], [0, 1, t],
+                  [0, -1, -t], [0, 1, -t], [t, 0, -1], [t, 0, 1], [-t, 0, -1], [-t, 0, 1]])
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    f = [[0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11], [1, 5, 9], [5, 11, 4],
+         [11, 10, 2], [10, 7, 6], [7, 1, 8], [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8],
+         [3, 8, 9], [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1]]
+    for _ in range(subdiv):
+        mid, verts = {}, list(v)
+
+        def midpoint(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in mid:
+                m = verts[a] + verts[b]
+                mid[key] = len(verts)
+                verts.append(m / np.linalg.norm(m))
+            return mid[key]
+
+        nf = []
+        for a, b, c in f:
+            ab, bc, ca = midpoint(a, b), midpoint(b, c), midpoint(c, a)
+            nf += [[a, ab, ca], [b, bc, ab], [c, ca, bc], [ab, bc, ca]]
+        v, f = np.asarray(verts), nf
+    with open(path, "wb") as fh:
+        fh.write(b"\0" * 80 + struct.pack("<I", len(f)))
+        for tri in f:
+            fh.write(struct.pack("<3f", 0, 0, 0))
+            for vi in tri:
+                fh.write(struct.pack("<3f", *(v[vi] * radius)))
+            fh.write(struct.pack("<H", 0))
+    return len(f)
+
+
+def mesh_urdf(stl_path):
+    return (f'<?xml version="1.0"?><robot name="mesh_blob"><link name="base_link"><inertial>'
+            f'<mass value="1.0"/><inertia ixx="0.1" ixy="0" ixz="0" iyy="0.1" iyz="0" '
+            f'izz="0.1"/></inertial><collision><origin xyz="0 0 0" rpy="0 0 0"/><geometry>'
+            f'<mesh filename="{stl_path}"/></geometry></collision></link></robot>')
+
+
+def mesh_subphase(torch, port, rc, card, work):
+    """14d: a subdivision-4 icosphere STL (5,120 faces), decimated to the
+    2,048 budget, as two keep_in_env assets of env_with_obstacles built with
+    max_prims=2048 at MESH_ENVS envs with the camera quad: env.step +
+    render() (K2), render("rgb") (K4 + K2), the normal/face-id capture (K3)
+    and the depth-only capture (K1) each step; K1-K4 timed at full width,
+    bit-equal to the plain version on 8 envs (broad phase on and off); the
+    collision SDF 0.1 m outside the sphere within the tessellation's error.
+    Then the forest's and the obstacle env's procedural URDFs as a folder of
+    LOADER_FILES files: the native batch loader against the Python parser,
+    models equal, both timed."""
+    import xml.etree.ElementTree as ET
+    import numpy as np
+    from aerial_gym_simulator_tpu_torch.assets import native_loader, urdf
+    from aerial_gym_simulator_tpu_torch.config.asset_config import env_object_config as eoc
+    from aerial_gym_simulator_tpu_torch.config.env_config.obstacle_envs import (
+        EnvWithObstaclesConfig, ForestEnvConfig)
+    from aerial_gym_simulator_tpu_torch.envs.collision import scene_sdf_point
+    from aerial_gym_simulator_tpu_torch.envs.scene import build_scene_params
+    from aerial_gym_simulator_tpu_torch.registry.registries import (
+        controller_registry, robot_registry, sim_config_registry)
+    from aerial_gym_simulator_tpu_torch.sensors.raycast_sensor import (
+        render_camera, render_normal_faceid_camera)
+    from aerial_gym_simulator_tpu_torch.sim import sim_builder
+    from aerial_gym_simulator_tpu_torch.sim.env_manager import EnvManager
+    from aerial_gym_simulator_tpu_torch.sim.params import build_sim_params
+    from aerial_gym_simulator_tpu_torch.sim.structs import replace
+    stl = str(work / "icosphere4.stl")
+    faces = write_icosphere_stl(stl, MESH_SUBDIV, MESH_RADIUS)
+    asset = eoc.AssetTypeConfig(name="user_mesh_blobs", num_assets=2, urdf_variants=[
+        mesh_urdf(stl)], min_state_ratio=eoc._ratio(0.35, 0.2, 0.3),
+        max_state_ratio=eoc._ratio(0.85, 0.8, 0.7), keep_in_env=True, semantic_id=42)
+    env_cfg = EnvWithObstaclesConfig()
+    env_cfg.asset_types = list(env_cfg.asset_types) + [asset]
+    env_cfg.__post_init__()
+    dev = sim_builder.resolve_device(None)
+    t0 = time.perf_counter()
+    scene = build_scene_params(env_cfg, MESH_ENVS, dev, max_prims=MESH_BUDGET)
+    build_s = time.perf_counter() - t0
+    per_mesh = int((scene.prim_kind[-1] == 3).sum())
+    sim_cfg, robot_cfg = sim_config_registry.make("base_sim"), robot_registry.make(
+        "base_quadrotor_with_camera")
+    ctrl_cfg = controller_registry.make("lee_velocity_control")
+    params = build_sim_params(sim_cfg, env_cfg, robot_cfg, ctrl_cfg, dev, num_envs=MESH_ENVS,
+                              scene=scene)
+    env = EnvManager(params, seed=4, sim_config=sim_cfg, env_config=env_cfg,
+                     robot_config=robot_cfg, controller_config=ctrl_cfg)
+    table_gb = MESH_ENVS * scene.num_env_prims * 16 * 4 / 1e9
+    log(f"scenes: mesh {faces} faces decimated to {per_mesh} triangles per asset, 2 assets in "
+        f"env_with_obstacles, max_prims {MESH_BUDGET}: {scene.num_env_prims} prims/env (box "
+        f"{scene.n_box}, cylinder {scene.n_cyl}, sphere {scene.n_sph}, triangle {scene.n_tri}), "
+        f"world table {table_gb:.3f} GB at {MESH_ENVS} envs, scene build {build_s:.2f} s | {card}")
+    if not (faces == 20 * 4 ** MESH_SUBDIV and MESH_BUDGET // 2 < per_mesh <= MESH_BUDGET
+            and scene.n_tri == 2 * per_mesh):
+        raise AssertionError("mesh: the STL did not compile to the budgeted triangles")
+
+    ms, launches = drive(torch, rc, env, MESH_STEPS, render=("sensors", "rgb"))
+    for _ in range(MESH_STEPS):                        # the other two captures, counted too
+        render_normal_faceid_camera(env.params, env.state)
+        render_camera(env.params, env.state, want_seg=False)
+    torch.cuda.synchronize()
+    launches = dict(rc.LAUNCHES)
+    want_launches(rc, launches, raycast_seg=2 * MESH_STEPS, raycast_rgb=MESH_STEPS,
+                  raycast_normals=MESH_STEPS, raycast_depth=MESH_STEPS)
+    obs = env.get_obs()
+    hit_mesh = (obs["segmentation_pixels"] == 42).float().mean().item()
+    log(f"scenes: mesh env + base_quadrotor_with_camera, {MESH_ENVS} envs: {ms:.2f} ms/step "
+        f"(env.step + render() + render('rgb')), launches {launches}, share of pixels on the "
+        f"mesh {hit_mesh:.4f} | {card}")
+    if not (bool(torch.isfinite(obs["depth_range_pixels"]).all()) and hit_mesh > 0.0):
+        raise AssertionError("mesh: no pixel saw the mesh, or a non-finite depth")
+    args = camera_args(rc, env)
+    sweep = sweep_counts(torch, rc, args[0], args[1], args[2], args[4:7], args[7], env_chunk=64)
+    recs, face = {}, None
+    for name in ("raycast_depth", "raycast_seg", "raycast_normals", "raycast_rgb"):
+        recs[name], face = scene_mode(torch, rc, args, scene.n_tri, name, card, "mesh", 8,
+                                      face, sweep=sweep)
+        recs[name]["launches"] = launches[name]
+    del args, face
+
+    # the collision SDF sees the mesh: each env's first mesh slot alone,
+    # a point 0.1 m outside the sphere along a fixed direction
+    st = env.state
+    slot = int(torch.nonzero(scene.semantic_id == 42)[0, 0])
+    parked = torch.full_like(st.obstacle_pos, -1000.0)
+    parked[:, slot] = st.obstacle_pos[:, slot]
+    lone = replace(st, obstacle_pos=parked)
+    d = torch.tensor([0.48, -0.6, 0.64], device=st.pos.device)
+    point = st.obstacle_pos[:, slot] + (MESH_RADIUS + 0.1) * d / d.norm()
+    dist = scene_sdf_point(env.params, lone, point)
+    # the decimated mesh lies between its nearest face plane and its
+    # farthest vertex from the centre
+    kind = scene.prim_kind[-1]
+    tri = kind == 3
+    size, v0 = scene.prim_size[-1][tri].double(), scene.prim_pos[-1][tri].double()
+    rot = scene.prim_rot[-1][tri].double()
+    verts = torch.cat([v0, v0 + rot[:, :, 0] * size[:, :1],
+                       v0 + rot[:, :, 0] * size[:, 1:2] + rot[:, :, 1] * size[:, 2:3]])
+    r_out = verts.norm(dim=-1).max().item()
+    r_in = (rot[:, :, 2] * v0).sum(-1).abs().min().item()
+    lo, hi = MESH_RADIUS + 0.1 - r_out - 1e-4, MESH_RADIUS + 0.1 - r_in + 1e-4
+    d_min, d_max = dist.min().item(), dist.max().item()
+    log(f"scenes: mesh collision SDF 0.1 m outside the sphere, {MESH_ENVS} envs: distance "
+        f"{d_min:.5f}-{d_max:.5f} m, the tessellation allows {lo:.5f}-{hi:.5f} m | {card}")
+    if not (lo <= d_min and d_max <= hi):
+        raise AssertionError(f"mesh: SDF {d_min}-{d_max} outside [{lo}, {hi}]")
+    del env, params, scene, st, lone, parked
+    torch.cuda.empty_cache()
+
+    # the native batch loader against the Python parser on a folder of
+    # the forest's and the obstacle env's procedural URDFs
+    folder = work / "urdfs"
+    folder.mkdir()
+    texts = [t for cfg in (ForestEnvConfig(), EnvWithObstaclesConfig())
+             for at in cfg.asset_types for t in at.urdf_variants]
+    files = []
+    for k in range(LOADER_FILES):
+        path = folder / f"asset_{k:04d}.urdf"
+        path.write_text(texts[k % len(texts)])
+        files.append(str(path))
+    native_loader.load_urdf_string_native(texts[0])          # the build, untimed
+    t0 = time.perf_counter()
+    native = native_loader.load_urdf_batch(files)
+    native_s = time.perf_counter() - t0
+    if native is None:
+        raise AssertionError("loaders: the native compiler declined a procedural URDF")
+    t0 = time.perf_counter()
+    python = [urdf._parse_urdf_tree(ET.parse(f).getroot(), f) for f in files]
+    python_s = time.perf_counter() - t0
+    worst = 0.0
+    for a, b in zip(native, python):
+        if len(a.primitives) != len(b.primitives) or any(
+                pa.kind != pb.kind or pa.semantic_id != pb.semantic_id
+                for pa, pb in zip(a.primitives, b.primitives)):
+            raise AssertionError(f"loaders: {b.path} differs in its primitives")
+        worst = max([worst, abs(a.mass - b.mass), abs(a.bound_radius - b.bound_radius),
+                     float(np.abs(a.com - b.com).max()), float(np.abs(a.inertia - b.inertia).max())]
+                    + [float(np.abs(x - y).max()) for pa, pb in zip(a.primitives, b.primitives)
+                       for x, y in ((pa.size, pb.size), (pa.xyz, pb.xyz), (pa.rot, pb.rot))])
+    log(f"scenes: loaders, {LOADER_FILES} procedural URDFs ({len(texts)} distinct, the forest's "
+        f"and the obstacle env's): native batch {native_s * 1e3:.1f} ms, Python parser "
+        f"{python_s * 1e3:.1f} ms ({python_s / native_s:.1f}x), models equal, largest difference "
+        f"{worst:.3g} (f32 rounding; bar 1e-4) | host CPU, {card}")
+    if not worst <= 1e-4:
+        raise AssertionError(f"loaders: native and Python models differ by {worst}")
+    return launches, recs, {"native_ms": native_s * 1e3, "python_ms": python_s * 1e3,
+                            "files": LOADER_FILES}
+
+
+def scenes_phase(torch, port, rc, card):
+    """Phase 14: the forest and dynamic scenes, stereo and multi-sensor
+    capture, the mesh scene and the native loader; each part's seconds.
+    Returns (the ray-cast launches of the paths by mode, {mode: {table:
+    record}})."""
+    seconds, launches = {}, {k: 0 for k in rc.LAUNCHES}
+    tables = {k: {} for k in rc.LAUNCHES}
+
+    def add(got, recs, tag):
+        for k, v in got.items():
+            launches[k] += v
+        for k, rec in recs.items():
+            tables[k][tag] = rec
+
+    t0 = time.perf_counter()
+    got, recs = forest_subphase(torch, port, rc, card)
+    add(got, recs, f"at_{SCENE_ENVS}x{135 * 240}_forest")
+    seconds["a forest"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got, recs = dynamic_subphase(torch, port, rc, card)
+    add(got, recs, f"at_{SCENE_ENVS}x{135 * 240}_dynamic")
+    seconds["b dynamic"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got, twin, recs = stereo_subphase(torch, port, rc, card)
+    add(got, {}, "")
+    tables["raycast_seg"][f"at_{STEREO_ENVS}x{270 * 480}_stereo_left"] = dict(
+        recs["left"], capture_ms=recs["capture_ms"], twin_camera_launches=twin["raycast_seg"])
+    tables["raycast_depth"][f"at_{STEREO_ENVS}x{270 * 480}_stereo_right"] = recs["right"]
+    seconds["c stereo"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        got, recs, loaders = mesh_subphase(torch, port, rc, card, Path(work))
+    add(got, recs, f"at_{MESH_ENVS}x{135 * 240}_mesh")
+    tables["raycast_depth"][f"at_{MESH_ENVS}x{135 * 240}_mesh"]["loaders"] = loaders
+    seconds["d mesh"] = time.perf_counter() - t0
+    log("scenes: seconds " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+        + f" = {sum(seconds.values()):.1f}, launches {launches} | {card}")
+    return launches, tables
+
+
 JAX_HISTORY_KEYS = {"reward_mean", "done_rate", "crash_rate", "pg_loss", "v_loss", "entropy",
                     "approx_kl", "lr", "value_mean", "iter", "env_steps", "wall_s",
                     "env_steps_per_s_cumulative", "env_steps_per_s"}
@@ -3131,6 +3663,18 @@ def main(argv=None) -> int:
         rec["launches_articulated_path"] = art_launches[name]
         rec[f"catalog_at_{CATALOG_ENVS}_envs"] = sub
         rec["max_abs_err"] = max([rec["max_abs_err"]] + [r["max_abs_err"] for r in sub.values()])
+
+    log(f"elapsed {time.perf_counter() - t_run:.1f} s: phase 14 scenes")
+    # 14. the forest and dynamic scenes (K2, K1), stereo (K2 + K1) and the
+    #     twin cameras (K2), the mesh scene (K1-K4), the native loader
+    scene_launches, scene_tables = scenes_phase(torch, port, rc, card)
+    for rec in records[:2] + mode_records:
+        name = rec["name"]
+        rec["launches"] += scene_launches[name]
+        rec["launches_scenes_path"] = scene_launches[name]
+        rec.update(scene_tables[name])
+        rec["max_abs_err"] = max([rec["max_abs_err"]] + [
+            r["max_abs_err"] for r in scene_tables[name].values()])
 
     log(f"elapsed {time.perf_counter() - t_run:.1f} s: all phases")
     log(json.dumps({"kernels": records + mode_records}))

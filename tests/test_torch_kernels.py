@@ -869,3 +869,117 @@ def test_kernel_library_keeps_nvcc_log_beside_the_build(tmp_path, monkeypatch):
     nvcc.write_text("#!/bin/sh\nexit 1\n")              # a second compile would fail
     assert lib.build() == first
     assert _build.build_all([lib]) == [first]
+
+
+def _icosphere_stl(path, subdiv=2, radius=0.8):
+    """A subdivided icosahedron written as a binary STL; returns its faces."""
+    import struct
+    t = (1.0 + np.sqrt(5.0)) / 2.0
+    v = np.array([[-1, t, 0], [1, t, 0], [-1, -t, 0], [1, -t, 0], [0, -1, t], [0, 1, t],
+                  [0, -1, -t], [0, 1, -t], [t, 0, -1], [t, 0, 1], [-t, 0, -1], [-t, 0, 1]])
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    f = [[0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11], [1, 5, 9], [5, 11, 4],
+         [11, 10, 2], [10, 7, 6], [7, 1, 8], [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8],
+         [3, 8, 9], [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1]]
+    for _ in range(subdiv):
+        mid, verts = {}, list(v)
+
+        def midpoint(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in mid:
+                m = verts[a] + verts[b]
+                mid[key] = len(verts)
+                verts.append(m / np.linalg.norm(m))
+            return mid[key]
+
+        nf = []
+        for a, b, c in f:
+            ab, bc, ca = midpoint(a, b), midpoint(b, c), midpoint(c, a)
+            nf += [[a, ab, ca], [b, bc, ab], [c, ca, bc], [ab, bc, ca]]
+        v, f = np.asarray(verts), nf
+    with open(path, "wb") as fh:
+        fh.write(b"\0" * 80 + struct.pack("<I", len(f)))
+        for tri in f:
+            fh.write(struct.pack("<3f", 0, 0, 0))
+            for vi in tri:
+                fh.write(struct.pack("<3f", *(v[vi] * radius)))
+            fh.write(struct.pack("<H", 0))
+    return len(f)
+
+
+def _mesh_env(device, stl, n_envs=2):
+    """env_with_obstacles with two assets of the STL, every triangle kept."""
+    from aerial_gym_simulator_tpu_torch.config.asset_config import env_object_config as eoc
+    from aerial_gym_simulator_tpu_torch.config.env_config.obstacle_envs import (
+        EnvWithObstaclesConfig)
+    from aerial_gym_simulator_tpu_torch.envs.scene import build_scene_params
+    from aerial_gym_simulator_tpu_torch.registry.registries import (
+        controller_registry, robot_registry, sim_config_registry)
+    from aerial_gym_simulator_tpu_torch.sim.env_manager import EnvManager
+    from aerial_gym_simulator_tpu_torch.sim.params import build_sim_params
+    urdf = (f'<robot name="blob"><link name="base_link"><collision><geometry>'
+            f'<mesh filename="{stl}"/></geometry></collision></link></robot>')
+    asset = eoc.AssetTypeConfig(name="blobs", num_assets=2, urdf_variants=[urdf],
+                                min_state_ratio=eoc._ratio(0.35, 0.2, 0.3),
+                                max_state_ratio=eoc._ratio(0.85, 0.8, 0.7), keep_in_env=True,
+                                semantic_id=42)
+    cfg = EnvWithObstaclesConfig()
+    cfg.asset_types = list(cfg.asset_types) + [asset]
+    cfg.__post_init__()
+    scene = build_scene_params(cfg, n_envs, device, max_prims=512)
+    robot = robot_registry.make("base_quadrotor_with_camera")
+    params = build_sim_params(sim_config_registry.make("base_sim"), cfg, robot,
+                              controller_registry.make("lee_velocity_control"), device,
+                              num_envs=n_envs, scene=scene)
+    return EnvManager(params, seed=1)
+
+
+@pytest.mark.cuda
+def test_mesh_scene_kernels_match_plain_version(cuda_device, tmp_path):
+    """K1-K4 on a table of 640 triangles beside the obstacle env's
+    primitives: bit-equal to the plain version, broad phase on and off."""
+    from aerial_gym_simulator_tpu_torch.sensors.raycast_sensor import cast_inputs
+    _icosphere_stl(str(tmp_path / "sphere.stl"))
+    env = _mesh_env(cuda_device, tmp_path / "sphere.stl")
+    env.step(torch.zeros((2, 4), device=cuda_device))
+    st, sp, sc = env.state, env.params.camera, env.params.scene
+    a = cast_inputs(env.params, st, sp, st.cam_mount_pos, st.cam_mount_quat)
+    args, counts = a[:4], (a[4], a[5], a[6], 4.0)
+    for want_seg in (False, True):
+        k = rc.raycast(*args, *counts, n_tri=sc.n_tri, want_seg=want_seg)
+        k_off = rc.raycast(*args, *counts, n_tri=sc.n_tri, want_seg=want_seg, cull=False)
+        ref = rc.raycast_reference(*args, *counts, n_tri=sc.n_tri, want_seg=want_seg)
+        torch.cuda.synchronize()
+        for x, y, z in zip(k, k_off, ref):
+            if z is not None:
+                assert torch.equal(x, z) and torch.equal(y, z)
+    _compare_modes(args, counts, sc.n_tri)
+
+
+@pytest.mark.cuda
+def test_stereo_render_launches_k2_and_k1_bit_equal(cuda_device):
+    """A stereo capture: the left eye on K2, the right eye on K1, each
+    bit-equal to the plain version, the image their range-limited max."""
+    from aerial_gym_simulator_tpu_torch.sensors.raycast_sensor import (
+        apply_range_limits, cast_inputs, render_camera, right_eye_origin, sensor_world_pose)
+    env = port.SimBuilder().build_env("base_sim", "env_with_obstacles",
+                                      "base_quadrotor_with_stereo_camera",
+                                      "lee_velocity_control", num_envs=2, seed=1)
+    env.step(torch.zeros((2, 4), device=cuda_device))
+    st, sp, sc = env.state, env.params.camera, env.params.scene
+    before = dict(rc.LAUNCHES)
+    depth, _ = render_camera(env.params, st)
+    torch.cuda.synchronize()
+    assert rc.LAUNCHES["raycast_seg"] == before["raycast_seg"] + 1
+    assert rc.LAUNCHES["raycast_depth"] == before["raycast_depth"] + 1
+    left = cast_inputs(env.params, st, sp, st.cam_mount_pos, st.cam_mount_quat)
+    pos_w, quat_w = sensor_world_pose(sp, st, st.cam_mount_pos, st.cam_mount_quat)
+    right = (rc.pack_pose(right_eye_origin(sp, pos_w, quat_w), quat_w),) + left[1:]
+    d_l, s_l = rc.raycast(*left, n_tri=sc.n_tri)
+    d_r, _ = rc.raycast(*right, n_tri=sc.n_tri, want_seg=False)
+    r_l = rc.raycast_reference(*left, n_tri=sc.n_tri)
+    r_r = rc.raycast_reference(*right, n_tri=sc.n_tri, want_seg=False)
+    torch.cuda.synchronize()
+    assert torch.equal(d_l, r_l[0]) and torch.equal(s_l, r_l[1]) and torch.equal(d_r, r_r[0])
+    fused = apply_range_limits(sp, torch.maximum(d_l, d_r).reshape(depth.shape)) / sp.max_range
+    assert torch.equal(fused, depth)

@@ -219,6 +219,39 @@ def test_scan_covers_the_articulated_slice():
         assert module in scanned, module
 
 
+SCENE_MODULES = ("assets/mesh.py", "assets/native_loader.py", "assets/urdf.py",
+                 "assets/procedural.py", "envs/scene.py", "ops/_build.py")
+
+
+def test_scan_covers_the_scenes_slice():
+    """The scan reads every module of the forest and dynamic scenes, stereo
+    and multi-sensor capture, the mesh assets and the native compiler, with
+    the modules they changed; the compiler's C++ source ships in csrc/."""
+    scanned = {str(p.relative_to(PKG)) for p in _sources() if PKG in p.parents}
+    for module in SCENE_MODULES + ("sensors/raycast_sensor.py", "sim/env_manager.py",
+                                   "sim/params.py", "sim/dynamics.py", "sim/convert.py",
+                                   "config/asset_config/env_object_config.py",
+                                   "config/env_config/obstacle_envs.py", "config/__init__.py",
+                                   "config/sensor_config/sensor_configs.py",
+                                   "config/robot_config/catalog.py"):
+        assert module in scanned, module
+    assert (PKG / "csrc" / "scene_compiler.cpp").exists()
+
+
+def test_scene_compiler_is_built_lazily():
+    """Importing the loader builds nothing: the host compiler runs at the
+    first compile call (the tests here import every module)."""
+    code = (
+        "import sys\n"
+        "from aerial_gym_simulator_tpu_torch.assets import native_loader as nl\n"
+        "from aerial_gym_simulator_tpu_torch.envs import scene\n"
+        "sys.exit(0 if nl._lib is None and nl.LIBRARY._lib is None else 1)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=str(REPO), env=env, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 @pytest.mark.parametrize("module", ["sim/articulated.py", "sensors/imu.py", "sim/dynamics.py"])
 def test_solver_and_imu_read_nothing_back(module):
     """No host read-back on the step: no .item(), .tolist(), nonzero, .cpu()
@@ -237,7 +270,7 @@ def _module_name(path: str) -> str:
 
 def test_importing_every_module_loads_no_jax():
     wanted = ("tasks.lidar_navigation_task", "rl.ppo", "rl.networks", "sim2real.policy") + tuple(
-        _module_name(m) for m in PLUMBING_MODULES + ARTICULATED_MODULES)
+        _module_name(m) for m in PLUMBING_MODULES + ARTICULATED_MODULES + SCENE_MODULES)
     code = (
         "import importlib, pkgutil, sys\n"
         "import aerial_gym_simulator_tpu_torch as p\n"
