@@ -22,7 +22,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from ..utils.math import quat_rotate, quat_rotate_inverse
+from ..utils.math import quat_rotate, quat_rotate_inverse, safe_sqrt
 
 NO_HIT_RAY_VAL = 1000.0
 NO_HIT_SEGMENTATION_VAL = -2
@@ -84,7 +84,11 @@ def ray_sphere(ro, rd, r):
     b = ro[..., 0] * rd[..., 0] + ro[..., 1] * rd[..., 1] + ro[..., 2] * rd[..., 2]
     c = (ro[..., 0] * ro[..., 0] + ro[..., 1] * ro[..., 1] + ro[..., 2] * ro[..., 2]) - r * r
     disc = b * b - c
-    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    # safe_sqrt: the backward of sqrt(max(disc, 0)) is NaN where disc is
+    # exactly 0, as rays against a parked obstacle's zero-size primitive
+    # give; the forward is the same number (a +-0 root only reaches t where
+    # disc >= 0, and there -b -+ 0 is -b)
+    sq = safe_sqrt(disc)
     t0 = -b - sq
     t1 = -b + sq
     t = torch.where(t0 > 0.0, t0, t1)
@@ -99,7 +103,7 @@ def ray_cylinder(ro, rd, r, h):
     b = rox * rdx + roy * rdy
     c = (rox * rox + roy * roy) - r * r
     disc = b * b - a * c
-    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    sq = safe_sqrt(disc)           # a finite gradient at disc = 0, as in ray_sphere
     inv_a = safe_div(1.0, a)
     ts0 = (-b - sq) * inv_a
     ts1 = (-b + sq) * inv_a

@@ -797,14 +797,20 @@ def build_trainer(args: argparse.Namespace):
     return task, PPOTrainer(task, cfg)
 
 
-def main(argv=None):
-    """``python -m aerial_gym_simulator_tpu_torch.rl.ppo [flags]``: train,
-    optionally save, print the final reward -> the history."""
-    args = parse_args(argv)
+def log_to_stdout():
+    """INFO logging to stdout for the command lines, unless the process has
+    configured logging itself."""
     if not logging.getLogger().handlers:
         logging.basicConfig(level=logging.INFO, stream=sys.stdout,
                             format="[%(asctime)s] %(name)s %(levelname)s: %(message)s",
                             datefmt="%H:%M:%S")
+
+
+def main(argv=None):
+    """``python -m aerial_gym_simulator_tpu_torch.rl.ppo [flags]``: train,
+    optionally save, print the final reward -> the history."""
+    args = parse_args(argv)
+    log_to_stdout()
     task, trainer = build_trainer(args)
     history = trainer.train(logdir=args.logdir, track=args.track, ckpt_dir=args.ckpt_dir,
                             save_every=args.save_every, resume=args.resume)

@@ -226,6 +226,20 @@ def vit_encoder_from_flax(params: dict, attn_impl: str = "fused"):
     return enc
 
 
+def tanh_policy_from_flax(params: dict, scale: float = 1.0):
+    """flax rl.bptt.TanhPolicy parameters ({"params": {"Dense_0": ...}} or
+    the inner dict) -> rl.bptt.TanhPolicy (f32, on the CPU). The widths are
+    read off the kernels; the last Dense is the tanh head. ``scale`` is the
+    module's action scale, which flax keeps outside the parameters."""
+    from ..rl.bptt import TanhPolicy
+    p = params.get("params", params)
+    kernels = [np.shape(p[f"Dense_{i}"]["kernel"]) for i in range(len(p))]
+    policy = TanhPolicy(kernels[0][0], kernels[-1][1], tuple(k[1] for k in kernels[:-1]), scale)
+    for i, layer in enumerate(list(policy.hidden) + [policy.head]):
+        _set_dense(layer, p[f"Dense_{i}"])
+    return policy
+
+
 def vae_encoder_from_flax(params: dict, input_hw=(135, 240)):
     """flax DepthVAE / Encoder parameters -> models.vae.Encoder (f32, on
     the CPU) for images of ``input_hw``."""

@@ -132,8 +132,8 @@ Phases, each printed on its own line:
                depth images; the trained state is the straight run that
                phase 12 resumes to;
      lidarnav - lidar_navigation_task (magpie, magpie_acceleration_control,
-               env_with_lidar_nav_obstacles) at 512 envs flown 330 steps
-               (three episodes) by the shipped lidar_navigation_policy.npz:
+               env_with_lidar_nav_obstacles) at 512 envs flown 220 steps
+               (two episodes) by the shipped lidar_navigation_policy.npz:
                finite actions, at least one success, K1 once per step on the
                48x120 dome table, success share, env-steps/s and the step's
                split (env_step, render, pointcloud processing, policy); K1
@@ -228,12 +228,37 @@ Phases, each printed on its own line:
                triangles as two assets of env_with_obstacles with max_prims
                2,048 at 1,024 envs: env.step + render() + render("rgb") +
                the normal/face-id and the depth-only captures (K1-K4), each
-               mode timed with its bound and bit-equal on 8 envs, the
+               mode timed with its bound and bit-equal on 2 envs, the
                collision SDF 0.1 m outside the sphere within the
                tessellation's error; the forest's and the obstacle env's
                procedural URDFs as 1,024 files through the native batch
                loader and the Python parser, models equal, both timed; each
                part's seconds.
+
+15. differentiable - differentiable training: a. ops/raycast_diff on the
+               obstacle env's camera at 64 envs (135x240 grid): "kernel"
+               (K1) bit-equal to raycast_reference, edge flips against the
+               oracle under 0.1% of the rays and the rest within 2e-3 m;
+               the pose gradients on the card against the CPU's on 2 envs
+               within 1e-3 of the largest; 20 steps of the inverse
+               rendering of tests/test_raycast_diff.py (Adam at lr 0.02 on
+               the obstacle positions from a seeded 0.15 m perturbation) at
+               this width, each step's K1 forward and oracle backward
+               timed, peak memory and the device's idle share, the loss
+               falling; K1 on this table timed with its bound; then the
+               recipe on its own 2-env scene and 8x128 table for 150 steps,
+               the loss below 5% of its start; b. d/d tau and d/d drag of tests/test_differentiable.py's
+               12-step rollout on the card against the CPU, 1e-3 relative;
+               c. rl.bptt at BPTTConfig's defaults (256 envs x 16) for 150
+               iterations: best task-reward EMA above max(3, 2 r0), s per
+               iteration and its forward / backward split, idle share, then
+               two windows with remat against without (gradients within
+               1e-6, generator states equal); d. the rl.population command
+               line (8 members x 1,024 envs x 32, lr sweep, PBT every
+               iteration, --save_best): finite rewards, aggregate
+               env-steps/s, the saved best member acting bit-equal, and
+               member 0 of a 2-member population bit-equal to a standalone
+               trainer; each part's seconds.
 
 Before the last line it prints one JSON object with a record per kernel;
 the last line is {"ok": true, "device": {...}}. Any failure raises and the
@@ -354,7 +379,7 @@ SIM_STATE_ENVS = 1024
 CUSTOM_ENVS = 16384
 VAE_CPU_IMAGES = 16                # images encoded on the card and on the CPU
 LIDARNAV_ENVS = 512                # the lidar and radar recipes' envs
-LIDARNAV_STEPS = 330               # three 110-step episodes
+LIDARNAV_STEPS = 220               # two 110-step episodes
 RADARNAV_STEPS = 450               # the JAX package's bar for the shipped radar policy
 RADAR_PPO_ITERATIONS = 2
 RADAR_RNN_HIDDEN = 128             # the radar recipe's GRU
@@ -415,7 +440,21 @@ MESH_STEPS = 3
 MESH_SUBDIV = 4                    # 5,120 faces
 MESH_RADIUS = 0.8
 MESH_BUDGET = 2048                 # the triangle budget and max_prims of the mesh scene
+MESH_CHECK_ENVS = 2                # the plain version's bit-equality check (~4 s a mode per env)
 LOADER_FILES = 1024
+DIFF_ENVS = 64                     # 15a: the differentiable ray cast at the camera's full table
+DIFF_GRAD_ENVS = 2                 # its gradient, card against CPU, on the first envs
+DIFF_EDGE_SHARE = 1e-3             # kernel vs oracle: share of edge flips allowed (seg bar 0.999)
+DIFF_STEPS = 40                    # inverse rendering: tests/test_raycast_diff.py's recipe (0.84 s
+                                   # a step on the card, launch-bound: 40 of its 150 steps)
+DIFF_TIMED_STEPS = 10              # the same descent at the full table, timed
+DIFF_LR = 0.02
+DIFF_PERTURB = 0.15
+ROLLOUT_STEPS = 12                 # 15b: tests/test_differentiable.py's rollout
+BPTT_ITERS = 150                   # 15c: BPTT at BPTTConfig's defaults (256 envs x 16)
+POP_ARGS = ["--num_envs", "1024", "--num_seeds", "8", "--horizon", "32", "--total_steps",
+            "65536", "--lr_sweep", "1e-4", "1e-3", "--pbt_every", "1"]   # 15d: 2 iterations
+POP_COMPARE_ENVS = 1024            # member 0 against a standalone trainer
 STATE_STEP_ENVS = 16384
 STATE_STEPS = 100
 POSITION_POLICY = (Path(__file__).resolve().parent
@@ -2735,7 +2774,7 @@ def mesh_subphase(torch, port, rc, card, work):
     max_prims=2048 at MESH_ENVS envs with the camera quad: env.step +
     render() (K2), render("rgb") (K4 + K2), the normal/face-id capture (K3)
     and the depth-only capture (K1) each step; K1-K4 timed at full width,
-    bit-equal to the plain version on 8 envs (broad phase on and off); the
+    bit-equal to the plain version on MESH_CHECK_ENVS envs (broad phase on and off); the
     collision SDF 0.1 m outside the sphere within the tessellation's error.
     Then the forest's and the obstacle env's procedural URDFs as a folder of
     LOADER_FILES files: the native batch loader against the Python parser,
@@ -2804,8 +2843,8 @@ def mesh_subphase(torch, port, rc, card, work):
     sweep = sweep_counts(torch, rc, args[0], args[1], args[2], args[4:7], args[7], env_chunk=64)
     recs, face = {}, None
     for name in ("raycast_depth", "raycast_seg", "raycast_normals", "raycast_rgb"):
-        recs[name], face = scene_mode(torch, rc, args, scene.n_tri, name, card, "mesh", 8,
-                                      face, sweep=sweep)
+        recs[name], face = scene_mode(torch, rc, args, scene.n_tri, name, card, "mesh",
+                                      MESH_CHECK_ENVS, face, sweep=sweep)
         recs[name]["launches"] = launches[name]
     del args, face
 
@@ -3247,6 +3286,388 @@ def build_ab(torch, rc, ab_libs, args, n_tri, card):
     return out
 
 
+def scene_slice(sc, n, device):
+    """The ray cast's view of a scene (its env_prim_* tables and kind
+    counts) for the first n envs, on ``device``."""
+    from types import SimpleNamespace
+    fields = ("env_prim_kind", "env_prim_size", "env_prim_pos", "env_prim_rot",
+              "env_prim_semantic", "env_prim_slot")
+    return SimpleNamespace(**{k: getattr(sc, k)[:n].to(device) for k in fields},
+                           n_box=sc.n_box, n_cyl=sc.n_cyl, n_sph=sc.n_sph, n_tri=sc.n_tri)
+
+
+def diff_render_subphase(torch, port, rc, card):
+    """15a: ops/raycast_diff on the obstacle env's camera at DIFF_ENVS envs
+    with the full 135x240 grid: "kernel" bit-equal to raycast_reference,
+    edge flips against "oracle" on at most DIFF_EDGE_SHARE of the rays and
+    the rest within tests/test_torch_raycast.py's depth bar (2e-3 m); the
+    pose gradients on the card against the CPU's on the first
+    DIFF_GRAD_ENVS envs, within 1e-3 of the largest; DIFF_TIMED_STEPS steps
+    of tests/test_raycast_diff.py's inverse rendering at this width (each
+    step's K1 forward and oracle backward timed, peak memory, the device's
+    idle share; the loss must fall); K1 on this table timed with its
+    bound. Then the recipe itself on its own scene and 8x128 table (the
+    2-env obstacle env, seed 7, built on the CPU and carried to the card):
+    DIFF_STEPS Adam steps, the loss below 5% of its start. At the full
+    table the depth loss keeps silhouette pixels that switch between an
+    obstacle and the wall or a miss, which no gradient moves, so the 5% bar
+    is held where the recipe set it. Returns (K1 launches of the two
+    descents, K1's record on this table)."""
+    import numpy as np
+    from aerial_gym_simulator_tpu_torch.ops.raycast_diff import raycast_depth_diff
+    from aerial_gym_simulator_tpu_torch.sensors.raycast_sensor import sensor_world_pose
+    from aerial_gym_simulator_tpu_torch.sim.convert import (
+        params_from_numpy, record_to_numpy, state_from_numpy)
+
+    env = port.SimBuilder().build_env("base_sim", "env_with_obstacles",
+                                      "base_quadrotor_with_camera", "lee_velocity_control",
+                                      num_envs=DIFF_ENVS, seed=0)
+    env.reset()
+    sc, sp, st = env.params.scene, env.params.camera, env.state
+    origin, quat = sensor_world_pose(sp, st, st.cam_mount_pos, st.cam_mount_quat)
+    dirs, mr, oq = sp.dirs, sp.max_range, st.obstacle_quat
+    H, W = dirs.shape[:2]
+    render = lambda op, mode="kernel": raycast_depth_diff(sc, op, oq, origin, quat, dirs, mr,
+                                                          mode)
+    args = (rc.pack_pose(origin, quat), rc.pack_prims_world(sc, st.obstacle_pos, oq), dirs,
+            torch.ones(dirs.shape[:-1], device=dirs.device), sc.n_box, sc.n_cyl, sc.n_sph, mr)
+    with torch.no_grad():
+        target = render(st.obstacle_pos)
+        ref, _ = rc.raycast_reference(*args, want_seg=False, n_tri=sc.n_tri)
+        exact = torch.equal(target, ref)
+        gap = (target - render(st.obstacle_pos, "oracle")).abs()
+        # a ray grazing a silhouette edge can hit in one and miss in the
+        # other (the kernel's world-frame tables against the oracle's asset
+        # frames): such rays are held to the seg bar of the kernel tests
+        edge = gap > 2e-3
+        gap_max, gap_rays, edge_rays = (gap[~edge].max().item(), int((gap > 1e-4).sum()),
+                                        int(edge.sum()))
+    del ref, gap, edge
+    hit = target < rc.oracle.NO_HIT_RAY_VAL
+    line = (f"differentiable: raycast_depth_diff at {DIFF_ENVS}x{H}x{W} rays, "
+            f"{sc.num_env_prims} prims, hit share {hit.float().mean().item():.4f}: kernel mode "
+            f"{'bit-equal to' if exact else 'DIFFERS from'} raycast_reference; against the "
+            f"oracle {edge_rays} rays apart by more than 2e-3 m (edge flips; at most "
+            f"{DIFF_EDGE_SHARE:.1%} allowed), the rest within {gap_max:.3g} m, {gap_rays} rays "
+            f"above 1e-4")
+    log(line)
+    if not (exact and edge_rays <= DIFF_EDGE_SHARE * H * W * DIFF_ENVS):
+        raise AssertionError(line)
+
+    # the pose gradients on the card and on the CPU from the same inputs
+    t_part = time.perf_counter()
+    w = torch.sin(torch.arange(H * W, dtype=torch.float32) * 0.37)
+    grads = {}
+    for name, device in (("card", dirs.device), ("cpu", torch.device("cpu"))):
+        n = DIFF_GRAD_ENVS
+        poses = [x[:n].detach().to(device).requires_grad_(True)
+                 for x in (st.obstacle_pos, oq, origin, quat)]
+        t = raycast_depth_diff(scene_slice(sc, n, device), *poses, dirs.to(device), mr, "kernel")
+        torch.sum(torch.where(t < rc.oracle.NO_HIT_RAY_VAL, t, torch.zeros_like(t))
+                  * w.to(device)).backward()
+        grads[name] = [p.grad.cpu() for p in poses]
+    errs = []
+    for name, a, b in zip(("obstacle_pos", "obstacle_quat", "origin", "quat"), grads["card"],
+                          grads["cpu"]):
+        scale = b.abs().max().item()
+        errs.append((a - b).abs().max().item() / max(scale, 1e-30))
+        if not (torch.isfinite(a).all() and scale > 0.0 and errs[-1] <= 1e-3):
+            raise AssertionError(f"differentiable: d/d {name} on the card against the CPU: "
+                                 f"{errs[-1]:.3g} of the largest {scale:.4g}")
+    log(f"differentiable: pose gradients at {DIFF_GRAD_ENVS}x{H}x{W} rays, card against CPU: "
+        "obstacle_pos, obstacle_quat, origin, quat within "
+        + ", ".join(f"{e:.3g}" for e in errs)
+        + f" of the largest ({time.perf_counter() - t_part:.1f} s)")
+
+    # the descent at full width: timed steps of tests/test_raycast_diff.py's recipe
+    launches, timing = descend(torch, rc, render, st.obstacle_pos, DIFF_TIMED_STEPS, card,
+                               f"{DIFF_ENVS}x{H}x{W}")
+    rec, _ = time_mode(torch, rc, args, sc.n_tri, "raycast_depth", card, "differentiable")
+    rec.update(library_ms=None, launches=launches["raycast_depth"], **timing,
+               oracle_gap_m=gap_max, oracle_rays_above_1e_4=gap_rays, oracle_edge_rays=edge_rays)
+    del env, target, args
+    torch.cuda.empty_cache()
+
+    # the recipe itself, on the 2-env obstacle scene (seed 7, built on the
+    # CPU and carried to the card) and its 8x128 ray table
+    cpu_env = port.SimBuilder().build_env("base_sim", "env_with_obstacles", "base_quadrotor",
+                                          "lee_velocity_control", num_envs=2, seed=7,
+                                          device="cpu")
+    cpu_env.reset()
+    dev = dirs.device
+    sc2 = params_from_numpy(record_to_numpy(cpu_env.params), dev).scene
+    st2 = state_from_numpy(record_to_numpy(cpu_env.state), dev)
+    ys, xs = np.meshgrid(np.linspace(-0.4, 0.4, 8), np.linspace(-0.6, 0.6, 128), indexing="ij")
+    table = np.stack([xs, ys, np.ones_like(xs)], axis=-1).reshape(-1, 3)
+    table = torch.from_numpy((table / np.linalg.norm(table, axis=-1, keepdims=True))
+                             .astype(np.float32)).to(dev)
+    got, recipe = descend(torch, rc, lambda op: raycast_depth_diff(
+        sc2, op, st2.obstacle_quat, st2.pos, st2.quat, table, 10.0, "kernel"), st2.obstacle_pos,
+        DIFF_STEPS, card, "2x1024 (tests/test_raycast_diff.py's table)")
+    if not recipe["loss_ratio"] < 0.05:
+        raise AssertionError(f"inverse rendering stalled: {recipe}")
+    launches["raycast_depth"] += got["raycast_depth"]
+    rec.update(launches=launches["raycast_depth"], recipe_at_2x1024=recipe)
+    return launches, rec
+
+
+def descend(torch, rc, render, truth, steps, card, tag):
+    """tests/test_raycast_diff.py's inverse rendering: Adam (DIFF_LR) on
+    obstacle positions perturbed by DIFF_PERTURB m (numpy seed 0) toward
+    the depth image of ``truth``, for ``steps`` steps, each step's K1
+    forward and oracle backward timed by CUDA events; the loss must fall.
+    -> (the K1 launches of the steps, {loss_ratio, step_ms, forward_ms,
+    oracle_backward_ms, peak_gb, idle_share})."""
+    import numpy as np
+    with torch.no_grad():
+        target = render(truth)
+    hit = target < rc.oracle.NO_HIT_RAY_VAL
+    zero = torch.zeros_like(target)
+    rs = np.random.RandomState(0)
+    noise = torch.from_numpy(rs.standard_normal(tuple(truth.shape)).astype(np.float32))
+    op = (truth + DIFF_PERTURB * noise.to(truth.device)).requires_grad_(True)
+    opt = torch.optim.Adam([op], lr=DIFF_LR)
+    with torch.no_grad():
+        l0 = torch.mean(torch.where(hit, (render(op) - target) ** 2, zero)).item()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        ev[0].record()
+        t = render(op)
+        ev[1].record()
+        loss = torch.mean(torch.where(hit, (t - target) ** 2, zero))
+        loss.backward()
+        ev[2].record()
+        opt.step()
+        return loss.detach()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(rc.LAUNCHES)
+    fwd_ms, bwd_ms, t0 = [], [], time.perf_counter()
+    for _ in range(steps):
+        loss = step()
+        torch.cuda.synchronize()
+        fwd_ms.append(ev[0].elapsed_time(ev[1]))
+        bwd_ms.append(ev[1].elapsed_time(ev[2]))
+    wall = (time.perf_counter() - t0) / steps * 1e3
+    launches = dict(rc.LAUNCHES)
+    want_launches(rc, launches, raycast_depth=steps)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    final = loss.item()
+    busy = device_busy(torch, step, 1)              # ~65k launches a step
+    med = lambda x: sorted(x)[len(x) // 2]
+    out = {"loss_ratio": final / l0, "step_ms": wall, "forward_ms": med(fwd_ms),
+           "oracle_backward_ms": med(bwd_ms), "peak_gb": peak,
+           "idle_share": 1.0 - busy[1] / busy[0]}
+    log(f"differentiable: inverse rendering at {tag}, {steps} Adam steps (lr {DIFF_LR}, "
+        f"obstacle positions perturbed {DIFF_PERTURB} m): loss {l0:.4g} -> {final:.4g} "
+        f"({final / l0:.3%} of its start); per step {wall:.1f} ms, K1 forward median "
+        f"{out['forward_ms']:.3f} ms, oracle backward median {out['oracle_backward_ms']:.1f} ms "
+        f"(with the loss's elementwise ops), peak memory {peak:.2f} GB, {busy_text(*busy)} | "
+        f"{card}")
+    if not (math.isfinite(final) and final < l0):
+        raise AssertionError(f"inverse rendering at {tag} did not descend: {l0} -> {final}")
+    return launches, out
+
+
+def rollout_grad_subphase(torch, port, card):
+    """15b: d/d tau and d/d drag of tests/test_differentiable.py's rollout
+    (empty_env, lee_velocity_control, 2 envs, seed 3, ROLLOUT_STEPS steps of
+    its excitation) on the card against the CPU from the same state, within
+    1e-3 relative."""
+    import numpy as np
+    from aerial_gym_simulator_tpu_torch.sim import dynamics
+    from aerial_gym_simulator_tpu_torch.sim.convert import (
+        params_from_numpy, record_to_numpy, state_from_numpy)
+    from aerial_gym_simulator_tpu_torch.sim.structs import replace
+
+    env = port.SimBuilder().build_env("base_sim", "empty_env", "base_quadrotor",
+                                      "lee_velocity_control", num_envs=2, seed=3)
+    env.reset()
+    t = np.arange(ROLLOUT_STEPS)[:, None, None] * 0.01
+    ph = np.arange(2)[None, :, None] * 0.9
+    acts = np.concatenate([np.sin(6 * t + ph), np.sin(9 * t + 1.3 + ph), np.sin(4 * t + 2.1 + ph),
+                           0.3 * np.sin(3 * t + ph)], axis=2).astype(np.float32)
+    copies = {"card": (env.params, env.state),
+              "cpu": (params_from_numpy(record_to_numpy(env.params), "cpu"),
+                      state_from_numpy(record_to_numpy(env.state), "cpu"))}
+    grads = {}
+    for name, (p0, s0) in copies.items():
+        dev = s0.device
+        tau = torch.tensor(0.08, device=dev, requires_grad=True)
+        drag = torch.tensor([0.15, 0.12, 0.25], device=dev, requires_grad=True)
+        p = replace(p0, robot=replace(p0.robot, drag_lin_linear=drag))
+        st = replace(s0, motor_tau_inc=tau.expand_as(s0.motor_tau_inc),
+                     motor_tau_dec=tau.expand_as(s0.motor_tau_dec))
+        traj = []
+        for a in torch.from_numpy(acts).to(dev):
+            st = dynamics.env_step(p, st, a)
+            traj.append(torch.cat([st.pos, st.linvel], dim=-1))
+        traj = torch.stack(traj)
+        wts = torch.sin(torch.arange(traj.numel(), dtype=torch.float32, device=dev) * 0.1)
+        torch.sum(traj * wts.reshape(traj.shape)).backward()
+        grads[name] = np.concatenate([[tau.grad.item()], drag.grad.cpu().numpy()])
+    rel = np.abs(grads["card"] - grads["cpu"]) / np.abs(grads["cpu"])
+    line = (f"differentiable: {ROLLOUT_STEPS}-step rollout gradients (2 envs), card "
+            f"d/d tau {grads['card'][0]:.6g}, d/d drag {np.array2string(grads['card'][1:], precision=6)}"
+            f"; against the CPU's, relative {np.array2string(rel, precision=3)}")
+    log(line)
+    if not (np.isfinite(grads["card"]).all() and rel.max() <= 1e-3):
+        raise AssertionError(line)
+
+
+def bptt_subphase(torch, port, card):
+    """15c: rl.bptt at BPTTConfig's defaults (256 envs, horizon 16, lr 2e-3,
+    seed 0) on position_setpoint_task for BPTT_ITERS iterations: best
+    task-reward EMA above max(3, 2 x the first window's reward)
+    (tests/test_bptt.py's bar), the surrogate finite, act bounded; s per
+    iteration, one more window's forward / backward split, the device's
+    idle share and peak memory; then two windows with remat=True from a
+    copy of the state against remat=False: gradients within 1e-6 and the
+    generator's state equal."""
+    from aerial_gym_simulator_tpu_torch.rl.bptt import (
+        BPTTConfig, BPTTTrainer, detach_carry, remat_step)
+
+    cfg = BPTTConfig()
+    task = port.task_registry.make_task("position_setpoint_task", num_envs=cfg.num_envs,
+                                        seed=cfg.seed)
+    trainer = BPTTTrainer(task, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hist = trainer.train(iters=BPTT_ITERS, log_every=10)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    r0, best = hist[0]["task_reward"], trainer.best_ema
+    bar = max(3.0, 2.0 * r0)
+    a = trainer.act(trainer.obs)
+    bound = a.abs().max().item()
+    s_it = hist[-1]["wall_s"] / BPTT_ITERS
+    log(f"differentiable: BPTT {cfg.num_envs} envs x {cfg.horizon} steps, {BPTT_ITERS} "
+        f"iterations: task reward " + ", ".join(f"{m['task_reward']:.3f}" for m in hist)
+        + f"; best EMA {best:.3f} (bar {bar:.3f}, first window {r0:.3f}); {s_it:.3f} s per "
+        f"iteration, peak memory {peak:.2f} GB, |act| <= {bound:.4f} | {card}")
+    if not all(math.isfinite(m["surrogate"]) for m in hist):
+        raise AssertionError("BPTT: non-finite surrogate")
+    if not best > bar:
+        raise AssertionError(f"BPTT failed to learn: first window {r0:.3f}, best EMA {best:.3f}")
+    if not (a.shape == (cfg.num_envs, 4) and bound <= cfg.action_scale + 1e-6):
+        raise AssertionError(f"BPTT act: shape {tuple(a.shape)}, max |a| {bound}")
+
+    raw, carry0, obs0 = trainer.step_fn, detach_carry(trainer.carry), trainer.obs
+    (loss, _), fwd_ms = timed(torch, trainer.window)
+    _, bwd_ms = timed(torch, loss.backward)
+    ema, best_t = torch.zeros((), device=task.device), torch.full((), -math.inf,
+                                                                   device=task.device)
+    snap = [p.detach().clone() for p in trainer.params]
+    busy = device_busy(torch, lambda: trainer.update(1, ema, best_t, snap), 1)
+    log(f"differentiable: BPTT window split: forward {fwd_ms:.1f} ms, backward {bwd_ms:.1f} "
+        f"ms; an update {busy_text(*busy)} | {card}")
+
+    state0 = carry0.rng.get_state()
+    runs = []
+    for step_fn in (raw, remat_step(raw)):
+        trainer.step_fn = step_fn
+        carry0.rng.set_state(state0)
+        trainer.carry, trainer.obs = carry0, obs0
+        grads, dones = [], 0
+        for _ in range(2):
+            trainer.optimizer.zero_grad(set_to_none=True)
+            loss, (carry, obs, _) = trainer.window()
+            loss.backward()
+            grads.append([p.grad.clone() for p in trainer.params])
+            dones += int((carry.sim_steps < trainer.carry.sim_steps + cfg.horizon).sum())
+            trainer.carry, trainer.obs = detach_carry(carry), obs.detach()
+        runs.append((grads, carry0.rng.get_state(), trainer.carry.pos, dones))
+    trainer.step_fn = raw
+    (g0, s0, pos0, d0), (g1, s1, pos1, _) = runs
+    err = max((a - b).abs().max().item() for ga, gb in zip(g0, g1) for a, b in zip(ga, gb))
+    same = torch.equal(s0, s1) and torch.equal(pos0, pos1)
+    line = (f"differentiable: BPTT remat, two windows ({d0} envs reset in them): gradients "
+            f"within {err:.3g} of remat=False's, generator state and final poses "
+            f"{'equal' if same else 'DIFFER'}")
+    log(line)
+    if not (same and err <= 1e-6):
+        raise AssertionError(line)
+    task.close()
+
+
+def population_subphase(torch, port, card):
+    """15d: rl.population's command line (POP_ARGS: 8 members of 1,024 envs
+    x 32, log-spaced lrs, PBT every iteration, 2 iterations, --save_best):
+    finite rewards of shape (8,), the aggregate env-steps/s; the saved best
+    member loaded by a standalone trainer acts as the member does, bit for
+    bit; member 0 of a 2-member population at the same width equals a
+    standalone PPOTrainer with its seed bit for bit after 2 iterations."""
+    import numpy as np
+    from aerial_gym_simulator_tpu_torch.rl import population
+    from aerial_gym_simulator_tpu_torch.rl.ppo import PPOConfig, PPOTrainer
+
+    with tempfile.TemporaryDirectory() as work:
+        path = os.path.join(work, "best.ckpt")
+        pop, wall = timed(torch, lambda: population.main(POP_ARGS + ["--save_best", path]))
+        m = pop.last_metrics
+        r = m["reward_mean"]
+        best = pop.best_member()
+        member = pop.members[best]
+        task = port.task_registry.make_task("position_setpoint_task", num_envs=8, seed=0)
+        solo = PPOTrainer(task, dataclasses.replace(pop.cfg, num_envs=8, minibatch_size=256))
+        solo.load_checkpoint(path)
+        obs = member.obs[:256]
+        acts_equal = torch.equal(solo.act(obs), member.act(obs))
+    line = (f"differentiable: population CLI, {pop.num_seeds} members x {pop.cfg.num_envs} "
+            f"envs x {pop.cfg.horizon}, {m['iter'] + 1} iterations with PBT: rewards "
+            f"{np.array2string(r, precision=3)}, lrs "
+            + ", ".join(f"{x.lr.item():.3g}" for x in pop.members)
+            + f"; best member {best}, its checkpoint acts "
+            f"{'bit-equal' if acts_equal else 'DIFFERENTLY'}; {m['env_steps_per_s']:.1f} "
+            f"env-steps/s aggregate, {wall / 1e3:.1f} s wall | {card}")
+    log(line)
+    if not (r.shape == (8,) and np.isfinite(r).all() and acts_equal):
+        raise AssertionError(line)
+    del pop, solo, task
+    torch.cuda.empty_cache()
+
+    n = POP_COMPARE_ENVS
+    cfg = PPOConfig(num_envs=n, horizon=32, minibatch_size=min(8192, n * 32), seed=42)
+    factory = lambda s: port.task_registry.make_task("position_setpoint_task", num_envs=n,
+                                                     seed=s)
+    pop = population.PopulationTrainer(factory, cfg, num_seeds=2)
+    pop.train(total_env_steps=2 * n * 32, log_every=1)
+    solo = PPOTrainer(factory(42), cfg)
+    solo.train(total_env_steps=2 * n * 32, log_every=1)
+    a, b = training_snapshot(torch, pop.members[0]), training_snapshot(torch, solo)
+    differ = [k for k in b if not torch.equal(a[k], b[k])]
+    line = (f"differentiable: population member 0 against a standalone trainer ({n} x 32, "
+            f"2 iterations): {len(b) - len(differ)} of {len(b)} tensors bit-equal"
+            + (f", differing: {differ}" if differ else ""))
+    log(line)
+    if differ:
+        raise AssertionError(line)
+
+
+def differentiable_phase(torch, port, rc, card):
+    """Phase 15: the differentiable ray cast and inverse rendering (K1),
+    rollout gradients, BPTT and the PPO population (no kernel); each part's
+    seconds. Returns (K1 launches of the inverse-rendering loop, K1's record
+    on its table)."""
+    seconds = {}
+    t0 = time.perf_counter()
+    launches, k1 = diff_render_subphase(torch, port, rc, card)
+    seconds["a render"] = time.perf_counter() - t0
+    zero_counts(rc.LAUNCHES)
+    for tag, part in (("b rollout", rollout_grad_subphase), ("c bptt", bptt_subphase),
+                      ("d population", population_subphase)):
+        t0 = time.perf_counter()
+        part(torch, port, card)
+        seconds[tag] = time.perf_counter() - t0
+    want_launches(rc, dict(rc.LAUNCHES))            # the state-only paths launch no kernel
+    log("differentiable: seconds " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+        + f" = {sum(seconds.values()):.1f} | {card}")
+    return launches, k1
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3675,6 +4096,16 @@ def main(argv=None) -> int:
         rec.update(scene_tables[name])
         rec["max_abs_err"] = max([rec["max_abs_err"]] + [
             r["max_abs_err"] for r in scene_tables[name].values()])
+
+    log(f"elapsed {time.perf_counter() - t_run:.1f} s: phase 15 differentiable")
+    # 15. differentiable training: the ray cast's gradient and inverse
+    #     rendering (K1 forward, the oracle's backward), rollout gradients,
+    #     BPTT and the PPO population with PBT (no kernel)
+    diff_launches, k1_diff = differentiable_phase(torch, port, rc, card)
+    records[0]["launches"] += diff_launches["raycast_depth"]
+    records[0]["launches_differentiable_path"] = diff_launches["raycast_depth"]
+    records[0][f"at_{DIFF_ENVS}x{135 * 240}_differentiable"] = k1_diff
+    records[0]["max_abs_err"] = max(records[0]["max_abs_err"], k1_diff["max_abs_err"])
 
     log(f"elapsed {time.perf_counter() - t_run:.1f} s: all phases")
     log(json.dumps({"kernels": records + mode_records}))

@@ -238,6 +238,19 @@ def test_scan_covers_the_scenes_slice():
     assert (PKG / "csrc" / "scene_compiler.cpp").exists()
 
 
+DIFFERENTIABLE_MODULES = ("ops/raycast_diff.py", "rl/bptt.py", "rl/population.py")
+
+
+def test_scan_covers_the_differentiable_slice():
+    """The scan reads every module of differentiable training: the ray
+    cast's gradient, BPTT and the population, with the modules they use."""
+    scanned = {str(p.relative_to(PKG)) for p in _sources() if PKG in p.parents}
+    for module in DIFFERENTIABLE_MODULES + ("ops/raycast.py", "ops/raycast_cuda.py",
+                                            "rl/ppo.py", "rl/networks.py", "sim/convert.py",
+                                            "utils/math.py"):
+        assert module in scanned, module
+
+
 def test_scene_compiler_is_built_lazily():
     """Importing the loader builds nothing: the host compiler runs at the
     first compile call (the tests here import every module)."""
@@ -264,13 +277,33 @@ def test_solver_and_imu_read_nothing_back(module):
                 (module, node.attr, node.lineno)
 
 
+@pytest.mark.parametrize("function", ["BPTTTrainer.window", "BPTTTrainer.update",
+                                      "remat_step", "clip_by_global_norm_", "detach_carry"])
+def test_bptt_update_reads_nothing_back(function):
+    """The BPTT window and update read nothing back to the host (the EMA and
+    the best parameters move on the device); train() reads at its log
+    points only."""
+    tree = ast.parse((PKG / "rl/bptt.py").read_text())
+    scope = tree
+    for name in function.split("."):
+        scope = next(n for n in ast.iter_child_nodes(scope)
+                     if isinstance(n, (ast.ClassDef, ast.FunctionDef)) and n.name == name)
+    for node in ast.walk(scope):
+        if isinstance(node, ast.Attribute):
+            assert node.attr not in ("item", "tolist", "nonzero", "cpu", "numpy"), \
+                (function, node.attr, node.lineno)
+        if isinstance(node, ast.Call) and isinstance(node.func, ast.Name):
+            assert node.func.id not in ("float", "int", "bool"), (function, node.lineno)
+
+
 def _module_name(path: str) -> str:
     return path[:-3].replace("/", ".").replace(".__init__", "")
 
 
 def test_importing_every_module_loads_no_jax():
     wanted = ("tasks.lidar_navigation_task", "rl.ppo", "rl.networks", "sim2real.policy") + tuple(
-        _module_name(m) for m in PLUMBING_MODULES + ARTICULATED_MODULES + SCENE_MODULES)
+        _module_name(m) for m in PLUMBING_MODULES + ARTICULATED_MODULES + SCENE_MODULES
+        + DIFFERENTIABLE_MODULES)
     code = (
         "import importlib, pkgutil, sys\n"
         "import aerial_gym_simulator_tpu_torch as p\n"
