@@ -17,6 +17,7 @@ import torch
 
 from ..assets import urdf as urdflib
 from ..sim.structs import SceneParams, SimParams, SimState, replace
+from ..utils.env_rng import env_rand
 from ..utils.math import interpolate_ratio, quat_from_euler_xyz_tensor, quat_integrate
 
 _KIND = {"box": 0, "cylinder": 1, "sphere": 2, "triangle": 3}
@@ -194,7 +195,7 @@ def reset_obstacles(params: SimParams, state: SimState, mask: torch.Tensor) -> S
     N, A = state.obstacle_pos.shape[0], sc.num_assets
     dev, g = state.device, state.rng
 
-    u = torch.rand((N, A, 13), generator=g, device=dev)
+    u = env_rand(g, (N, A, 13), device=dev)
     ratios = sc.min_state_ratio + (sc.max_state_ratio - sc.min_state_ratio) * u
     pos = interpolate_ratio(state.bounds_lo[:, None, :], state.bounds_hi[:, None, :],
                             ratios[..., 0:3])
@@ -202,7 +203,7 @@ def reset_obstacles(params: SimParams, state: SimState, mask: torch.Tensor) -> S
 
     n_keep = torch.sum(sc.keep_in_env)
     num = torch.maximum(state.num_obstacles.to(torch.float32), n_keep)     # (N,)
-    half = torch.rand((N,), generator=g, device=dev) < 0.15
+    half = env_rand(g, (N,), device=dev) < 0.15
     num = torch.where(half, torch.maximum(torch.floor(num / 2.0), n_keep), num)
     culled = ((sc.cull_rank.to(torch.float32) >= num[:, None]).to(torch.float32)
               * (1.0 - sc.keep_in_env[None, :]))

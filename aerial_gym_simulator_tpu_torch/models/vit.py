@@ -1,11 +1,10 @@
 """ViT depth encoder (patch embedding, transformer blocks, token mean,
 (mean, logvar) latent head) and the autoencoder trained from it.
 
-Counterpart of ``aerial_gym_simulator_tpu/models/vit.py`` without its
-tensor-parallel sharding map. Layer conventions are the JAX package's, so
-its checkpoints carry across (``sim/convert.py``): LayerNorm epsilon 1e-6,
-tanh GELU, images in (B, H, W, 1), tokens in row-major order over the patch
-grid. ``DepthViT`` pairs the encoder with the conv decoder of
+Counterpart of ``aerial_gym_simulator_tpu/models/vit.py``. Layer
+conventions are the JAX package's, so its checkpoints carry across
+(``sim/convert.py``): LayerNorm epsilon 1e-6, tanh GELU, images in (B, H, W,
+1), tokens in row-major order over the patch grid. ``DepthViT`` pairs the encoder with the conv decoder of
 ``models/vae.py`` and trains through ``vae_loss``.
 
 ``attn_impl`` takes the JAX package's four names, so its checkpoints load
@@ -21,6 +20,15 @@ projections, the MLP and the patch
 embedding are ordinary ``linear`` / ``conv2d`` calls. ``remat``
 recomputes each transformer block in the backward
 (``torch.utils.checkpoint``) instead of keeping its activations.
+
+Tensor parallelism (JAX ``vit_tp_shardings``, Megatron's layout over the
+ranks of a process group): ``vit_tp_shardings`` slices a full encoder's
+parameters for one rank, and ``TensorParallelViTEncoder`` runs the encoder
+on them. Each rank keeps its heads' slices of q, k and v and runs the
+attention (K5 on the card) on those heads only; the output projection is
+row-parallel and followed by one ``all_reduce``; ``mlp_in`` is
+column-parallel, ``mlp_out`` row-parallel and followed by one
+``all_reduce``; everything else is replicated. Inference only.
 """
 
 from __future__ import annotations
@@ -61,14 +69,16 @@ class FusedAttention(nn.Module):
     def forward(self, x):
         q, k, v = self.query(x), self.key(x), self.value(x)
         scale = 1.0 / math.sqrt(self.dim // self.num_heads)
-        if self.impl == "fused":
-            o = fused_attention(q, k, v, self.num_heads, scale)
-        elif self.impl == "flash":
-            o = fused_attention(q.float(), k.float(), v.float(), self.num_heads,
-                                scale).to(q.dtype)
-        else:
-            o = attention_reference(q, k, v, self.num_heads, scale)
-        return self.out(o)
+        return self.out(attend(self.impl, q, k, v, self.num_heads, scale))
+
+
+def attend(impl: str, q, k, v, num_heads: int, scale: float):
+    """Multi-head attention on packed (B, S, D) q, k, v by ``impl``."""
+    if impl == "fused":
+        return fused_attention(q, k, v, num_heads, scale)
+    if impl == "flash":
+        return fused_attention(q.float(), k.float(), v.float(), num_heads, scale).to(q.dtype)
+    return attention_reference(q, k, v, num_heads, scale)
 
 
 class TransformerBlock(nn.Module):
@@ -168,3 +178,87 @@ class ViTImageEncoder(FrozenImageEncoder):
             encoder, decoder = seeded(seed, build)
         super().__init__(encoder, latent_dim, input_hw, return_sampled_latent,
                          compute_dtype, resolve_device(device), decoder=decoder)
+
+
+# -- tensor parallelism --------------------------------------------------------
+
+
+def vit_tp_shardings(params: dict, rank: int, world: int, num_heads: int) -> dict:
+    """A full ``ViTEncoder`` state dict -> rank ``rank``'s of ``world``:
+    the q, k, v weights' rows and biases of its ``num_heads // world``
+    heads, the output projection's columns of those heads (row-parallel,
+    its bias whole), ``mlp_in``'s rows and bias slice (column-parallel),
+    ``mlp_out``'s columns (row-parallel, its bias whole); every other
+    tensor whole."""
+    if num_heads % world:
+        raise ValueError(f"{num_heads} heads do not divide over {world} ranks")
+    out = {}
+    for name, t in params.items():
+        parts = name.split(".")
+        kind = parts[-2] if len(parts) >= 2 else ""
+        if kind in ("query", "key", "value", "mlp_in"):
+            n = t.shape[0] // world                         # output rows
+            t = t[rank * n:(rank + 1) * n]
+        elif kind in ("out", "mlp_out") and parts[-1] == "weight":
+            n = t.shape[1] // world                         # contracted columns
+            t = t[:, rank * n:(rank + 1) * n]
+        out[name] = t.detach().clone()
+    return out
+
+
+class _TPBlock(nn.Module):
+    def __init__(self, block: TransformerBlock, params: dict, prefix: str, world: int,
+                 group):
+        super().__init__()
+        self.norm1, self.norm2 = block.norm1, block.norm2
+        self.impl, self.group = block.attn.impl, group
+        self.num_heads = block.attn.num_heads // world
+        self.scale = 1.0 / math.sqrt(block.attn.dim // block.attn.num_heads)
+        p = lambda name: nn.Parameter(params[prefix + name], requires_grad=False)
+        self.q_w, self.q_b = p("attn.query.weight"), p("attn.query.bias")
+        self.k_w, self.k_b = p("attn.key.weight"), p("attn.key.bias")
+        self.v_w, self.v_b = p("attn.value.weight"), p("attn.value.bias")
+        self.o_w, self.o_b = p("attn.out.weight"), p("attn.out.bias")
+        self.in_w, self.in_b = p("mlp_in.weight"), p("mlp_in.bias")
+        self.mo_w, self.mo_b = p("mlp_out.weight"), p("mlp_out.bias")
+
+    def _reduced(self, partial):
+        import torch.distributed as dist
+        dist.all_reduce(partial, group=self.group)
+        return partial
+
+    def forward(self, x):
+        h = self.norm1(x)
+        q, k, v = F.linear(h, self.q_w, self.q_b), F.linear(h, self.k_w, self.k_b), \
+            F.linear(h, self.v_w, self.v_b)
+        o = attend(self.impl, q, k, v, self.num_heads, self.scale)     # this rank's heads
+        x = x + (self._reduced(F.linear(o, self.o_w)) + self.o_b)
+        h = F.gelu(F.linear(self.norm2(x), self.in_w, self.in_b), approximate="tanh")
+        return x + (self._reduced(F.linear(h, self.mo_w)) + self.mo_b)
+
+
+class TensorParallelViTEncoder(nn.Module):
+    """A ``ViTEncoder`` run tensor-parallel over the ``world`` ranks of
+    ``group`` (None: the default group), this process being ``rank``: the
+    blocks hold ``vit_tp_shardings``' slices, the patch embedding, position
+    embedding, final norm and latent head are the encoder's own
+    (replicated). -> the same (mean, logvar) on every rank."""
+
+    def __init__(self, encoder: ViTEncoder, rank: int, world: int, group=None):
+        super().__init__()
+        num_heads = encoder.blocks[0].attn.num_heads
+        params = vit_tp_shardings(encoder.state_dict(), rank, world, num_heads)
+        self.patch_embed, self.pos_embed = encoder.patch_embed, encoder.pos_embed
+        self.norm, self.latent_head = encoder.norm, encoder.latent_head
+        self.blocks = nn.ModuleList(_TPBlock(b, params, f"blocks.{i}.", world, group)
+                                    for i, b in enumerate(encoder.blocks))
+
+    @torch.no_grad()
+    def forward(self, x):
+        x = self.patch_embed(x.permute(0, 3, 1, 2))
+        x = x.flatten(2).transpose(1, 2) + self.pos_embed
+        for block in self.blocks:
+            x = block(x)
+        x = self.norm(x).mean(dim=1)
+        mean, logvar = self.latent_head(x).chunk(2, dim=-1)
+        return mean, torch.clamp(logvar, -10.0, 10.0)

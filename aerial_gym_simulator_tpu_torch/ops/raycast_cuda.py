@@ -34,7 +34,7 @@ import torch
 
 from . import raycast as oracle
 from ._build import KernelLibrary
-from ..utils.math import quat_to_rotation_matrix
+from ..utils.math import quat_to_rotation_matrix, rowwise_matmul
 
 # every multiply and add rounds on its own, as in the plain version, so the
 # two agree bit for bit (fma contraction off)
@@ -100,7 +100,7 @@ def pack_prims_world(scene, obstacle_pos, obstacle_quat) -> torch.Tensor:
     a_pos = torch.gather(obstacle_pos, 1, slot[..., None].expand(-1, -1, 3))
     a_quat = torch.gather(obstacle_quat, 1, slot[..., None].expand(-1, -1, 4))
     R_a = quat_to_rotation_matrix(a_quat)                              # (N, P, 3, 3)
-    p_world = a_pos + (R_a @ scene.env_prim_pos[..., None])[..., 0]
+    p_world = a_pos + rowwise_matmul(R_a, scene.env_prim_pos[..., None])[..., 0]
     R_w = R_a @ scene.env_prim_rot
     N, P = slot.shape
     return torch.cat([

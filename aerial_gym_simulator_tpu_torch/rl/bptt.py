@@ -30,6 +30,11 @@ states, not the ``torch.Generator`` objects a task's carry holds (a
 each checkpointed step saves their states before it runs, replays its
 recomputation from them, and puts back the state the recomputation found.
 
+Sharded (``parallel/distributed.shard_bptt_trainer``), each rank holds a
+block of the env axis and the same policy; the window's cost and task
+reward are global means and the gradients are all-reduced before the clip,
+so every rank takes the same step.
+
 ``python -m aerial_gym_simulator_tpu_torch.rl.bptt`` is the command line
 (``main``; on CUDA unless ``--cpu``).
 """
@@ -37,7 +42,6 @@ recomputation from them, and puts back the state the recomputation found.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import logging
 import math
 import time
@@ -50,7 +54,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .networks import _lecun_dense
-from .ppo import NOT_PORTED_MULTI, log_to_stdout
+from ..parallel import mesh as meshlib
+from .ppo import add_multi_device_flags, init_multi_device, log_to_stdout
 
 logger = logging.getLogger("bptt")
 
@@ -99,38 +104,10 @@ def default_cost(obs, action, cfg: BPTTConfig):
     return torch.sum(obs[:, :3] ** 2, dim=1) + cfg.act_reg * torch.sum(action ** 2, dim=1)
 
 
-def _map_carry(tree, fn):
-    """fn applied to every tensor of a carry (a dataclass record, tuple or
-    dict of them); generators and Python values stay as they are."""
-    if isinstance(tree, torch.Tensor):
-        return fn(tree)
-    if dataclasses.is_dataclass(tree):
-        return dataclasses.replace(tree, **{f.name: _map_carry(getattr(tree, f.name), fn)
-                                            for f in dataclasses.fields(tree)})
-    if isinstance(tree, tuple):
-        return tuple(_map_carry(x, fn) for x in tree)
-    if isinstance(tree, dict):
-        return {k: _map_carry(v, fn) for k, v in tree.items()}
-    return tree
-
-
 def detach_carry(carry):
     """The carry with every tensor detached from the graph; its generators
     are the same objects, so their streams go on."""
-    return _map_carry(carry, torch.Tensor.detach)
-
-
-def carry_generators(tree) -> list:
-    """Every torch.Generator in a carry, in field order."""
-    if isinstance(tree, torch.Generator):
-        return [tree]
-    if dataclasses.is_dataclass(tree):
-        tree = [getattr(tree, f.name) for f in dataclasses.fields(tree)]
-    elif isinstance(tree, dict):
-        tree = list(tree.values())
-    if isinstance(tree, (list, tuple)):
-        return [g for x in tree for g in carry_generators(x)]
-    return []
+    return meshlib.map_tree(carry, torch.Tensor.detach)
 
 
 def remat_step(step_fn):
@@ -140,7 +117,7 @@ def remat_step(step_fn):
     from before the forward while it runs, then put back as it found them."""
 
     def step(carry, action):
-        gens = carry_generators(carry)
+        gens = meshlib.tree_items(carry, torch.Generator)
         before = [g.get_state() for g in gens]
         calls = []
 
@@ -193,6 +170,7 @@ class BPTTTrainer:
         how = {"fused": True} if self.device.type == "cuda" else {"foreach": False}
         self.optimizer = torch.optim.Adam(self.policy.parameters(), lr=cfg.lr, eps=1e-8, **how)
         self.best_ema = None
+        self.shard = None           # parallel/distributed.shard_bptt_trainer sets this rank's block
 
     @property
     def params(self):
@@ -209,7 +187,11 @@ class BPTTTrainer:
             carry, obs, r, _, _ = self.step_fn(carry, a)
             costs.append(self.cost(obs, a))
             rewards.append(r)
-        return torch.stack(costs).mean(), (carry, obs, torch.stack(rewards).mean())
+        if self.shard is None:
+            return torch.stack(costs).mean(), (carry, obs, torch.stack(rewards).mean())
+        # this rank's share of the global means (update() all-reduces them)
+        n = self.cfg.horizon * self.shard.n_global
+        return torch.stack(costs).sum() / n, (carry, obs, torch.stack(rewards).sum() / n)
 
     def update(self, it: int, ema, best_ema, best_params):
         """One window and one Adam step. The EMA of the task reward is
@@ -220,7 +202,9 @@ class BPTTTrainer:
         loss, (carry, obs, rmean) = self.window()
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        rmean = rmean.detach()
+        loss, rmean = loss.detach(), rmean.detach()
+        if self.shard is not None:
+            loss, rmean = self._all_reduce_grads(torch.stack([loss, rmean]))
         ema = rmean if it == 0 else cfg.ema * ema + (1.0 - cfg.ema) * rmean
         better = ema > best_ema
         best_ema = torch.where(better, ema, best_ema)
@@ -230,7 +214,19 @@ class BPTTTrainer:
             clip_by_global_norm_([p.grad for p in self.params], cfg.max_grad_norm)
         self.optimizer.step()
         self.carry, self.obs = detach_carry(carry), obs.detach()
-        return ema, best_ema, loss.detach(), rmean
+        return ema, best_ema, loss, rmean
+
+    def _all_reduce_grads(self, stats):
+        """Sum the gradients and ``stats`` over the ranks in one flat
+        all-reduce -> the global stats."""
+        grads = [p.grad for p in self.params]
+        flat = meshlib.all_reduce_(torch.cat([g.reshape(-1) for g in grads] + [stats]),
+                                   self.shard)
+        i = 0
+        for p, g in zip(self.params, grads):
+            p.grad = flat[i:i + g.numel()].view_as(g)
+            i += g.numel()
+        return flat[i:].unbind()
 
     def train(self, iters: Optional[int] = None, log_every: int = 100):
         """Run ``iters`` (default cfg.iters) updates -> history, one dict of
@@ -252,13 +248,16 @@ class BPTTTrainer:
                      "env_steps": (it + 1) * cfg.num_envs * cfg.horizon,
                      "wall_s": time.perf_counter() - t0}
                 history.append(m)
-                logger.info("it %5d surrogate %.4f task reward %7.3f (ema %6.3f) steps %.2e",
-                            it, s, r, e, m["env_steps"])
+                if meshlib.is_root():
+                    logger.info("it %5d surrogate %.4f task reward %7.3f (ema %6.3f) steps %.2e",
+                                it, s, r, e, m["env_steps"])
         with torch.no_grad():
             for p, b in zip(self.params, best_params):
                 p.copy_(b)
         self.best_ema = float(best_ema)
-        logger.info("best task-reward EMA %.3f; best-EMA parameters restored", self.best_ema)
+        if meshlib.is_root():
+            logger.info("best task-reward EMA %.3f; best-EMA parameters restored",
+                        self.best_ema)
         return history
 
     @torch.no_grad()
@@ -276,23 +275,15 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--iters", type=int, default=1500)
     p.add_argument("--lr", type=float, default=2e-3)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--multichip", action="store_true",
-                   help="shard the env axis over all visible devices (not ported yet)")
-    p.add_argument("--multihost", action="store_true",
-                   help="initialize multi-host training first (not ported yet)")
+    add_multi_device_flags(p)
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU (the default is CUDA, which must be available)")
     return p
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    """The command line -> arguments; ``--multichip`` and ``--multihost``
-    are parser errors."""
-    p = _parser()
-    args = p.parse_args(argv)
-    if args.multichip or args.multihost:
-        p.error(NOT_PORTED_MULTI)
-    return args
+    """The command line -> arguments."""
+    return _parser().parse_args(argv)
 
 
 def main(argv=None):
@@ -300,13 +291,19 @@ def main(argv=None):
     print the final task reward -> the trainer."""
     args = parse_args(argv)
     log_to_stdout()
+    multi = init_multi_device(args)
     from ..registry.registries import task_registry
     task = task_registry.make_task(args.task, num_envs=args.num_envs, seed=args.seed,
                                    device="cpu" if args.cpu else None)
     cfg = BPTTConfig(num_envs=args.num_envs, horizon=args.horizon, iters=args.iters,
                      lr=args.lr, seed=args.seed)
     trainer = BPTTTrainer(task, cfg)
+    if multi:
+        from ..parallel.distributed import shard_bptt_trainer
+        shard_bptt_trainer(trainer)
     hist = trainer.train()
+    if not meshlib.is_root():
+        return trainer
     print(f"final task reward {hist[-1]['task_reward']:.3f} "
           f"(ema {hist[-1]['task_reward_ema']:.3f}) after {hist[-1]['env_steps']:.2e} "
           f"env-steps, {hist[-1]['wall_s']:.1f}s wall")

@@ -18,6 +18,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..utils.env_rng import env_randn
+
 ACTIVATIONS = {"elu": F.elu, "tanh": torch.tanh, "relu": F.relu}
 
 
@@ -143,7 +145,6 @@ def sample_action(mean, log_std, generator: torch.Generator = None, noise=None):
     """-> (action, log-probability); the standard-normal ``noise`` is given
     or drawn from the generator."""
     if noise is None:
-        noise = torch.randn(mean.shape, generator=generator, device=mean.device,
-                            dtype=mean.dtype)
+        noise = env_randn(generator, mean.shape, device=mean.device, dtype=mean.dtype)
     action = mean + torch.exp(log_std) * noise
     return action, gaussian_logp(mean, log_std, action)

@@ -20,6 +20,14 @@ populations (per-member initial lr; the adaptive-KL schedule then moves
 each member's on its own), PBT (Jaderberg et al. 2017, arXiv:1711.09846),
 and pick-best-and-deploy (any member saves as a standard checkpoint).
 
+Over several processes (``shard``), the members are dealt out over the
+ranks: rank r of a world of W = P x E trains the members of population row
+r // E, each whole (E = 1, no collective at all) or with its env batch
+sharded over the E ranks of its row (``env_devices`` = E). Every member keeps
+its own generators, so it is the same member as in the unsharded run. PBT
+decides on the reward vector all-reduced from the rows; a winner's learner
+goes to the loser's rank by a broadcast from the winner's row.
+
 ``python -m aerial_gym_simulator_tpu_torch.rl.population`` is the command
 line (``main``; on CUDA unless ``--cpu``).
 """
@@ -35,7 +43,8 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from .ppo import NOT_PORTED_MULTI, PPOConfig, PPOTrainer, log_to_stdout
+from ..parallel import mesh as meshlib
+from .ppo import PPOConfig, PPOTrainer, init_multi_device, log_to_stdout
 
 logger = logging.getLogger("population")
 
@@ -105,15 +114,100 @@ class PopulationTrainer:
             for m, lr in zip(self.members, member_lrs):
                 m.lr.fill_(float(lr))
         self.last_metrics = None
+        self.local = list(range(num_seeds))   # the members this process trains
+        self.layout = None                     # set by shard()
 
     def shard(self, n_devices: Optional[int] = None, env_devices: int = 1):
-        """Placing the population over several devices is not ported yet."""
-        raise NotImplementedError("PopulationTrainer.shard: " + NOT_PORTED_MULTI)
+        """Deal the members out over the mesh of ``n_devices`` ranks (all by
+        default), laid out as (population rows) x ``env_devices``: this rank
+        keeps the members of its row and drops the others; with
+        ``env_devices`` > 1 each kept member's env batch is sharded over its
+        row's ranks (a ``new_group`` each). Every rank must call it. ->
+        the mesh."""
+        mesh = meshlib.make_mesh(n_devices)
+        n_devices = mesh.size
+        if n_devices % env_devices:
+            raise ValueError(f"n_devices {n_devices} must be a multiple of env_devices "
+                             f"{env_devices}")
+        pop_devices = n_devices // env_devices
+        if self.num_seeds % pop_devices:
+            raise ValueError(f"num_seeds {self.num_seeds} must be a multiple of the population "
+                             f"mesh axis {pop_devices}")
+        if self.cfg.num_envs % env_devices:
+            raise ValueError(f"num_envs {self.cfg.num_envs} must be a multiple of env_devices "
+                             f"{env_devices}")
+        index = mesh.index()
+        if index is None or n_devices == 1:
+            return mesh
+        rows = [mesh.ranks[r * env_devices:(r + 1) * env_devices] for r in range(pop_devices)]
+        groups = [meshlib._dist().new_group(list(ranks)) if env_devices > 1 else None
+                  for ranks in rows]              # every rank creates every group
+        row, col = divmod(index, env_devices)
+        per_row = self.num_seeds // pop_devices
+        self.local = list(range(row * per_row, (row + 1) * per_row))
+        for i in range(self.num_seeds):
+            if i not in self.local:
+                self.members[i].task.close()
+                self.members[i] = None
+        if env_devices > 1:
+            from ..parallel.distributed import shard_ppo_trainer
+            offset, n = meshlib.block(self.cfg.num_envs, col, env_devices)
+            for i in self.local:
+                shard_ppo_trainer(self.members[i], meshlib.EnvShard(
+                    col, env_devices, offset, n, self.cfg.num_envs, groups[row], rows[row][0]))
+        self.layout = {"mesh": mesh, "rows": rows, "row": row, "col": col,
+                       "per_row": per_row}
+        m0 = self.members[self.local[0]]
+        self.task, self.network = m0.task, m0.network
+        if meshlib.is_root():
+            logger.info("population over %d processes (%d pop x %d env; %d members per row)",
+                        n_devices, pop_devices, env_devices, per_row)
+        return mesh
+
+    def _owner_root(self, i: int) -> int:
+        """The global rank of the first process of member i's row."""
+        lay = self.layout
+        return lay["rows"][i // lay["per_row"]][0]
+
+    def _learner_tensors(self, m: PPOTrainer):
+        """A member's learner as a list of tensors: parameters, Adam's state
+        (a fresh Adam's zeros where it has not stepped), lr, normalizer."""
+        adam = m._adam_state()
+        return (list(m.network.parameters())
+                + [adam[i][k] for i in sorted(adam) for k in ("step", "exp_avg", "exp_avg_sq")]
+                + [m.lr] + [m.norm[k] for k in sorted(m.norm)])
+
+    def _broadcast_learner(self, src: int, dst: int):
+        """Member src's learner to member dst across processes: a broadcast
+        from src's row over the mesh, written into dst's tensors on the
+        ranks that hold dst."""
+        template = self.members[src] if src in self.local else self.members[self.local[0]]
+        bufs = [t.detach().clone() if src in self.local else torch.zeros_like(t)
+                for t in self._learner_tensors(template)]
+        meshlib.broadcast_(bufs, (self._owner_root(src), self.layout["mesh"].group))
+        if dst not in self.local:
+            return
+        l = self.members[dst]
+        params = list(l.network.parameters())
+        with torch.no_grad():
+            for p, b in zip(params, bufs):
+                p.copy_(b)
+            k = len(params)
+            for i, p in enumerate(params):
+                step, m1, m2 = bufs[k + 3 * i:k + 3 * i + 3]
+                l.optimizer.state[p] = {"step": step, "exp_avg": m1, "exp_avg_sq": m2}
+            k += 3 * len(params)
+            l.lr.copy_(bufs[k])
+        l.norm = dict(zip(sorted(l.norm), bufs[k + 1:]))
 
     def _copy_learner(self, src: int, dst: int):
         """Member dst takes a copy of member src's network parameters, Adam
         state, learning rate and normalizer, written into dst's own tensors
-        (no tensor is shared afterwards); its env carry and generators stay."""
+        (no tensor is shared afterwards); its env carry and generators stay.
+        When another process holds src, it comes by broadcast."""
+        if self.layout is not None and not (src in self.local and dst in self.local):
+            self._broadcast_learner(src, dst)
+            return
         w, l = self.members[src], self.members[dst]
         with torch.no_grad():
             for pw, pl in zip(w.network.parameters(), l.network.parameters()):
@@ -150,8 +244,9 @@ class PopulationTrainer:
             src, dst = int(rng.choice(winners)), int(dst)
             self._copy_learner(src, dst)
             factor = float(rng.choice(lr_perturb))
-            lr = self.members[dst].lr
-            lr.copy_(torch.clamp(lr * factor, self.cfg.min_lr, self.cfg.max_lr))
+            if dst in self.local:
+                lr = self.members[dst].lr
+                lr.copy_(torch.clamp(lr * factor, self.cfg.min_lr, self.cfg.max_lr))
             events.append((dst, src, factor))
         return events
 
@@ -167,10 +262,10 @@ class PopulationTrainer:
         iters = max((total_env_steps or cfg.total_env_steps) // steps_per_iter, 1)
         history, pbt_rng = [], np.random.default_rng(cfg.seed)
         t_start, t_steady, steps_steady = time.perf_counter(), None, 0
+        root = meshlib.is_root()
         for it in range(iters):
-            each = [m.train_iteration() for m in self.members]
-            names = sorted(each[0])
-            stacked = torch.stack([torch.stack([mm[k].float() for mm in each]) for k in names])
+            each = {i: self.members[i].train_iteration() for i in self.local}
+            stacked, names = self._stack_metrics(each)
             if t_steady is None:
                 if self.task.device.type == "cuda":
                     torch.cuda.synchronize(self.task.device)
@@ -178,8 +273,10 @@ class PopulationTrainer:
             if pbt_every and (it + 1) % pbt_every == 0 and it != iters - 1:
                 rewards = stacked[names.index("reward_mean")].cpu().numpy()
                 for dst, src, f in self._pbt_step(rewards, pbt_rng, pbt_fraction):
-                    logger.info("pbt it %d: member %d (reward %.3f) <- member %d (reward "
-                                "%.3f), lr x%s", it, dst, rewards[dst], src, rewards[src], f)
+                    if root:
+                        logger.info("pbt it %d: member %d (reward %.3f) <- member %d (reward "
+                                    "%.3f), lr x%s", it, dst, rewards[dst], src, rewards[src],
+                                    f)
             if it % log_every == 0 or it == iters - 1:
                 m = dict(zip(names, stacked.cpu().numpy()))                # one read-back
                 now = time.perf_counter()
@@ -189,14 +286,32 @@ class PopulationTrainer:
                 m["env_steps_per_s"] = self.num_seeds * sps
                 history.append(m)
                 r = m["reward_mean"]
-                logger.info("it %4d steps/member %.2e reward best %7.3f / mean %7.3f / worst "
+                if root:
+                    logger.info("it %4d steps/member %.2e reward best %7.3f / mean %7.3f / worst "
                             "%7.3f sps(all) %.0f", it, m["env_steps"], r.max(), r.mean(),
-                            r.min(), m["env_steps_per_s"])
-        for m in self.members:
+                                r.min(), m["env_steps_per_s"])
+        for i in self.local:
+            m = self.members[i]
             if hasattr(m.task, "set_carry"):
                 m.task.set_carry(m.env_carry[0] if cfg.rnn else m.env_carry)
         self.last_metrics = history[-1] if history else None
         return history
+
+    def _stack_metrics(self, each):
+        """{member: metrics} -> ((n_metrics, K) tensor, names). Sharded,
+        the rows' first ranks write their members' columns into a zero
+        buffer that is all-reduced over the mesh, so every rank holds all K."""
+        names = sorted(next(iter(each.values())))
+        if self.layout is None:
+            return torch.stack([torch.stack([each[i][k].float() for i in self.local])
+                                for k in names]), names
+        dev = self.task.device
+        out = torch.zeros((len(names), self.num_seeds), device=dev)
+        if self.layout["col"] == 0:
+            for i in self.local:
+                out[:, i] = torch.stack([each[i][k].float() for k in names])
+        meshlib.all_reduce_(out, self.layout["mesh"])
+        return out, names
 
     def best_member(self, metric: str = "reward_mean") -> int:
         if self.last_metrics is None:
@@ -206,7 +321,10 @@ class PopulationTrainer:
     def member_checkpoint(self, i: int, path: str):
         """Save member i as a standard PPOTrainer checkpoint (its own seed
         in the config): ``PPOTrainer.load_checkpoint`` and
-        ``sim2real.policy.export_policy_npz`` read it."""
+        ``sim2real.policy.export_policy_npz`` read it. Sharded, the first
+        rank of member i's row writes it; the others return."""
+        if self.layout is not None and not (i in self.local and self.layout["col"] == 0):
+            return
         self.members[i].save_checkpoint(path)
         logger.info("member %d (seed %d) saved to %s", i, self.seeds[i], path)
 
@@ -226,10 +344,11 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--lr_sweep", type=float, nargs=2, default=None, metavar=("LO", "HI"),
                    help="log-spaced per-member initial learning rates")
     p.add_argument("--multichip", action="store_true",
-                   help="shard the population axis over all devices (not ported yet)")
+                   help="deal the members out over every process of the world torchrun set "
+                        "up (torchrun --nproc_per_node=N -m ... --multichip); a world of one "
+                        "without torchrun")
     p.add_argument("--env_devices", type=int, default=1,
-                   help="with --multichip: each member's env batch over this many devices "
-                        "(not ported yet)")
+                   help="with --multichip: each member's env batch over this many processes")
     p.add_argument("--save_best", default=None, help="write the best member's checkpoint here")
     p.add_argument("--pbt_every", type=int, default=0,
                    help="population-based training: exploit/explore every N iterations "
@@ -241,12 +360,12 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    """The command line -> arguments; ``--multichip`` and ``--env_devices``
-    above 1 are parser errors."""
+    """The command line -> arguments; ``--env_devices`` above 1 without
+    ``--multichip`` is a parser error."""
     p = _parser()
     args = p.parse_args(argv)
-    if args.multichip or args.env_devices > 1:
-        p.error(NOT_PORTED_MULTI)
+    if args.env_devices > 1 and not args.multichip:
+        p.error("--env_devices needs --multichip")
     return args
 
 
@@ -256,6 +375,8 @@ def main(argv=None):
     optionally save the best -> the trainer."""
     args = parse_args(argv)
     log_to_stdout()
+    args.multihost = False
+    multi = init_multi_device(args)
     from ..registry.registries import task_registry
     cfg = PPOConfig(num_envs=args.num_envs, horizon=args.horizon,
                     minibatch_size=min(8192, args.num_envs * args.horizon),
@@ -270,13 +391,17 @@ def main(argv=None):
         lambda s: task_registry.make_task(args.task, num_envs=args.num_envs, seed=s,
                                           device=device),
         cfg, num_seeds=args.num_seeds, member_lrs=lrs)
+    if multi:
+        pop.shard(env_devices=args.env_devices)
     pop.train(pbt_every=args.pbt_every, pbt_fraction=args.pbt_fraction)
     best = pop.best_member()
     r = pop.last_metrics["reward_mean"]
-    print(f"best member: {best} (seed {pop.seeds[best]}) reward {r[best]:.3f}; population "
-          f"rewards: {np.array2string(r, precision=3)}")
     if args.save_best:
         pop.member_checkpoint(best, args.save_best)
+    if not meshlib.is_root():
+        return pop
+    print(f"best member: {best} (seed {pop.seeds[best]}) reward {r[best]:.3f}; population "
+          f"rewards: {np.array2string(r, precision=3)}")
     return pop
 
 

@@ -24,6 +24,17 @@ saves and restores the whole training state (``save_training_state``),
 every random stream included, so a resumed run continues the straight run
 bit for bit. ``python -m aerial_gym_simulator_tpu_torch.rl.ppo`` is the
 command line (``main``).
+
+Sharded (``parallel/distributed.shard_trainer``, ``self.shard`` set), each
+rank holds a block of the env axis and the same learner, and every
+reduction over envs is global: the normalizer's moments, the minibatches
+(one permutation of the global batch drawn by every rank from the same
+generator; each rank takes the rows it owns, its loss their sum over the
+global minibatch size), the advantage's mean and std, the gradients
+(all-reduced before the clip), the KL of the lr schedule and the metrics.
+A W-rank update equals the one-rank update up to the order of float sums.
+The training state is saved whole, the env carry gathered in env order, so
+a checkpoint loads at any world size.
 """
 
 from __future__ import annotations
@@ -43,7 +54,9 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel import mesh as meshlib
 from ..utils import checkpoint
+from ..utils.env_rng import set_shard
 from ..utils.metrics import MetricsWriter
 from .networks import (
     ActorCritic,
@@ -111,10 +124,15 @@ class RunningMeanStd:
                 "count": torch.tensor(1e-4, device=device)}
 
     @staticmethod
-    def update(s, batch2d):
-        b_mean = batch2d.mean(dim=0)
-        b_var = batch2d.var(dim=0, unbiased=False)
-        b_count = float(batch2d.shape[0])
+    def update(s, batch2d, shard=None):
+        """Fold a batch of rows into the stats; with ``shard`` the batch is
+        every rank's rows together (all-reduced moments)."""
+        if shard is None:
+            b_mean = batch2d.mean(dim=0)
+            b_var = batch2d.var(dim=0, unbiased=False)
+            b_count = float(batch2d.shape[0])
+        else:
+            b_mean, b_var, b_count = _global_moments(batch2d, shard)
         delta = b_mean - s["mean"]
         tot = s["count"] + b_count
         m2 = s["var"] * s["count"] + b_var * b_count + delta * delta * s["count"] * b_count / tot
@@ -127,10 +145,22 @@ class RunningMeanStd:
         return torch.clamp((x - s["mean"]) / torch.sqrt(s["var"] + 1e-8), -5.0, 5.0)
 
 
-def _vstats_update(norm, x):
+def _global_moments(batch2d, shard):
+    """Mean and variance over dim 0 of every rank's rows (equal blocks), and
+    their count: two all-reduces, the variance about the global mean."""
+    count = float(batch2d.shape[0] * shard.world)
+    mean = meshlib.all_reduce_(batch2d.sum(dim=0), shard) / count
+    var = meshlib.all_reduce_(((batch2d - mean) ** 2).sum(dim=0), shard) / count
+    return mean, var, count
+
+
+def _vstats_update(norm, x, shard=None):
     """Update the scalar value-return running stats kept beside the obs
     stats (keys v_mean, v_var, v_count)."""
-    b_mean, b_var, b_count = x.mean(), x.var(unbiased=False), float(x.numel())
+    if shard is None:
+        b_mean, b_var, b_count = x.mean(), x.var(unbiased=False), float(x.numel())
+    else:
+        b_mean, b_var, b_count = _global_moments(x.reshape(-1), shard)
     delta = b_mean - norm["v_mean"]
     tot = norm["v_count"] + b_count
     m2 = (norm["v_var"] * norm["v_count"] + b_var * b_count
@@ -148,11 +178,11 @@ def _v_unnormalize(norm, v):
     return v * torch.sqrt(norm["v_var"] + 1e-8) + norm["v_mean"]
 
 
-def _bounds_loss(mean):
+def _bounds_loss(mean, reduce=torch.mean):
     """Quadratic penalty on policy means outside the 1.1 soft bound."""
     high = torch.clamp(mean - 1.1, min=0.0) ** 2
     low = torch.clamp(mean + 1.1, max=0.0) ** 2
-    return torch.mean(torch.sum(high + low, dim=-1))
+    return reduce(torch.sum(high + low, dim=-1))
 
 
 def _gae(gamma: float, lam: float, values, rewards, dones, last_value):
@@ -180,15 +210,19 @@ def _adapt_lr(cfg: PPOConfig, lr: torch.Tensor, kl: torch.Tensor) -> torch.Tenso
                                    torch.clamp(lr * 1.5, max=cfg.max_lr), lr))
 
 
-def ppo_loss(cfg: PPOConfig, network, minibatch):
+def ppo_loss(cfg: PPOConfig, network, minibatch, denom=None):
     """Clipped PPO loss on one minibatch (obs, action, old_logp, old_value,
-    advantage, return) -> (total, (pg_loss, v_loss, entropy, kl))."""
+    advantage, return) -> (total, (pg_loss, v_loss, entropy, kl)). With
+    ``denom`` the minibatch is this rank's share of a global one of
+    ``denom`` samples: each mean becomes a sum over ``denom``, so the ranks'
+    losses add up to the global minibatch's."""
     obs, action, old_logp, old_value, adv, ret = minibatch
     mean, log_std, value = network(obs)
-    return _clipped_loss(cfg, mean, log_std, value, action, old_logp, old_value, adv, ret)
+    return _clipped_loss(cfg, mean, log_std, value, action, old_logp, old_value, adv, ret,
+                         denom)
 
 
-def ppo_loss_rnn(cfg: PPOConfig, network, minibatch, h0):
+def ppo_loss_rnn(cfg: PPOConfig, network, minibatch, h0, denom=None):
     """The recurrent loss on a minibatch of whole env sequences: fields
     (E, T, ...) of (obs, action, old_logp, old_value, advantage, return,
     done_prev), replayed time-major from the rollout-start hidden h0 (E, H)
@@ -202,25 +236,28 @@ def ppo_loss_rnn(cfg: PPOConfig, network, minibatch, h0):
         means.append(mean)
         values.append(value)
     return _clipped_loss(cfg, torch.stack(means), network.log_std, torch.stack(values),
-                         action, old_logp, old_value, adv, ret)
+                         action, old_logp, old_value, adv, ret, denom)
 
 
 def _clipped_loss(cfg: PPOConfig, mean, log_std, value, action, old_logp, old_value, adv,
-                  ret):
+                  ret, denom=None):
+    reduce = torch.mean if denom is None else (lambda x: x.sum() / denom)
     logp = gaussian_logp(mean, log_std, action)
     d = logp - old_logp
     ratio = torch.exp(d)
     pg1 = -adv * ratio
     pg2 = -adv * torch.clamp(ratio, 1.0 - cfg.clip_eps, 1.0 + cfg.clip_eps)
-    pg_loss = torch.mean(torch.maximum(pg1, pg2))
+    pg_loss = reduce(torch.maximum(pg1, pg2))
     v_clipped = old_value + torch.clamp(value - old_value, -cfg.clip_eps, cfg.clip_eps)
-    v_loss = 0.5 * torch.mean(torch.maximum((value - ret) ** 2, (v_clipped - ret) ** 2))
+    v_loss = 0.5 * reduce(torch.maximum((value - ret) ** 2, (v_clipped - ret) ** 2))
     ent = torch.mean(gaussian_entropy(log_std))
+    if denom is not None:
+        ent = ent * (pg1.numel() / denom)        # this rank's share of the samples
     # non-negative approximate KL(old || new), for the lr schedule only
-    kl = torch.mean(ratio - 1.0 - d).detach()
+    kl = reduce(ratio - 1.0 - d).detach()
     total = pg_loss + cfg.value_coef * v_loss - cfg.entropy_coef * ent
     if cfg.bounds_loss_coef:
-        total = total + cfg.bounds_loss_coef * _bounds_loss(mean)
+        total = total + cfg.bounds_loss_coef * _bounds_loss(mean, reduce)
     return total, (pg_loss.detach(), v_loss.detach(), ent.detach(), kl)
 
 
@@ -296,6 +333,7 @@ class PPOTrainer:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.seed)
         self._iter = 0
+        self.shard = None           # parallel/distributed.shard_trainer sets this rank's block
         self._act_h = None          # the recurrent act()'s hidden state
 
         self.step_fn, self.env_carry, self.obs = task.make_step_fn()
@@ -394,12 +432,12 @@ class PPOTrainer:
     def update(self, ro: Rollout) -> Dict[str, torch.Tensor]:
         """GAE, then ``epochs`` passes over shuffled minibatches; returns the
         iteration's metrics as 0-d tensors on the device."""
-        cfg = self.cfg
+        cfg, sh = self.cfg, self.shard
         T, N = ro.values.shape
         batch = T * N
         with torch.no_grad():
             if cfg.normalize_obs:
-                self.norm = RunningMeanStd.update(self.norm, ro.norm_obs.reshape(batch, -1))
+                self.norm = RunningMeanStd.update(self.norm, ro.norm_obs.reshape(batch, -1), sh)
             last_value = self._last_value()
             if cfg.normalize_value:
                 last_value = _v_unnormalize(self.norm, last_value)
@@ -408,9 +446,9 @@ class PPOTrainer:
             values_st, ret_st = ro.values, ret
             if cfg.normalize_value:
                 # stats on the values, normalize; then on the returns, normalize
-                self.norm = _vstats_update(self.norm, ro.values)
+                self.norm = _vstats_update(self.norm, ro.values, sh)
                 values_st = _v_normalize(self.norm, ro.values)
-                self.norm = _vstats_update(self.norm, ret)
+                self.norm = _vstats_update(self.norm, ret, sh)
                 ret_st = _v_normalize(self.norm, ret)
             if cfg.rnn == "gru":
                 col = lambda x: x[..., None]
@@ -426,54 +464,105 @@ class PPOTrainer:
         aux = (self._update_rnn(data, ro.h0) if cfg.rnn == "gru"
                else self._update_mlp(data, batch))
         pg_loss, v_loss, ent, kl = torch.stack(aux).mean(dim=0)
-        return {"reward_mean": ro.rewards.mean() / cfg.reward_scale,
-                "done_rate": ro.dones.mean(), "crash_rate": ro.terms.mean(),
+        if sh is None:
+            means = (ro.rewards.mean(), ro.dones.mean(), ro.terms.mean(), ro.values.mean())
+        else:
+            sums = torch.stack([ro.rewards.sum(), ro.dones.sum(), ro.terms.sum(),
+                                ro.values.sum()])
+            means = (meshlib.all_reduce_(sums, sh) / float(batch * sh.world)).unbind()
+        return {"reward_mean": means[0] / cfg.reward_scale,
+                "done_rate": means[1], "crash_rate": means[2],
                 "pg_loss": pg_loss, "v_loss": v_loss, "entropy": ent, "approx_kl": kl,
-                "lr": self.lr, "value_mean": ro.values.mean()}
+                "lr": self.lr, "value_mean": means[3]}
 
     def _step(self, total, stats):
         self.optimizer.zero_grad(set_to_none=True)
         total.backward()
+        stats = torch.stack(stats)
+        if self.shard is not None:
+            stats = self._all_reduce_grads(stats)
         clip_and_step(self.optimizer, self.cfg.max_grad_norm)
         self.lr = _adapt_lr(self.cfg, self.lr, stats[3])
-        return torch.stack(stats)
+        return stats
 
-    def _normalized_advantage(self, adv):
+    def _all_reduce_grads(self, stats):
+        """Sum every gradient and the loss terms over the ranks, in one
+        all-reduce of a flat buffer -> the global loss terms."""
+        params = list(self.network.parameters())
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+        flat = meshlib.all_reduce_(torch.cat([g.reshape(-1) for g in grads] + [stats]),
+                                   self.shard)
+        i = 0
+        for p, g in zip(params, grads):
+            p.grad = flat[i:i + g.numel()].view_as(g)
+            i += g.numel()
+        return flat[i:]
+
+    def _normalized_advantage(self, adv, denom=None):
+        """Minibatch-normalized advantages; sharded, over the global
+        minibatch of ``denom`` samples (all-reduced mean, then variance)."""
         if not self.cfg.normalize_advantage:
             return adv
-        return (adv - adv.mean()) / (adv.std(unbiased=False) + 1e-8)
+        if self.shard is None:
+            return (adv - adv.mean()) / (adv.std(unbiased=False) + 1e-8)
+        mean = meshlib.all_reduce_(adv.sum(), self.shard) / denom
+        var = meshlib.all_reduce_(((adv - mean) ** 2).sum(), self.shard) / denom
+        return (adv - mean) / (torch.sqrt(var) + 1e-8)
+
+    def _owned(self, g, per_env: int):
+        """The local rows of the global indices ``g`` this rank owns: index
+        g counts env-major within each of ``per_env``-wide time rows of the
+        global batch ((t, env) flattened, or env alone for whole sequences)."""
+        sh = self.shard
+        t, e = g // sh.n_global, g % sh.n_global
+        own = (e >= sh.offset) & (e < sh.offset + sh.n_local)
+        return (t * per_env + (e - sh.offset))[own]
 
     def _update_mlp(self, data, batch):
-        """Epochs of shuffled sample minibatches; -> per-step loss terms."""
-        cfg = self.cfg
+        """Epochs of shuffled sample minibatches; -> per-step loss terms.
+        Sharded: one permutation of the global batch, every rank's own rows
+        of each global minibatch."""
+        cfg, sh = self.cfg, self.shard
         o, a = self.obs_dim, self.obs_dim + self.action_dim
+        global_batch = batch if sh is None else batch * sh.world
         aux = []
         for _ in range(cfg.epochs):
-            perm = torch.randperm(batch, generator=self.generator, device=self.device)
-            shuffled = data[perm]
+            perm = torch.randperm(global_batch, generator=self.generator, device=self.device)
+            shuffled = data[perm] if sh is None else None
             for i in range(self.n_minibatches):
-                mb = shuffled[i * self.mb_size:(i + 1) * self.mb_size]
+                if sh is None:
+                    mb, denom = shuffled[i * self.mb_size:(i + 1) * self.mb_size], None
+                else:
+                    g = perm[i * self.mb_size:(i + 1) * self.mb_size]
+                    mb, denom = data[self._owned(g, sh.n_local)], self.mb_size
                 aux.append(self._step(*ppo_loss(cfg, self.network, (
                     mb[:, :o], mb[:, o:a], mb[:, a], mb[:, a + 1],
-                    self._normalized_advantage(mb[:, a + 2]), mb[:, a + 3]))))
+                    self._normalized_advantage(mb[:, a + 2], denom), mb[:, a + 3]), denom)))
         return aux
 
     def _update_rnn(self, rows, h0):
         """Epochs of minibatches of whole env sequences, the permutation
-        drawn over envs; -> per-step loss terms."""
-        cfg = self.cfg
+        drawn over envs (over every rank's envs when sharded); -> per-step
+        loss terms."""
+        cfg, sh = self.cfg, self.shard
         o, a = self.obs_dim, self.obs_dim + self.action_dim
+        n_envs = rows.shape[0] if sh is None else sh.n_global
         aux = []
         for _ in range(cfg.epochs):
-            perm = torch.randperm(rows.shape[0], generator=self.generator, device=self.device)
-            shuffled, h0_perm = rows[perm], h0[perm]
+            perm = torch.randperm(n_envs, generator=self.generator, device=self.device)
+            if sh is None:
+                shuffled, h0_perm = rows[perm], h0[perm]
             for i in range(self.n_minibatches):
                 sl = slice(i * self.mb_envs, (i + 1) * self.mb_envs)
-                mb = shuffled[sl]
+                if sh is None:
+                    mb, h_mb, denom = shuffled[sl], h0_perm[sl], None
+                else:
+                    idx = self._owned(perm[sl], 0)
+                    mb, h_mb, denom = rows[idx], h0[idx], self.mb_envs * rows.shape[1]
                 aux.append(self._step(*ppo_loss_rnn(cfg, self.network, (
                     mb[..., :o], mb[..., o:a], mb[..., a], mb[..., a + 1],
-                    self._normalized_advantage(mb[..., a + 2]), mb[..., a + 3], mb[..., a + 4]),
-                    h0_perm[sl])))
+                    self._normalized_advantage(mb[..., a + 2], denom), mb[..., a + 3],
+                    mb[..., a + 4]), h_mb, denom)))
         return aux
 
     def train_iteration(self) -> Dict[str, torch.Tensor]:
@@ -501,7 +590,9 @@ class PPOTrainer:
         ``env_steps_per_s`` is the steady rate from the end of the first
         iteration of this call (the device is synchronized once there);
         ``env_steps_per_s_cumulative`` counts this call's wall time from
-        its start."""
+        its start. Sharded, every rank trains and returns the same history;
+        only the root logs, writes the metrics and writes the checkpoints
+        (every rank takes part in gathering them)."""
         cfg = self.cfg
         steps_per_iter = cfg.num_envs * cfg.horizon
         iters = max((total_env_steps or cfg.total_env_steps) // steps_per_iter, 1)
@@ -513,7 +604,8 @@ class PPOTrainer:
                         "train", start_iter, iters)
             return []
         last_saved = start_iter if start_iter else None
-        writer = MetricsWriter(logdir, track=track)
+        root = meshlib.is_root()
+        writer = MetricsWriter(logdir if root else None, track=track if root else None)
         history, t_start = [], time.perf_counter()
         t_steady, steps_steady = None, 0
         for it in range(start_iter, iters):
@@ -538,9 +630,10 @@ class PPOTrainer:
                                         else m["env_steps_per_s_cumulative"])
                 history.append(m)
                 writer.write(m["env_steps"], m)
-                logger.info("it %4d steps %.2e reward %7.3f crash %.3f sps %.0f wall %.1fs",
-                            it, m["env_steps"], m["reward_mean"], m["crash_rate"],
-                            m["env_steps_per_s"], m["wall_s"])
+                if root:
+                    logger.info("it %4d steps %.2e reward %7.3f crash %.3f sps %.0f wall %.1fs",
+                                it, m["env_steps"], m["reward_mean"], m["crash_rate"],
+                                m["env_steps_per_s"], m["wall_s"])
         writer.close()
         if ckpt_dir and save_every and last_saved != iters:
             self.save_training_state(ckpt_dir)
@@ -575,10 +668,17 @@ class PPOTrainer:
         return getattr(sim_env, "_py_rng", None)
 
     def _training_bundle(self):
+        """The state to save; sharded, the env carry and observation are
+        gathered whole in env order (collective), so the file is the one an
+        unsharded trainer writes."""
         py_rng = self._task_py_rng()
+        carry, obs = self.env_carry, self.obs
+        if self.shard is not None:
+            carry = meshlib.gather_env_pytree(carry, self.shard)
+            obs = meshlib.gather_env_pytree(obs, self.shard)
         return {"network": dict(self.network.state_dict()), "optimizer": self._adam_state(),
-                "lr": self.lr, "norm": dict(self.norm), "env_carry": self.env_carry,
-                "obs": self.obs, "generator": self.generator,
+                "lr": self.lr, "norm": dict(self.norm), "env_carry": carry,
+                "obs": obs, "generator": self.generator,
                 "task_py_rng": None if py_rng is None else py_rng.getstate(),
                 "iter": self._iter}
 
@@ -594,21 +694,27 @@ class PPOTrainer:
 
     def save_training_state(self, dir_path: str) -> str:
         """Write the whole training state to ``<dir_path>/iter_<n>.pt``
-        (atomic); keep it and the newest earlier one, delete the rest."""
-        os.makedirs(dir_path, exist_ok=True)
+        (atomic); keep it and the newest earlier one, delete the rest.
+        Sharded: every rank gathers, the root writes, the others wait."""
         path = os.path.join(dir_path, f"iter_{self._iter}.pt")
-        checkpoint.save_state(path, self._training_bundle())
-        older = sorted(n for n in self._checkpoints(dir_path) if n != self._iter)
-        for n in older[:-1]:
-            os.unlink(os.path.join(dir_path, f"iter_{n}.pt"))
-        logger.info("training state saved to %s (iter %d)", path, self._iter)
+        bundle = self._training_bundle()
+        if meshlib.is_root():
+            os.makedirs(dir_path, exist_ok=True)
+            checkpoint.save_state(path, bundle)
+            older = sorted(n for n in self._checkpoints(dir_path) if n != self._iter)
+            for n in older[:-1]:
+                os.unlink(os.path.join(dir_path, f"iter_{n}.pt"))
+            logger.info("training state saved to %s (iter %d)", path, self._iter)
+        if self.shard is not None:
+            meshlib.barrier(self.shard, self.device)
         return path
 
     def restore_training_state(self, dir_path: str) -> int:
         """Restore the newest training state under ``dir_path`` -> the
         iteration to resume from (0, with a warning, when there is none).
         This trainer is the template: the file must come from the same
-        configuration, on the same device type."""
+        configuration, on the same device type, at any world size: sharded,
+        the saved carry is cut to this rank's block."""
         found = self._checkpoints(dir_path) if os.path.isdir(dir_path) else {}
         if not found:
             logger.warning("no training state under %s; starting fresh", dir_path)
@@ -623,6 +729,12 @@ class PPOTrainer:
         self.norm = saved["norm"]
         self.env_carry, self.obs = saved["env_carry"], saved["obs"]
         self.generator = saved["generator"]
+        if self.shard is not None:
+            n = self.cfg.num_envs
+            self.env_carry = meshlib.shard_env_pytree(self.env_carry, self.shard, n)
+            self.obs = meshlib.shard_env_pytree(self.obs, self.shard, n)
+            meshlib.register_generators(self.env_carry, self.shard)
+            set_shard(self.generator, self.shard)
         if saved["task_py_rng"] is not None:
             self._task_py_rng().setstate(saved["task_py_rng"])
         self._iter = int(saved["iter"])
@@ -703,10 +815,6 @@ class PPOTrainer:
 
 # -- the command line ---------------------------------------------------------
 
-NOT_PORTED_MULTI = ("--multichip / --multihost (training across devices or hosts) are not "
-                    "ported yet: ROADMAP.md §A item 9")
-
-
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m aerial_gym_simulator_tpu_torch.rl.ppo",
@@ -716,10 +824,7 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--total_steps", type=int, default=50_000_000)
     p.add_argument("--horizon", type=int, default=32)
     p.add_argument("--seed", type=int, default=42)
-    p.add_argument("--multichip", action="store_true",
-                   help="shard the env axis over all visible devices (not ported yet)")
-    p.add_argument("--multihost", action="store_true",
-                   help="initialize multi-host training first (not ported yet)")
+    add_multi_device_flags(p)
     p.add_argument("--logdir", default=None, help="write TensorBoard + metrics.jsonl here")
     p.add_argument("--vae_params", default=None,
                    help="frozen depth-encoder parameters (.pkl from models/train_vae) for "
@@ -753,14 +858,35 @@ def _parser() -> argparse.ArgumentParser:
     return p
 
 
+def add_multi_device_flags(p: argparse.ArgumentParser):
+    p.add_argument("--multichip", action="store_true",
+                   help="shard the env axis over every process of the world torchrun set up "
+                        "(torchrun --nproc_per_node=N -m ... --multichip); a world of one "
+                        "without torchrun")
+    p.add_argument("--multihost", action="store_true",
+                   help="join the process group first and require it (MASTER_ADDR / "
+                        "MASTER_PORT / RANK / WORLD_SIZE, as torchrun sets them); raises "
+                        "without a coordinator")
+
+
+def init_multi_device(args) -> bool:
+    """``--multihost``: join the process group or raise; ``--multichip``:
+    join it when torchrun configured one, else stay a world of one (logged).
+    gloo with ``--cpu``, else the backend rule of ``initialize_multihost``.
+    -> whether sharding applies."""
+    if not (args.multichip or args.multihost):
+        return False
+    from ..parallel.distributed import initialize_multihost
+    initialize_multihost(require=args.multihost, backend="gloo" if args.cpu else None)
+    return True
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     """The command line -> arguments; ``args.task_overrides`` holds the
-    parsed ``--task_kv`` pairs. An unknown task-config attribute,
-    ``--multichip`` and ``--multihost`` are parser errors."""
+    parsed ``--task_kv`` pairs. An unknown task-config attribute is a
+    parser error."""
     p = _parser()
     args = p.parse_args(argv)
-    if args.multichip or args.multihost:
-        p.error(NOT_PORTED_MULTI)
     from ..registry.registries import task_registry
     if args.task not in task_registry.get_task_names():
         p.error(f"unknown task {args.task!r}; registered: {task_registry.get_task_names()}")
@@ -779,7 +905,9 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def build_trainer(args: argparse.Namespace):
     """The task and the trainer the command line describes -> (task,
-    trainer); nothing has trained yet."""
+    trainer); nothing has trained yet. ``--multichip`` / ``--multihost``:
+    the process group is joined first and the trainer sharded over it."""
+    multi = init_multi_device(args)
     from ..registry.registries import task_registry
     task_config = task_registry.get_task_config(args.task)
     if args.vae_params or args.torch_vae:
@@ -794,7 +922,11 @@ def build_trainer(args: argparse.Namespace):
                     minibatch_size=min(8192, args.num_envs * args.horizon),
                     total_env_steps=args.total_steps, seed=args.seed,
                     entropy_coef=args.entropy_coef, rnn=args.rnn, rnn_hidden=args.rnn_hidden)
-    return task, PPOTrainer(task, cfg)
+    trainer = PPOTrainer(task, cfg)
+    if multi:
+        from ..parallel.distributed import shard_trainer
+        shard_trainer(trainer)
+    return task, trainer
 
 
 def log_to_stdout():
@@ -814,9 +946,12 @@ def main(argv=None):
     task, trainer = build_trainer(args)
     history = trainer.train(logdir=args.logdir, track=args.track, ckpt_dir=args.ckpt_dir,
                             save_every=args.save_every, resume=args.resume)
-    if args.save:
+    root = meshlib.is_root()
+    if args.save and root:
         trainer.save_checkpoint(args.save)
     task.close()
+    if not root:
+        return history
     if not history:
         print("nothing to train (resumed checkpoint already complete)")
         return history

@@ -25,6 +25,7 @@ import torch
 
 from ..sim.params import f32
 from ..sim.structs import ImuParams, SimParams, SimState
+from ..utils.env_rng import env_rand, env_randn
 from ..utils.math import quat_from_euler_xyz, quat_mul, quat_rotate, quat_rotate_inverse
 
 
@@ -64,7 +65,7 @@ def sample_imu_reset(ip: ImuParams, gen: torch.Generator, num_envs: int):
     angles uniform in the mount range when ``randomize_placement`` (else
     the identity)."""
     dev = ip.accel_bias_init.device
-    u = torch.rand((3, num_envs, 3), generator=gen, device=dev)
+    u = env_rand(gen, (3, num_envs, 3), dim=1, device=dev)
     accel_bias = -ip.accel_bias_init + 2.0 * ip.accel_bias_init * u[0]
     gyro_bias = -ip.gyro_bias_init + 2.0 * ip.gyro_bias_init * u[1]
     if ip.randomize_placement:
@@ -88,7 +89,7 @@ class ImuDraws:
 
 
 def sample_imu_draws(gen: torch.Generator, num_envs: int, device) -> ImuDraws:
-    z = torch.randn((4, num_envs, 3), generator=gen, device=device)
+    z = env_randn(gen, (4, num_envs, 3), dim=1, device=device)
     return ImuDraws(accel_bias=z[0], gyro_bias=z[1], accel_noise=z[2], gyro_noise=z[3])
 
 

@@ -24,6 +24,7 @@ from ..ops import raycast, raycast_cuda
 from ..ops.raycast import shade_rgb
 from ..sim.params import f32
 from ..sim.structs import RaySensorParams, SimParams, SimState
+from ..utils.env_rng import env_rand, env_randn
 from ..utils.math import quat_from_euler_xyz, quat_mul, quat_rotate, tf_apply
 
 
@@ -125,7 +126,7 @@ def sample_mount_pose(sp: RaySensorParams, gen: torch.Generator, num_envs: int):
 def _one_mount(sp: RaySensorParams, gen: torch.Generator, num_envs: int):
     dev = sp.dirs.device
     if sp.randomize_placement:
-        u = torch.rand((num_envs, 6), generator=gen, device=dev)
+        u = env_rand(gen, (num_envs, 6), device=dev)
         pos = sp.min_translation + (sp.max_translation - sp.min_translation) * u[:, :3]
         eul = sp.min_rotation + (sp.max_rotation - sp.min_rotation) * u[:, 3:]
     else:
@@ -236,9 +237,9 @@ def render(params: SimParams, state: SimState, sp: RaySensorParams, mount_pos,
 def apply_noise(sp: RaySensorParams, pixels, gen: torch.Generator):
     """std = a*x^2 + b*x + c gaussian + pixel dropout."""
     std = sp.std_a * pixels ** 2 + sp.std_b * pixels + sp.std_c
-    noise = torch.randn(pixels.shape, generator=gen, device=pixels.device)
+    noise = env_randn(gen, pixels.shape, device=pixels.device)
     pixels = pixels - sp.mean_offset + std * noise
-    drop = torch.rand(pixels.shape, generator=gen, device=pixels.device) < sp.pixel_dropout_prob
+    drop = env_rand(gen, pixels.shape, device=pixels.device) < sp.pixel_dropout_prob
     return torch.where(drop, torch.full_like(pixels, sp.near_out_value), pixels)
 
 

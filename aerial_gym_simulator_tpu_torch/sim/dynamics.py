@@ -21,6 +21,7 @@ import torch
 
 from ..control.controllers import Gains, compute_robot_obs, controller_update
 from ..ops.motor_model import motor_step
+from ..utils.env_rng import env_rand
 from ..utils.math import (
     cross,
     interpolate_ratio,
@@ -28,6 +29,7 @@ from ..utils.math import (
     quat_integrate,
     quat_rotate,
     quat_rotate_inverse,
+    rowwise_matmul,
     safe_norm,
 )
 from .structs import SimParams, SimState, replace
@@ -40,7 +42,7 @@ def sample_disturbance(params: SimParams, state: SimState):
     zeros. Drawn from the state's generator."""
     rp = params.robot
     N, g, dev = state.num_envs, state.rng, state.device
-    u = torch.rand((N, 7), generator=g, device=dev)
+    u = env_rand(g, (N, 7), device=dev)
     occur = (u[:, 0:1] < rp.disturbance_prob).to(torch.float32)
     force = (2.0 * u[:, 1:4] - 1.0) * rp.max_force_disturbance
     torque = (2.0 * u[:, 4:7] - 1.0) * rp.max_torque_disturbance
@@ -70,7 +72,7 @@ def compute_robot_wrench(params: SimParams, state: SimState, action: torch.Tenso
     else:
         gains = Gains(state.K_pos, state.K_vel, state.K_rot, state.K_angvel)
         wrench_cmd = controller_update(cp.name, cp, rp, params.gravity, obs, gains, action)
-        ref_thrust = wrench_cmd @ mp.allocation_pinv.T                   # (N, M)
+        ref_thrust = rowwise_matmul(wrench_cmd, mp.allocation_pinv.T)    # (N, M)
 
     new_thrust = motor_step(mp, params.dt, ref_thrust, state.motor_thrust,
                             state.motor_tau_inc, state.motor_tau_dec,
@@ -239,7 +241,7 @@ def sample_reset_states(params: SimParams, state: SimState) -> dict:
     g, dev = state.rng, state.device
 
     def uniform(lo, hi, *shape):
-        return lo + (hi - lo) * torch.rand((N,) + shape, generator=g, device=dev)
+        return lo + (hi - lo) * env_rand(g, (N,) + shape, device=dev)
 
     bounds_lo = uniform(ep.lower_bound_min, ep.lower_bound_max, 3)
     bounds_hi = uniform(ep.upper_bound_min, ep.upper_bound_max, 3)

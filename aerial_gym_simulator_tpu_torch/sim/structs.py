@@ -9,7 +9,10 @@ field names and shapes. Each record is a plain dataclass:
   * static configuration (flags, counts, names) stays Python data.
 
 ``SimState.rng`` is a ``torch.Generator`` on the state's device; it takes
-the place of the per-env JAX keys.
+the place of the per-env JAX keys. Every env-batched draw from it goes
+through ``utils/env_rng``, so a sharded state (each rank holding a block of
+the env axis and the same generator) draws what the unsharded state draws
+for its rows.
 """
 
 from __future__ import annotations
@@ -281,7 +284,7 @@ class SimState:
     crashes: Tensor                      # (N,)
     truncations: Tensor                  # (N,)
     sim_steps: Tensor                    # (N,) int32
-    rng: torch.Generator                 # one generator on the state's device
+    rng: torch.Generator                 # on the state's device; replicated across shards
     applied_force_b: Tensor              # (N, 3)
     applied_torque_b: Tensor             # (N, 3)
     obstacle_pos: Tensor                 # (N, A, 3)

@@ -38,6 +38,7 @@ from ..sensors.raycast_sensor import render_lidar
 from ..sim import dynamics
 from ..sim.sim_builder import SimBuilder
 from ..sim.structs import SimParams, SimState, replace
+from ..utils.env_rng import env_count, env_rand
 from ..utils.math import interpolate_ratio, quat_rotate_inverse, safe_norm, ssa
 from .base_task import BaseTask
 from .navigation_task import CurriculumConfig, _constant, curriculum_update
@@ -155,7 +156,7 @@ class LidarNavDraws:
 def sample_lidar_nav_draws(gen: torch.Generator, num_envs: int, device) -> LidarNavDraws:
     H, W = DS_SHAPE
     L = (H - LOW_ROWS) * W
-    u = torch.rand((num_envs, 10 + 3 * H * W + 2 * L), generator=gen, device=device)
+    u = env_rand(gen, (num_envs, 10 + 3 * H * W + 2 * L), device=device)
     grid = lambda a, rows: u[:, a:a + rows * W].reshape(num_envs, rows, W)
     p = 10
     return LidarNavDraws(
@@ -308,7 +309,7 @@ def make_lidar_nav_step(params: SimParams, cfg: LidarNavigationTaskConfig):
 
         level, s_agg, c_agg, t_agg = curriculum_update(
             cur, ns.curriculum_level, ns.success_agg, ns.crash_agg, ns.timeout_agg,
-            successes, crashes, timeouts)
+            successes, crashes, timeouts, ns.rng)
 
         sim = replace(sim, crashes=crashes, truncations=truncations,
                       num_obstacles=torch.zeros_like(sim.num_obstacles) + level.to(torch.int32))
@@ -323,7 +324,7 @@ def make_lidar_nav_step(params: SimParams, cfg: LidarNavigationTaskConfig):
         # render AFTER the reset, then the pointcloud's range image and TTC
         obs2 = compute_robot_obs(sim.pos, sim.quat, sim.linvel, sim.angvel)
         pts, _ = render_lidar(params, sim, gen=sim.rng, want_seg=False)
-        env_steps = ns.env_steps + float(N)
+        env_steps = ns.env_steps + float(env_count(ns.rng, N))
         invalid_prob = None
         if cfg.radar_mode and cfg.radar_invalid_anneal_env_steps > 0:
             frac = torch.clamp(env_steps / float(cfg.radar_invalid_anneal_env_steps), 0.0, 1.0)
@@ -413,7 +414,7 @@ class LiDARNavigationTask(BaseTask):
         sim = replace(self.sim_env.state, num_obstacles=torch.full(
             (N,), cfg.curriculum.min_level, dtype=torch.int32, device=dev))
         zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=dev)
-        u = torch.rand((N, 4), generator=sim.rng, device=dev)
+        u = env_rand(sim.rng, (N, 4), device=dev)
         target, yaw = sample_targets(cfg, sim, u[:, :3], u[:, 3])
         return LidarNavState(
             sim=sim, target_position=target, target_yaw=yaw,

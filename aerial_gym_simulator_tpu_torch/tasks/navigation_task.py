@@ -37,6 +37,7 @@ from ..sensors.raycast_sensor import render_camera
 from ..sim import dynamics
 from ..sim.sim_builder import SimBuilder
 from ..sim.structs import SimParams, SimState, replace
+from ..utils.env_rng import env_rand, env_randn, env_sums
 from ..utils.math import interpolate_ratio, quat_rotate_inverse, safe_norm, ssa
 from .base_task import BaseTask
 
@@ -137,10 +138,9 @@ class NavDraws:
 
 def sample_nav_draws(gen: torch.Generator, num_envs: int, latent_dim: int,
                      device) -> NavDraws:
-    u = torch.rand((num_envs, 9), generator=gen, device=device)
+    u = env_rand(gen, (num_envs, 9), device=device)
     return NavDraws(obs_perturb=u[:, 0:3], euler_perturb=u[:, 3:6], target_ratio=u[:, 6:9],
-                    latent_noise=torch.randn((num_envs, latent_dim), generator=gen,
-                                             device=device))
+                    latent_noise=env_randn(gen, (num_envs, latent_dim), device=device))
 
 
 def action_transform(cfg: NavigationTaskConfig, raw: torch.Tensor) -> torch.Tensor:
@@ -194,14 +194,17 @@ def compute_reward(rp: dict, pos_error, prev_pos_error, crashes, action, prev_ac
 
 
 def curriculum_update(cur: CurriculumConfig, level, s_agg, c_agg, t_agg,
-                      successes, crashes, timeouts):
+                      successes, crashes, timeouts, rng=None):
     """Accumulate success/crash/timeout counts; once enough episode
     outcomes are logged, raise or lower the obstacle-count level by the
     success rate and reset the aggregates. All arguments and results are
-    tensors (level and aggregates 0-d); nothing is read back."""
-    s_agg = s_agg + successes.sum()
-    c_agg = c_agg + crashes.sum()
-    t_agg = t_agg + timeouts.sum()
+    tensors (level and aggregates 0-d); nothing is read back. The counts are
+    summed over every env of the run: over every shard when the state's
+    generator ``rng`` is sharded (``utils/env_rng.env_sums``)."""
+    n_s, n_c, n_t = env_sums(rng, successes, crashes, timeouts)
+    s_agg = s_agg + n_s
+    c_agg = c_agg + n_c
+    t_agg = t_agg + n_t
     instances = s_agg + c_agg + t_agg
     do_update = instances >= cur.check_after_log_instances
     success_rate = s_agg / torch.clamp(instances, min=1.0)
@@ -260,7 +263,7 @@ def nav_step(params: SimParams, cfg: NavigationTaskConfig, vae, ns: NavState,
 
     level, s_agg, c_agg, t_agg = curriculum_update(
         cur, ns.curriculum_level, ns.success_agg, ns.crash_agg, ns.timeout_agg,
-        successes, crashes, timeouts)
+        successes, crashes, timeouts, ns.rng)
 
     # auto-reset with the curriculum's obstacle count
     sim = replace(sim, crashes=crashes, truncations=truncations,
@@ -383,7 +386,7 @@ class NavigationTask(BaseTask):
         sim = replace(self.sim_env.state, num_obstacles=torch.full(
             (N,), cfg.curriculum.min_level, dtype=torch.int32, device=dev))
         zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=dev)
-        u = torch.rand((N, 3), generator=sim.rng, device=dev)
+        u = env_rand(sim.rng, (N, 3), device=dev)
         return NavState(
             sim=sim,
             target_position=sample_targets(cfg, sim, u),

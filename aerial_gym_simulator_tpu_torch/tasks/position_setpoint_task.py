@@ -164,12 +164,14 @@ class PositionSetpointTask(BaseTask):
     def make_step_fn(self):
         """PPO protocol: (step_fn, init_carry, init_obs) with
         step_fn(carry, action) -> (carry, obs, reward, term, trunc)."""
-        params, target = self.params, self.target_position
         episode_len = self.task_config.episode_len_steps
         crash_dist = self.task_config.crash_dist_threshold
 
         def step_fn(state, action):
-            return task_step(params, state, action, target, episode_len, crash_dist, None)
+            # the task's params and targets as they are now: sharding the
+            # env axis (parallel/mesh.shard_task) slices them after this
+            return task_step(self.params, state, action, self.target_position, episode_len,
+                             crash_dist, None)
 
         self.reset()
         return step_fn, self.state, self.task_obs["observations"]

@@ -37,6 +37,7 @@ from ..control.controllers import compute_robot_obs
 from ..sim import dynamics
 from ..sim.sim_builder import SimBuilder
 from ..sim.structs import SimParams, SimState, replace
+from ..utils.env_rng import env_randn
 from ..utils.math import (
     exp_func,
     exp_penalty_func,
@@ -326,7 +327,7 @@ class VariantDraws:
 
 
 def sample_variant_draws(gen: torch.Generator, num_envs: int, device) -> VariantDraws:
-    z = torch.randn((4, num_envs, 3), generator=gen, device=device)
+    z = env_randn(gen, (4, num_envs, 3), dim=1, device=device)
     return VariantDraws(euler=z[0], pos=z[1], linvel=z[2], angvel=z[3])
 
 
@@ -508,10 +509,12 @@ class PositionSetpointTaskVariant(BaseTask):
         """PPO protocol: (step_fn, init_carry, init_obs) with
         step_fn(carry, action) -> (carry, obs, reward, term, trunc); the
         carry is a VariantCarry."""
-        params, cfg, target = self.params, self.task_config, self.target_position
+        cfg = self.task_config
 
         def step_fn(carry, action):
-            return variant_task_step(params, cfg, carry, action, target, None)
+            # params and targets as they are now (parallel/mesh.shard_task)
+            return variant_task_step(self.params, cfg, carry, action, self.target_position,
+                                     None)
 
         self.reset()
         return step_fn, self._carry, self.task_obs["observations"]

@@ -57,6 +57,22 @@ def interpolate_ratio(lo, hi, ratio):
     return lo + (hi - lo) * ratio
 
 
+def rowwise_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` for a small inner size, the products over the inner index
+    summed in its order, elementwise: each output row depends on its own row
+    alone. A GEMM picks its kernel, and so its rounding, by the row count,
+    which would make a block of envs round unlike the same envs in the whole
+    batch. On an H100 cuBLAS does so for the two products that go through
+    here: the allocation (N, 6) @ (6, 4) (``sim/dynamics.py``) and the
+    batched 3x3 matrix-vector product of the obstacle frames
+    (``ops/raycast_cuda.pack_prims_world``); the step's other small products
+    were found bit-equal across row counts and stay ``@``."""
+    out = a[..., :, 0:1] * b[..., 0:1, :]
+    for k in range(1, a.shape[-1]):
+        out = out + a[..., :, k:k + 1] * b[..., k:k + 1, :]
+    return out
+
+
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Cross product over the last axis, written out elementwise so it
     broadcasts like jnp.cross."""

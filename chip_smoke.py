@@ -260,6 +260,34 @@ Phases, each printed on its own line:
                member 0 of a 2-member population bit-equal to a standalone
                trainer; each part's seconds.
 
+16. parallel - multi-process training: two processes on the one card joined
+               by torch.distributed (gloo: NCCL refuses two ranks on one
+               device; the backend printed), each rank a block of the env
+               axis: a. a global sum of CUDA tensors across the ranks; b.
+               navigation PPO (NAVPPO_ARGS + --multichip: 1,024 global envs
+               x 32, the shipped ViT) for 2 iterations, the learner
+               bit-identical on both ranks, s/iteration beside phase 9's
+               one-rank run, each rank's K1 and K5 launches; before it, 8
+               steps under seeded actions from the trainer's start against
+               a one-rank task of the same seed: depth images and the
+               observations' state columns bit-equal, their bf16 ViT latents
+               within PAR_LATENT_TOL; c. LiDAR-navigation PPO, 2 x
+               256 envs, one iteration (K1 on the 48x120 table), learner
+               identical; d. b's training state saved by both ranks and
+               restored into a one-rank trainer: parameters, Adam, norm
+               bit-equal, the carry equal to the gathered one; e. the
+               tensor-parallel ViT (the shipped encoder in f32, 4 heads a
+               rank, batch 1,024) within 2e-5 of the whole encoder, K5 on
+               each rank's heads; f. a population of 4 members x 1,024 envs
+               (PBT every iteration) dealt over the ranks, every member
+               bit-equal to the unsharded population's; g. the rehearsals'
+               legs in the ranks' own processes: position PPO at 2 x 1,024
+               envs over both ranks, then at 1,024 and 2,048 on one rank,
+               env-steps/s and the weak and strong ratios (harness checks on
+               a shared card, not efficiencies); each part's seconds, and
+               each rank's peak and held memory at the builds of b and f
+               (a rank builds the global batch, then keeps its block).
+
 Before the last line it prints one JSON object with a record per kernel;
 the last line is {"ok": true, "device": {...}}. Any failure raises and the
 script exits non-zero without that line. Without CUDA it exits 1 at once.
@@ -455,6 +483,18 @@ BPTT_ITERS = 150                   # 15c: BPTT at BPTTConfig's defaults (256 env
 POP_ARGS = ["--num_envs", "1024", "--num_seeds", "8", "--horizon", "32", "--total_steps",
             "65536", "--lr_sweep", "1e-4", "1e-3", "--pbt_every", "1"]   # 15d: 2 iterations
 POP_COMPARE_ENVS = 1024            # member 0 against a standalone trainer
+PAR_RANKS = 2                      # 16: two processes on the one card (gloo)
+PAR_NAV_ITERATIONS = 2             # navigation PPO at NAV_ENVS global envs x 32, NAVPPO_ARGS
+PAR_DRAW_STEPS = 8                 # 2-rank vs 1-rank steps under seeded actions
+PAR_LATENT_TOL = 0.05              # the observations' ViT latents (atol = rtol): its bf16 products
+                                   # round by the row count (tests/test_torch_models.py's bf16 bar)
+PAR_LIDAR_ENVS = 512               # 2 ranks x 256
+PAR_LIDAR_HORIZON = 32
+PAR_TP_BATCH = 1024                # the tensor-parallel ViT: the shipped width, f32
+PAR_TP_TOL = 2e-5                  # JAX tests/test_vit.py:74
+PAR_POP = dict(num_seeds=4, num_envs=1024, horizon=32, iterations=2)
+PAR_REHEARSAL = dict(envs_per_device=1024, horizon=16, warmup_iters=1, timed_iters=4)
+PAR_TIMEOUT = 420.0
 STATE_STEP_ENVS = 16384
 STATE_STEPS = 100
 POSITION_POLICY = (Path(__file__).resolve().parent
@@ -1844,8 +1884,9 @@ def navppo_phase(torch, port, rc, ac, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts(rc.LAUNCHES, ac.LAUNCHES)
-    ppo_iterations(torch, trainer, NAVPPO_ITERATIONS, "navppo", card)
+    history = ppo_iterations(torch, trainer, NAVPPO_ITERATIONS, "navppo", card)
     launches = {**rc.LAUNCHES, **ac.LAUNCHES}
+    walls = [m["wall_s"] for m in history]
     steps = NAVPPO_ITERATIONS * ppo_cfg.horizon
     want = {"raycast_depth": steps, "raycast_seg": 0, "raycast_normals": 0, "raycast_rgb": 0,
             **attention_counts(ac, attention_fwd=4 * steps)}
@@ -1875,6 +1916,7 @@ def navppo_phase(torch, port, rc, ac, card):
     del trainer, rollout, task, pixels
     torch.cuda.empty_cache()
     return launches, {"latent_err_vs_reference": err,
+                      "s_per_iteration": [b - a for a, b in zip([0.0] + walls[:-1], walls)],
                       "device_idle_share": {k: 1.0 - b / w for k, (w, b) in busy.items()}}, straight
 
 
@@ -3668,18 +3710,388 @@ def differentiable_phase(torch, port, rc, card):
     return launches, k1
 
 
+# -- 16. multi-process training ------------------------------------------------------
+
+
+def par_flat_equal(torch, meshlib, tensors, shard):
+    """True on every rank when its tensors equal rank 0's bit for bit (rank
+    0's broadcast, compared, the verdicts all-reduced)."""
+    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    ref = flat.clone()
+    meshlib.broadcast_([ref], shard)
+    bad = torch.tensor([0.0 if torch.equal(flat, ref) else 1.0], device=flat.device)
+    meshlib.all_reduce_(bad, shard)
+    return bad.item() == 0.0
+
+
+def par_all_true(torch, meshlib, ok, shard, device):
+    """A verdict of every rank: True when each rank's ``ok`` is."""
+    bad = torch.tensor([0.0 if ok else 1.0], device=device)
+    meshlib.all_reduce_(bad, shard)
+    return bad.item() == 0.0
+
+
+def par_max(torch, meshlib, x, shard, device):
+    """The largest of every rank's ``x`` (a zero-padded all-reduce)."""
+    v = torch.zeros(shard.world, device=device, dtype=torch.float64)
+    v[shard.rank] = float(x)
+    meshlib.all_reduce_(v, shard)
+    return float(v.max())
+
+
+def par_mem_gb(torch, dev, fn):
+    """fn() -> (its result, the peak and the held memory it added on this
+    process's allocator, in GB; None on the CPU)."""
+    if dev.type != "cuda":
+        return fn(), None, None
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    result = fn()
+    torch.cuda.synchronize()
+    return (result, (torch.cuda.max_memory_allocated() - base) / 1e9,
+            (torch.cuda.memory_allocated() - base) / 1e9)
+
+
+def par_rank_main(rank, coordinator, work, card, device="cuda"):
+    """One rank of phase 16 (a process of its own, spawned by
+    parallel_phase): parts a-g, each asserted; prints ``PAR_RANK {json}``
+    with its launches, seconds and memory and, on rank 0, ``PAR_SUMMARY
+    {json}``. ``device`` "cpu" rehearses it on the CPU (with smaller
+    constants)."""
+    import numpy as np
+    import torch
+    import aerial_gym_simulator_tpu_torch as port
+    from aerial_gym_simulator_tpu_torch.models.vit import TensorParallelViTEncoder
+    from aerial_gym_simulator_tpu_torch.ops import attention_cuda as ac
+    from aerial_gym_simulator_tpu_torch.ops import raycast_cuda as rc
+    from aerial_gym_simulator_tpu_torch.parallel import mesh as meshlib
+    from aerial_gym_simulator_tpu_torch.parallel import scaling
+    from aerial_gym_simulator_tpu_torch.parallel.distributed import (initialize_multihost,
+                                                                      shard_trainer)
+    from aerial_gym_simulator_tpu_torch.rl.population import PopulationTrainer
+    from aerial_gym_simulator_tpu_torch.rl.ppo import (PPOConfig, PPOTrainer, build_trainer,
+                                                       parse_args)
+    from aerial_gym_simulator_tpu_torch.sensors.raycast_sensor import render_camera
+    from aerial_gym_simulator_tpu_torch.sim.convert import load_encoder_pickle
+
+    dev = torch.device(device)
+    cpu_flag = ["--cpu"] if device == "cpu" else []
+    initialize_multihost(coordinator, PAR_RANKS, rank, require=True, backend="gloo")
+    dist = meshlib._dist()
+    out, seconds, launches, memory = {"backend": dist.get_backend()}, {}, {}, {}
+
+    def counts():
+        return {**rc.LAUNCHES, **ac.LAUNCHES}
+
+    # a. a global sum of CUDA tensors across the processes
+    t0 = time.perf_counter()
+    world = meshlib.make_mesh()
+    one = meshlib.env_sharding(world, 8 * PAR_RANKS)
+    part = torch.arange(8 * PAR_RANKS, dtype=torch.float32, device=dev)[
+        one.offset:one.offset + one.n_local]
+    total = meshlib.all_reduce_(part.sum(), one).item()
+    n = 8 * PAR_RANKS
+    if total != n * (n - 1) / 2:
+        raise AssertionError(f"parallel a: global sum {total}")
+    out["a_global_sum"] = total
+    seconds["a"] = time.perf_counter() - t0
+
+    # b. sharded navigation PPO; first the draw rule against one rank
+    t0 = time.perf_counter()
+    # each rank builds the global batch and then keeps its block: its peak
+    # at build is the one-rank build's, what it holds afterwards its share
+    (task, trainer), memory["b build peak"], memory["b held"] = par_mem_gb(
+        torch, dev, lambda: build_trainer(parse_args(NAVPPO_ARGS + ["--multichip"] + cpu_flag)))
+    sh = trainer.shard
+    rows = slice(sh.offset, sh.offset + sh.n_local)
+    acts = torch.from_numpy(np.random.default_rng(16).uniform(
+        -1.0, 1.0, (PAR_DRAW_STEPS, NAV_ENVS, 4)).astype(np.float32)).to(dev)
+
+    def steps(step_fn, carry, params, cols):
+        gen = carry.rng.get_state()
+        depths, obs_all = [], []
+        for t in range(PAR_DRAW_STEPS):
+            carry, obs, *_ = step_fn(carry, acts[t, cols])
+            depths.append(render_camera(params, carry.sim, want_seg=False)[0])
+            obs_all.append(obs)
+        carry.rng.set_state(gen)                 # the run starts where it was built
+        return depths, obs_all
+
+    depths, obs_sh = steps(trainer.step_fn, trainer.env_carry, task.params, rows)
+    (ref_task, ref_trainer), memory["b one-rank build peak"], memory["b one-rank held"] = \
+        par_mem_gb(torch, dev, lambda: build_trainer(parse_args(NAVPPO_ARGS + cpu_flag)))
+    ref_depths, ref_obs = steps(ref_trainer.step_fn, ref_trainer.env_carry, ref_task.params,
+                                slice(0, NAV_ENVS))
+    depth_equal = all(torch.equal(d, r[rows]) for d, r in zip(depths, ref_depths))
+    lat = task.task_config.latent_dim                # the observation's last columns
+    state_equal = all(torch.equal(o[:, :-lat], r[rows, :-lat]) for o, r in zip(obs_sh, ref_obs))
+    latents_close = all(torch.allclose(o[:, -lat:], r[rows, -lat:], atol=PAR_LATENT_TOL,
+                                       rtol=PAR_LATENT_TOL) for o, r in zip(obs_sh, ref_obs))
+    latent_err = max(float((o[:, -lat:] - r[rows, -lat:]).abs().max())
+                     for o, r in zip(obs_sh, ref_obs))
+    out["b_depth_bit_equal"] = par_all_true(torch, meshlib, depth_equal, sh, dev)
+    out["b_obs_state_bit_equal"] = par_all_true(torch, meshlib, state_equal, sh, dev)
+    out["b_latents_close"] = par_all_true(torch, meshlib, latents_close, sh, dev)
+    out["b_latent_max_err"] = par_max(torch, meshlib, latent_err, sh, dev)
+    del depths, ref_depths, obs_sh, ref_obs
+    seconds["b draw rule"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    zero_counts(rc.LAUNCHES, ac.LAUNCHES)
+    history = ppo_iterations(torch, trainer, PAR_NAV_ITERATIONS, f"parallel rank {rank} navppo",
+                             card)
+    launches["b navppo"] = counts()
+    walls = [m["wall_s"] for m in history]
+    out["b_s_per_iteration"] = [b - a for a, b in zip([0.0] + walls[:-1], walls)]
+    out["b_reward"] = [m["reward_mean"] for m in history]
+    out["b_learner_identical"] = par_flat_equal(torch, meshlib,
+                                                list(trainer.network.parameters()), sh)
+    seconds["b ppo"] = time.perf_counter() - t0
+
+    # d. the training state of b saved by both ranks, restored into one rank
+    t0 = time.perf_counter()
+    ckpt = os.path.join(work, "navppo_state")
+    trainer.save_training_state(ckpt)
+    carry_whole = meshlib.gather_env_pytree(trainer.env_carry, sh)
+    if rank == 0:
+        ref_trainer.restore_training_state(ckpt)
+        adam, ref_adam = trainer._adam_state(), ref_trainer._adam_state()
+        same = (all(torch.equal(a, b) for a, b in zip(trainer.network.parameters(),
+                                                       ref_trainer.network.parameters()))
+                and all(torch.equal(adam[i][k], ref_adam[i][k]) for i in adam for k in adam[i])
+                and all(torch.equal(trainer.norm[k], ref_trainer.norm[k]) for k in trainer.norm)
+                and torch.equal(trainer.lr, ref_trainer.lr))
+        whole = [t for t in meshlib.tree_items(carry_whole, torch.Tensor)]
+        loaded = [t for t in meshlib.tree_items(ref_trainer.env_carry, torch.Tensor)]
+        out["d_learner_bit_equal"] = same
+        out["d_carry_equal"] = (len(whole) == len(loaded)
+                                and all(torch.equal(a, b) for a, b in zip(whole, loaded)))
+        out["d_checkpoint_mb"] = os.path.getsize(
+            os.path.join(ckpt, f"iter_{trainer._iter}.pt")) / 1e6
+    task.close()
+    ref_task.close()
+    del trainer, ref_trainer, task, ref_task, carry_whole
+    torch.cuda.empty_cache()
+    seconds["d"] = time.perf_counter() - t0
+
+    # c. LiDAR-navigation PPO over both ranks (K1 on the 48x120 table)
+    t0 = time.perf_counter()
+    lidar = port.task_registry.make_task("lidar_navigation_task", num_envs=PAR_LIDAR_ENVS,
+                                         seed=7, device=device)
+    lcfg = PPOConfig(num_envs=PAR_LIDAR_ENVS, horizon=PAR_LIDAR_HORIZON,
+                     minibatch_size=min(8192, PAR_LIDAR_ENVS * PAR_LIDAR_HORIZON), seed=7)
+    ltr = PPOTrainer(lidar, lcfg)
+    shard_trainer(ltr)
+    zero_counts(rc.LAUNCHES, ac.LAUNCHES)
+    ppo_iterations(torch, ltr, 1, f"parallel rank {rank} lidarnav ppo", card)
+    launches["c lidarnav"] = counts()
+    out["c_learner_identical"] = par_flat_equal(torch, meshlib, list(ltr.network.parameters()),
+                                                ltr.shard)
+    lidar.close()
+    del ltr, lidar
+    seconds["c"] = time.perf_counter() - t0
+
+    # e. the tensor-parallel ViT: the shipped encoder, 4 heads a rank, f32
+    t0 = time.perf_counter()
+    _, enc = load_encoder_pickle(str(NETWORKS / "vit_depth_encoder.pkl"), (135, 240))
+    enc = enc.to(dev).float().eval()
+    g = torch.Generator(device=dev)
+    g.manual_seed(16)
+    x = torch.rand((PAR_TP_BATCH, 135, 240, 1), generator=g, device=dev)
+    with torch.no_grad():
+        mean, logvar = enc(x)
+    tp = TensorParallelViTEncoder(enc, rank, PAR_RANKS)
+    zero_counts(rc.LAUNCHES, ac.LAUNCHES)
+    (t_mean, t_logvar), tp_ms = timed(torch, lambda: tp(x))
+    launches["e tp_vit"] = counts()
+    _, whole_ms = timed(torch, lambda: enc(x))
+    out["e_heads_per_rank"] = tp.blocks[0].num_heads
+    out["e_max_err"] = par_max(torch, meshlib, max(float((t_mean - mean).abs().max()),
+                                                   float((t_logvar - logvar).abs().max())),
+                               one, dev)
+    out["e_ms"] = {"tensor_parallel": tp_ms, "whole": whole_ms}
+    del enc, tp, x, mean, logvar, t_mean, t_logvar
+    torch.cuda.empty_cache()
+    seconds["e"] = time.perf_counter() - t0
+
+    # f. the population dealt over the ranks, against the unsharded one
+    t0 = time.perf_counter()
+    pp = PAR_POP
+    pcfg = PPOConfig(num_envs=pp["num_envs"], horizon=pp["horizon"],
+                     minibatch_size=min(8192, pp["num_envs"] * pp["horizon"]), seed=42)
+    lrs = list(np.geomspace(1e-4, 1e-3, pp["num_seeds"]).astype(np.float32))
+    factory = lambda s: port.task_registry.make_task("position_setpoint_task",
+                                                     num_envs=pp["num_envs"], seed=s,
+                                                     device=device)
+    def sharded_population():
+        built = PopulationTrainer(factory, pcfg, pp["num_seeds"], member_lrs=lrs)
+        built.shard()
+        return built
+
+    pop, memory["f build peak"], memory["f held"] = par_mem_gb(torch, dev, sharded_population)
+    steps_total = pp["iterations"] * pp["num_envs"] * pp["horizon"]
+    hist = pop.train(total_env_steps=steps_total, log_every=1, pbt_every=1)
+    ref = PopulationTrainer(factory, pcfg, pp["num_seeds"], member_lrs=lrs)
+    ref.train(total_env_steps=steps_total, log_every=1, pbt_every=1)
+    equal = all(
+        all(torch.equal(a, b) for a, b in zip(pop.members[i].network.parameters(),
+                                              ref.members[i].network.parameters()))
+        and torch.equal(pop.members[i].lr, ref.members[i].lr)
+        and all(torch.equal(pop.members[i].norm[k], ref.members[i].norm[k])
+                for k in ref.members[i].norm)
+        for i in pop.local)
+    out["f_members_bit_equal"] = par_all_true(torch, meshlib, equal, one, dev)
+    out["f_local_members"] = pop.local
+    out["f_env_steps_per_s"] = float(hist[-1]["env_steps_per_s"])
+    del pop, ref
+    seconds["f"] = time.perf_counter() - t0
+
+    # g. the rehearsals' legs in these processes (no start-up of their own):
+    #    position PPO at 2 x E envs over both ranks, then, the group gone, at
+    #    E and at 2 x E on rank 0 alone; the ranks share the card, so the
+    #    ratios check the harness and are not efficiencies
+    t0 = time.perf_counter()
+    rh = PAR_REHEARSAL
+    legs = {"envs_per_process": rh["envs_per_device"]}
+    leg = lambda n: scaling.timed_train_steps_per_s(
+        "position_setpoint_task", n, rh["horizon"], rh["warmup_iters"], rh["timed_iters"],
+        device=device)
+    legs["two_ranks"] = leg(PAR_RANKS * rh["envs_per_device"])
+    meshlib.barrier(one, dev)
+    dist.destroy_process_group()
+    if rank == 0:
+        legs["one_rank_weak"] = leg(rh["envs_per_device"])
+        legs["one_rank_strong"] = leg(PAR_RANKS * rh["envs_per_device"])
+        out["g"] = legs
+    seconds["g"] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    print("PAR_RANK " + json.dumps({"rank": rank, "launches": launches, "seconds": seconds,
+                                    "memory_gb": memory}), flush=True)
+    if rank == 0:
+        print("PAR_SUMMARY " + json.dumps(out), flush=True)
+    return 0
+
+
+def parallel_phase(torch, rc, ac, card, navppo_check):
+    """Phase 16: parts a-g in PAR_RANKS processes of this script on the one
+    card (par_rank_main), their lines relayed, every verdict asserted.
+    Returns {kernel: launches summed over the ranks} and the per-rank
+    counts."""
+    from aerial_gym_simulator_tpu_torch.parallel import multiproc
+    t_all = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        port_ = multiproc.free_port()
+        argvs = [[sys.executable, os.path.abspath(__file__), "--parallel-rank", str(r),
+                  "--coordinator", f"127.0.0.1:{port_}", "--work", work, "--card", card]
+                 for r in range(PAR_RANKS)]
+        rcs, outputs = multiproc.spawn(argvs, PAR_TIMEOUT, env=multiproc.worker_env(threads=2))
+    out = parallel_report(rcs, outputs, card, navppo_check)
+    log(f"parallel: phase 16 {time.perf_counter() - t_all:.1f} s | {card}")
+    return out
+
+
+def parallel_report(rcs, outputs, card, navppo_check):
+    """The ranks' lines relayed and their verdicts asserted -> (launches
+    summed over the ranks by kernel, each rank's launches by part)."""
+    for r, (code, text) in enumerate(zip(rcs, outputs)):
+        for line in text.splitlines():
+            if not line.startswith(("PAR_RANK ", "PAR_SUMMARY ")):
+                log(f"  [rank {r}] {line}")
+        if code != 0:
+            raise AssertionError(f"parallel: rank {r} exited {code}")
+    ranks = [json.loads(next(x for x in text.splitlines() if x.startswith("PAR_RANK "))[9:])
+             for text in outputs]
+    summary = json.loads(next(x for x in outputs[0].splitlines()
+                              if x.startswith("PAR_SUMMARY "))[12:])
+    log(f"parallel: backend {summary['backend']} ({PAR_RANKS} processes on one card); a global "
+        f"sum over the ranks {summary['a_global_sum']:.0f}")
+    steps = PAR_NAV_ITERATIONS * int(NAVPPO_ARGS[NAVPPO_ARGS.index("--horizon") + 1])
+    for r in ranks:
+        lb, lc, le = r["launches"]["b navppo"], r["launches"]["c lidarnav"], r["launches"]["e tp_vit"]
+        log(f"parallel: rank {r['rank']} launches: navppo K1 {lb['raycast_depth']} K5 "
+            f"{lb['attention_fwd']}, lidarnav K1 {lc['raycast_depth']}, tensor-parallel ViT K5 "
+            f"{le['attention_fwd']}; seconds "
+            + ", ".join(f"{k} {v:.1f}" for k, v in r["seconds"].items()))
+        log(f"parallel: rank {r['rank']} memory on its allocator (GB, peak / held after): "
+            + ", ".join(f"{k} {v:.3f}" if v is not None else f"{k} not measured"
+                        for k, v in r["memory_gb"].items())
+            + f" | {card}")
+        want = {"b navppo": {"raycast_depth": steps, "attention_fwd": 4 * steps},
+                "c lidarnav": {"raycast_depth": PAR_LIDAR_HORIZON, "attention_fwd": 0},
+                "e tp_vit": {"raycast_depth": 0, "attention_fwd": 4}}
+        for part, kernels in want.items():
+            got = r["launches"][part]
+            if any(got[k] != kernels.get(k, 0) for k in got):
+                raise AssertionError(f"parallel: rank {r['rank']} {part} launches {got}, "
+                                     f"expected {kernels} and no other kernel")
+    one_rank = navppo_check.get("s_per_iteration") if navppo_check else None
+    log(f"parallel: b navppo {NAV_ENVS} envs over {PAR_RANKS} ranks: s/iteration "
+        + ", ".join(f"{x:.3f}" for x in summary["b_s_per_iteration"])
+        + (" (phase 9, one rank, this run: " + ", ".join(f"{x:.3f}" for x in one_rank) + ")"
+           if one_rank else "")
+        + f", reward {summary['b_reward']}; learner identical across ranks "
+        f"{summary['b_learner_identical']}; {PAR_DRAW_STEPS} steps against one rank: depth "
+        f"images bit-equal {summary['b_depth_bit_equal']}, the observations' state columns "
+        f"bit-equal {summary['b_obs_state_bit_equal']}, their bf16 ViT latents within "
+        f"{summary['b_latent_max_err']:.3g} (bar {PAR_LATENT_TOL}) | {card}")
+    log(f"parallel: c lidarnav 2 x {PAR_LIDAR_ENVS // 2} envs, learner identical "
+        f"{summary['c_learner_identical']}; d checkpoint {summary['d_checkpoint_mb']:.2f} MB from "
+        f"2 ranks into 1: learner bit-equal {summary['d_learner_bit_equal']}, carry equal "
+        f"{summary['d_carry_equal']}; e tensor-parallel ViT ({summary['e_heads_per_rank']} heads a "
+        f"rank, batch {PAR_TP_BATCH}, f32) max err {summary['e_max_err']:.3g} (bar {PAR_TP_TOL}), "
+        f"{summary['e_ms']['tensor_parallel']:.1f} ms against {summary['e_ms']['whole']:.1f} ms "
+        f"whole; f population {PAR_POP['num_seeds']} x {PAR_POP['num_envs']} (members "
+        f"{summary['f_local_members']} on rank 0) bit-equal to the unsharded one "
+        f"{summary['f_members_bit_equal']}, {summary['f_env_steps_per_s']:.1f} env-steps/s | {card}")
+    g = summary["g"]
+    log(f"parallel: g the rehearsals' legs in the ranks' processes (position PPO, horizon "
+        f"{PAR_REHEARSAL['horizon']}, {PAR_REHEARSAL['timed_iters']} timed iterations; the ranks "
+        f"share one card: harness checks, not efficiencies): {PAR_RANKS} ranks x "
+        f"{g['envs_per_process']} envs {g['two_ranks']:.1f} env-steps/s; one rank "
+        f"{g['envs_per_process']} envs {g['one_rank_weak']:.1f} (weak ratio "
+        f"{g['two_ranks'] / (PAR_RANKS * g['one_rank_weak']):.4f}), one rank "
+        f"{PAR_RANKS * g['envs_per_process']} envs {g['one_rank_strong']:.1f} (strong ratio "
+        f"{g['two_ranks'] / g['one_rank_strong']:.4f}) | {card}")
+    checks = {"b_learner_identical": summary["b_learner_identical"],
+              "b_depth_bit_equal": summary["b_depth_bit_equal"],
+              "b_obs_state_bit_equal": summary["b_obs_state_bit_equal"],
+              "b_latents_close": summary["b_latents_close"],
+              "c_learner_identical": summary["c_learner_identical"],
+              "d_learner_bit_equal": summary["d_learner_bit_equal"],
+              "d_carry_equal": summary["d_carry_equal"],
+              "e_tp": summary["e_max_err"] <= PAR_TP_TOL and summary["e_heads_per_rank"] == 4,
+              "f_members_bit_equal": summary["f_members_bit_equal"],
+              "g_rates": all(g[k] > 0 for k in ("two_ranks", "one_rank_weak",
+                                                 "one_rank_strong"))}
+    if not all(checks.values()):
+        raise AssertionError(f"parallel: failed {[k for k, v in checks.items() if not v]}")
+    totals = {}
+    for r in ranks:
+        for part in r["launches"].values():
+            for k, v in part.items():
+                totals[k] = totals.get(k, 0) + v
+    return totals, [r["launches"] for r in ranks]
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent-attention", metavar="FILE",
                     help="another attention.cu (the parent commit's): its bf16 serving kernel "
                          "is built beside the shipped one and timed with it in turns")
+    # phase 16 starts this script again as each of its ranks
+    ap.add_argument("--parallel-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--coordinator", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--work", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--card", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
+    if args.parallel_rank is not None:
+        return par_rank_main(args.parallel_rank, args.coordinator, args.work, args.card)
     import aerial_gym_simulator_tpu_torch as port
     from aerial_gym_simulator_tpu_torch.ops import attention_cuda as ac
     from aerial_gym_simulator_tpu_torch.ops import raycast_cuda as rc
@@ -4106,6 +4518,16 @@ def main(argv=None) -> int:
     records[0]["launches_differentiable_path"] = diff_launches["raycast_depth"]
     records[0][f"at_{DIFF_ENVS}x{135 * 240}_differentiable"] = k1_diff
     records[0]["max_abs_err"] = max(records[0]["max_abs_err"], k1_diff["max_abs_err"])
+
+    log(f"elapsed {time.perf_counter() - t_run:.1f} s: phase 16 parallel")
+    # 16. multi-process training: two ranks on the card, K1 and K5 in each
+    #     rank's rollout and in the tensor-parallel ViT
+    par_totals, par_per_rank = parallel_phase(torch, rc, ac, card, navppo_check)
+    for rec, name in ((records[0], "raycast_depth"), (records[2], "attention_fwd")):
+        rec["launches"] += par_totals[name]
+        rec["launches_parallel_path"] = par_totals[name]
+        rec["launches_parallel_path_per_rank"] = [
+            {part: c[name] for part, c in r.items()} for r in par_per_rank]
 
     log(f"elapsed {time.perf_counter() - t_run:.1f} s: all phases")
     log(json.dumps({"kernels": records + mode_records}))

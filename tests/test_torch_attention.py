@@ -34,6 +34,18 @@ from aerial_gym_simulator_tpu_torch.ops import attention_cuda as ac
 from aerial_gym_simulator_tpu_torch.ops.attention import (attention_lse_reference,
                                                          attention_reference)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def single_torch_thread():
+    """These tests run many eager ops on small tensors; torch's intra-op
+    threads buy them little and, when several test workers share the cores,
+    their spinning costs minutes. One thread while this module runs."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 CASES = [
     pytest.param((2, 17, 128, 4), "float32", 1e-5, id="f32-2x17x128-h4"),
     pytest.param((1, 225, 128, 4), "float32", 1e-5, id="f32-1x225x128-h4"),

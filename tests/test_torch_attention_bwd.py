@@ -35,6 +35,18 @@ from aerial_gym_simulator_tpu_torch.ops import attention_cuda as ac
 from aerial_gym_simulator_tpu_torch.ops.attention import (
     attention_backward_reference, attention_lse_reference, attention_reference)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def single_torch_thread():
+    """These tests run many eager ops on small tensors; torch's intra-op
+    threads buy them little and, when several test workers share the cores,
+    their spinning costs minutes. One thread while this module runs."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 # (B, S, D, heads): the shapes of tests/test_attention_pallas.py
 SHAPES = [
     pytest.param((2, 128, 64, 2), id="2x128x64-h2"),       # no padding on the TPU

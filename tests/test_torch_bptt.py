@@ -361,12 +361,14 @@ def test_act_is_bounded_by_the_action_scale():
     assert a.shape == (8, 4) and a.abs().max().item() <= 0.5 + 1e-6
 
 
-def test_command_line(capsys):
+def test_command_line(capsys, monkeypatch):
+    for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
     trainer = t_bptt.main(["--cpu", "--num_envs", "8", "--horizon", "3", "--iters", "2"])
     assert trainer.best_ema is not None and np.isfinite(trainer.best_ema)
     assert "final task reward" in capsys.readouterr().out
-    for flag in ("--multichip", "--multihost"):
-        with pytest.raises(SystemExit) as e:
-            t_bptt.parse_args([flag])
-        assert e.value.code == 2
-        assert "ROADMAP.md §A item 9" in capsys.readouterr().err
+    # outside a process group --multihost is refused and --multichip is a
+    # world of one (the sharded command line: tests/test_torch_parallel.py)
+    assert t_bptt.parse_args(["--multichip"]).multichip
+    with pytest.raises(RuntimeError, match="no coordinator"):
+        t_bptt.main(["--cpu", "--multihost", "--num_envs", "8", "--iters", "1"])

@@ -40,6 +40,18 @@ from aerial_gym_simulator_tpu_torch.sim.convert import (
     params_from_numpy, record_to_numpy, state_from_numpy)
 from aerial_gym_simulator_tpu_torch.sim.params import build_sim_params as t_build_sim_params
 
+
+@pytest.fixture(autouse=True, scope="module")
+def single_torch_thread():
+    """These tests run many eager ops on small tensors; torch's intra-op
+    threads buy them little and, when several test workers share the cores,
+    their spinning costs minutes. One thread while this module runs."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 N = 8
 NAMES = ("base_sim", "env_with_obstacles", "base_quadrotor_with_camera",
          "lee_velocity_control")

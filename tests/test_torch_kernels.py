@@ -38,6 +38,18 @@ from aerial_gym_simulator_tpu_torch.sensors.raycast_sensor import (
     camera_ray_dirs, lidar_ray_dirs)
 from aerial_gym_simulator_tpu_torch.utils.math import quat_to_rotation_matrix
 
+
+@pytest.fixture(autouse=True, scope="module")
+def single_torch_thread():
+    """These tests run many eager ops on small tensors; torch's intra-op
+    threads buy them little and, when several test workers share the cores,
+    their spinning costs minutes. One thread while this module runs."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 DEPTH_ATOL = 2e-3
 SEG_AGREE = 0.999
 MAX_RANGE = 12.0
@@ -1016,3 +1028,37 @@ def test_raycast_depth_diff_forward_is_k1_and_gradients_finite(cuda_device):
     for p in poses:
         assert torch.isfinite(p.grad).all()
     assert poses[0].grad.abs().max().item() > 0.0
+
+
+@pytest.mark.cuda
+def test_a_block_of_envs_steps_and_renders_as_in_the_whole_batch(cuda_device):
+    """The draw rule's premise on the card: a 512-env block of the obstacle
+    env, stepped and rendered on its own (generator told of the block, the
+    scene's per-env tables cut to it), equals the same rows of the 1,024-env
+    batch bit for bit. The two small products whose GEMM kernel, and so
+    rounding, follows the row count run row by row (utils/math.rowwise_matmul)."""
+    from aerial_gym_simulator_tpu_torch.parallel import mesh as meshlib
+    from aerial_gym_simulator_tpu_torch.sensors.raycast_sensor import render_camera
+    from aerial_gym_simulator_tpu_torch.sim import dynamics
+
+    names = ("base_sim", "env_with_obstacles", "base_quadrotor_with_camera",
+             "lee_velocity_control")
+    whole = port.SimBuilder().build_env(*names, num_envs=1024, seed=3)
+    block = port.SimBuilder().build_env(*names, num_envs=1024, seed=3)
+    shard = meshlib.EnvShard(1, 2, 512, 512, 1024)
+    meshlib.shard_params_(block.params, shard)
+    state = meshlib.shard_env_pytree(block.state, shard, 1024)
+    meshlib.register_generators(state, shard)
+    rows = slice(512, 1024)
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(0)
+    full_state = whole.state
+    for _ in range(3):
+        action = torch.rand((1024, 4), generator=g, device=cuda_device) * 2 - 1
+        full_state = dynamics.env_step(whole.params, full_state, action)
+        state = dynamics.env_step(block.params, state, action[rows])
+    for name in ("pos", "quat", "linvel", "angvel", "motor_thrust"):
+        assert torch.equal(getattr(full_state, name)[rows], getattr(state, name)), name
+    d_whole, _ = render_camera(whole.params, full_state, want_seg=False)
+    d_block, _ = render_camera(block.params, state, want_seg=False)
+    assert torch.equal(d_whole[rows], d_block)

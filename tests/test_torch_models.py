@@ -41,6 +41,18 @@ from aerial_gym_simulator_tpu_torch.sim.convert import (
     load_encoder_pickle, vae_encoder_from_flax, vit_encoder_from_flax)
 from aerial_gym_simulator_tpu_torch.sim2real.policy import MLPPolicy, load_policy_npz
 
+
+@pytest.fixture(autouse=True, scope="module")
+def single_torch_thread():
+    """These tests run many eager ops on small tensors; torch's intra-op
+    threads buy them little and, when several test workers share the cores,
+    their spinning costs minutes. One thread while this module runs."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 NET = os.path.join(os.path.dirname(__file__), "..", "examples", "dce_rl_navigation",
                    "selected_network")
 VIT_ENC = os.path.join(NET, "vit_depth_encoder.pkl")

@@ -29,6 +29,18 @@ from aerial_gym_simulator_tpu_torch.ops import raycast_cuda as rc
 from aerial_gym_simulator_tpu_torch.sim.convert import (
     params_from_numpy, record_to_numpy, state_from_numpy)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def single_torch_thread():
+    """These tests run many eager ops on small tensors; torch's intra-op
+    threads buy them little and, when several test workers share the cores,
+    their spinning costs minutes. One thread while this module runs."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 DEPTH_ATOL = 2e-3
 SEG_AGREE = 0.999
 
@@ -80,6 +92,13 @@ def _jax_oracle(jp, js, dirs, max_range=10.0):
     return np.asarray(t), np.asarray(s)
 
 
+@pytest.fixture(scope="module")
+def jax_oracle(scene):
+    """The JAX oracle's (depth, seg) on the scene's rays, computed once for
+    the tests that hold a port version to it."""
+    return _jax_oracle(scene["jp"], scene["js"], scene["dirs"])
+
+
 def _assert_match(depth, seg, t_ref, s_ref):
     np.testing.assert_allclose(depth, t_ref, atol=DEPTH_ATOL, rtol=0)
     hit = t_ref < j_oracle.NO_HIT_RAY_VAL * 0.9
@@ -90,14 +109,14 @@ def _assert_match(depth, seg, t_ref, s_ref):
 
 
 @pytest.mark.parametrize("want_seg", [True, False])
-def test_reference_matches_jax_oracle(scene, want_seg):
+def test_reference_matches_jax_oracle(scene, jax_oracle, want_seg):
     ones = torch.ones(scene["dirs"].shape[0])
     depth, seg = rc.raycast_reference(scene["pose"], scene["prims"],
                                       torch.from_numpy(scene["dirs"]), ones,
                                       *scene["counts"], 10.0, want_seg=want_seg,
                                       n_tri=scene["n_tri"])
     assert (seg is None) == (not want_seg)
-    t_ref, s_ref = _jax_oracle(scene["jp"], scene["js"], scene["dirs"])
+    t_ref, s_ref = jax_oracle
     _assert_match(depth.numpy(), None if seg is None else seg.numpy(), t_ref, s_ref)
 
 
@@ -122,14 +141,14 @@ def test_reference_matches_pallas_interpret(scene, want_seg):
         assert seg is None and s_pal is None
 
 
-def test_port_oracle_matches_jax_oracle(scene):
+def test_port_oracle_matches_jax_oracle(scene, jax_oracle):
     """ops/raycast.raycast_batched (asset-frame formulation) vs JAX's."""
     ts, dirs = scene["ts"], scene["dirs"]
     from aerial_gym_simulator_tpu_torch.utils.math import quat_rotate
     rd = quat_rotate(ts.quat[:, None, :], torch.from_numpy(dirs)[None])
     t, s = t_oracle.raycast_batched(scene["tp"].scene, ts.obstacle_pos, ts.obstacle_quat,
                                     ts.pos, rd, 10.0)
-    t_ref, s_ref = _jax_oracle(scene["jp"], scene["js"], dirs)
+    t_ref, s_ref = jax_oracle
     _assert_match(t.numpy(), s.numpy(), t_ref, s_ref)
 
 

@@ -40,6 +40,18 @@ from aerial_gym_simulator_tpu_torch.sim.convert import (
     params_from_numpy, record_to_numpy, state_from_numpy)
 from aerial_gym_simulator_tpu_torch.utils.math import quat_rotate
 
+
+@pytest.fixture(autouse=True, scope="module")
+def single_torch_thread():
+    """These tests run many eager ops on small tensors; torch's intra-op
+    threads buy them little and, when several test workers share the cores,
+    their spinning costs minutes. One thread while this module runs."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 MAX_RANGE = 4.0
 DEPTH_ATOL = 2e-3
 FACE_AGREE = 0.995

@@ -39,6 +39,18 @@ from aerial_gym_simulator_tpu_torch.envs import scene as t_scene
 from aerial_gym_simulator_tpu_torch.registry.registries import env_config_registry as t_env_reg
 from aerial_gym_simulator_tpu_torch.sim.convert import record_to_numpy, state_from_numpy
 
+
+@pytest.fixture(autouse=True, scope="module")
+def single_torch_thread():
+    """These tests run many eager ops on small tensors; torch's intra-op
+    threads buy them little and, when several test workers share the cores,
+    their spinning costs minutes. One thread while this module runs."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 N = 8
 ASSET_PARAMS = ("thin_asset_params", "tile_asset_params", "tree_asset_params",
                 "dynamic_object_asset_params")

@@ -38,6 +38,18 @@ from aerial_gym_simulator_tpu_torch.sim.convert import (
 from aerial_gym_simulator_tpu_torch.sim.params import build_sim_params as t_build_sim_params
 from aerial_gym_simulator_tpu_torch.sim.structs import replace
 
+
+@pytest.fixture(autouse=True, scope="module")
+def single_torch_thread():
+    """These tests run many eager ops on small tensors; torch's intra-op
+    threads buy them little and, when several test workers share the cores,
+    their spinning costs minutes. One thread while this module runs."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 N = 3
 CAM = dict(height=12, width=32, max_range=4.0)       # 4 m leaves hits and misses
 LIDAR = dict(height=8, width=64, max_range=4.0)

@@ -251,6 +251,20 @@ def test_scan_covers_the_differentiable_slice():
         assert module in scanned, module
 
 
+PARALLEL_MODULES = ("parallel/mesh.py", "parallel/distributed.py", "parallel/multiproc.py",
+                    "parallel/scaling.py", "parallel/dryrun.py", "utils/env_rng.py")
+
+
+def test_scan_covers_the_parallel_slice():
+    """The scan reads every module of multi-process training: the mesh, the
+    sharding of the trainers, the cluster and scaling harnesses, the dry
+    run and the draw rule, with the trainers and the ViT they shard."""
+    scanned = {str(p.relative_to(PKG)) for p in _sources() if PKG in p.parents}
+    for module in PARALLEL_MODULES + ("rl/ppo.py", "rl/bptt.py", "rl/population.py",
+                                      "models/vit.py"):
+        assert module in scanned, module
+
+
 def test_scene_compiler_is_built_lazily():
     """Importing the loader builds nothing: the host compiler runs at the
     first compile call (the tests here import every module)."""
@@ -303,7 +317,7 @@ def _module_name(path: str) -> str:
 def test_importing_every_module_loads_no_jax():
     wanted = ("tasks.lidar_navigation_task", "rl.ppo", "rl.networks", "sim2real.policy") + tuple(
         _module_name(m) for m in PLUMBING_MODULES + ARTICULATED_MODULES + SCENE_MODULES
-        + DIFFERENTIABLE_MODULES)
+        + DIFFERENTIABLE_MODULES + PARALLEL_MODULES)
     code = (
         "import importlib, pkgutil, sys\n"
         "import aerial_gym_simulator_tpu_torch as p\n"

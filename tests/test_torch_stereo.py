@@ -35,6 +35,18 @@ from aerial_gym_simulator_tpu_torch.sensors import raycast_sensor as t_rs
 from aerial_gym_simulator_tpu_torch.sim.convert import record_to_numpy, state_from_numpy
 from aerial_gym_simulator_tpu_torch.sim.structs import replace
 
+
+@pytest.fixture(autouse=True, scope="module")
+def single_torch_thread():
+    """These tests run many eager ops on small tensors; torch's intra-op
+    threads buy them little and, when several test workers share the cores,
+    their spinning costs minutes. One thread while this module runs."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 DEPTH_ATOL = 2e-3
 SEG_AGREE = 0.999
 N = 4

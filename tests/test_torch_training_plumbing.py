@@ -328,11 +328,19 @@ def test_cli_trains_saves_and_logs(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", ["--multichip", "--multihost"])
-def test_cli_refuses_multi_device_training(flag, capsys):
-    with pytest.raises(SystemExit) as e:
-        t_ppo.parse_args(CLI + [flag])
-    assert e.value.code == 2
-    assert "ROADMAP.md §A item 9" in capsys.readouterr().err
+def test_cli_refuses_multi_device_training(flag, monkeypatch):
+    """Outside a process group: --multichip trains as a world of one (the
+    unsharded trainer), --multihost is refused (no coordinator). The sharded
+    runs are in tests/test_torch_parallel.py."""
+    for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    args = t_ppo.parse_args(CLI + [flag])
+    if flag == "--multihost":
+        with pytest.raises(RuntimeError, match="no coordinator"):
+            t_ppo.build_trainer(args)
+        return
+    task, trainer = t_ppo.build_trainer(args)
+    assert trainer.shard is None and trainer.env_carry.pos.shape[0] == 16
 
 
 def test_cli_task_kv(capsys):
