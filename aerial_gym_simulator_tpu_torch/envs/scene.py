@@ -27,7 +27,7 @@ CULL_POSITION = -1000.0
 
 
 def build_scene_params(env_cfg, num_envs: int, device, max_prims: int = 16,
-                       seed: int = 1234) -> SceneParams:
+                       seed: int = 1234, shard=None) -> SceneParams:
     """Compile the env's asset catalog into device tables.
 
     Takes the same random draws, in the same order, as the JAX builder and
@@ -37,6 +37,12 @@ def build_scene_params(env_cfg, num_envs: int, device, max_prims: int = 16,
     variant, compiled by the native batch loader (each variant keeps its
     first ``max_prims`` primitives: pass a larger ``max_prims`` for a whole
     mesh).
+
+    ``shard`` (a ``parallel.mesh.EnvShard`` of ``num_envs`` global envs)
+    keeps this rank's rows of the per-env tables: the draws and the padded
+    widths are the global ones, the soup is assembled for the block alone,
+    and only the block goes to the device, so the tables equal the rows of
+    the whole build.
     """
     asset_types = getattr(env_cfg, "asset_types", [])
     variants_urdf: List[str] = []        # URDF text, or None for a file's model
@@ -112,13 +118,16 @@ def build_scene_params(env_cfg, num_envs: int, device, max_prims: int = 16,
     # padded to its max count across envs; within a kind, slot then prim
     # order. Padding prims keep their kind, zero size, at CULL_POSITION.
     kinds = prim_kind[env_asset_variant]                       # (N, A, P)
-    e_idx, a_idx, p_idx = np.nonzero(kinds >= 0)               # row-major order
-    v_idx = env_asset_variant[e_idx, a_idx]
-    k_idx = kinds[e_idx, a_idx, p_idx]
-    counts = np.zeros((4, num_envs), np.int64)
-    np.add.at(counts, (k_idx, e_idx), 1)
+    counts = np.stack([(kinds == k).sum(axis=(1, 2)) for k in range(4)])   # (4, N)
     kind_max = counts.max(axis=1) if num_envs > 0 else np.zeros(4, np.int64)
     offsets = np.concatenate([[0], np.cumsum(kind_max)[:-1]])
+    lo, n_rows = (0, num_envs) if shard is None else (shard.offset, shard.n_local)
+    if shard is not None and shard.n_global != num_envs:
+        raise ValueError(f"shard of {shard.n_global} envs for a scene of {num_envs}")
+    rows = slice(lo, lo + n_rows)
+    e_idx, a_idx, p_idx = np.nonzero(kinds[rows] >= 0)         # row-major order
+    v_idx = env_asset_variant[rows][e_idx, a_idx]
+    k_idx = kinds[rows][e_idx, a_idx, p_idx]
     col = np.zeros_like(e_idx)
     for k in range(4):
         sel = np.nonzero(k_idx == k)[0]
@@ -130,12 +139,12 @@ def build_scene_params(env_cfg, num_envs: int, device, max_prims: int = 16,
     P_env = max(int(kind_max.sum()), 1)
     col_kind = np.repeat(np.arange(4, dtype=np.int32), kind_max)
     ep_kind = np.tile(col_kind if len(col_kind) else -np.ones(1, np.int32),
-                      (num_envs, 1))
-    ep_slot = np.zeros((num_envs, P_env), np.int64)
-    ep_size = np.zeros((num_envs, P_env, 3), np.float32)
-    ep_pos = np.full((num_envs, P_env, 3), CULL_POSITION, np.float32)
-    ep_rot = np.tile(np.eye(3, dtype=np.float32), (num_envs, P_env, 1, 1))
-    ep_sem = np.zeros((num_envs, P_env), np.int32)
+                      (n_rows, 1))
+    ep_slot = np.zeros((n_rows, P_env), np.int64)
+    ep_size = np.zeros((n_rows, P_env, 3), np.float32)
+    ep_pos = np.full((n_rows, P_env, 3), CULL_POSITION, np.float32)
+    ep_rot = np.tile(np.eye(3, dtype=np.float32), (n_rows, P_env, 1, 1))
+    ep_sem = np.zeros((n_rows, P_env), np.int32)
     ep_slot[e_idx, col] = a_idx
     ep_size[e_idx, col] = prim_size[v_idx, p_idx]
     ep_pos[e_idx, col] = prim_pos[v_idx, p_idx]
@@ -162,7 +171,7 @@ def build_scene_params(env_cfg, num_envs: int, device, max_prims: int = 16,
         prim_rot=t(prim_rot),
         prim_semantic=i32(prim_semantic),
         variant_radius=t(variant_radius),
-        env_asset_variant=i32(env_asset_variant),
+        env_asset_variant=i32(env_asset_variant[rows]),
         min_state_ratio=t(np.asarray(slots_min, np.float32).reshape(A, 13)),
         max_state_ratio=t(np.asarray(slots_max, np.float32).reshape(A, 13)),
         keep_in_env=t(slots_keep),
@@ -173,7 +182,7 @@ def build_scene_params(env_cfg, num_envs: int, device, max_prims: int = 16,
         env_prim_pos=t(ep_pos),
         env_prim_rot=t(ep_rot),
         env_prim_semantic=i32(ep_sem),
-        cull_rank=i32(cull_rank),
+        cull_rank=i32(cull_rank[rows]),
         num_assets=A,
         max_prims=P,
         num_env_prims=P_env,

@@ -2,12 +2,13 @@
 
 Counterpart of ``aerial_gym_simulator_tpu/parallel/distributed.py``. Call
 ``initialize_multihost`` once at process start in every process (torchrun
-sets the variables it reads); afterwards ``shard_trainer`` /
-``shard_bptt_trainer`` cut a trainer built at the global env count down to
-this rank's block of the env axis and replicate its learner from the first
-rank. The trainers then make every reduction over the env axis global
-(``rl/ppo.py``, ``rl/bptt.py``): a W-rank run equals the one-rank run up to
-the order of float sums.
+sets the variables it reads). Then either build the task at this rank's
+block (``env_block``, then ``make_task(..., shard=)``), which a trainer
+built on it takes up, or build it whole and let ``shard_trainer`` /
+``shard_bptt_trainer`` cut the trainer down to the block; either way the
+learner is replicated from the first rank. The trainers then make every
+reduction over the env axis global (``rl/ppo.py``, ``rl/bptt.py``): a W-rank
+run equals the one-rank run up to the order of float sums.
 
 The backend is chosen by rule, never by trial: NCCL when each rank owns its
 own GPU, gloo on the CPU and when several ranks share one card (NCCL refuses
@@ -98,21 +99,34 @@ def _broadcast_learner(module: torch.nn.Module, optimizer, src) -> None:
 
 def shard_ppo_trainer(trainer, shard: meshlib.EnvShard) -> None:
     """Place one PPOTrainer on ``shard``: its task, env carry and
-    observation cut to the block, every generator told of it, the learner
-    and normalizer broadcast from the shard's root."""
+    observation cut to the block (unless the task was built at it), every
+    generator told of it, the learner and normalizer broadcast from the
+    shard's root. A trainer already on ``shard`` is left as it is."""
     n = trainer.cfg.num_envs
     if shard.n_global != n:
         raise ValueError(f"shard of {shard.n_global} envs for a trainer of {n}")
-    meshlib.shard_task(trainer.task, shard)
-    trainer.env_carry = meshlib.shard_env_pytree(trainer.env_carry, shard, n)
-    trainer.obs = meshlib.shard_env_pytree(trainer.obs, shard, n)
+    if trainer.shard == shard:
+        return
+    if getattr(trainer.task, "shard", None) != shard:
+        meshlib.shard_task(trainer.task, shard)
+        trainer.env_carry = meshlib.shard_env_pytree(trainer.env_carry, shard, n)
+        trainer.obs = meshlib.shard_env_pytree(trainer.obs, shard, n)
+        if hasattr(trainer.task, "set_carry"):
+            trainer.task.set_carry(trainer.env_carry[0] if trainer.cfg.rnn
+                                   else trainer.env_carry)
     meshlib.register_generators(trainer.env_carry, shard)
     set_shard(trainer.generator, shard)
-    if hasattr(trainer.task, "set_carry"):
-        trainer.task.set_carry(trainer.env_carry[0] if trainer.cfg.rnn else trainer.env_carry)
     _broadcast_learner(trainer.network, trainer.optimizer, shard)
     meshlib.replicate_pytree(trainer.norm, shard)
     trainer.shard = shard
+
+
+def env_block(num_envs: int, n_devices: Optional[int] = None):
+    """This rank's block of a ``num_envs`` env axis over the mesh of
+    ``n_devices`` ranks, to build a task at (``make_task(..., shard=)``);
+    None in a world of one or outside the mesh."""
+    m = meshlib.make_mesh(n_devices)
+    return meshlib.env_sharding(m, num_envs) if m.size > 1 else None
 
 
 def shard_trainer(trainer, n_devices: Optional[int] = None) -> meshlib.Mesh:
@@ -130,22 +144,34 @@ def shard_trainer(trainer, n_devices: Optional[int] = None) -> meshlib.Mesh:
     return m
 
 
+def place_bptt_trainer(trainer, shard: meshlib.EnvShard) -> None:
+    """Place one BPTTTrainer on ``shard``, as ``shard_ppo_trainer`` does a
+    PPOTrainer: env carry and observation cut to the block unless the task
+    was built at it, policy and Adam replicated."""
+    n = trainer.cfg.num_envs
+    if shard.n_global != n:
+        raise ValueError(f"shard of {shard.n_global} envs for a trainer of {n}")
+    if trainer.shard == shard:
+        return
+    if getattr(trainer.task, "shard", None) != shard:
+        meshlib.shard_task(trainer.task, shard)
+        trainer.carry = meshlib.shard_env_pytree(trainer.carry, shard, n)
+        trainer.obs = meshlib.shard_env_pytree(trainer.obs, shard, n)
+        if hasattr(trainer.task, "set_carry"):
+            trainer.task.set_carry(trainer.carry)
+    meshlib.register_generators(trainer.carry, shard)
+    _broadcast_learner(trainer.policy, trainer.optimizer, shard)
+    trainer.shard = shard
+
+
 def shard_bptt_trainer(trainer, n_devices: Optional[int] = None) -> meshlib.Mesh:
     """The same for the first-order trainer (``rl/bptt.py``): env carry and
     observation sharded, policy and Adam replicated; its window losses are
     global means and its gradients all-reduced."""
     m = meshlib.make_mesh(n_devices)
-    n = trainer.cfg.num_envs
-    shard = meshlib.env_sharding(m, n)
+    shard = meshlib.env_sharding(m, trainer.cfg.num_envs)
     if m.size > 1 and shard is not None:
-        meshlib.shard_task(trainer.task, shard)
-        trainer.carry = meshlib.shard_env_pytree(trainer.carry, shard, n)
-        trainer.obs = meshlib.shard_env_pytree(trainer.obs, shard, n)
-        meshlib.register_generators(trainer.carry, shard)
-        if hasattr(trainer.task, "set_carry"):
-            trainer.task.set_carry(trainer.carry)
-        _broadcast_learner(trainer.policy, trainer.optimizer, shard)
-        trainer.shard = shard
+        place_bptt_trainer(trainer, shard)
     if meshlib.is_root():
         logger.info("bptt trainer over %d process(es) (env axis)", m.size)
     return m

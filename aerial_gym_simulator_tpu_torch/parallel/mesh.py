@@ -285,7 +285,10 @@ def shard_task(task, shard: EnvShard) -> None:
     """Cut a task built at the global env count down to this rank's block,
     in place: its SimParams' per-env tables, its env-batched attributes
     (targets, observations, its state records) and its env manager's, and
-    the generators those hold told of the shard."""
+    the generators those hold told of the shard. A task built at its block
+    (``make_task(..., shard=)``) is left as it is."""
+    if getattr(task, "shard", None) == shard:
+        return
     sim_env = getattr(task, "sim_env", None)
     seen = set()
     for owner in (task, sim_env):
@@ -301,3 +304,6 @@ def shard_task(task, shard: EnvShard) -> None:
     for name, value in vars(task).items():
         if name not in skip:
             register_generators(value, shard)
+    for owner in (task, sim_env):
+        if owner is not None:
+            owner.shard = shard

@@ -60,7 +60,9 @@ class TaskRegistry:
                   use_warp=None, task_config=None, **kwargs):
         """task_config overrides the registered config instance (pass a
         modified copy from get_task_config() for one-off customization);
-        ``device="cpu"`` in kwargs runs the task on the CPU."""
+        ``device="cpu"`` in kwargs runs the task on the CPU, and ``shard=``
+        (a ``parallel.mesh.EnvShard`` of ``num_envs`` global envs) builds
+        this rank's block of the env axis alone."""
         if task_name not in self._tasks:
             raise KeyError(
                 f"unknown task '{task_name}' (ROADMAP.md §A lists the tasks not "

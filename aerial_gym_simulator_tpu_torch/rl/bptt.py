@@ -55,6 +55,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .networks import _lecun_dense
 from ..parallel import mesh as meshlib
+from ..parallel.distributed import env_block, place_bptt_trainer
 from .ppo import add_multi_device_flags, init_multi_device, log_to_stdout
 
 logger = logging.getLogger("bptt")
@@ -170,7 +171,10 @@ class BPTTTrainer:
         how = {"fused": True} if self.device.type == "cuda" else {"foreach": False}
         self.optimizer = torch.optim.Adam(self.policy.parameters(), lr=cfg.lr, eps=1e-8, **how)
         self.best_ema = None
-        self.shard = None           # parallel/distributed.shard_bptt_trainer sets this rank's block
+        self.shard = None           # this rank's block: the task's, or shard_bptt_trainer's
+        if getattr(task, "shard", None) is not None:
+            # a task built at this rank's block (make_task(..., shard=))
+            place_bptt_trainer(self, task.shard)
 
     @property
     def params(self):
@@ -294,13 +298,11 @@ def main(argv=None):
     multi = init_multi_device(args)
     from ..registry.registries import task_registry
     task = task_registry.make_task(args.task, num_envs=args.num_envs, seed=args.seed,
-                                   device="cpu" if args.cpu else None)
+                                   device="cpu" if args.cpu else None,
+                                   shard=env_block(args.num_envs) if multi else None)
     cfg = BPTTConfig(num_envs=args.num_envs, horizon=args.horizon, iters=args.iters,
                      lr=args.lr, seed=args.seed)
-    trainer = BPTTTrainer(task, cfg)
-    if multi:
-        from ..parallel.distributed import shard_bptt_trainer
-        shard_bptt_trainer(trainer)
+    trainer = BPTTTrainer(task, cfg)        # on the task's block, if it has one
     hist = trainer.train()
     if not meshlib.is_root():
         return trainer

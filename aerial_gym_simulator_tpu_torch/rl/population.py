@@ -78,9 +78,13 @@ class PopulationTrainer:
     per-member initial learning rates (needs cfg.lr_schedule ==
     "adaptive", where the lr is state that PBT may perturb)."""
 
-    def __init__(self, task_factory: Callable[[int], object], cfg: PPOConfig, num_seeds: int,
+    def __init__(self, task_factory: Callable[..., object], cfg: PPOConfig, num_seeds: int,
                  seeds: Optional[Sequence[int]] = None,
-                 member_lrs: Optional[Sequence[float]] = None):
+                 member_lrs: Optional[Sequence[float]] = None, build: bool = True):
+        """``build=False`` defers the members to ``shard``, which builds only
+        this rank's (at their env blocks with ``env_devices`` > 1, where
+        ``task_factory(seed, shard)`` builds a task at an EnvShard); a world
+        of one then builds them all."""
         self.cfg = cfg
         self.seeds = (list(seeds) if seeds is not None
                       else [cfg.seed + i for i in range(num_seeds)])
@@ -94,36 +98,46 @@ class PopulationTrainer:
             if len(member_lrs) != num_seeds:
                 raise ValueError("len(member_lrs) != num_seeds")
         self.num_seeds = num_seeds
-        self.members = [PPOTrainer(task_factory(s), dataclasses.replace(cfg, seed=s))
-                        for s in self.seeds]
-        m0 = self.members[0]
+        self.task_factory, self.member_lrs = task_factory, member_lrs
+        self.members = [None] * num_seeds
+        self.last_metrics = None
+        self.local = list(range(num_seeds))   # the members this process trains
+        self.layout = None                     # set by shard()
+        if build:
+            self._build(self.local)
+
+    def _build(self, local, shard=None):
+        """Build members ``local`` (at ``shard``'s block when given)."""
+        for i in local:
+            s = self.seeds[i]
+            task = self.task_factory(s) if shard is None else self.task_factory(s, shard)
+            m = PPOTrainer(task, dataclasses.replace(self.cfg, seed=s))
+            if self.member_lrs is not None:
+                m.lr.fill_(float(self.member_lrs[i]))
+            self.members[i] = m
+        m0 = self.members[local[0]]
         self.task, self.network = m0.task, m0.network
         # the members' tasks must share their parameters: seeds randomize
         # state, parameters come from the config (as in the JAX package,
         # whose members run member 0's compiled step)
         p0 = getattr(m0.task, "params", None)
         if p0 is not None:
-            for m, s in zip(self.members[1:], self.seeds[1:]):
-                if not _same_params(p0, getattr(m.task, "params", None)):
+            for i in local[1:]:
+                if not _same_params(p0, getattr(self.members[i].task, "params", None)):
                     raise ValueError(
-                        f"task_factory({s}) built different SimParams than "
-                        f"task_factory({self.seeds[0]}): the population shares one step "
-                        f"function, so task params must be seed-independent (seed-dependent "
-                        f"randomization belongs in the state/reset path)")
-        if member_lrs is not None:
-            for m, lr in zip(self.members, member_lrs):
-                m.lr.fill_(float(lr))
-        self.last_metrics = None
-        self.local = list(range(num_seeds))   # the members this process trains
-        self.layout = None                     # set by shard()
+                        f"task_factory({self.seeds[i]}) built different SimParams than "
+                        f"task_factory({self.seeds[local[0]]}): the population shares one "
+                        f"step function, so task params must be seed-independent "
+                        f"(seed-dependent randomization belongs in the state/reset path)")
 
     def shard(self, n_devices: Optional[int] = None, env_devices: int = 1):
         """Deal the members out over the mesh of ``n_devices`` ranks (all by
         default), laid out as (population rows) x ``env_devices``: this rank
-        keeps the members of its row and drops the others; with
-        ``env_devices`` > 1 each kept member's env batch is sharded over its
-        row's ranks (a ``new_group`` each). Every rank must call it. ->
-        the mesh."""
+        trains the members of its row; with ``env_devices`` > 1 each such
+        member's env batch is sharded over its row's ranks (a ``new_group``
+        each). A population built with ``build=False`` builds only those
+        members, each at its env block; one built whole drops the others and
+        cuts the kept ones. Every rank must call it. -> the mesh."""
         mesh = meshlib.make_mesh(n_devices)
         n_devices = mesh.size
         if n_devices % env_devices:
@@ -137,7 +151,10 @@ class PopulationTrainer:
             raise ValueError(f"num_envs {self.cfg.num_envs} must be a multiple of env_devices "
                              f"{env_devices}")
         index = mesh.index()
+        built = self.members[0] is not None or self.layout is not None
         if index is None or n_devices == 1:
+            if not built:
+                self._build(self.local)
             return mesh
         rows = [mesh.ranks[r * env_devices:(r + 1) * env_devices] for r in range(pop_devices)]
         groups = [meshlib._dist().new_group(list(ranks)) if env_devices > 1 else None
@@ -145,16 +162,22 @@ class PopulationTrainer:
         row, col = divmod(index, env_devices)
         per_row = self.num_seeds // pop_devices
         self.local = list(range(row * per_row, (row + 1) * per_row))
-        for i in range(self.num_seeds):
-            if i not in self.local:
-                self.members[i].task.close()
-                self.members[i] = None
+        shard = None
         if env_devices > 1:
-            from ..parallel.distributed import shard_ppo_trainer
             offset, n = meshlib.block(self.cfg.num_envs, col, env_devices)
-            for i in self.local:
-                shard_ppo_trainer(self.members[i], meshlib.EnvShard(
-                    col, env_devices, offset, n, self.cfg.num_envs, groups[row], rows[row][0]))
+            shard = meshlib.EnvShard(col, env_devices, offset, n, self.cfg.num_envs,
+                                     groups[row], rows[row][0])
+        if not built:
+            self._build(self.local, shard)
+        else:
+            for i in range(self.num_seeds):
+                if i not in self.local:
+                    self.members[i].task.close()
+                    self.members[i] = None
+            if shard is not None:
+                from ..parallel.distributed import shard_ppo_trainer
+                for i in self.local:
+                    shard_ppo_trainer(self.members[i], shard)
         self.layout = {"mesh": mesh, "rows": rows, "row": row, "col": col,
                        "per_row": per_row}
         m0 = self.members[self.local[0]]
@@ -258,6 +281,8 @@ class PopulationTrainer:
         ``pbt_every`` iterations but the last. ``env_steps_per_s`` is the
         population's aggregate rate from the end of the first iteration."""
         cfg = self.cfg
+        if self.members[self.local[0]] is None:               # build=False, never sharded
+            self._build(self.local)
         steps_per_iter = cfg.num_envs * cfg.horizon           # per member
         iters = max((total_env_steps or cfg.total_env_steps) // steps_per_iter, 1)
         history, pbt_rng = [], np.random.default_rng(cfg.seed)
@@ -388,11 +413,11 @@ def main(argv=None):
         logger.info("lr population: %s", lrs)
     device = "cpu" if args.cpu else None
     pop = PopulationTrainer(
-        lambda s: task_registry.make_task(args.task, num_envs=args.num_envs, seed=s,
-                                          device=device),
-        cfg, num_seeds=args.num_seeds, member_lrs=lrs)
+        lambda s, shard=None: task_registry.make_task(args.task, num_envs=args.num_envs,
+                                                      seed=s, device=device, shard=shard),
+        cfg, num_seeds=args.num_seeds, member_lrs=lrs, build=not multi)
     if multi:
-        pop.shard(env_devices=args.env_devices)
+        pop.shard(env_devices=args.env_devices)     # builds this rank's members alone
     pop.train(pbt_every=args.pbt_every, pbt_fraction=args.pbt_fraction)
     best = pop.best_member()
     r = pop.last_metrics["reward_mean"]

@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from ..parallel import mesh as meshlib
+from ..parallel.distributed import env_block, initialize_multihost, shard_ppo_trainer
 from ..utils import checkpoint
 from ..utils.env_rng import set_shard
 from ..utils.metrics import MetricsWriter
@@ -333,7 +334,7 @@ class PPOTrainer:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.seed)
         self._iter = 0
-        self.shard = None           # parallel/distributed.shard_trainer sets this rank's block
+        self.shard = None           # this rank's block: the task's, or shard_trainer's
         self._act_h = None          # the recurrent act()'s hidden state
 
         self.step_fn, self.env_carry, self.obs = task.make_step_fn()
@@ -341,10 +342,11 @@ class PPOTrainer:
         batch = N * T
         if cfg.rnn == "gru":
             # the policy's hidden state and the episode-boundary mask ride
-            # in the env carry
+            # in the env carry (this rank's envs when the task is a block)
+            n = self.obs.shape[0]
             self.env_carry = (self.env_carry,
-                              torch.zeros((N, cfg.rnn_hidden), device=self.device),
-                              torch.zeros((N,), device=self.device))
+                              torch.zeros((n, cfg.rnn_hidden), device=self.device),
+                              torch.zeros((n,), device=self.device))
             # minibatches of whole env sequences
             self.mb_envs = max(min(cfg.minibatch_size // T, N), 1)
             self.n_minibatches = max(N // self.mb_envs, 1)
@@ -368,6 +370,9 @@ class PPOTrainer:
                 logger.warning("batch %d is not a multiple of minibatch_size %d: %d samples "
                                "are dropped from every epoch (a random subset per shuffle)",
                                batch, self.mb_size, batch - self.n_minibatches * self.mb_size)
+        if getattr(task, "shard", None) is not None:
+            # a task built at this rank's block (make_task(..., shard=))
+            shard_ppo_trainer(self, task.shard)
 
     @property
     def lr(self) -> torch.Tensor:
@@ -876,7 +881,6 @@ def init_multi_device(args) -> bool:
     -> whether sharding applies."""
     if not (args.multichip or args.multihost):
         return False
-    from ..parallel.distributed import initialize_multihost
     initialize_multihost(require=args.multihost, backend="gloo" if args.cpu else None)
     return True
 
@@ -917,15 +921,13 @@ def build_trainer(args: argparse.Namespace):
         setattr(task_config, k, v)
     task = task_registry.make_task(args.task, num_envs=args.num_envs, seed=args.seed,
                                    task_config=task_config,
-                                   device="cpu" if args.cpu else None)
+                                   device="cpu" if args.cpu else None,
+                                   shard=env_block(args.num_envs) if multi else None)
     cfg = PPOConfig(num_envs=args.num_envs, horizon=args.horizon,
                     minibatch_size=min(8192, args.num_envs * args.horizon),
                     total_env_steps=args.total_steps, seed=args.seed,
                     entropy_coef=args.entropy_coef, rnn=args.rnn, rnn_hidden=args.rnn_hidden)
-    trainer = PPOTrainer(task, cfg)
-    if multi:
-        from ..parallel.distributed import shard_trainer
-        shard_trainer(trainer)
+    trainer = PPOTrainer(task, cfg)         # on the task's block, if it has one
     return task, trainer
 
 

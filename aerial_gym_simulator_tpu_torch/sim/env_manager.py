@@ -20,6 +20,7 @@ import torch
 
 from ..control.controllers import compute_robot_obs
 from ..utils import checkpoint
+from ..utils.env_rng import set_shard
 from . import dynamics
 from .params import initial_state
 from .structs import SimParams, SimState, replace
@@ -61,7 +62,9 @@ class EnvManager:
     """Owns (params, state) and steps them."""
 
     def __init__(self, params: SimParams, seed: int = 0, sim_config=None,
-                 env_config=None, robot_config=None, controller_config=None):
+                 env_config=None, robot_config=None, controller_config=None, shard=None):
+        """``shard``: this rank's block of the env axis (``params`` built at
+        it); the state's generator draws by the shard from its first draw."""
         self.params = params
         self.device = params.device
         self.sim_config = sim_config
@@ -72,6 +75,8 @@ class EnvManager:
         self.num_robot_actions = params.controller.num_actions
         self.num_env_actions = params.env.num_env_actions
         self.state: SimState = initial_state(params, seed=seed)
+        self.shard = shard
+        set_shard(self.state.rng, shard)
         self.step_counter = 0
         self._py_rng = pyrandom.Random(seed)
         # the latest env actions (dynamic-obstacle twists)

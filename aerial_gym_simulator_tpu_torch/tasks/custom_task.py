@@ -46,7 +46,7 @@ class CustomTaskConfig:
 
 class CustomTask:
     def __init__(self, task_config: CustomTaskConfig, seed=None, num_envs=None,
-                 headless=None, device=None, use_warp=None):
+                 headless=None, device=None, use_warp=None, shard=None):
         if seed is not None:
             task_config.seed = seed
         if num_envs is not None:
@@ -58,8 +58,10 @@ class CustomTask:
         self.sim_env = SimBuilder().build_env(
             sim_name=task_config.sim_name, env_name=task_config.env_name,
             robot_name=task_config.robot_name, controller_name=task_config.controller_name,
-            device=task_config.device, num_envs=task_config.num_envs, seed=task_config.seed)
+            device=task_config.device, num_envs=task_config.num_envs, seed=task_config.seed,
+            shard=shard)
         self.num_envs = self.sim_env.num_envs
+        self.shard = shard          # this rank's block of the env axis, or None
         self.params = self.sim_env.params
         self.device = self.sim_env.device
         self.observation_space_dim = task_config.observation_space_dim

@@ -374,7 +374,7 @@ class LiDARNavigationTask(BaseTask):
     CUDA unless ``device="cpu"`` (argument or config) asks for the CPU."""
 
     def __init__(self, task_config: LidarNavigationTaskConfig, seed=None, num_envs=None,
-                 headless=None, device=None, use_warp=None):
+                 headless=None, device=None, use_warp=None, shard=None):
         if seed is not None:
             task_config.seed = seed
         if num_envs is not None:
@@ -387,8 +387,9 @@ class LiDARNavigationTask(BaseTask):
         self.sim_env = SimBuilder().build_env(
             sim_name=cfg.sim_name, env_name=cfg.env_name, robot_name=cfg.robot_name,
             controller_name=cfg.controller_name, device=cfg.device,
-            num_envs=cfg.num_envs, seed=cfg.seed)
+            num_envs=cfg.num_envs, seed=cfg.seed, shard=shard)
         self.num_envs = self.sim_env.num_envs
+        self.shard = shard          # this rank's block of the env axis, or None
         self.params = self.sim_env.params
         self.device = self.sim_env.device
         if self.params.lidar is None:

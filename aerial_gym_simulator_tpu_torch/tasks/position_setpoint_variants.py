@@ -37,7 +37,7 @@ from ..control.controllers import compute_robot_obs
 from ..sim import dynamics
 from ..sim.sim_builder import SimBuilder
 from ..sim.structs import SimParams, SimState, replace
-from ..utils.env_rng import env_randn
+from ..utils.env_rng import env_randn, set_shard
 from ..utils.math import (
     exp_func,
     exp_penalty_func,
@@ -462,7 +462,7 @@ class PositionSetpointTaskVariant(BaseTask):
     CONFIG = VariantTaskConfig
 
     def __init__(self, task_config: VariantTaskConfig, seed=None, num_envs=None,
-                 headless=None, device=None, use_warp=None):
+                 headless=None, device=None, use_warp=None, shard=None):
         _check_variant(task_config.variant)
         if seed is not None:
             task_config.seed = seed
@@ -477,8 +477,9 @@ class PositionSetpointTaskVariant(BaseTask):
         self.sim_env = SimBuilder().build_env(
             sim_name=cfg.sim_name, env_name=cfg.env_name, robot_name=cfg.robot_name,
             controller_name=cfg.controller_name, device=cfg.device,
-            num_envs=cfg.num_envs, seed=cfg.seed)
+            num_envs=cfg.num_envs, seed=cfg.seed, shard=shard)
         self.num_envs = self.sim_env.num_envs
+        self.shard = shard          # this rank's block of the env axis, or None
         self.params = self.sim_env.params
         self.device = self.sim_env.device
         self.observation_space_dim = cfg.observation_space_dim
@@ -536,6 +537,8 @@ class PositionSetpointTaskVariant(BaseTask):
         self._carry = VariantCarry(sim=self.sim_env.state, prev_action=zero_action, rng=rng)
         first = torch.Generator(device=self.device)
         first.manual_seed(0)
+        for g in (rng, first):          # a task on its block draws by its shard
+            set_shard(g, self.shard)
         self.task_obs["observations"] = _pack_obs(
             self.task_config, self.sim_env.state, zero_action, self.target_position,
             sample_variant_draws(first, self.num_envs, self.device))

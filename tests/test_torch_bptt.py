@@ -12,8 +12,10 @@ parameters after one update (clip + Adam) within 1e-5; remat against no
 remat 1e-6 with the generator's state equal.
 
 No learning run is made here: 800 BPTT iterations take minutes in eager
-torch on one CPU thread. chip_smoke.py trains at the JAX defaults on the
-card against tests/test_bptt.py's bar.
+torch on one CPU thread. tests/test_bptt.py holds the JAX trainer to its
+learning bar, and the window, gradient and update checks above hold the
+port to the JAX trainer; chip_smoke.py drives a few iterations at the JAX
+defaults on the card.
 """
 
 import dataclasses

@@ -1062,3 +1062,28 @@ def test_a_block_of_envs_steps_and_renders_as_in_the_whole_batch(cuda_device):
     d_whole, _ = render_camera(whole.params, full_state, want_seg=False)
     d_block, _ = render_camera(block.params, state, want_seg=False)
     assert torch.equal(d_whole[rows], d_block)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["follow_robot", "fixed"])
+def test_viewer_frame_is_k2_bit_equal(cuda_device, mode):
+    """The offline viewer's frame: K2 on env i's primitive rows and the
+    world-frame chase grid, one launch, depth and seg bit-equal to the plain
+    version on the same inputs; the frame is the colouring of them."""
+    from aerial_gym_simulator_tpu_torch.viewer import OfflineViewer
+
+    env = port.SimBuilder().build_env("base_sim", "env_with_obstacles", "base_quadrotor",
+                                      "lee_velocity_control", num_envs=64, seed=2)
+    env.step(torch.zeros((64, 4), device=cuda_device))
+    v = OfflineViewer(env.params, env_id=5, mode=mode,
+                      camera_position=(-1.0, 0.0, 0.4) if mode == "follow_robot"
+                      else (-1.5, 0.5, 0.6))
+    before = rc.LAUNCHES["raycast_seg"]
+    depth, seg = v.scene_hits(env.state)
+    torch.cuda.synchronize()
+    assert rc.LAUNCHES["raycast_seg"] == before + 1
+    *args, n_tri = v.cast_inputs(env.state)
+    ref_depth, ref_seg = rc.raycast_reference(*args, want_seg=True, n_tri=n_tri)
+    assert torch.equal(depth, ref_depth[0]) and torch.equal(seg, ref_seg[0])
+    img = v.render(env.state)
+    assert img.shape == (240, 320, 3) and img.dtype == np.uint8

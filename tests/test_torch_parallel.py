@@ -169,6 +169,36 @@ def test_sharded_navigation_rollout_is_the_unsharded_one(cluster):
     assert r["curriculum_level_equal"]
 
 
+# -- each rank built at its block ---------------------------------------------------------
+
+
+@pytest.mark.parametrize("task", ["position", "navigation"])
+def test_rank_built_at_its_block_is_the_cut_rank(cluster, task):
+    """make_task(..., shard=) against the task built whole and cut
+    (shard_trainer): the scene tables, the carry with its generator, the
+    observation and the trainer's generator at build, then the carry and
+    observations after steps, all bit-equal; the trainer takes up the
+    task's block and trains with its learner identical across ranks."""
+    b = cluster["block_build"][task]
+    assert b["unequal"] == {k: [] for k in ("params", "carry", "obs", "generator",
+                                            "stepped_carry", "stepped_obs")}, b["unequal"]
+    assert b["envs_per_rank"] == {"position": 8, "navigation": 2}[task]
+    assert b["scene_rows"] == {"position": None, "navigation": 2}[task]
+    assert b["trainer_shard"] and b["identical"] and b["finite"]
+
+
+def test_sharded_population_builds_only_local_members(cluster):
+    """A population built with build=False builds no member until shard(),
+    which builds this rank's (rank 0: members 0 and 1 of 4, seeds 3 and 4)
+    and they equal the same members of a population built whole; with
+    env_devices=2 each member is built at its env block."""
+    p = cluster["block_build"]["population"]
+    assert p["built_at_init"] == 0
+    assert p["built"] == [3, 4] and p["local"] == [0, 1] and p["members_none"] == [2, 3]
+    assert p["same_as_built_whole"]
+    assert p["env_devices_built"] == [3, 4] and p["env_devices_envs"] == [4, 4]
+
+
 def test_env_rand_keeps_this_ranks_rows():
     shard = meshlib.EnvShard(rank=1, world=2, offset=4, n_local=4, n_global=8)
     g, ref = torch.Generator(), torch.Generator()

@@ -191,3 +191,28 @@ def test_command_line(tmp_path, capsys):
         t_pop.parse_args(["--env_devices", "2"])
     assert e.value.code == 2 and "--multichip" in capsys.readouterr().err
     assert t_pop.parse_args(["--multichip", "--env_devices", "2"]).env_devices == 2
+
+
+@pytest.mark.parametrize("via", ["shard", "train"])
+def test_deferred_build_equals_the_whole_build(via):
+    """build=False builds no member at construction; in a world of one,
+    shard() (or train() itself) builds them all, and the population then
+    trains bit for bit as one built whole (member lrs included)."""
+    built = []
+
+    def factory(s):
+        built.append(s)
+        return _factory(s)
+
+    cfg = PPOConfig(**CFG)
+    pop = PopulationTrainer(factory, cfg, num_seeds=2, member_lrs=[1e-4, 1e-3], build=False)
+    assert built == [] and pop.members == [None, None]
+    if via == "shard":
+        assert pop.shard().size == 1 and built == [3, 4]
+    pop.train(total_env_steps=2 * 8 * 4, log_every=1)
+    ref = PopulationTrainer(_factory, cfg, num_seeds=2, member_lrs=[1e-4, 1e-3])
+    ref.train(total_env_steps=2 * 8 * 4, log_every=1)
+    assert built == [3, 4]
+    for m, r in zip(pop.members, ref.members):
+        assert all(torch.equal(a, b) for a, b in zip(_params(m), _params(r)))
+        assert torch.equal(m.lr, r.lr)

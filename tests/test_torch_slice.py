@@ -265,6 +265,36 @@ def test_scan_covers_the_parallel_slice():
         assert module in scanned, module
 
 
+DEPLOYMENT_MODULES = ("sim2real/__init__.py", "sim2real/config.py", "sim2real/numpy_policy.py",
+                      "sim2real/torch_import.py", "sim2real/torch_export.py",
+                      "sim2real/nn_inference_class.py", "sim2real/sample_factory_inference.py",
+                      "sim2real/ros_loopback.py", "sim2real/ros_node.py",
+                      "viewer/__init__.py", "viewer/offline_viewer.py", "viewer/live_viewer.py",
+                      "viewer/web_viewer.py")
+
+
+def test_scan_covers_the_deployment_slice():
+    """The scan reads every module of deployment and the viewers: export,
+    import, TorchScript, the inference classes, the ROS node and its
+    loopback, the offline, live and web viewers."""
+    scanned = {str(p.relative_to(PKG)) for p in _sources() if PKG in p.parents}
+    for module in DEPLOYMENT_MODULES + ("sim2real/policy.py", "ops/raycast_cuda.py"):
+        assert module in scanned, module
+
+
+def test_viewers_import_no_matplotlib():
+    """matplotlib is imported only by LiveViewer.run (the card's machine
+    needs none to render frames)."""
+    code = ("import sys\n"
+            "import aerial_gym_simulator_tpu_torch.viewer\n"
+            "import aerial_gym_simulator_tpu_torch.sim2real.ros_node\n"
+            "sys.exit(1 if 'matplotlib' in sys.modules or 'rospy' in sys.modules else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=str(REPO), env=env, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_scene_compiler_is_built_lazily():
     """Importing the loader builds nothing: the host compiler runs at the
     first compile call (the tests here import every module)."""
@@ -317,7 +347,7 @@ def _module_name(path: str) -> str:
 def test_importing_every_module_loads_no_jax():
     wanted = ("tasks.lidar_navigation_task", "rl.ppo", "rl.networks", "sim2real.policy") + tuple(
         _module_name(m) for m in PLUMBING_MODULES + ARTICULATED_MODULES + SCENE_MODULES
-        + DIFFERENTIABLE_MODULES + PARALLEL_MODULES)
+        + DIFFERENTIABLE_MODULES + PARALLEL_MODULES + DEPLOYMENT_MODULES)
     code = (
         "import importlib, pkgutil, sys\n"
         "import aerial_gym_simulator_tpu_torch as p\n"

@@ -104,12 +104,12 @@ def task_step_part(work):
     return {"envs_per_rank": sh.n_local}
 
 
-def _position_task(n, seed, episode_len=None):
+def _position_task(n, seed, episode_len=None, shard=None):
     cfg = port.task_registry.get_task_config("position_setpoint_task")
     if episode_len is not None:
         cfg = dataclasses.replace(cfg, episode_len_steps=episode_len)
     return port.task_registry.make_task("position_setpoint_task", num_envs=n, seed=seed,
-                                        task_config=cfg, device="cpu")
+                                        task_config=cfg, device="cpu", shard=shard)
 
 
 def rollout_part():
@@ -151,11 +151,11 @@ def rollout_part():
                                                 ref_carry.rng.get_state()))}
 
 
-def _small_nav_task(n, seed):
+def _small_nav_task(n, seed, shard=None):
     cfg = dataclasses.replace(port.task_registry.get_task_config("navigation_task"),
                               use_vae=False)
     task = port.task_registry.make_task("navigation_task", num_envs=n, seed=seed,
-                                        task_config=cfg, device="cpu")
+                                        task_config=cfg, device="cpu", shard=shard)
     task.params = replace(task.params, camera=build_ray_sensor_params(
         BaseDepthCameraConfig(height=27, width=48), "cpu"))
     return task
@@ -190,6 +190,92 @@ def nav_rollout_part():
             "sim": leaf_diffs(gathered(carry.sim, sh), ref_carry.sim),
             "curriculum_level_equal": bool(torch.equal(carry.curriculum_level,
                                                        ref_carry.curriculum_level))}
+
+
+def _tree_unequal(a, b) -> list:
+    """The paths where two trees differ: tensors by torch.equal (shape and
+    dtype included), generators by their states."""
+    if isinstance(a, torch.Tensor):
+        ok = (isinstance(b, torch.Tensor) and a.shape == b.shape and a.dtype == b.dtype
+              and torch.equal(a, b))
+        return [] if ok else [""]
+    if isinstance(a, torch.Generator):
+        return [] if torch.equal(a.get_state(), b.get_state()) else [""]
+    if dataclasses.is_dataclass(a) and not isinstance(a, type):
+        return [f"{f.name}{p and '.' + p}" for f in dataclasses.fields(a)
+                for p in _tree_unequal(getattr(a, f.name), getattr(b, f.name))]
+    if isinstance(a, dict):
+        return [f"{k}{p and '.' + p}" for k in a for p in _tree_unequal(a[k], b[k])]
+    if isinstance(a, (tuple, list)):
+        return [f"{i}{p and '.' + p}" for i, (x, y) in enumerate(zip(a, b))
+                for p in _tree_unequal(x, y)]
+    return []
+
+
+def block_build_part():
+    """Each rank built at its block (make_task(..., shard=)) against the
+    build-then-cut rank, for the position and the navigation tasks: the
+    scene tables, the state with its generator, the trainer's carry,
+    observation and generator at build, then the same after steps; and a
+    population whose members are built at their blocks only."""
+    out = {}
+    for name, build, n, steps in (("position", _position_task, 16, 12),
+                                  ("navigation", _small_nav_task, 4, 3)):
+        sh = shard_of(n)
+        cut = build(n, 7)
+        cfg = PPOConfig(num_envs=n, horizon=2, minibatch_size=2 * n, epochs=1, seed=7)
+        t_cut = PPOTrainer(cut, cfg)
+        shard_trainer(t_cut)
+        blk = build(n, 7, shard=sh)
+        t_blk = PPOTrainer(blk, cfg)
+        shard_trainer(t_blk)                      # a no-op on a trainer at its block
+        diffs = {"params": _tree_unequal(cut.params, blk.params),
+                 "carry": _tree_unequal(t_cut.env_carry, t_blk.env_carry),
+                 "obs": _tree_unequal(t_cut.obs, t_blk.obs),
+                 "generator": _tree_unequal(t_cut.generator, t_blk.generator)}
+        actions = torch.from_numpy(np.random.default_rng(2).uniform(
+            -1.0, 1.0, (steps, sh.n_local, 4)).astype(np.float32))
+        c_cut, c_blk, obs = t_cut.env_carry, t_blk.env_carry, []
+        for t in range(steps):
+            c_cut, o_cut, *_ = t_cut.step_fn(c_cut, actions[t])
+            c_blk, o_blk, *_ = t_blk.step_fn(c_blk, actions[t])
+            obs += _tree_unequal(o_cut, o_blk)
+        diffs["stepped_carry"] = _tree_unequal(c_cut, c_blk)
+        diffs["stepped_obs"] = obs
+        hist = t_blk.train(total_env_steps=2 * n * 2, log_every=1)
+        out[name] = {"unequal": diffs, "envs_per_rank": blk.num_envs,
+                     "scene_rows": (None if blk.params.scene is None
+                                    else int(blk.params.scene.env_prim_pos.shape[0])),
+                     "trainer_shard": t_blk.shard == sh,
+                     "identical": multiproc.param_norms_equal(t_blk.network, sh)[0],
+                     "finite": bool(np.isfinite(hist[-1]["reward_mean"]))}
+    built = []
+
+    def factory(s, shard=None):
+        built.append(s)
+        return _position_task(8, seed=s, shard=shard)
+
+    cfg = PPOConfig(**POP_CFG)
+    ref = t_pop.PopulationTrainer(_pop_factory, cfg, num_seeds=4)
+    ref.shard()
+    pop = t_pop.PopulationTrainer(factory, cfg, num_seeds=4, build=False)
+    at_init = len(built)
+    pop.shard()
+    members_built = built[:]
+    del built[:]
+    pop_env = t_pop.PopulationTrainer(factory, cfg, num_seeds=2, build=False)
+    pop_env.shard(env_devices=2)
+    out["population"] = {
+        "built_at_init": at_init, "built": members_built, "local": pop.local,
+        "members_none": [i for i, m in enumerate(pop.members) if m is None],
+        "same_as_built_whole": all(
+            not _tree_unequal(params_of(pop.members[i].network),
+                              params_of(ref.members[i].network))
+            and not _tree_unequal(pop.members[i].env_carry, ref.members[i].env_carry)
+            for i in pop.local),
+        "env_devices_built": built[:],
+        "env_devices_envs": [pop_env.members[i].task.num_envs for i in pop_env.local]}
+    return out
 
 
 def update_part():
@@ -353,6 +439,7 @@ def main(argv=None):
     summary["task_step"] = task_step_part(args.work)
     summary["rollout"] = rollout_part()
     summary["nav_rollout"] = nav_rollout_part()
+    summary["block_build"] = block_build_part()
     summary["update"] = update_part()
     summary["identical"] = identical_part()
     summary["population"] = population_part()
