@@ -52,9 +52,34 @@ def ssa(a: torch.Tensor) -> torch.Tensor:
     return torch.remainder(a + math.pi, 2.0 * math.pi) - math.pi
 
 
+def normalize_angle(x: torch.Tensor) -> torch.Tensor:
+    """Wrap an angle to (-pi, pi] through atan2(sin x, cos x)."""
+    return torch.atan2(torch.sin(x), torch.cos(x))
+
+
+def scale_transform(x, lower, upper):
+    """Map x in [-1, 1] -> [lower, upper]."""
+    return 0.5 * (x + 1.0) * (upper - lower) + lower
+
+
+def unscale_transform(x, lower, upper):
+    """Map x in [lower, upper] -> [-1, 1]."""
+    return (2.0 * x - upper - lower) / (upper - lower)
+
+
 def interpolate_ratio(lo, hi, ratio):
     """lo + (hi - lo) * ratio."""
     return lo + (hi - lo) * ratio
+
+
+def exponential_reward(magnitude, base_width, value):
+    """magnitude * exp(-value^2 / base_width)."""
+    return magnitude * torch.exp(-(value * value) / base_width)
+
+
+def exponential_penalty(magnitude, base_width, value):
+    """magnitude * (exp(-value^2 / base_width) - 1): 0 at value = 0."""
+    return magnitude * (torch.exp(-(value * value) / base_width) - 1.0)
 
 
 def rowwise_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -85,6 +110,21 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def compute_vee_map(skew: torch.Tensor) -> torch.Tensor:
     """Vee map of a (...,3,3) skew-symmetric matrix -> (...,3)."""
     return torch.stack([-skew[..., 1, 2], skew[..., 0, 2], -skew[..., 0, 1]], dim=-1)
+
+
+def hat_map(v: torch.Tensor) -> torch.Tensor:
+    """Hat (skew) map of a (...,3) vector -> (...,3,3); compute_vee_map
+    inverts it."""
+    zeros = torch.zeros_like(v[..., 0])
+    return torch.stack([
+        torch.stack([zeros, -v[..., 2], v[..., 1]], dim=-1),
+        torch.stack([v[..., 2], zeros, -v[..., 0]], dim=-1),
+        torch.stack([-v[..., 1], v[..., 0], zeros], dim=-1),
+    ], dim=-2)
+
+
+def pd_control(pos_error, vel_error, stiffness, damping):
+    return stiffness * pos_error + damping * vel_error
 
 
 # ---------------------------------------------------------------------------
@@ -266,6 +306,14 @@ def vehicle_frame_quat_from_quat(body_quat: torch.Tensor) -> torch.Tensor:
     return quat_from_euler_xyz(zeros, zeros, yaw)
 
 
+def quat_from_angle_axis(angle: torch.Tensor, axis: torch.Tensor) -> torch.Tensor:
+    """Unit xyzw quaternion of a rotation by ``angle`` (...) about ``axis``
+    (..., 3), which need not be unit length."""
+    theta = (angle / 2.0)[..., None]
+    xyz = normalize(axis) * torch.sin(theta)
+    return quat_unit(torch.cat([xyz, torch.cos(theta)], dim=-1))
+
+
 def quat_integrate(q: torch.Tensor, omega_world: torch.Tensor, dt) -> torch.Tensor:
     """Integrate a unit quaternion by world-frame angular velocity over dt
     with the exponential map q' = exp(0.5 dt omega) q, renormalized."""
@@ -283,3 +331,22 @@ def quat_integrate(q: torch.Tensor, omega_world: torch.Tensor, dt) -> torch.Tens
 
 def tf_apply(q, t, v):
     return quat_rotate(q, v) + t
+
+
+def tf_vector(q, v):
+    return quat_rotate(q, v)
+
+
+def tf_inverse(q, t):
+    """The inverse of the transform (q, t) -> (q^-1, -(q^-1 t))."""
+    q_inv = quat_conjugate(q)
+    return q_inv, -quat_rotate(q_inv, t)
+
+
+def tf_combine(q1, t1, q2, t2):
+    """(q1, t1) after (q2, t2): (q1 q2, q1 t2 + t1)."""
+    return quat_mul(q1, q2), quat_rotate(q1, t2) + t1
+
+
+def get_basis_vector(q, v):
+    return quat_rotate(q, v)

@@ -313,6 +313,30 @@ Phases, each printed on its own line:
                the ROS loopback at 20x real time for 2 s, fed env 0's
                odometry: the command count, the first command against the
                policy run directly; each part's seconds.
+18. tools - the utilities and the capability examples: a. the profiler
+               (utils/profiling): its command line on position_setpoint_task
+               at 16,384 envs, 10 iterations (the bench state step), its
+               profile_task on the navigation task at 1,024 envs with the
+               shipped ViT, 3 iterations (K1 once and K5 four times a step;
+               the table names both kernels), and --ppo on the position task
+               at 1,024 envs x 32, 1 iteration: a non-empty op table for
+               each, wall ms, summed device ms and the device's idle share;
+               b. the examples in process at the JAX scripts' widths, their
+               iteration counts and two depths cut (SYSID_ARGS, TRAJ_ARGS,
+               TUNE_ARGS): bem_standalone (the single rotor on the card
+               against the CPU within 1e-5 of the wrench's largest
+               component, the quad's four rotors, a 16,384 x 4 rotor batch
+               timed and its first rotors against the CPU), sys_id (both
+               schemes against the CPU within 1e-6), imu_data_collection
+               (200 steps, finite rows), differentiable_sysid_example (4
+               envs x 100 steps, 2 Adam iterations: the first gradient
+               within 1e-3 relative of the CPU's, the loss falling),
+               trajectory_optimization_example (1 env x 100 steps, 3
+               iterations: the cost falling after the first step's
+               overshoot, as in the JAX script), tune_controllers (the four
+               step responses at 256 envs x 100 steps, finite metrics; then
+               the --grad tuning at 60 steps for 2 iterations, the cost
+               falling); each example's seconds per iteration.
 
 Before the last line it prints one JSON object with a record per kernel;
 the last line is {"ok": true, "device": {...}}. Any failure raises and the
@@ -533,6 +557,25 @@ DEPLOY_NAV_STEPS = 20              # 17d, at NAV_ENVS
 ROS_RATE_SCALE = 20.0              # 17e: 20x real time, the node's 10 Hz -> 200 Hz
 ROS_SECONDS = 2.0
 DEADLINE_S = 60.0                  # every wait in 17b and 17e polls against it
+PROFILE_STATE_ARGS = ["--task", "position_setpoint_task", "--num_envs", "16384", "--iters", "10"]
+PROFILE_NAV_ITERS = 3              # 18a: the navigation step at NAV_ENVS with the shipped ViT
+PROFILE_PPO_ARGS = ["--task", "position_setpoint_task", "--num_envs", "1024", "--ppo",
+                    "--horizon", "32", "--iters", "1"]
+BEM_CONDITIONS = [(2000.0, 0.0, 0.0, 0.0, 0.0, 1.0),   # 18b: omega, v_hor, v_ver, p, q, spin
+                  (2200.0, 5.0, -1.0, 0.5, -0.3, 1.0), (1500.0, 0.0, 2.0, 0.0, 0.0, -1.0)]
+BEM_TOL = 1e-5                     # card vs CPU, of the wrench's largest component
+BEM_BATCH = (16384, 4)             # rotors: the obstacle loop's envs x a quad's motors
+BEM_CHECK_ROTORS = 64              # the batch's first rotors against the CPU
+BEM_BATCH_TOL = 1e-4
+# 18b's iteration counts: each example iteration is a whole eager rollout (and
+# its backward) of 100-400 launch-bound steps, 26-62 ms a step on the card's
+# host; the JAX defaults would take minutes
+SYSID_ARGS = dict(num_envs=4, steps=100, iters=2)      # of 300 Adam iterations
+TRAJ_ARGS = dict(steps=100, iters=3)                   # of 1,000
+TUNE_ARGS = dict(num_envs=256, steps=100, grad_iters=2, grad_steps=60)   # of 400 steps; 150
+                                                       # iterations of a 120-step rollout
+IMU_COLLECT_STEPS = 200            # of the JAX default 2,000
+TOOLS_DEVICE = "cuda"              # phase 18's explicit tensors (a CPU rehearsal sets "cpu")
 STATE_STEP_ENVS = 16384
 STATE_STEPS = 100
 POSITION_POLICY = (Path(__file__).resolve().parent
@@ -4387,6 +4430,258 @@ def deployment_phase(torch, port, rc, ac, card):
         {"deploy_chain": chain, "ros": ros}
 
 
+def profile_one(torch, prof, rc, ac, card, label, run, want):
+    """18a: one profiler run (``run()`` -> profile_task's report) with every
+    launch counter zeroed just before it; ``want(calls)`` -> the expected
+    counts. -> (launches, the report's numbers)."""
+    zero_counts(rc.LAUNCHES, ac.LAUNCHES)
+    t0 = time.perf_counter()
+    rep = run()
+    seconds = time.perf_counter() - t0
+    launches = {**rc.LAUNCHES, **ac.LAUNCHES}
+    expected = want(rep["calls"])
+    if launches != expected:
+        raise AssertionError(f"profile {label}: launches {launches}, expected {expected}")
+    if not rep["rows"]:
+        raise AssertionError(f"profile {label}: an empty op table")
+    idle = 1.0 - rep["device_ms"] / rep["wall_ms"]
+    log(f"tools: profile {label} @ {rep['num_envs']} envs: {rep['wall_ms']:.2f} ms wall, "
+        f"{rep['env_steps_per_s']:.1f} env-steps/s, {rep['device_ms']:.2f} ms summed device "
+        f"time (idle share {idle:.3f}), {len(rep['rows'])} ops in the table, {rep['calls']} "
+        f"calls, {seconds:.1f} s | {card}")
+    return launches, {"wall_ms": rep["wall_ms"], "device_ms": rep["device_ms"],
+                      "idle_share": idle, "env_steps_per_s": rep["env_steps_per_s"],
+                      "calls": rep["calls"], "top_op": rep["rows"][0][0][:80],
+                      "top_op_ms": rep["rows"][0][1]}
+
+
+def profile_subphase(torch, port, rc, ac, card, work):
+    """18a: the profiler's command line on the bench state step and on one
+    PPO iteration, and its profile_task on the navigation step with the
+    shipped ViT. -> (launches of the navigation run, numbers by run)."""
+    from aerial_gym_simulator_tpu_torch.utils import profiling as prof
+
+    none = lambda calls: {**{k: 0 for k in rc.LAUNCHES}, **attention_counts(ac)}
+    out = {}
+    _, out["state_step"] = profile_one(
+        torch, prof, rc, ac, card, "state step",
+        lambda: prof.main(PROFILE_STATE_ARGS + ["--trace_dir", os.path.join(work, "state")]), none)
+
+    cfg = dataclasses.replace(port.task_registry.get_task_config("navigation_task"),
+                              vae_params_path=str(NETWORKS / "vit_depth_encoder.pkl"))
+    task = port.task_registry.make_task("navigation_task", num_envs=NAV_ENVS, seed=99,
+                                        task_config=cfg)
+    nav_dir = os.path.join(work, "nav")
+    want_nav = lambda calls: {**{k: 0 for k in rc.LAUNCHES}, "raycast_depth": calls,
+                              **attention_counts(ac, attention_fwd=4 * calls)}
+    nav_launches, out["navigation_step"] = profile_one(
+        torch, prof, rc, ac, card, "navigation step (shipped ViT)",
+        lambda: prof.profile_task(task, iters=PROFILE_NAV_ITERS, trace_dir=nav_dir,
+                                  label="navigation_task env step (shipped ViT)"), want_nav)
+    rows, _ = prof.op_breakdown(nav_dir, iters=PROFILE_NAV_ITERS, top_k=10 ** 6)
+    named = {k: [(n, ms) for n, ms, _ in rows if k in n] for k in ("raycast", "attention")}
+    if not all(named.values()):
+        raise AssertionError(f"profile navigation step: the table names no {named}")
+    for k, hits in named.items():
+        out["navigation_step"][f"{k}_ms"] = sum(ms for _, ms in hits)
+        log(f"tools: profile navigation step: {k} kernels in the table "
+            + ", ".join(f"{n[:60]} {ms:.3f} ms" for n, ms in hits))
+    task.close()
+    del task
+    torch.cuda.empty_cache()
+
+    _, out["ppo_iteration"] = profile_one(
+        torch, prof, rc, ac, card, "PPO iteration",
+        lambda: prof.main(PROFILE_PPO_ARGS + ["--trace_dir", os.path.join(work, "ppo")]), none)
+    return nav_launches, out
+
+
+def norm_rel(a, b):
+    """Largest difference over the largest magnitude of ``b`` (CPU)."""
+    b = b.cpu()
+    return float((a.cpu() - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def bem_subphase(torch, card):
+    """18b: NeuroBEM on the card against the CPU, the quad, the batch."""
+    from aerial_gym_simulator_tpu_torch.examples import bem_standalone as bem
+
+    bp, bp_cpu = bem.default_params(), bem.default_params("cpu")
+    err = 0.0
+    for cond in BEM_CONDITIONS:
+        card_out, cpu_out = bem.bem_rotor_wrench(bp, *cond), bem.bem_rotor_wrench(bp_cpu, *cond)
+        err = max([err] + [norm_rel(a, b) for a, b in zip(card_out, cpu_out)])
+    if not err <= BEM_TOL:
+        raise AssertionError(f"bem: the single rotor on the card against the CPU {err:.3g}")
+    _, _, forces, torques = bem.main([])
+    thrust = -forces[:, 2]
+    if not (torch.isfinite(forces).all() and bool((thrust[1:] > thrust[:-1]).all())):
+        raise AssertionError(f"bem: the quad's rotor thrusts {thrust.tolist()}")
+    gen = torch.Generator(device=TOOLS_DEVICE)
+    gen.manual_seed(18)
+    u = lambda lo, hi: lo + (hi - lo) * torch.rand(BEM_BATCH, generator=gen, device=TOOLS_DEVICE)
+    spin = torch.tensor([1.0, -1.0, 1.0, -1.0], device=TOOLS_DEVICE).expand(BEM_BATCH)
+    args = (u(1500.0, 2500.0), u(0.0, 8.0), u(-2.0, 2.0), u(-1.0, 1.0), u(-1.0, 1.0), spin)
+    call = lambda: bem.bem_rotor_wrench_batched(bp, *args)
+    ms = event_ms(torch, call, 3)
+    f, t = call()
+    if not (f.shape == BEM_BATCH + (3,) and torch.isfinite(f).all() and torch.isfinite(t).all()):
+        raise AssertionError("bem: the batch's wrench is not finite")
+    k = BEM_CHECK_ROTORS
+    head = [a.reshape(-1)[:k].cpu() for a in args]
+    f_cpu, t_cpu = bem.bem_rotor_wrench_batched(bp_cpu, *head)
+    batch_err = max(norm_rel(f.reshape(-1, 3)[:k], f_cpu), norm_rel(t.reshape(-1, 3)[:k], t_cpu))
+    if not batch_err <= BEM_BATCH_TOL:
+        raise AssertionError(f"bem: the batch's first rotors against the CPU {batch_err:.3g}")
+    n = BEM_BATCH[0] * BEM_BATCH[1]
+    log(f"tools: bem single rotor card vs CPU {err:.3g} of the largest component (bar "
+        f"{BEM_TOL}); quad thrusts {[round(float(x), 4) for x in thrust]} N; {BEM_BATCH[0]} x "
+        f"{BEM_BATCH[1]} rotors {ms:.2f} ms a call ({n / ms * 1e3:.4g} rotors/s), the first "
+        f"{k} against the CPU {batch_err:.3g} | {card}")
+    return {"single_err": err, "batch_ms": ms, "batch_err": batch_err}
+
+
+def gradient_examples_subphase(torch, card):
+    """18b: the gradient sys-id, the trajectory optimization and the
+    controller tuning on the card."""
+    from aerial_gym_simulator_tpu_torch.examples import differentiable_sysid_example as dsys
+    from aerial_gym_simulator_tpu_torch.examples import trajectory_optimization_example as traj
+    from aerial_gym_simulator_tpu_torch.examples import tune_controllers as tune
+    from aerial_gym_simulator_tpu_torch.sim.convert import (
+        params_from_numpy, record_to_numpy, state_from_numpy)
+
+    out = {}
+    n, steps, iters = SYSID_ARGS["num_envs"], SYSID_ARGS["steps"], SYSID_ARGS["iters"]
+    env = dsys.build(n)
+    actions = dsys.excitation(n, steps)
+    rollout = dsys.make_rollout(env.params, env.state, actions)
+    with torch.no_grad():
+        measured = rollout(dsys.theta_tensors(dsys.TRUE_THETA, TOOLS_DEVICE))
+    first = {}
+
+    def keep_first(it, loss, log_theta):
+        if it == 0:
+            first.update({k: v.grad.detach().cpu().clone() for k, v in log_theta.items()})
+
+    t0 = time.perf_counter()
+    log_theta, losses = dsys.identify(rollout, measured, iters, 0.05, on_iter=keep_first)
+    torch.cuda.synchronize()
+    s_it = (time.perf_counter() - t0) / iters
+    cpu_roll = dsys.make_rollout(params_from_numpy(record_to_numpy(env.params), "cpu"),
+                                 state_from_numpy(record_to_numpy(env.state), "cpu"), actions.cpu())
+    with torch.no_grad():
+        cpu_measured = cpu_roll(dsys.theta_tensors(dsys.TRUE_THETA, "cpu"))
+    lt_cpu = {k: torch.log(v).requires_grad_()
+              for k, v in dsys.theta_tensors(dsys.INITIAL_THETA, "cpu").items()}
+    dsys.sysid_loss(cpu_roll, cpu_measured, lt_cpu).backward()
+    g_card = torch.cat([first["tau"].reshape(1), first["drag"]])
+    g_cpu = torch.cat([lt_cpu["tau"].grad.reshape(1), lt_cpu["drag"].grad])
+    rel = float(((g_card - g_cpu).abs() / g_cpu.abs()).max())
+    losses = losses.cpu()
+    th = {k: torch.exp(v.detach()).cpu() for k, v in log_theta.items()}
+    log(f"tools: differentiable_sysid {n} envs x {steps} steps, {iters} Adam iterations "
+        f"{s_it:.3f} s each: loss {float(losses[0]):.4g} -> {float(losses[-1]):.4g}, tau "
+        f"{float(th['tau']):.4f}, drag {th['drag'].numpy().round(3)}; the first gradient "
+        f"against the CPU's {rel:.3g} relative | {card}")
+    if not (torch.isfinite(losses).all() and rel <= 1e-3 and losses[-1] < losses[0]):
+        raise AssertionError(f"differentiable_sysid: relative {rel}, losses {losses.tolist()}")
+    out["sysid"] = {"s_per_iteration": s_it, "first_grad_rel": rel,
+                    "loss": [float(losses[0]), float(losses[-1])]}
+    del env, rollout, cpu_roll
+
+    steps, iters = TRAJ_ARGS["steps"], TRAJ_ARGS["iters"]
+    params, state0 = traj.build(1)
+    goal = torch.tensor([1.0, 1.0, 1.0], device=TOOLS_DEVICE)
+    _, cost = traj.make_cost(params, state0, goal)
+    t0 = time.perf_counter()
+    _, costs = traj.optimize(cost, torch.full((steps, 1, 4), traj.HOVER_THRUST, device=TOOLS_DEVICE),
+                             iters, 0.05)
+    torch.cuda.synchronize()
+    s_it = (time.perf_counter() - t0) / iters
+    costs = costs.cpu()
+    log(f"tools: trajectory_optimization 1 env x {steps} steps, {iters} iterations "
+        f"{s_it:.3f} s each: costs " + ", ".join(f"{float(c):.5f}" for c in costs) + f" | {card}")
+    # the recipe's first Adam step (0.05 N on every thrust) overshoots from
+    # hover, in the JAX script too (3.2 -> 39.1 on the CPU); the cost falls after it
+    if not (torch.isfinite(costs).all() and costs[-1] < costs[1]):
+        raise AssertionError(f"trajectory_optimization: costs {costs.tolist()}")
+    out["trajectory"] = {"s_per_iteration": s_it, "cost": [float(costs[0]), float(costs[-1])]}
+
+    t0 = time.perf_counter()
+    metrics = {}
+    for controller, axis, target, label in tune.CASES:
+        t, y = tune.run_axis(controller, axis, target, TUNE_ARGS["steps"], TUNE_ARGS["num_envs"],
+                             "base_quadrotor")
+        m = tune.step_response_metrics(t, y, target)
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"tune_controllers {label}: {m}")
+        metrics[label] = m
+    torch.cuda.synchronize()
+    s_resp = time.perf_counter() - t0
+    log(f"tools: tune_controllers {TUNE_ARGS['num_envs']} envs x {TUNE_ARGS['steps']} steps, "
+        f"4 responses {s_resp:.1f} s: " + "; ".join(
+            f"{k} rise {m['rise_time']:.3f} s overshoot {m['overshoot_pct']:.1f}% settle "
+            f"{m['settling_time']:.3f} s sse {m['steady_state_error']:.4f}"
+            for k, m in metrics.items()) + f" | {card}")
+    t0 = time.perf_counter()
+    kp, kv, costs = tune.grad_tune("base_quadrotor", steps=TUNE_ARGS["grad_steps"],
+                                   iters=TUNE_ARGS["grad_iters"], echo=False)
+    torch.cuda.synchronize()
+    s_it = (time.perf_counter() - t0) / TUNE_ARGS["grad_iters"]
+    costs = costs.cpu()
+    log(f"tools: tune_controllers --grad {TUNE_ARGS['grad_steps']} steps x 4 envs, "
+        f"{TUNE_ARGS['grad_iters']} iterations {s_it:.3f} s each: cost {float(costs[0]):.4f} -> "
+        f"{float(costs[-1]):.4f}, K_pos {kp.cpu().numpy().round(3)}, K_vel "
+        f"{kv.cpu().numpy().round(3)} | {card}")
+    if not (torch.isfinite(costs).all() and costs[-1] < costs[0]):
+        raise AssertionError(f"tune_controllers --grad: costs {costs.tolist()}")
+    out["tune"] = {"responses_s": s_resp, "grad_s_per_iteration": s_it,
+                   "cost": [float(costs[0]), float(costs[-1])]}
+    return out
+
+
+def tools_phase(torch, port, rc, ac, card):
+    """Phase 18: the profiler (K1 and K5 on the navigation step) and the
+    capability examples. -> (launches of the phase, its numbers)."""
+    import numpy as np
+    from aerial_gym_simulator_tpu_torch.examples import imu_data_collection as imu
+    from aerial_gym_simulator_tpu_torch.examples import sys_id
+
+    t_all = time.perf_counter()
+    seconds, numbers = {}, {}
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        launches, numbers["profile"] = profile_subphase(torch, port, rc, ac, card, work)
+        seconds["a"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        numbers["bem"] = bem_subphase(torch, card)
+        seconds["bem"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        err = 0.0
+        for scheme in ("euler", "rk4"):
+            args = ("base_quadrotor", scheme, 0.01, 100, 1.5)
+            diff = sys_id.simulate_step_response(*args) - sys_id.simulate_step_response(*args, "cpu")
+            err = max(err, float(abs(diff).max()))
+        if not err <= 1e-6:
+            raise AssertionError(f"sys_id: the card's step responses against the CPU's {err}")
+        path = os.path.join(work, "imu.csv")
+        rows = imu.main(["--steps", str(IMU_COLLECT_STEPS), "--out", path])
+        if not (rows.shape == (IMU_COLLECT_STEPS, 7) and np.isfinite(rows).all()):
+            raise AssertionError(f"imu_data_collection: rows {rows.shape} not finite")
+        seconds["sys_id+imu"] = time.perf_counter() - t0
+        log(f"tools: sys_id euler and rk4 on the card against the CPU {err:.3g} (bar 1e-6); "
+            f"imu_data_collection {IMU_COLLECT_STEPS} rows, mean az {rows[:, 3].mean():.3f} "
+            f"m/s^2 | {card}")
+        numbers["sys_id_err"] = err
+        t0 = time.perf_counter()
+        numbers.update(gradient_examples_subphase(torch, card))
+        seconds["gradients"] = time.perf_counter() - t0
+    log(f"tools: phase 18 {time.perf_counter() - t_all:.1f} s (" +
+        ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()) + f"), launches {launches} | {card}")
+    return launches, numbers
+
+
 def parallel_phase(torch, rc, ac, card, navppo_check):
     """Phase 16: parts a-g in PAR_RANKS processes of this script on the one
     card (par_rank_main), their lines relayed, every verdict asserted.
@@ -4963,6 +5258,16 @@ def main(argv=None) -> int:
     records[1]["launches_deploy_path_by_part"] = {k: v["raycast_seg"] for k, v in dep_parts.items()}
     records[1]["max_abs_err"] = max(records[1]["max_abs_err"], k2_viewer["max_abs_err"])
     records[0]["deploy_checks"] = dep_checks
+
+    log(f"elapsed {time.perf_counter() - t_run:.1f} s: phase 18 tools")
+    # 18. the utilities and the capability examples: the profiler on the
+    #     state step, one PPO iteration and the navigation step (K1, K5),
+    #     then NeuroBEM, the sys-id tools and the gradient examples
+    tools_launches, tools_numbers = tools_phase(torch, port, rc, ac, card)
+    for rec, name in ((records[0], "raycast_depth"), (records[2], "attention_fwd")):
+        rec["launches"] += tools_launches[name]
+        rec["launches_tools_path"] = tools_launches[name]
+    records[0]["tools_profile"] = tools_numbers["profile"]
 
     log(f"elapsed {time.perf_counter() - t_run:.1f} s: all phases")
     log(json.dumps({"kernels": records + mode_records}))

@@ -282,6 +282,81 @@ def test_scan_covers_the_deployment_slice():
         assert module in scanned, module
 
 
+TOOLS_MODULES = ("utils/profiling.py", "utils/debug.py", "utils/helpers.py", "utils/tensor_pid.py",
+                 "utils/calculate_mixing_matrix.py", "utils/real_robot_sysid.py",
+                 "utils/imu_to_rosbag.py", "robots/__init__.py", "examples/__init__.py",
+                 "examples/sys_id.py", "examples/imu_data_collection.py",
+                 "examples/bem_standalone.py", "examples/differentiable_sysid_example.py",
+                 "examples/trajectory_optimization_example.py", "examples/tune_controllers.py")
+
+
+def test_scan_covers_the_tools_slice():
+    """The scan reads every module of the utilities and the capability
+    examples, with the math module they extended."""
+    scanned = {str(p.relative_to(PKG)) for p in _sources() if PKG in p.parents}
+    for module in TOOLS_MODULES + ("utils/math.py", "utils/device.py"):
+        assert module in scanned, module
+
+
+# (module, argv without --cpu) of every command line the tools slice adds
+TOOL_COMMANDS = [
+    ("utils.profiling", ["--num_envs", "2", "--iters", "1"]),
+    ("examples.sys_id", ["--steps", "2"]),
+    ("examples.imu_data_collection", ["--steps", "2"]),
+    ("examples.bem_standalone", []),
+    ("examples.differentiable_sysid_example", ["--steps", "2", "--iters", "1"]),
+    ("examples.trajectory_optimization_example", ["--steps", "2", "--iters", "1"]),
+    ("examples.tune_controllers", ["--steps", "2", "--num_envs", "2"]),
+]
+
+
+@pytest.mark.parametrize("module,argv", TOOL_COMMANDS, ids=[m for m, _ in TOOL_COMMANDS])
+def test_tool_command_line_needs_cuda_unless_cpu(module, argv):
+    """Each new command line runs on CUDA by default and raises without a
+    GPU; it never falls back to the CPU on its own."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    import importlib
+
+    mod = importlib.import_module(f"aerial_gym_simulator_tpu_torch.{module}")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main(argv)
+
+
+def test_tools_import_no_ros():
+    """rospy, rosbag and the ROS messages are imported inside the tools'
+    functions only."""
+    code = ("import sys\n"
+            "import aerial_gym_simulator_tpu_torch.utils.real_robot_sysid\n"
+            "import aerial_gym_simulator_tpu_torch.utils.imu_to_rosbag\n"
+            "import aerial_gym_simulator_tpu_torch.examples.imu_data_collection\n"
+            "ros = ('rospy', 'rosbag', 'mavros_msgs', 'sensor_msgs')\n"
+            "sys.exit(1 if any(m in sys.modules for m in ros) else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=str(REPO), env=env, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("function", ["TensorPID.update", "TensorPID.reset_idx",
+                                      "_solve_induced_velocity"])
+def test_pid_and_bisection_read_nothing_back(function):
+    """TensorPID's update and masked reset, and the BEM bisection, stay on
+    the device: no .item(), .tolist(), nonzero, .cpu(), .numpy() or host
+    conversion."""
+    path = PKG / ("utils/tensor_pid.py" if "PID" in function else "examples/bem_standalone.py")
+    scope = ast.parse(path.read_text())
+    for name in function.split("."):
+        scope = next(n for n in ast.iter_child_nodes(scope)
+                     if isinstance(n, (ast.ClassDef, ast.FunctionDef)) and n.name == name)
+    for node in ast.walk(scope):
+        if isinstance(node, ast.Attribute):
+            assert node.attr not in ("item", "tolist", "nonzero", "cpu", "numpy"), \
+                (function, node.attr, node.lineno)
+        if isinstance(node, ast.Call) and isinstance(node.func, ast.Name):
+            assert node.func.id not in ("float", "int", "bool"), (function, node.lineno)
+
+
 def test_viewers_import_no_matplotlib():
     """matplotlib is imported only by LiveViewer.run (the card's machine
     needs none to render frames)."""
@@ -347,14 +422,14 @@ def _module_name(path: str) -> str:
 def test_importing_every_module_loads_no_jax():
     wanted = ("tasks.lidar_navigation_task", "rl.ppo", "rl.networks", "sim2real.policy") + tuple(
         _module_name(m) for m in PLUMBING_MODULES + ARTICULATED_MODULES + SCENE_MODULES
-        + DIFFERENTIABLE_MODULES + PARALLEL_MODULES + DEPLOYMENT_MODULES)
+        + DIFFERENTIABLE_MODULES + PARALLEL_MODULES + DEPLOYMENT_MODULES + TOOLS_MODULES)
     code = (
         "import importlib, pkgutil, sys\n"
         "import aerial_gym_simulator_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'aerial_gym_simulator_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'aerial_gym_simulator_tpu'))\n"
         f"missing = [m for m in {wanted!r} if p.__name__ + '.' + m not in sys.modules]\n"
         "print(bad, missing)\n"
         "sys.exit(1 if bad or missing else 0)\n")
