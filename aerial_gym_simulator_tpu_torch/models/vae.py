@@ -23,6 +23,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..utils.device import resolve_device
+from ..utils.profiling import spanned
 
 
 class SameConv2d(nn.Conv2d):
@@ -219,7 +220,8 @@ class FrozenImageEncoder:
     resize to the encoder's input, compute in ``compute_dtype``, f32
     latents out. Shared by the conv and the ViT encoder. ``decode`` runs
     the decoder with its f32 master weights; an encoder carried across
-    without its decoder cannot decode."""
+    without its decoder cannot decode. ``encode`` is the span ``encode``
+    (``utils/profiling.span``)."""
 
     def __init__(self, encoder: nn.Module, latent_dim: int, input_hw: Tuple[int, int],
                  return_sampled_latent: bool, compute_dtype, device,
@@ -250,6 +252,7 @@ class FrozenImageEncoder:
         mean, logvar = self.encoder(images.to(self.compute_dtype))
         return mean.float(), logvar.float()
 
+    @spanned("encode")
     def encode(self, images, generator=None, noise=None):
         """-> latents (B, latent_dim) f32: the mean, or a sample when the
         encoder returns sampled latents and a generator (or the standard

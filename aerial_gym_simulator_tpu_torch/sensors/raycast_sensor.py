@@ -10,7 +10,9 @@ returns the hit points, in the sensor frame or in the world frame. Every
 capture packs the scene into world-frame tables
 and calls ``ops/raycast_cuda.raycast`` with the sensor's (H, W) ray grid:
 the ray-cast kernel on the card, which tiles the grid in 2-D, its plain
-version for CPU tensors. Outputs are in row-major ray order.
+version for CPU tensors. Outputs are in row-major ray order. Each capture
+is the span ``render`` (``utils/profiling.span``), its mounts and stereo
+eye included.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from ..sim.params import f32
 from ..sim.structs import RaySensorParams, SimParams, SimState
 from ..utils.env_rng import env_rand, env_randn
 from ..utils.math import quat_from_euler_xyz, quat_mul, quat_rotate, tf_apply
+from ..utils.profiling import spanned
 
 
 def camera_ray_dirs(height: int, width: int, hfov_deg: float):
@@ -167,6 +170,7 @@ def right_eye_origin(sp: RaySensorParams, pos_w, quat_w):
     return pos_w + quat_rotate(quat_w, baseline.expand(pos_w.shape[0], 3))
 
 
+@spanned("render")
 def render(params: SimParams, state: SimState, sp: RaySensorParams, mount_pos,
            mount_quat, gen: torch.Generator = None, want_seg=None):
     """Sensor capture -> (pixels, segmentation (N, H, W) int32 or None).
@@ -265,6 +269,7 @@ def _stacked(fn, params, state, sp, mount_pos, mount_quat):
     return tuple(torch.stack(parts, dim=1) for parts in zip(*outs))
 
 
+@spanned("render")
 def render_normal_faceid(params: SimParams, state: SimState, sp: RaySensorParams,
                          mount_pos, mount_quat):
     """Normal + face-id capture (the reference's NormalFaceID cameras and
@@ -295,6 +300,7 @@ def render_normal_faceid(params: SimParams, state: SimState, sp: RaySensorParams
             seg.reshape(N, H, W))
 
 
+@spanned("render")
 def render_rgb(params: SimParams, state: SimState, sp: RaySensorParams, mount_pos,
                mount_quat):
     """Onboard RGB capture: the Lambert shade (``shade_rgb``) of the ray-cast

@@ -2,7 +2,10 @@
 
 Counterpart of ``aerial_gym_simulator_tpu/sim/dynamics.py``. Functions take
 a state and return a new one (``replace`` shallow-copies the record);
-nothing reads a device value back to the host.
+nothing reads a device value back to the host. The step and the reset are
+the spans ``physics`` (each substep's ``physics.control``,
+``physics.integrate`` and ``physics.contact`` inside it) and ``reset``
+(``utils/profiling.span``).
 
 Frames: root state is world-frame (pos, xyzw quat, linvel, angvel);
 applied forces/torques are body-frame. A rigid robot's motor thrusts map
@@ -32,6 +35,7 @@ from ..utils.math import (
     rowwise_matmul,
     safe_norm,
 )
+from ..utils.profiling import span, spanned
 from .structs import SimParams, SimState, replace
 
 
@@ -193,27 +197,31 @@ def contact_force_magnitude(params: SimParams, state: SimState) -> torch.Tensor:
 
 
 def _substep(params: SimParams, state: SimState, action: torch.Tensor) -> SimState:
-    force_b, torque_b, new_thrust = compute_robot_wrench(
-        params, state, action, include_motor_wrench=params.art is None)
-    state = replace(state, motor_thrust=new_thrust,
-                    applied_force_b=force_b, applied_torque_b=torque_b)
-    if params.art is not None:
-        # the coupled base + joints: motors push on their own links, the
-        # joints react on the base
-        from .articulated import articulated_substep
-        state = articulated_substep(params, state, force_b, torque_b, new_thrust)
-    else:
-        state = integrate_rigid_body(params, state, force_b, torque_b)
-        if params.dof is not None and params.dof.num_dofs > 0:
-            state = integrate_dofs(params, state)
-    if params.scene is not None and params.scene.num_assets > 0:
-        from ..envs.scene import integrate_obstacles
-        state = integrate_obstacles(params, state)
-    contact = contact_force_magnitude(params, state)
-    collided = (contact > params.env.collision_force_threshold).to(torch.float32)
-    return replace(state, collisions=state.collisions + collided)
+    with span("physics.control"):
+        force_b, torque_b, new_thrust = compute_robot_wrench(
+            params, state, action, include_motor_wrench=params.art is None)
+        state = replace(state, motor_thrust=new_thrust,
+                        applied_force_b=force_b, applied_torque_b=torque_b)
+    with span("physics.integrate"):
+        if params.art is not None:
+            # the coupled base + joints: motors push on their own links, the
+            # joints react on the base
+            from .articulated import articulated_substep
+            state = articulated_substep(params, state, force_b, torque_b, new_thrust)
+        else:
+            state = integrate_rigid_body(params, state, force_b, torque_b)
+            if params.dof is not None and params.dof.num_dofs > 0:
+                state = integrate_dofs(params, state)
+        if params.scene is not None and params.scene.num_assets > 0:
+            from ..envs.scene import integrate_obstacles
+            state = integrate_obstacles(params, state)
+    with span("physics.contact"):
+        contact = contact_force_magnitude(params, state)
+        collided = (contact > params.env.collision_force_threshold).to(torch.float32)
+        return replace(state, collisions=state.collisions + collided)
 
 
+@spanned("physics")
 def env_step(params: SimParams, state: SimState, action: torch.Tensor,
              n_substeps: Optional[int] = None) -> SimState:
     """One environment step = n physics substeps (control-rate decimation).
@@ -280,6 +288,7 @@ def sample_reset_states(params: SimParams, state: SimState) -> dict:
     return fresh
 
 
+@spanned("reset")
 def reset_envs(params: SimParams, state: SimState, mask: torch.Tensor) -> SimState:
     """Masked auto-reset: where mask, replace the state with a fresh draw."""
     fresh = sample_reset_states(params, state)

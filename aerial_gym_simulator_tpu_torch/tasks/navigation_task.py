@@ -39,6 +39,7 @@ from ..sim.sim_builder import SimBuilder
 from ..sim.structs import SimParams, SimState, replace
 from ..utils.env_rng import env_rand, env_randn, env_sums
 from ..utils.math import interpolate_ratio, quat_rotate_inverse, safe_norm, ssa
+from ..utils.profiling import spanned
 from .base_task import BaseTask
 
 
@@ -239,10 +240,14 @@ def _pooled_depth_features(pixels: torch.Tensor, latent_dim: int) -> torch.Tenso
     return small.flatten(1)[:, :latent_dim]
 
 
+@spanned("task")
 def nav_step(params: SimParams, cfg: NavigationTaskConfig, vae, ns: NavState,
              raw_actions: torch.Tensor, draws: Optional[NavDraws] = None):
     """One task step -> (NavState, obs (N, 81), reward, crashes,
-    truncations, infos). ``draws`` None draws from the state's generator."""
+    truncations, infos). ``draws`` None draws from the state's generator.
+    The step is the span ``task`` (``utils/profiling.span``); its own time
+    is the reward, curriculum, targets and observation packing around the
+    spans of the physics, the reset, the render and the encoder."""
     cur, rp = cfg.curriculum, cfg.reward_parameters
     if draws is None:
         draws = sample_nav_draws(ns.rng, ns.sim.num_envs, cfg.latent_dim, ns.sim.device)

@@ -4444,7 +4444,7 @@ def profile_one(torch, prof, rc, ac, card, label, run, want):
         raise AssertionError(f"profile {label}: launches {launches}, expected {expected}")
     if not rep["rows"]:
         raise AssertionError(f"profile {label}: an empty op table")
-    idle = 1.0 - rep["device_ms"] / rep["wall_ms"]
+    idle = rep["idle_share"]
     log(f"tools: profile {label} @ {rep['num_envs']} envs: {rep['wall_ms']:.2f} ms wall, "
         f"{rep['env_steps_per_s']:.1f} env-steps/s, {rep['device_ms']:.2f} ms summed device "
         f"time (idle share {idle:.3f}), {len(rep['rows'])} ops in the table, {rep['calls']} "

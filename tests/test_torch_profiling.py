@@ -2,7 +2,9 @@
 tests/test_checkpoint_profiling.py:46, on the position task at 8 envs from
 a state carried across, the stepped state held against JAX's),
 op_breakdown on a small synthetic Chrome trace with device events,
-trace() on the CPU, profile_task, and the command line with --cpu.
+trace() on the CPU, profile_task (its idle share from the traced calls
+alone and its table of the simulator's spans), and the command line with
+--cpu.
 
 Tolerances: measure_steps' keys equal to JAX's; its final state atol 1e-4
 after 7 steps (the bar of tests/test_torch_slice.py for 3 env steps,
@@ -146,6 +148,60 @@ def test_command_line_on_the_cpu(capsys, tmp_path):
                       "--trace_dir", str(tmp_path / "ppo")])
     assert "PPO iteration @ 8 envs" in capsys.readouterr().out
     assert ppo["calls"] == 3 and ppo["env_steps_per_s"] == pytest.approx(32 / ppo["wall_ms"] * 1e3)
+
+
+def test_profile_task_reports_idle_share_and_spans(tmp_path):
+    """The idle share comes from the traced calls alone (no device on the
+    CPU: all idle); the span table holds the physics step, its substeps'
+    layers inside it and the reset, per step, and what lies outside."""
+    task = port.task_registry.make_task("position_setpoint_task", num_envs=N, seed=0,
+                                        device="cpu")
+    rep = tprof.profile_task(task, iters=2, trace_dir=str(tmp_path), echo=False)
+    assert rep["idle_share"] == 1.0
+    spans = rep["spans"]
+    assert list(spans)[:2] == ["physics", "physics.control"] and "(outside)" in spans
+    assert spans["physics"]["calls"] == 1.0 and spans["reset"]["calls"] == 1.0
+    n_sub = spans["physics.control"]["calls"]
+    assert n_sub >= 1 and spans["physics.integrate"]["calls"] == spans["physics.contact"][
+        "calls"] == n_sub
+    inner = sum(spans[k]["host_ms"] for k in ("physics.control", "physics.integrate",
+                                              "physics.contact"))
+    assert 0.0 < inner <= spans["physics"]["host_ms"]
+    for t in spans.values():
+        assert t["device_ms"] == 0.0 and t["launches"] == 0
+        assert t["idle_ms"] == pytest.approx(t["host_ms"])      # no device: all idle
+    assert tprof.recorded_spans()                   # kept for the caller to read
+
+
+def test_profile_task_spans_of_the_navigation_step(tmp_path):
+    from aerial_gym_simulator_tpu_torch.config.sensor_config.sensor_configs import (
+        BaseDepthCameraConfig)
+    from aerial_gym_simulator_tpu_torch.sensors.raycast_sensor import build_ray_sensor_params
+    from aerial_gym_simulator_tpu_torch.sim.structs import replace
+
+    task = port.task_registry.make_task("navigation_task", num_envs=2, seed=0, device="cpu")
+    task.params = replace(task.params, camera=build_ray_sensor_params(
+        BaseDepthCameraConfig(height=12, width=16), "cpu"))
+    task.sim_env.params = task.params
+    rep = tprof.profile_task(task, iters=1, trace_dir=str(tmp_path), echo=False)
+    spans = rep["spans"]
+    assert list(spans) == ["task", "physics", "physics.control", "physics.integrate",
+                           "physics.contact", "reset", "render", "encode", "(outside)"]
+    assert all(spans[k]["calls"] == 1.0 for k in ("task", "physics", "reset", "render",
+                                                     "encode"))
+    assert spans["physics.control"]["calls"] == 10.0
+    parts = sum(spans[k]["host_ms"] for k in ("physics", "reset", "render", "encode"))
+    assert parts <= spans["task"]["host_ms"]
+
+
+def test_command_line_prints_the_span_table(capsys, tmp_path):
+    tprof.main(["--cpu", "--num_envs", "8", "--iters", "1", "--trace_dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "device idle share 1.000 in the traced calls" in out
+    table = out[out.index("span "):].splitlines()
+    assert "launches" in table[0] and "idle ms" in table[0]
+    assert [line.split()[0] for line in table[1:3]] == ["physics", "physics.control"]
+    assert table[-1].split()[0] == "(outside)"
 
 
 def test_command_line_flags_match_jax():
