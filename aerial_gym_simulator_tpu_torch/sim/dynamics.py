@@ -4,8 +4,12 @@ Counterpart of ``aerial_gym_simulator_tpu/sim/dynamics.py``. Functions take
 a state and return a new one (``replace`` shallow-copies the record);
 nothing reads a device value back to the host. The step and the reset are
 the spans ``physics`` (each substep's ``physics.control``,
-``physics.integrate`` and ``physics.contact`` inside it) and ``reset``
-(``utils/profiling.span``).
+``physics.integrate`` and ``physics.contact`` inside it, recorded where the
+step runs eagerly) and ``reset`` (``utils/profiling.span``).
+
+``env_step`` replays the step from a CUDA graph where its state is on CUDA
+and no input needs a gradient (``sim/step_graph.py``), and runs
+``env_step_eager`` otherwise; ``STEP_GRAPHS`` counts which it ran.
 
 Frames: root state is world-frame (pos, xyzw quat, linvel, angvel);
 applied forces/torques are body-frame. A rigid robot's motor thrusts map
@@ -36,6 +40,8 @@ from ..utils.math import (
     safe_norm,
 )
 from ..utils.profiling import span, spanned
+from .step_graph import COUNTS as STEP_GRAPHS
+from .step_graph import GRAPHS
 from .structs import SimParams, SimState, replace
 
 
@@ -226,7 +232,15 @@ def env_step(params: SimParams, state: SimState, action: torch.Tensor,
              n_substeps: Optional[int] = None) -> SimState:
     """One environment step = n physics substeps (control-rate decimation).
     ``n_substeps`` is a host int (sampled by the caller); None means the
-    config's mean."""
+    config's mean. Replayed from a CUDA graph where the state is on CUDA
+    and no input needs a gradient, else ``env_step_eager``."""
+    n = params.env.substep_mean if n_substeps is None else n_substeps
+    return GRAPHS.step(env_step_eager, params, state, action, n)
+
+
+def env_step_eager(params: SimParams, state: SimState, action: torch.Tensor,
+                   n_substeps: Optional[int] = None) -> SimState:
+    """``env_step`` run op by op."""
     state = replace(state,
                     collisions=torch.zeros_like(state.collisions),
                     crashes=torch.zeros_like(state.crashes),

@@ -431,7 +431,9 @@ def profile_task(task, iters: int = 10, top: int = 20, ppo: bool = False,
     device time per call, from the trace), "idle_share" (1 - the union of
     the device's intervals over the traced calls' wall time, both from the
     trace), "rows" (op_breakdown's table), "spans" (``span_table``: the
-    simulator's spans per call), "trace_dir"}; with ``echo`` it prints the
+    simulator's spans per call), "step_graphs" (the physics steps of all
+    the calls by what they ran: captured, replayed from a CUDA graph or
+    eager; ``dynamics.STEP_GRAPHS``), "trace_dir"}; with ``echo`` it prints the
     command line's report. The trace records the host and the device, so
     its calls run slower than the untimed ones.
     """
@@ -462,6 +464,8 @@ def profile_task(task, iters: int = 10, top: int = 20, ppo: bool = False,
 
         label = label or f"{name} env step"
 
+    from ..sim.dynamics import STEP_GRAPHS
+    graphs0 = dict(STEP_GRAPHS)
     step_once()                                   # warm-up
     _synchronize(device)
     t0 = time.perf_counter()
@@ -485,11 +489,13 @@ def profile_task(task, iters: int = 10, top: int = 20, ppo: bool = False,
         busy = sum(e - s for s, e in window["busy"])
         idle_share = 1.0 - busy / (window["t1"] - window["t0"])
     spans = span_table(window, iters)
+    step_graphs = {k: v - graphs0[k] for k, v in STEP_GRAPHS.items()}
     if not ppo and hasattr(task, "set_carry"):
         task.set_carry(box[0])
     report = {"label": label, "num_envs": n, "calls": 1 + 2 * iters, "wall_ms": wall * 1e3,
               "env_steps_per_s": unit_steps / wall, "device_ms": total_ms,
-              "idle_share": idle_share, "rows": rows, "spans": spans, "trace_dir": tdir}
+              "idle_share": idle_share, "rows": rows, "spans": spans,
+              "step_graphs": step_graphs, "trace_dir": tdir}
     if echo:
         idle = "unread" if idle_share is None else f"{idle_share:.3f}"
         print(f"\n{label} @ {n} envs: "
@@ -500,6 +506,8 @@ def profile_task(task, iters: int = 10, top: int = 20, ppo: bool = False,
         print(f"{'ms/step':>9}  {'share':>6}  op")
         for op, ms, frac in rows:
             print(f"{ms:9.3f}  {100 * frac:5.1f}%  {op[:100]}")
+        print("\nphysics steps (dynamics.STEP_GRAPHS): "
+              + ", ".join(f"{k} {v}" for k, v in step_graphs.items()))
         if spans:
             print(f"\n{'span':24s} {'calls':>7} {'host ms':>9} {'device ms':>10} "
                   f"{'launches':>9} {'idle ms':>9}   (per step, children included)")
