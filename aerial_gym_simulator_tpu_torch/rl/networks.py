@@ -4,9 +4,9 @@ Counterpart of ``aerial_gym_simulator_tpu/rl/networks.py``: a 3-layer MLP
 actor and a separate 3-layer MLP critic, [256, 128, 64] with elu by
 default, orthogonal initial weights with the JAX package's gains, a
 state-independent log standard deviation; and the recurrent
-``ActorCriticGRU`` (encoder MLP, a GRU core with flax's gates, separate
-heads). f32: at these sizes the networks are bound by launch latency, not
-by arithmetic.
+``ActorCriticGRU`` (encoder MLP, a GRU core with flax's gates, an optional
+LayerNorm on the core's output, separate heads). f32: at these sizes the
+networks are bound by launch latency, not by arithmetic.
 """
 
 from __future__ import annotations
@@ -106,10 +106,17 @@ def _dense_orthogonal(n_in: int, n_out: int, bias: bool) -> nn.Linear:
 class ActorCriticGRU(nn.Module):
     """Recurrent actor-critic: encoder MLP -> GRU core -> separate mean and
     value heads. The hidden state is explicit: ``forward(obs, h) -> (mean,
-    log_std (action_dim,), value (N,), h_new)``."""
+    log_std (action_dim,), value (N,), h_new)``.
+
+    ``layer_norm``: a LayerNorm (eps 1e-5, with scale and shift) between the
+    core and the heads, as rl-games builds ``rnn: {layer_norm: True}``. It
+    normalises what the heads read; the hidden state carried to the next
+    step is the core's own. One departure from rl-games stays: the core
+    keeps flax's gate layout (``GRUCell``), where ``torch.nn.GRU`` carries
+    two more hidden-side biases, zero at the start."""
 
     def __init__(self, obs_dim: int, action_dim: int, hidden: Sequence[int] = (256,),
-                 rnn_hidden: int = 256, activation: str = "elu"):
+                 rnn_hidden: int = 256, activation: str = "elu", layer_norm: bool = False):
         super().__init__()
         if activation not in ACTIVATIONS:
             raise ValueError(f"unknown activation {activation!r}; known: {sorted(ACTIVATIONS)}")
@@ -119,6 +126,7 @@ class ActorCriticGRU(nn.Module):
         self.encoder = nn.ModuleList(_dense(a, b, math.sqrt(2.0))
                                      for a, b in zip(widths[:-1], widths[1:]))
         self.gru = GRUCell(widths[-1], rnn_hidden)
+        self.rnn_norm = nn.LayerNorm(rnn_hidden, eps=1e-5) if layer_norm else None
         self.mean_head = _dense(rnn_hidden, action_dim, 0.01)
         self.value_head = _dense(rnn_hidden, 1, 1.0)
         self.log_std = nn.Parameter(torch.zeros(action_dim))
@@ -129,7 +137,8 @@ class ActorCriticGRU(nn.Module):
         for layer in self.encoder:
             x = act(layer(x))
         h = self.gru(h, x)
-        return self.mean_head(h), self.log_std, self.value_head(h).squeeze(-1), h
+        y = h if self.rnn_norm is None else self.rnn_norm(h)
+        return self.mean_head(y), self.log_std, self.value_head(y).squeeze(-1), h
 
 
 def gaussian_logp(mean, log_std, action):

@@ -11,7 +11,8 @@ horizon 32, minibatch 8192, gamma 0.99).
 ``(task_carry, hidden, done_prev)`` and the hidden state is zeroed at
 episode boundaries; the update minibatches over envs (whole sequences) and
 replays each from its stored rollout-start hidden with the current
-parameters.
+parameters. ``rnn_layer_norm`` puts a LayerNorm on the core's output
+(rl-games' ``rnn: {layer_norm: True}``).
 
 The rollout and the update run eagerly. Nothing in an iteration reads a
 device value back to the host: the learning rate lives in a 0-d tensor that
@@ -35,6 +36,14 @@ global minibatch size), the advantage's mean and std, the gradients
 A W-rank update equals the one-rank update up to the order of float sums.
 The training state is saved whole, the env carry gathered in env order, so
 a checkpoint loads at any world size.
+
+Spans (``utils/profiling.span``, recorded only while ``torch.profiler``
+records): ``ppo.policy`` (a rollout step's network forward and sampling),
+``ppo.update`` (``PPOTrainer.update``: normalizer moments, GAE, the
+epochs), ``ppo.minibatch`` (one optimizer step: forward, backward, the
+clip, Adam) and ``ppo.allreduce`` (each collective the update makes).
+``COUNTS`` counts the updates, their optimizer steps and their
+collectives, as ``ops/raycast_cuda.LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -59,6 +68,7 @@ from ..parallel.distributed import env_block, initialize_multihost, shard_ppo_tr
 from ..utils import checkpoint
 from ..utils.env_rng import set_shard
 from ..utils.metrics import MetricsWriter
+from ..utils.profiling import span, spanned
 from .networks import (
     ActorCritic,
     ActorCriticGRU,
@@ -68,6 +78,9 @@ from .networks import (
 )
 
 logger = logging.getLogger("ppo")
+
+# updates, their optimizer steps and the collectives they make, since import
+COUNTS = {"updates": 0, "optimizer_steps": 0, "collectives": 0}
 
 
 @dataclass
@@ -112,6 +125,9 @@ class PPOConfig:
     seed: int = 42
     rnn: Optional[str] = None
     rnn_hidden: int = 256
+    # a LayerNorm on the GRU core's output, before the heads (rl-games'
+    # rnn.layer_norm); the carried hidden state is not normalised
+    rnn_layer_norm: bool = False
     matmul_precision: str = "bfloat16"
 
 
@@ -146,12 +162,20 @@ class RunningMeanStd:
         return torch.clamp((x - s["mean"]) / torch.sqrt(s["var"] + 1e-8), -5.0, 5.0)
 
 
+def _all_reduce(x: torch.Tensor, shard) -> torch.Tensor:
+    """``meshlib.all_reduce_`` as the learner makes it: inside the
+    ``ppo.allreduce`` span, counted in ``COUNTS``."""
+    COUNTS["collectives"] += 1
+    with span("ppo.allreduce"):
+        return meshlib.all_reduce_(x, shard)
+
+
 def _global_moments(batch2d, shard):
     """Mean and variance over dim 0 of every rank's rows (equal blocks), and
     their count: two all-reduces, the variance about the global mean."""
     count = float(batch2d.shape[0] * shard.world)
-    mean = meshlib.all_reduce_(batch2d.sum(dim=0), shard) / count
-    var = meshlib.all_reduce_(((batch2d - mean) ** 2).sum(dim=0), shard) / count
+    mean = _all_reduce(batch2d.sum(dim=0), shard) / count
+    var = _all_reduce(((batch2d - mean) ** 2).sum(dim=0), shard) / count
     return mean, var, count
 
 
@@ -300,6 +324,14 @@ class Rollout:
     h0: Optional[torch.Tensor] = None           # recurrent: the rollout-start hidden (N, H)
 
 
+def make_rollout(traj, h0=None) -> Rollout:
+    """``PPOTrainer.rollout_step``'s transitions, stacked time-major, and
+    the hidden state the recurrent rollout started from."""
+    ro = Rollout(*(torch.stack(x) for x in zip(*traj)))
+    ro.h0 = h0
+    return ro
+
+
 class PPOTrainer:
     """The training loop around a task's ``make_step_fn`` protocol. Runs on
     the task's device."""
@@ -318,7 +350,7 @@ class PPOTrainer:
             torch.manual_seed(cfg.seed)
             if cfg.rnn == "gru":
                 network = ActorCriticGRU(self.obs_dim, self.action_dim, cfg.hidden,
-                                         cfg.rnn_hidden, cfg.activation)
+                                         cfg.rnn_hidden, cfg.activation, cfg.rnn_layer_norm)
             else:
                 network = ActorCritic(self.obs_dim, self.action_dim, cfg.hidden,
                                       cfg.activation)
@@ -390,16 +422,22 @@ class PPOTrainer:
     @torch.no_grad()
     def collect_rollout(self) -> Rollout:
         """Step the task ``horizon`` times with sampled actions."""
+        h0 = self.env_carry[1] if self.cfg.rnn == "gru" else None
+        return make_rollout([self.rollout_step() for _ in range(self.cfg.horizon)], h0)
+
+    @torch.no_grad()
+    def rollout_step(self) -> tuple:
+        """One env step with a sampled action; the env carry and the
+        observation move on -> the step's transition, ``Rollout``'s fields
+        in order (recurrent: with the mask before the step)."""
         cfg = self.cfg
         recurrent = cfg.rnn == "gru"
         if recurrent:
             carry, h, done_prev = self.env_carry
-            h0 = h
         else:
             carry = self.env_carry
-        obs, traj = self.obs, []
-        for _ in range(cfg.horizon):
-            norm_obs = self._normalize(obs)
+        with span("ppo.policy"):
+            norm_obs = self._normalize(self.obs)
             if recurrent:
                 mean, log_std, value, h = self.network(norm_obs,
                                                        h * (1.0 - done_prev)[:, None])
@@ -408,23 +446,16 @@ class PPOTrainer:
             if cfg.normalize_value:
                 value = _v_unnormalize(self.norm, value)
             action, logp = sample_action(mean, log_std, self.generator)
-            carry, obs, reward, term, trunc = self.step_fn(carry, action)
-            shaped = reward * cfg.reward_scale
-            if cfg.value_bootstrap:
-                shaped = shaped + cfg.gamma * value * trunc     # a timeout is no terminal
-            done = torch.maximum(term, trunc)
-            traj.append((norm_obs, action, logp, value, shaped, done, term)
-                        + ((done_prev,) if recurrent else ()))
-            if recurrent:
-                done_prev = done
-        self.obs = obs
-        ro = Rollout(*(torch.stack(x) for x in zip(*traj)))
+        carry, self.obs, reward, term, trunc = self.step_fn(carry, action)
+        shaped = reward * cfg.reward_scale
+        if cfg.value_bootstrap:
+            shaped = shaped + cfg.gamma * value * trunc     # a timeout is no terminal
+        done = torch.maximum(term, trunc)
         if recurrent:
-            self.env_carry = (carry, h, done_prev)
-            ro.h0 = h0
-        else:
-            self.env_carry = carry
-        return ro
+            self.env_carry = (carry, h, done)
+            return norm_obs, action, logp, value, shaped, done, term, done_prev
+        self.env_carry = carry
+        return norm_obs, action, logp, value, shaped, done, term
 
     def _last_value(self):
         """V of the observation after the rollout."""
@@ -434,9 +465,11 @@ class PPOTrainer:
             return self.network(norm_obs, h * (1.0 - done_prev)[:, None])[2]
         return self.network(norm_obs)[2]
 
+    @spanned("ppo.update")
     def update(self, ro: Rollout) -> Dict[str, torch.Tensor]:
         """GAE, then ``epochs`` passes over shuffled minibatches; returns the
         iteration's metrics as 0-d tensors on the device."""
+        COUNTS["updates"] += 1
         cfg, sh = self.cfg, self.shard
         T, N = ro.values.shape
         batch = T * N
@@ -474,13 +507,14 @@ class PPOTrainer:
         else:
             sums = torch.stack([ro.rewards.sum(), ro.dones.sum(), ro.terms.sum(),
                                 ro.values.sum()])
-            means = (meshlib.all_reduce_(sums, sh) / float(batch * sh.world)).unbind()
+            means = (_all_reduce(sums, sh) / float(batch * sh.world)).unbind()
         return {"reward_mean": means[0] / cfg.reward_scale,
                 "done_rate": means[1], "crash_rate": means[2],
                 "pg_loss": pg_loss, "v_loss": v_loss, "entropy": ent, "approx_kl": kl,
                 "lr": self.lr, "value_mean": means[3]}
 
     def _step(self, total, stats):
+        COUNTS["optimizer_steps"] += 1
         self.optimizer.zero_grad(set_to_none=True)
         total.backward()
         stats = torch.stack(stats)
@@ -495,8 +529,7 @@ class PPOTrainer:
         all-reduce of a flat buffer -> the global loss terms."""
         params = list(self.network.parameters())
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
-        flat = meshlib.all_reduce_(torch.cat([g.reshape(-1) for g in grads] + [stats]),
-                                   self.shard)
+        flat = _all_reduce(torch.cat([g.reshape(-1) for g in grads] + [stats]), self.shard)
         i = 0
         for p, g in zip(params, grads):
             p.grad = flat[i:i + g.numel()].view_as(g)
@@ -510,8 +543,8 @@ class PPOTrainer:
             return adv
         if self.shard is None:
             return (adv - adv.mean()) / (adv.std(unbiased=False) + 1e-8)
-        mean = meshlib.all_reduce_(adv.sum(), self.shard) / denom
-        var = meshlib.all_reduce_(((adv - mean) ** 2).sum(), self.shard) / denom
+        mean = _all_reduce(adv.sum(), self.shard) / denom
+        var = _all_reduce(((adv - mean) ** 2).sum(), self.shard) / denom
         return (adv - mean) / (torch.sqrt(var) + 1e-8)
 
     def _owned(self, g, per_env: int):
@@ -540,9 +573,11 @@ class PPOTrainer:
                 else:
                     g = perm[i * self.mb_size:(i + 1) * self.mb_size]
                     mb, denom = data[self._owned(g, sh.n_local)], self.mb_size
-                aux.append(self._step(*ppo_loss(cfg, self.network, (
-                    mb[:, :o], mb[:, o:a], mb[:, a], mb[:, a + 1],
-                    self._normalized_advantage(mb[:, a + 2], denom), mb[:, a + 3]), denom)))
+                with span("ppo.minibatch"):
+                    aux.append(self._step(*ppo_loss(cfg, self.network, (
+                        mb[:, :o], mb[:, o:a], mb[:, a], mb[:, a + 1],
+                        self._normalized_advantage(mb[:, a + 2], denom), mb[:, a + 3]),
+                        denom)))
         return aux
 
     def _update_rnn(self, rows, h0):
@@ -564,10 +599,11 @@ class PPOTrainer:
                 else:
                     idx = self._owned(perm[sl], 0)
                     mb, h_mb, denom = rows[idx], h0[idx], self.mb_envs * rows.shape[1]
-                aux.append(self._step(*ppo_loss_rnn(cfg, self.network, (
-                    mb[..., :o], mb[..., o:a], mb[..., a], mb[..., a + 1],
-                    self._normalized_advantage(mb[..., a + 2], denom), mb[..., a + 3],
-                    mb[..., a + 4]), h_mb, denom)))
+                with span("ppo.minibatch"):
+                    aux.append(self._step(*ppo_loss_rnn(cfg, self.network, (
+                        mb[..., :o], mb[..., o:a], mb[..., a], mb[..., a + 1],
+                        self._normalized_advantage(mb[..., a + 2], denom), mb[..., a + 3],
+                        mb[..., a + 4]), h_mb, denom)))
         return aux
 
     def train_iteration(self) -> Dict[str, torch.Tensor]:

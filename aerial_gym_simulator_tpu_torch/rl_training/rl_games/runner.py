@@ -10,7 +10,11 @@ shipped configs translate directly; copies of the two the JAX package
 ships sit beside this file.
 
 The learner is the port's own PPO (``rl/ppo.py``); there is no rl-games
-dependency. PyYAML is imported only when a YAML file is read.
+dependency. PyYAML is imported only when a YAML file is read; where it is
+not installed, the rl-games layout's subset of YAML (block mappings, plain
+scalars, flow lists, comments) is read by ``parse_simple_yaml``: the YAML
+files shipped beside this file must stay inside that subset (the tests read
+each with both readers and compare).
 
     python -m aerial_gym_simulator_tpu_torch.rl_training.rl_games.runner \
         --num_envs 8192 --checkpoint quad.ckpt
@@ -22,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import re
 import tempfile
 import warnings
 from typing import Optional
@@ -32,10 +37,79 @@ CONFIG_DIR = os.path.dirname(os.path.abspath(__file__))
 
 
 def load_yaml_config(path: str) -> dict:
-    import yaml
-
     with open(path) as f:
-        return yaml.safe_load(f)
+        text = f.read()
+    try:
+        import yaml
+    except ImportError:
+        return parse_simple_yaml(text)
+    return yaml.safe_load(text)
+
+
+_INT = re.compile(r"^[-+]?(0|[1-9][0-9_]*)$")
+_FLOAT = re.compile(r"^[-+]?([0-9][0-9_]*)?\.[0-9_]*([eE][-+][0-9]+)?$")
+
+
+def _scalar(text: str):
+    """A plain scalar as PyYAML's YAML 1.1 rules read it: null, booleans,
+    integers, floats with a point (``1e-4`` stays a string), else the
+    string."""
+    t = text.strip()
+    if len(t) >= 2 and t[0] == t[-1] and t[0] in "'\"":
+        return t[1:-1]
+    low = t.lower()
+    if low in ("", "~", "null"):
+        return None
+    if low in ("true", "yes", "on"):
+        return True
+    if low in ("false", "no", "off"):
+        return False
+    if _INT.match(t):
+        return int(t.replace("_", ""))
+    if _FLOAT.match(t) and t not in (".", "+.", "-."):
+        return float(t.replace("_", ""))
+    return t
+
+
+def parse_simple_yaml(text: str) -> dict:
+    """The rl-games config layout without PyYAML: nested block mappings by
+    indentation, ``key: value`` with plain or quoted scalars and ``[a, b]``
+    flow lists, ``#`` comments. Anything else (block sequences, flow
+    mappings, anchors, tags, multi-line scalars) raises ValueError."""
+    root: dict = {}
+    stack = [(-1, root)]                  # (indent, mapping) of the open blocks
+    for n, raw in enumerate(text.splitlines(), 1):
+        line = "" if raw.lstrip().startswith("#") else raw.split(" #", 1)[0].rstrip()
+        if not line.strip():
+            continue
+        indent = len(line) - len(line.lstrip(" "))
+        key, sep, value = line.strip().partition(":")
+        value = value.strip()
+        if not sep or key[:1] in ("-", "&", "*", "!", "?") or value[:1] in ("|", ">", "&",
+                                                                            "*", "!", "{"):
+            raise ValueError(f"line {n}: {raw.strip()!r} is outside the YAML subset read "
+                             f"without PyYAML")
+        while indent <= stack[-1][0]:
+            stack.pop()
+        parent = stack[-1][1]
+        if not value:
+            parent[key] = {}
+            stack.append((indent, parent[key]))
+        elif value.startswith("["):
+            if not value.endswith("]"):
+                raise ValueError(f"line {n}: a flow list must close on its line")
+            inner = value[1:-1].strip()
+            parent[key] = [_scalar(x) for x in inner.split(",")] if inner else []
+        else:
+            parent[key] = _scalar(value)
+    return _nulls(root)
+
+
+def _nulls(tree):
+    """A key with nothing under it is null, as YAML reads ``key:``."""
+    if isinstance(tree, dict):
+        return {k: (None if v == {} else _nulls(v)) for k, v in tree.items()}
+    return tree
 
 
 def _map_lr_schedule(value):
@@ -49,14 +123,26 @@ def _map_lr_schedule(value):
 
 
 def ppo_config_from_yaml(doc: dict, num_envs: Optional[int] = None,
-                         seed: Optional[int] = None):
-    """Map an rl-games-layout YAML (params.config.*) onto PPOConfig."""
+                         seed: Optional[int] = None, world: int = 1):
+    """Map an rl-games-layout YAML (params.config.*) onto PPOConfig.
+
+    ``world``: the number of ranks the run is sharded over. rl-games'
+    multi-GPU mode runs the YAML as written on every rank, so its
+    ``minibatch_size`` is one rank's and the global minibatch is ``world``
+    times it (gradients averaged over the ranks). ``num_envs`` is the global
+    count. ``rnn.before_mlp: True`` (the core before the MLP) is refused:
+    the port builds the core after it."""
     from ...rl.ppo import PPOConfig
 
+    if world < 1:
+        raise ValueError(f"world {world} < 1")
     p = doc.get("params", doc)
     c = p.get("config", {})
     mlp = p.get("network", {}).get("mlp", {})
     rnn = p.get("network", {}).get("rnn", {}) or {}
+    if rnn.get("before_mlp"):
+        raise ValueError("rnn.before_mlp: True is not built by the port (its GRU core runs "
+                         "after the MLP)")
     horizon = int(c.get("horizon_length", 32))
     envs = int(num_envs or c.get("env_config", {}).get("num_envs",
                                                        c.get("num_actors", 4096)))
@@ -64,7 +150,7 @@ def ppo_config_from_yaml(doc: dict, num_envs: Optional[int] = None,
     return PPOConfig(
         num_envs=envs,
         horizon=horizon,
-        minibatch_size=min(int(c.get("minibatch_size", 8192)), envs * horizon),
+        minibatch_size=min(world * int(c.get("minibatch_size", 8192)), envs * horizon),
         epochs=int(c.get("mini_epochs", 4)),
         gamma=float(c.get("gamma", 0.99)),
         gae_lambda=float(c.get("tau", 0.95)),
@@ -94,6 +180,7 @@ def ppo_config_from_yaml(doc: dict, num_envs: Optional[int] = None,
         # recurrent PPO path
         rnn=("gru" if rnn.get("name") == "gru" else None),
         rnn_hidden=int(rnn.get("units", 256)),
+        rnn_layer_norm=bool(rnn.get("layer_norm", False)),
         seed=int(seed if seed is not None else p.get("seed", 42)),
     )
 

@@ -202,6 +202,9 @@ def export_policy_npz(source, npz_path: str) -> str:
             "norm_eps": np.array(1e-8, np.float32),       # RunningMeanStd's epsilon
             "normalize_obs": np.array(bool(cfg.get("normalize_obs", True)))}
     if rnn == "gru":
+        if "rnn_norm.weight" in params:
+            raise ValueError("cannot export a GRU policy with a LayerNorm on its core's output "
+                             "(rnn_layer_norm): the recurrent archive has no place for it")
         _recurrent_layout(flat, params, int(blob["action_dim"]))
     else:
         n_hidden = sum(1 for k in params if k.startswith("actor.") and k.endswith(".weight"))

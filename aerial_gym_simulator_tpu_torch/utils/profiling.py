@@ -28,6 +28,10 @@ Spans. The simulator marks each layer of a step with ``span``:
   ``reset``                 ``sim/dynamics.reset_envs``: the masked reset
   ``render``                ``sensors/raycast_sensor``: a capture (camera or lidar)
   ``encode``                ``models/vae.FrozenImageEncoder.encode``: the image encoder
+  ``ppo.policy``            ``rl/ppo.PPOTrainer.rollout_step``: the network and sampling
+  ``ppo.update``            ``rl/ppo.PPOTrainer.update``: moments, GAE, the epochs
+  ``ppo.minibatch``         one optimizer step: forward, backward, clip, Adam
+  ``ppo.allreduce``         each collective the update makes (sharded trainers)
   ========================  ==========================================================
 
 A span records only while ``torch.profiler`` records. Otherwise ``span``

@@ -441,7 +441,8 @@ def test_importing_every_module_loads_no_jax():
 
 def test_yaml_runner_imports_without_pyyaml():
     """PyYAML is not on the card's machine: the adapters import without it,
-    and only reading a YAML file asks for it."""
+    and the shipped YAML files are read by the runner's own reader of the
+    rl-games layout."""
     code = (
         "import sys\n"
         "sys.modules['yaml'] = None\n"
@@ -449,11 +450,11 @@ def test_yaml_runner_imports_without_pyyaml():
         "from aerial_gym_simulator_tpu_torch.rl_training.rl_games import runner\n"
         "from aerial_gym_simulator_tpu_torch.rl_training.sample_factory import aerialgym_env\n"
         "from aerial_gym_simulator_tpu_torch.rl_training.cleanrl import ppo_continuous_action\n"
-        "try:\n"
-        "    runner.load_yaml_config(runner.CONFIG_DIR + '/ppo_aerial_quad.yaml')\n"
-        "except ImportError:\n"
-        "    sys.exit(0)\n"
-        "sys.exit(1)\n")
+        "doc = runner.load_yaml_config(runner.CONFIG_DIR + '/ppo_aerial_quad_navigation.yaml')\n"
+        "c = doc['params']['config']\n"
+        "ok = (c['minibatch_size'] == 2048 and c['learning_rate'] == '1e-4'\n"
+        "      and doc['params']['network']['rnn']['layer_norm'] is True)\n"
+        "sys.exit(0 if ok and 'yaml' not in [m for m in sys.modules if sys.modules[m]] else 1)\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           cwd=str(REPO), env=env, timeout=300)

@@ -79,6 +79,8 @@ def test_yaml_configs_map_like_jax(name):
     for kw in ({}, {"num_envs": 64, "seed": 5}):
         ours = dataclasses.asdict(t_runner.ppo_config_from_yaml(doc, **kw))
         theirs = dataclasses.asdict(j_runner.ppo_config_from_yaml(doc, **kw))
+        # the port maps rl-games' rnn.layer_norm, which the JAX runner drops
+        assert ours.pop("rnn_layer_norm") is (name == "ppo_aerial_quad_navigation.yaml")
         assert ours == theirs
     for value in (None, "adaptive"):
         assert t_runner._map_lr_schedule(value) == j_runner._map_lr_schedule(value)
